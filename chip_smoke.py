@@ -1,20 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout; it needs one CUDA card and ``nvcc``, and
 imports only ``repro_torch`` (never JAX or ``repro``). It exits non-zero,
 without a result line, when CUDA is unavailable, when the package is not
-beside it, or on any mismatch. Phases:
+beside it, or on any mismatch. Each phase prints its seconds. Phases:
 
 1. Device: ``nvidia-smi`` name and power limit, the device properties
    beside ``HardwareModel.h100()``, then the kernels' build (nvcc, sm_90a).
-2. Each kernel against its plain version on the card: histogram and
-   positions at m in {1, 17, 5000, 2^25} x B in {2, 257, 908, 65536}
-   (random and all-one-key streams); the fused accumulate for
-   {add, min, max} x {float32, int32} at n = 2^22, m = 2^25, plus the
-   skewed KRON edge stream.
+2. The first slice's kernels against their plain versions on the card:
+   histogram and positions at m in {1, 17, 5000, 2^25} x B in
+   {2, 257, 908, 65536} (random and all-one-key streams); the fused
+   accumulate for {add, min, max} x {float32, int32} at n = 2^22, m = 2^25,
+   plus the skewed KRON edge stream.
 3. The main path, fig5's arms A-E (``benchmarks/fig5_end2end.py``) through
    the port's entry points with the default executor, at S1 (the five
    ``graph_suite("bench")`` graphs, checked against the port on the CPU),
@@ -24,24 +24,55 @@ beside it, or on any mismatch. Phases:
 4. The same arms with ``PBExecutor(use_pallas=True)`` plus
    ``build_csr_pb(method="pallas")`` at S1 and S2: CSRs and binned
    streams identical to phase 3's, ranks within tolerance.
-5. The ``kernels`` JSON line (launches on the main path of phases 3-4,
-   times at S2's main-path shapes) and the result line.
+5. The second slice's kernels against their plain versions: the rows
+   reduce for {add, min, max} x {float32, int32} on S1 KRON's
+   destination-sorted stream at F in {1, 8, 32, 128} (and in COO order at
+   F = 32) and at S2 with F = 64 (m * F = 2^31); the COBRA pass at every
+   level of S2's and S3's ``CobraPlan`` with int32 and float32 values;
+   ``scatter_rows`` (float32, bfloat16, int32) and ``binread_scatter_add``
+   (float32, bfloat16) at ``benchmarks/embed_grad.py``'s full shapes with
+   uniform and zipf ids.
+6. The GNN/SpMM path: fig9's three arms (``benchmarks/fig9_spmm.py``:
+   the fused row-block reduce on the destination-sorted stream, two-phase
+   sort binning + Bin-Read, ``index_add_`` in COO order) on the five S1
+   graphs at F in {1, 8, 32, 128}, 8 chained reduce -> gather rounds; the
+   arms must agree, and the fused arm with the port on the CPU. Then one
+   ``GNNLayer`` (64 -> 64) at S2 for agg in {sum, mean, max}: forward and
+   backward to every parameter, held against a float64 version written
+   with ``index_add_`` / ``scatter_reduce_``; peak device memory printed.
+7. The ``ops`` entry points: ``cobra_binning`` on S2's and S3's edges
+   with the H100 plan must equal ``binned_stream_ref`` at the final range;
+   ``pb_scatter_add_full`` at embed_grad's full shapes (zipf ids,
+   bin_range 4096) against a float64 ``index_add_``.
+8. The ``kernels`` JSON line: each kernel's launches on the paths of
+   phases 3-4, 6 and 7 (counts set to 0 before each path, read after
+   it; the checks of phases 2, 5 and 8 do not count), its largest error
+   against its plain version, and times at a path's shapes; then the
+   result line.
 
-Tolerances: integer outputs, CSRs, binned streams and min/max results
-must be equal. Float32 PageRank sums run in an order that differs between
-arms, devices and runs (atomics). The hub of the DBP graph receives about
-half of all edges (1.1M at S1), and adding a million contributions of
-similar size to one float32 sum rounds with a bias that can reach a
-fraction of an ulp of the sum per addition. The hub holds about half of
-the rank mass, so its error spreads to every vertex (on an H100 the arms
-differ there by up to about 2e-3 elementwise and 1e-3 in relative L1
-norm; PERF.md).
+Tolerances: integer outputs, CSRs, binned streams, COBRA passes, row
+scatters and min/max results must be equal. Float32 PageRank sums run in
+an order that differs between arms, devices and runs (atomics). The hub
+of the DBP graph receives about half of all edges (1.1M at S1), and
+adding a million contributions of similar size to one float32 sum rounds
+with a bias that can reach a fraction of an ulp of the sum per addition.
+The hub holds about half of the rank mass, so its error spreads to every
+vertex (on an H100 the arms differ there by up to about 2e-3 elementwise
+and 1e-3 in relative L1 norm; PERF.md).
 So ranks agree within rtol 1e-2 elementwise (plus atol 1e-6 of the
 largest rank) and within 5e-3 in relative L1 norm; each size also
-prints every arm's L1 distance to a float64 PageRank. A fused float32
-add differs from the plain sum by at most about (k - 1) * 2^-24 * sum|v|
-at an index that receives k tuples; it is held to 1e-5 * sum|v| + 1e-6
-per index.
+prints every arm's L1 distance to a float64 PageRank. A float32 add
+(fused, rows, Bin-Read) differs from the plain sum by at most about
+(k - 1) * 2^-24 * sum|v| at an index that receives k tuples; it is held
+to 1e-5 * sum|v| + 1e-6 per entry; ``pb_scatter_add_full`` to that plus
+atol 1e-4 (``tests/test_kernels.py:191``), bfloat16 Bin-Read to atol 1e-1
+(``tests/test_kernels.py:139``). fig9's arms sum the same rows in other
+orders, and the DBP hub sums 1.1M of them into one float32 value, so
+arms agree within 1e-2 of the largest output (max |a - b| / max |b|),
+for the PageRank reason. The GNN layer is float32 products and sums:
+its output is held to 1e-5 and its gradients to 1e-4 times the same
+quantity computed on absolute values (the scale of float32 rounding in a
+sum, whatever the signs cancel), plus 1e-6.
 """
 from __future__ import annotations
 
@@ -57,6 +88,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PR_RTOL = 1e-2  # elementwise, see the module docstring
 PR_L1 = 5e-3  # sum |x - y| / sum |y|
 ADD_TOL = 1e-5  # times the sum of |v| reaching an index
+F_GRID = (1, 8, 32, 128)  # benchmarks/fig9_spmm.py
+ITERS9 = 8  # fig9's chained reduce -> gather rounds at bench scale
+SPMM_TOL = 1e-2  # fig9 arms: max |a - b| / max |b|, see the module docstring
+GNN_D = 64  # the GNN layer's d_in = d_out at S2
+FWD_TOL = 1e-5  # GNN output: times the same sum on absolute values
+GRAD_TOL = 1e-4  # GNN gradients: times the same sums on absolute values
+EMB_T, EMB_VOCAB, EMB_D = 262_144, 50_304, 256  # benchmarks/embed_grad.py, full scale
+EMB_BIN_RANGE = 4096
 
 
 def fail(msg: str) -> None:
@@ -87,14 +126,117 @@ def main() -> None:
         fail("CUDA is not available: chip_smoke.py drives the port on an NVIDIA card")
     os.environ.setdefault("REPRO_TORCH_CACHE_DIR", os.path.join(HERE, ".torch_cache"))
 
+    import numpy as np
+
     import repro_torch.core as T
     import repro_torch.kernels as K
+    from repro_torch.core import pb
+    from repro_torch.core.executor import execute_reduce
     from repro_torch.core.pb import bin_ids, reduce_identity, starts_from_counts
     from repro_torch.kernels import _lib, ref
+    from repro_torch.models import GNNLayer
     from repro_torch.timing import cuda_ms, time_fn
 
+    T0 = time.perf_counter()
     dev = torch.device("cuda")
     hw = T.HardwareModel.h100()
+
+    # -- the GNN/SpMM path's pieces (phase 6) and the embedding inputs -------
+    def indeg_of(g):
+        return torch.bincount(g.dst, minlength=g.num_nodes).clamp(min=1).float()[:, None]
+
+    def fused_arm(n):
+        return lambda idx, v: execute_reduce(
+            idx, v, out_size=n, op="add", method="fused", sorted_within=1, in_bounds=True)
+
+    def two_phase_arm(n, r):
+        nb = -(-n // r)
+        return lambda idx, v: pb.bin_read_scatter_add(
+            pb.binning(idx, v, r, nb, method="sort"), n)
+
+    def index_add_arm(n, F):
+        return lambda idx, v: torch.zeros(n, F, device=v.device).index_add_(0, idx, v)
+
+    def chained(reduce_fn, idx, v, indeg):
+        """fig9's ITERS9 dependent rounds out = reduce(v); v' = out[idx], each
+        out divided by the in-degree so values stay finite at the hubs."""
+        for _ in range(ITERS9):
+            out = reduce_fn(idx, v) / indeg
+            v = out.index_select(0, idx)
+        return out
+
+    def fig9_values(m):
+        gen9 = torch.Generator().manual_seed(9)  # on the CPU: the same rows everywhere
+        return {F: torch.randn(m, F, generator=gen9) for F in F_GRID}
+
+    def spread(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    def gnn_layer64(layer, h, rw, csc, agg, chunk=1 << 22):
+        """The layer's output and parameter gradients for loss sum(y * rw),
+        in float64, by hand: index_add_ / scatter_reduce_ over the CSC's
+        edges in chunks, no autograd. Each also on absolute values: the
+        scale of its float32 rounding. The max takes the layer's own
+        float32 messages (cast up), so that its argmax sets are the port's."""
+        f64 = torch.float64
+        n, F = h.shape[0], layer.w_msg.shape[1]
+        h64 = h.double()
+        Wm, Ws, b = (p.detach().double() for p in (layer.w_msg, layer.w_self, layer.b))
+        msg = (h @ layer.w_msg).detach().double() if agg == "max" else h64 @ Wm
+        E = csc.num_edges
+        dst = T.segment_ids_from_offsets(csc.offsets, E)
+        src = csc.neighs
+        indeg = (csc.offsets[1:] - csc.offsets[:-1]).double()[:, None]
+        has = indeg > 0
+        spans = [slice(s, min(s + chunk, E)) for s in range(0, E, chunk)]
+        if agg == "max":
+            aggv = torch.full((n, F), -torch.inf, dtype=f64, device=dev)
+            for s in spans:
+                aggv.scatter_reduce_(0, dst[s].long()[:, None].expand(-1, F),
+                                     msg.index_select(0, src[s]), "amax")
+            aggm = torch.where(has, aggv, 0.0)
+            agg_abs = aggm.abs()  # a max is exact
+        else:
+            aggm = torch.zeros(n, F, dtype=f64, device=dev)
+            agg_abs = torch.zeros_like(aggm)
+            for s in spans:
+                rows = msg.index_select(0, src[s])
+                aggm.index_add_(0, dst[s], rows)
+                agg_abs.index_add_(0, dst[s], rows.abs())
+            if agg == "mean":
+                aggm /= indeg.clamp(min=1)
+                agg_abs /= indeg.clamp(min=1)
+        pre = aggm + h64 @ Ws + b
+        dy = rw.double() * (pre > 0)
+        dagg = dy / indeg.clamp(min=1) if agg == "mean" else dy * has
+        dmsg = torch.zeros(n, F, dtype=f64, device=dev)
+        dmsg_abs = torch.zeros_like(dmsg)
+        for s in spans:
+            c = dagg.index_select(0, dst[s])
+            if agg == "max":  # every attaining in-neighbour gets the full cotangent
+                c *= msg.index_select(0, src[s]) == aggv.index_select(0, dst[s])
+            dmsg.index_add_(0, src[s], c)
+            dmsg_abs.index_add_(0, src[s], c.abs())
+        want = {"y": pre.clamp(min=0), "w_msg": h64.T @ dmsg, "w_self": h64.T @ dy,
+                "b": dy.sum(0)}
+        scale = {"y": agg_abs + h64.abs() @ Ws.abs() + b.abs(),
+                 "w_msg": h64.abs().T @ dmsg_abs, "w_self": h64.abs().T @ dy.abs(),
+                 "b": dy.abs().sum(0)}
+        return want, scale
+
+    def embed_inputs():
+        """embed_grad.py's draws at full scale (seed 0: zipf-like ids, then
+        normal rows) and uniform ids (seed 1), on the card."""
+        rng = np.random.default_rng(0)
+        zipf = np.minimum((rng.pareto(1.2, EMB_T) * 50).astype(np.int64), EMB_VOCAB - 1)
+        rows = rng.normal(size=(EMB_T, EMB_D)).astype(np.float32)
+        uni = np.random.default_rng(1).integers(0, EMB_VOCAB, EMB_T)
+        return {
+            "zipf": torch.from_numpy(zipf.astype(np.int32)).to(dev),
+            "uniform": torch.from_numpy(uni.astype(np.int32)).to(dev),
+            "g": torch.from_numpy(rows).to(dev),
+            "bins": -(-EMB_VOCAB // EMB_BIN_RANGE),
+        }
 
     # -- phase 1: device and build ------------------------------------------
     smi = subprocess.run(
@@ -124,6 +266,7 @@ def main() -> None:
             say("phase1 nvcc:", line.strip())
 
     # -- phase 2: kernels against their plain versions -------------------------
+    t2 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {"histogram": 0, "counting_positions": 0, "cobra_bin_accumulate": 0.0}
     for m in (1, 17, 5000, 1 << 25):
@@ -210,6 +353,7 @@ def main() -> None:
                 )
                 require(ok, f"fused {op} {dt} on {sname} differs from plain (max err {err})")
     del idx_u, val, got, want
+    say(f"phase2 seconds: {time.perf_counter() - t2:.1f}")
 
     # -- phases 3 and 4: the main path ----------------------------------------
     def arms(g):
@@ -314,6 +458,7 @@ def main() -> None:
     refs_cpu = {name: cpu_reference(g) for name, g in suite_cpu.items()}
     s2 = T.gen_uniform(1 << 22, 8, seed=3, device=dev)
 
+    t3 = time.perf_counter()
     K.reset_launch_counts()  # the main path starts here
     out3 = {}
     for name, g in suite.items():
@@ -325,9 +470,10 @@ def main() -> None:
     require(s2_fused > 0, "S2: the fused kernel was not launched on the main path")
     s3 = T.gen_uniform(32_000_000, 4, seed=3, device=dev)
     run_size("phase3 S3", s3, 3, 1)
-    del s3
     torch.cuda.empty_cache()
+    say(f"phase3 seconds: {time.perf_counter() - t3:.1f}")
 
+    t4 = time.perf_counter()
     T.set_default_executor(T.PBExecutor(cache_dir=cache, use_pallas=True))
     before = K.launch_counts()
     for name, g in list(suite.items()) + [("S2", s2)]:
@@ -345,9 +491,252 @@ def main() -> None:
     say("phase4 launches:", json.dumps(p4))
     require(p4["histogram"] > 0 and p4["counting_positions"] > 0,
             "phase 4 did not launch the histogram and positions kernels")
-    require(all(v > 0 for v in after.values()), f"a kernel of the path never launched: {after}")
+    first = ("histogram", "counting_positions", "cobra_bin_accumulate")
+    require(all(after[k] > 0 for k in first), f"a kernel of the path never launched: {after}")
+    say(f"phase4 seconds: {time.perf_counter() - t4:.1f}")
 
-    # -- phase 5: the kernels line at S2's main-path shapes --------------------
+    # -- phase 5: the second slice's kernels against their plain versions ------
+    T.set_default_executor(None)
+    t5 = time.perf_counter()
+    worst.update({"cobra_bin_accumulate_rows": 0.0, "binread_scatter_add": 0.0})
+
+    def rows_check(tag, idx, n, F, dt, op, timed=False):
+        m = idx.shape[0]
+        if dt == torch.float32:
+            val = torch.randn(m, F, device=dev, generator=gen)
+        else:
+            val = torch.randint(-50, 50, (m, F), device=dev, generator=gen, dtype=torch.int32)
+        br = min(512, n)
+        got = K.cobra_bin_accumulate_rows(idx, val, n, br, -(-n // br), op)
+        want = ref.scatter_reduce_ref(idx, val, n, op)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        if dt == torch.float32 and op == "add":
+            scale = ref.scatter_reduce_ref(idx, val.abs(), n, "add")
+            ok = bool(((got - want).abs() <= ADD_TOL * scale + 1e-6).all())
+        else:
+            ok = torch.equal(got, want)
+        worst["cobra_bin_accumulate_rows"] = max(worst["cobra_bin_accumulate_rows"], err)
+        rec = {"rows": tag, "n": n, "m": m, "F": F, "dtype": str(dt), "op": op,
+               "max_abs_err": err, "ok": ok}
+        if timed:
+            rec.update(
+                kernel_ms=cuda_ms(K.cobra_bin_accumulate_rows, idx, val, n, br, -(-n // br), op,
+                                  reps=5),
+                plain_ms=cuda_ms(ref.scatter_reduce_ref, idx, val, n, op, reps=5),
+                bound_ms=bound_ms(4 * m + 4 * m * F + 4 * n * F),
+            )
+        say("phase5", json.dumps(rec))
+        require(ok, f"rows {op} {dt} on {tag} F={F} differs from plain (max err {err})")
+
+    kron_g = suite["KRON"]
+    kron_sorted = torch.sort(kron_g.dst, stable=True).values
+    for F in F_GRID:
+        for dt in (torch.float32, torch.int32):
+            for op in ("add", "min", "max"):
+                rows_check("S1 KRON dst-sorted", kron_sorted, kron_g.num_nodes, F, dt, op,
+                           timed=dt == torch.float32 and op == "add")
+    rows_check("S1 KRON coo-order", kron_g.dst, kron_g.num_nodes, 32, torch.float32, "add", True)
+    s2_sorted = torch.sort(s2.dst, stable=True).values
+    for dt in (torch.float32, torch.int32):
+        for op in ("add", "min", "max"):  # m * F = 2^31: 64-bit row offsets
+            rows_check("S2 dst-sorted", s2_sorted, s2.num_nodes, GNN_D, dt, op,
+                       timed=dt == torch.float32 and op == "add")
+    torch.cuda.empty_cache()
+
+    for tag, g in (("S2", s2), ("S3", s3)):
+        for rng_ in T.CobraPlan.from_hardware(g.num_nodes, hw).level_ranges():
+            nb = -(-g.num_nodes // rng_)
+            keys = bin_ids(g.dst, rng_)
+            starts = starts_from_counts(ref.histogram_ref(keys, nb))[:-1].contiguous()
+            for val in (g.src, torch.randn(g.num_edges, device=dev, generator=gen)):
+                got = K.cobra_binning_pass(keys, g.dst, val, starts, nb)
+                want = ref.binned_stream_ref(keys, g.dst, val, nb)
+                ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                say("phase5", json.dumps({"cobra_pass": tag, "m": g.num_edges, "bin_range": rng_,
+                                          "num_bins": nb, "dtype": str(val.dtype), "equal": ok}))
+                require(ok, f"COBRA pass on {tag} ({val.dtype}) differs from binned_stream_ref")
+            del keys, got, want
+
+    emb = embed_inputs()
+    for ids_name in ("uniform", "zipf"):
+        ids = emb[ids_name]
+        keys = bin_ids(ids, EMB_BIN_RANGE)
+        counts = ref.histogram_ref(keys, emb["bins"])
+        starts = starts_from_counts(counts)
+        pos = ref.counting_positions_ref(keys, starts[:-1].contiguous(), emb["bins"])
+        L = max(8, -(-int(counts.max()) // 8) * 8)
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            x = emb["g"].to(dt) if dt != torch.int32 else (emb["g"] * 100).to(dt)
+            got = K.scatter_rows(x, pos, ids.shape[0])
+            ok = torch.equal(got, ref.scatter_rows_ref(x, pos, ids.shape[0]))
+            say("phase5", json.dumps({"scatter_rows": ids_name, "dtype": str(dt), "equal": ok}))
+            require(ok, f"scatter_rows {ids_name} {dt} differs from plain")
+            if dt == torch.int32:
+                continue
+            bidx = torch.zeros_like(ids)
+            bidx[pos.long()] = ids
+            idx_p, val_p = K.ops.padded_bin_layout(
+                pb.Bins(bidx, got, starts, EMB_BIN_RANGE), emb["bins"], L)
+            b_got = K.binread_scatter_add(idx_p, val_p, EMB_BIN_RANGE)
+            b_want = ref.binread_scatter_add_ref(idx_p, val_p, EMB_BIN_RANGE)
+            err = float((b_got.double() - b_want.double()).abs().max())
+            if dt == torch.float32:  # the float32 add rule
+                scale = ref.binread_scatter_add_ref(idx_p, val_p.abs(), EMB_BIN_RANGE)
+                ok = bool(((b_got - b_want).abs() <= ADD_TOL * scale + 1e-6).all())
+            else:  # bfloat16: atol 1e-1, as tests/test_kernels.py:139 allows
+                ok = err <= 1e-1
+            worst["binread_scatter_add"] = max(worst["binread_scatter_add"], err)
+            say("phase5", json.dumps({"binread": ids_name, "dtype": str(dt), "B": emb["bins"],
+                                      "L": L, "d": x.shape[1], "max_abs_err": err, "ok": ok}))
+            require(ok, f"binread {ids_name} {dt} differs from plain (max err {err})")
+            del idx_p, val_p
+    torch.cuda.empty_cache()
+    say(f"phase5 seconds: {time.perf_counter() - t5:.1f}")
+
+    # -- phase 6: the GNN/SpMM path: fig9's three arms, then one GNN layer -----
+    t6 = time.perf_counter()
+    T.set_default_executor(T.PBExecutor(cache_dir=cache))
+    K.reset_launch_counts()  # the fig9 path starts here (its CPU reference launches nothing)
+    for name, g in suite.items():
+        n, m = g.num_nodes, g.num_edges
+        order = torch.argsort(g.dst, stable=True)
+        dsort = g.dst[order].contiguous()
+        indeg = indeg_of(g)
+        vals_cpu = fig9_values(m)
+        g_cpu = suite_cpu[name]
+        dsort_cpu = torch.sort(g_cpu.dst, stable=True).values
+        row = {}
+        for F in F_GRID:
+            vals = vals_cpu[F].to(dev)
+            vals_coo = torch.empty_like(vals)
+            vals_coo[order] = vals  # the same (index, row) pairs in COO order
+            d = T.get_default_executor().decide_or_forced(
+                "fused", n, m, torch.float32, kind="reduce", feature_dim=F)
+            arms9 = {
+                "fused": (fused_arm(n), dsort, vals),
+                "two_phase": (two_phase_arm(n, d.bin_range), dsort, vals),
+                "index_add": (index_add_arm(n, F), g.dst, vals_coo),
+            }
+            outs = {a: chained(fn, i, v, indeg) for a, (fn, i, v) in arms9.items()}
+            times = {a: time_fn(lambda fn=fn, i=i, v=v: chained(fn, i, v, indeg), reps=3, warmup=1)
+                     for a, (fn, i, v) in arms9.items()}
+            errs = {a: spread(o, outs["fused"]) for a, o in outs.items() if a != "fused"}
+            on_cpu = chained(fused_arm(n), dsort_cpu, vals_cpu[F], indeg_of(g_cpu))
+            errs["fused_vs_cpu"] = spread(outs["fused"].cpu(), on_cpu)
+            row[F] = {"f_tile": d.f_tile,
+                      "ms_per_iter": {a: t / ITERS9 * 1e3 for a, t in times.items()},
+                      "rel_err": errs}
+            for a, e in errs.items():
+                require(e <= SPMM_TOL, f"fig9 {name} F={F}: {a} off by {e} (> {SPMM_TOL})")
+        say(f"phase6 fig9 {name}", json.dumps({"n": n, "m": m, "F": row}))
+    fig9_counts = K.launch_counts()  # the fig9 path ends here
+    say("phase6 fig9 launches:", json.dumps(fig9_counts))
+    require(fig9_counts["cobra_bin_accumulate_rows"] > 0, "fig9: the rows kernel never launched")
+    del outs, vals, vals_coo
+
+    csr2, csc2 = T.build_csr_csc(s2)
+    hgen = torch.Generator(device=dev).manual_seed(5)
+    h2 = torch.randn(s2.num_nodes, GNN_D, device=dev, generator=hgen)
+    rw2 = torch.randn(s2.num_nodes, GNN_D, device=dev, generator=hgen)  # the loss's weights
+    layer = GNNLayer(GNN_D, GNN_D, generator=torch.Generator().manual_seed(0), device=dev)
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()  # the GNN layer's path starts here
+    for agg in ("sum", "mean", "max"):
+        layer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows0 = K.launch_counts()["cobra_bin_accumulate_rows"]
+        t0 = time.perf_counter()
+        y = layer(h2, csc2, csr2, agg=agg)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        rows1 = K.launch_counts()["cobra_bin_accumulate_rows"]
+        t0 = time.perf_counter()
+        (y * rw2).sum().backward()
+        torch.cuda.synchronize()
+        t_bwd = time.perf_counter() - t0
+        rows2 = K.launch_counts()["cobra_bin_accumulate_rows"]
+        peak = torch.cuda.max_memory_allocated()
+        got = {"y": y.detach(), "w_msg": layer.w_msg.grad, "w_self": layer.w_self.grad,
+               "b": layer.b.grad}
+        del y
+        torch.cuda.empty_cache()
+        want, scale = gnn_layer64(layer, h2, rw2, csc2, agg)
+        errs = {}
+        for k in got:
+            diff = (got[k].double() - want[k]).abs()
+            tol = (FWD_TOL if k == "y" else GRAD_TOL) * scale[k] + 1e-6
+            errs[k] = {"max_abs_err": float(diff.max()),
+                       "worst_share_of_tol": float((diff / tol).max())}
+            require(bool(torch.isfinite(got[k]).all()), f"GNN {agg}: {k} is not finite")
+            require(bool((diff <= tol).all()), f"GNN {agg}: {k} differs from float64 ({errs[k]})")
+        say(f"phase6 gnn {agg}", json.dumps({
+            "n": s2.num_nodes, "m": s2.num_edges, "d": GNN_D, "forward_s": t_fwd,
+            "backward_s": t_bwd, "rows_launches": {"forward": rows1 - rows0,
+                                                   "backward": rows2 - rows1},
+            "max_memory_allocated": peak, "vs_float64": errs}))
+        require(rows2 > rows1, f"GNN {agg}: the backward did not launch the rows kernel")
+        del got, want, scale
+        torch.cuda.empty_cache()
+    gnn_counts = K.launch_counts()  # the GNN layer's path ends here
+    say("phase6 gnn launches:", json.dumps(gnn_counts))
+    del csr2, csc2, h2, rw2, layer
+    torch.cuda.empty_cache()
+    say(f"phase6 seconds: {time.perf_counter() - t6:.1f}")
+
+    # -- phase 7: the ops entry points: COBRA binning, embedding scatter-add ----
+    t7 = time.perf_counter()
+    K.reset_launch_counts()  # the ops path starts here
+    for tag, g in (("S2", s2), ("S3", s3)):
+        plan = T.CobraPlan.from_hardware(g.num_nodes, hw)
+        keys = bin_ids(g.dst, plan.final_bin_range)
+        for val in (g.src, torch.randn(g.num_edges, device=dev, generator=gen)):
+            t0 = time.perf_counter()
+            bins = K.ops.cobra_binning(g.dst, val, plan)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            wi, wv = ref.binned_stream_ref(keys, g.dst, val, plan.num_bins)
+            ok = (torch.equal(bins.idx, wi) and torch.equal(bins.val, wv) and torch.equal(
+                bins.starts, starts_from_counts(ref.histogram_ref(keys, plan.num_bins))))
+            say("phase7", json.dumps({
+                "cobra_binning": tag, "m": g.num_edges, "dtype": str(val.dtype),
+                "final_bin_range": plan.final_bin_range,
+                "pass_bins": [-(-g.num_nodes // r) for r in plan.level_ranges()],
+                "seconds": secs, "equal_to_binned_stream_ref": ok}))
+            require(ok, f"cobra_binning on {tag} ({val.dtype}) differs from binned_stream_ref")
+            del bins, wi, wv
+        del keys
+    ids, upd = emb["zipf"], emb["g"]
+    V = EMB_VOCAB
+    t0 = time.perf_counter()
+    got = K.ops.pb_scatter_add_full(ids, upd, V, bin_range=EMB_BIN_RANGE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = torch.zeros(V, upd.shape[1], dtype=torch.float64, device=dev).index_add_(
+        0, ids, upd.double())
+    scale = torch.zeros(V, upd.shape[1], device=dev).index_add_(0, ids, upd.abs())
+    diff = (got.double() - want).abs()
+    ok = bool((diff <= 1e-4 + ADD_TOL * scale).all())
+    rec = {"pb_scatter_add_full": "zipf", "T": ids.shape[0], "V": V, "d": upd.shape[1],
+           "bin_range": EMB_BIN_RANGE, "first_call_s": secs, "max_abs_err": float(diff.max()),
+           "ok": ok}
+    del got, want, scale, diff
+    torch.cuda.empty_cache()
+    rec["ms"] = cuda_ms(lambda: K.ops.pb_scatter_add_full(ids, upd, V, bin_range=EMB_BIN_RANGE),
+                        reps=3, warmup=1)
+    rec["index_add_ms"] = cuda_ms(
+        lambda: torch.zeros(V, upd.shape[1], device=dev).index_add_(0, ids, upd), reps=10)
+    ops_counts = K.launch_counts()  # the ops path ends here (timing launches included)
+    say("phase7", json.dumps(rec))
+    require(ok, f"pb_scatter_add_full differs from float64 index_add_ ({rec['max_abs_err']})")
+    say("phase7 ops launches:", json.dumps(ops_counts))
+    for k in ("cobra_binning_pass", "binread_scatter_add", "scatter_rows"):
+        require(ops_counts[k] > 0, f"the ops path never launched {k}")
+    say(f"phase7 seconds: {time.perf_counter() - t7:.1f}")
+
+    # -- phase 8: the kernels line at the paths' shapes --------------------------
+    t8 = time.perf_counter()
     T.set_default_executor(None)
     n2, br2 = s2.num_nodes, min(max(64, T.compromise_bin_range(s2.num_nodes, hw)), s2.num_nodes)
     nb2 = -(-n2 // br2)
@@ -360,7 +749,7 @@ def main() -> None:
     def lib_add():
         return torch.zeros(n2, device=dev).index_add_(0, s2.dst, contrib)
 
-    # the three kernels once more against their plain versions, at these shapes
+    # each kernel once more against its plain version, at the shapes it is timed at
     hist_err = int((K.histogram(keys, nb2) - ref.histogram_ref(keys, nb2)).abs().max())
     pos_err = int((K.counting_positions(keys, starts, nb2)
                    - ref.counting_positions_ref(keys, starts, nb2)).abs().max())
@@ -370,6 +759,50 @@ def main() -> None:
     fused_ok = bool(((got - want).abs() <= ADD_TOL * want.abs() + 1e-6).all())  # contrib > 0
     require(hist_err == 0 and pos_err == 0 and fused_ok,
             f"S2 shapes: kernel vs plain: histogram {hist_err}, positions {pos_err}, fused {fused_err}")
+
+    # rows: the GNN forward's stream at S2 (dst-sorted, F = 64)
+    rows_v = torch.randn(m2, GNN_D, device=dev, generator=gen)
+    got = K.cobra_bin_accumulate_rows(s2_sorted, rows_v, n2, 512, -(-n2 // 512))
+    want = ref.scatter_reduce_ref(s2_sorted, rows_v, n2)
+    scale = ref.scatter_reduce_ref(s2_sorted, rows_v.abs(), n2)
+    rows_err = float((got - want).abs().max())
+    require(bool(((got - want).abs() <= ADD_TOL * scale + 1e-6).all()),
+            f"rows at S2 F={GNN_D} differs from plain ({rows_err})")
+    del got, want, scale
+    # COBRA pass: S3's first pass
+    r3 = T.CobraPlan.from_hardware(s3.num_nodes, hw).level_ranges()[0]
+    nb3 = -(-s3.num_nodes // r3)
+    keys3 = bin_ids(s3.dst, r3)
+    starts3 = starts_from_counts(ref.histogram_ref(keys3, nb3))[:-1].contiguous()
+    got = K.cobra_binning_pass(keys3, s3.dst, s3.src, starts3, nb3)
+    want = ref.binned_stream_ref(keys3, s3.dst, s3.src, nb3)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "COBRA pass at S3's first level differs from plain")
+    del got, want
+    m3 = s3.num_edges
+    # binread and scatter_rows: the embedding gradient's zipf stream, float32
+    ids = emb["zipf"]
+    ekeys = bin_ids(ids, EMB_BIN_RANGE)
+    ecounts = ref.histogram_ref(ekeys, emb["bins"])
+    estarts = starts_from_counts(ecounts)
+    epos = ref.counting_positions_ref(ekeys, estarts[:-1].contiguous(), emb["bins"])
+    x = emb["g"]
+    srows = K.scatter_rows(x, epos, ids.shape[0])
+    require(torch.equal(srows, ref.scatter_rows_ref(x, epos, ids.shape[0])),
+            "scatter_rows at the embedding shapes differs from plain")
+    bidx = torch.zeros_like(ids)
+    bidx[epos.long()] = ids
+    L = max(8, -(-int(ecounts.max()) // 8) * 8)
+    idx_p, val_p = K.ops.padded_bin_layout(
+        pb.Bins(bidx, srows, estarts, EMB_BIN_RANGE), emb["bins"], L)
+    B_, d_ = emb["bins"], x.shape[1]
+    got = K.binread_scatter_add(idx_p, val_p, EMB_BIN_RANGE)
+    want = ref.binread_scatter_add_ref(idx_p, val_p, EMB_BIN_RANGE)
+    scale = ref.binread_scatter_add_ref(idx_p, val_p.abs(), EMB_BIN_RANGE)
+    require(bool(((got - want).abs() <= ADD_TOL * scale + 1e-6).all()),
+            "binread at the embedding shapes differs from plain")
+    del got, want, scale
+    T_ = ids.shape[0]
     rows = [
         ("histogram", "src/repro_torch/kernels/csrc/histogram.cu",
          "src/repro/kernels/histogram.py:37", max(worst["histogram"], hist_err),
@@ -379,21 +812,46 @@ def main() -> None:
          "src/repro/kernels/binning.py:62", max(worst["counting_positions"], pos_err),
          lambda: K.counting_positions(keys, starts, nb2),
          lambda: ref.counting_positions_ref(keys, starts, nb2), None, 8 * m2 + 4 * nb2),
+        ("cobra_binning_pass", "src/repro_torch/kernels/csrc/cobra_pass.cu",
+         "src/repro/kernels/binning.py:182", 0,
+         lambda: K.cobra_binning_pass(keys3, s3.dst, s3.src, starts3, nb3),
+         lambda: ref.binned_stream_ref(keys3, s3.dst, s3.src, nb3), None, 20 * m3 + 4 * nb3),
         ("cobra_bin_accumulate", "src/repro_torch/kernels/csrc/fused.cu",
          "src/repro/kernels/fused.py:344", max(worst["cobra_bin_accumulate"], fused_err),
          lambda: K.cobra_bin_accumulate(s2.dst, contrib, n2, br2, nb2),
          lambda: ref.scatter_reduce_ref(s2.dst, contrib, n2), lib_add, 8 * m2 + 4 * n2),
+        ("cobra_bin_accumulate_rows", "src/repro_torch/kernels/csrc/fused_rows.cu",
+         "src/repro/kernels/fused.py:263", max(worst["cobra_bin_accumulate_rows"], rows_err),
+         lambda: K.cobra_bin_accumulate_rows(s2_sorted, rows_v, n2, 512, -(-n2 // 512)),
+         lambda: ref.scatter_reduce_ref(s2_sorted, rows_v, n2),
+         lambda: torch.zeros(n2, GNN_D, device=dev).index_add_(0, s2_sorted, rows_v),
+         4 * m2 + 4 * m2 * GNN_D + 4 * n2 * GNN_D),
+        ("binread_scatter_add", "src/repro_torch/kernels/csrc/binread.cu",
+         "src/repro/kernels/binread.py:36", worst["binread_scatter_add"],
+         lambda: K.binread_scatter_add(idx_p, val_p, EMB_BIN_RANGE),
+         lambda: ref.binread_scatter_add_ref(idx_p, val_p, EMB_BIN_RANGE), None,
+         4 * B_ * L + 4 * T_ * d_ + 4 * B_ * EMB_BIN_RANGE * d_),  # only real rows are read
+        ("scatter_rows", "src/repro_torch/kernels/csrc/scatter_rows.cu",
+         "src/repro/kernels/scatter_rows.py:37", 0,
+         lambda: K.scatter_rows(x, epos, T_), lambda: ref.scatter_rows_ref(x, epos, T_),
+         lambda: torch.zeros(T_, d_, device=dev).index_copy_(0, epos.long(), x),
+         4 * T_ + 8 * T_ * d_),
     ]
+    path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] for k in after}
     kernels = []
     for name, source, replaces, err, kfn, pfn, lfn, nbytes in rows:
+        reps = 5 if name in ("cobra_binning_pass", "binread_scatter_add") else 20
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": after[name], "checked_against_plain": True, "max_abs_err": err,
-            "ms": cuda_ms(kfn), "plain_ms": cuda_ms(pfn),
-            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-            "library_ms": cuda_ms(lfn) if lfn is not None else None,
+            "launches": path[name], "checked_against_plain": True, "max_abs_err": err,
+            "ms": cuda_ms(kfn, reps=reps), "plain_ms": cuda_ms(pfn, reps=reps),
+            "bound_ms": bound_ms(nbytes), "bound_bytes": nbytes, "bound_by": "bytes",
+            "library_ms": cuda_ms(lfn, reps=reps) if lfn is not None else None,
         })
-    say(f"phase5 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}")
+    require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on a path: {path}")
+    say(f"phase8 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}; rows F={GNN_D}; "
+        f"COBRA pass S3 m={m3} bins={nb3}; embedding T={T_} d={d_} B={B_} L={L}")
+    say(f"phase8 seconds: {time.perf_counter() - t8:.1f}; whole run {time.perf_counter() - T0:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({

@@ -1,8 +1,9 @@
 """Carrying state across from numpy (and so from the reference package).
 
-In this system the "weights" are the graph and the plan. The tests take
-the reference's outputs through ``np.asarray`` and these functions, and
-compare like with like: index layouts are int32 on both sides.
+In this system the "weights" are the graph, the plan and, for the GNN
+layer, its three parameters. The tests take the reference's outputs
+through ``np.asarray`` and these functions, and compare like with like:
+index layouts are int32 on both sides.
 """
 from __future__ import annotations
 
@@ -50,3 +51,18 @@ def hardware_from_fields(
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def gnn_layer_from_numpy(params, device=None):
+    """A ``GNNLayer`` holding the reference's unboxed ``init_gnn_layer``
+    weights (``w_msg``, ``w_self``, ``b`` as numpy arrays)."""
+    from repro_torch.models.gnn import GNNLayer
+
+    dev = resolve_device(device)
+    w_msg = np.asarray(params["w_msg"], dtype=np.float32)
+    layer = GNNLayer(w_msg.shape[0], w_msg.shape[1], device=dev)
+    with torch.no_grad():
+        for name in ("w_msg", "w_self", "b"):
+            arr = np.array(params[name], dtype=np.float32)  # a writable copy
+            getattr(layer, name).copy_(torch.from_numpy(arr))
+    return layer

@@ -12,7 +12,8 @@ the *method*:
   ``hierarchical``  multi-pass COBRA (``core.cobra``) driven by a
                     ``CobraPlan``;
   ``fused``         (reductions only) single-sweep bin-and-accumulate,
-                    ``kernels.fused.cobra_bin_accumulate``.
+                    ``kernels.fused.cobra_bin_accumulate`` (flat values)
+                    or ``cobra_bin_accumulate_rows`` (``(m, F)`` rows).
 
 Kernels run because the tensors are on CUDA: the reference's gate,
 ``interpret = jax.default_backend() != "tpu"``, has no counterpart. On CPU
@@ -23,7 +24,7 @@ H100 ``HardwareModel`` by default.
 Not ported in this slice (ROADMAP.md, Queue 1 item 3): the autotuner
 (``autotune=True`` raises), batched streams, the sharded path, the
 ``update`` decision kind, the stream-contract check and
-``dispatch_permutation``; the row-block fused kernel (Queue 2).
+``dispatch_permutation``.
 """
 from __future__ import annotations
 
@@ -128,14 +129,28 @@ def execute_reduce(
     bin_range: Optional[int] = None,
     num_bins: Optional[int] = None,
     plan: Optional[CobraPlan] = None,
+    sorted_within: Optional[int] = None,
+    f_tile: Optional[int] = None,
+    in_bounds: bool = False,
 ) -> torch.Tensor:
     """Reduce one (indices, values) stream to a dense (out_size, ...) tensor.
 
     The binning methods run two-phase (``execute_binning`` then
-    ``pb.bin_read_reduce``). ``fused`` launches the fused kernel when the
-    tensors are on CUDA (flat values; the row-block kernel is not ported
-    and raises) and runs the plain single call on CPU tensors.
+    ``pb.bin_read_reduce``). ``fused`` on CUDA tensors launches the fused
+    kernel: ``cobra_bin_accumulate`` for flat values,
+    ``cobra_bin_accumulate_rows`` for row-block ``(m, F)`` values; on CPU
+    tensors it runs the plain single call.
+
+    The reference's keywords, and what the port does with them:
+    ``sorted_within`` (the stream is sorted at that granularity) and
+    ``in_bounds`` (every index lies in ``[0, out_size)``) are hints only:
+    the kernels drop out-of-range indices whatever the promise, and the
+    rows kernel is right for any order (its per-lane runs of equal
+    destinations are longest on the sorted streams the GNN path sends).
+    ``f_tile`` is handed to the rows kernel, which checks it and reads
+    whole rows regardless (see ``kernels/fused.py``).
     """
+    del sorted_within, in_bounds  # hints: see the docstring
     if op not in REDUCE_OPS:
         raise ValueError(
             f"reduce_stream only serves commutative reductions {REDUCE_OPS}; "
@@ -151,10 +166,11 @@ def execute_reduce(
         if indices.device.type != "cuda":
             return _fused_reduce_plain(indices, values, out_size, op)
         if vshape != ():
-            raise NotImplementedError(
-                "fused reduce of row-block (m, F) values on CUDA: the rows kernel "
-                "(cobra_bin_accumulate_rows_pallas) is not ported yet "
-                "(ROADMAP.md, Queue 2 item 5)"
+            from repro_torch.kernels.fused import cobra_bin_accumulate_rows
+
+            return cobra_bin_accumulate_rows(
+                indices, values, num_indices=out_size, bin_range=r, num_bins=nb, op=op,
+                f_tile=max(1, min(vshape[0], f_tile or vshape[0])),
             )
         from repro_torch.kernels.fused import cobra_bin_accumulate
 
@@ -501,10 +517,14 @@ class PBExecutor:
         bin_range: Optional[int] = None,
         method: Optional[str] = None,
         kind: str = "reduce",
+        sorted_within: Optional[int] = None,
+        in_bounds: bool = False,
     ) -> torch.Tensor:
         """Reduce one commutative stream to a dense (out_size, ...) tensor;
         ``method=None``/"auto" consults ``decide`` with the reduce
-        candidate set (which includes ``fused``)."""
+        candidate set (which includes ``fused``). Row-block values carry
+        the F-tile the reference would choose; ``sorted_within`` and
+        ``in_bounds`` are passed on as hints (see ``execute_reduce``)."""
         if op not in REDUCE_OPS:
             raise ValueError(
                 f"reduce_stream only serves commutative reductions {REDUCE_OPS}; "
@@ -524,12 +544,17 @@ class PBExecutor:
             )
         else:
             d = self._finalize(method, out_size, bin_range, "caller")
+            if feat:
+                d = _dc_replace(
+                    d, f_tile=self.choose_f_tile(feat, out_size, values.dtype.itemsize)
+                )
         if not flat and d.method == "pallas":
             # pallas binning is 1-D-only; row values take the sort path
             d = self._finalize("sort", out_size, bin_range, d.source)
         return execute_reduce(
             indices, values, out_size=out_size, op=op, method=d.method,
             bin_range=d.bin_range, num_bins=d.num_bins, plan=d.plan,
+            sorted_within=sorted_within, f_tile=d.f_tile or None, in_bounds=in_bounds,
         )
 
     def scatter_add(

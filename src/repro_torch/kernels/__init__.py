@@ -4,11 +4,21 @@ Each wrapper launches its kernel on CUDA tensors and runs its plain
 PyTorch version on CPU tensors; each keeps a ``launches`` counter.
 """
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.binning import counting_positions
-from repro_torch.kernels.fused import cobra_bin_accumulate
+from repro_torch.kernels.binning import cobra_binning_pass, counting_positions
+from repro_torch.kernels.binread import binread_scatter_add
+from repro_torch.kernels.fused import cobra_bin_accumulate, cobra_bin_accumulate_rows
 from repro_torch.kernels.histogram import histogram
+from repro_torch.kernels.scatter_rows import scatter_rows
 
-KERNELS = (histogram, counting_positions, cobra_bin_accumulate)
+KERNELS = (
+    histogram,
+    counting_positions,
+    cobra_binning_pass,
+    cobra_bin_accumulate,
+    cobra_bin_accumulate_rows,
+    binread_scatter_add,
+    scatter_rows,
+)
 
 
 def launch_counts() -> dict:
@@ -26,7 +36,12 @@ __all__ = [
     "ref",
     "histogram",
     "counting_positions",
+    "cobra_binning_pass",
     "cobra_bin_accumulate",
+    "cobra_bin_accumulate_rows",
+    "binread_scatter_add",
+    "scatter_rows",
+    "KERNELS",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -35,43 +35,12 @@
 
 namespace {
 
+using namespace pb;
+
 constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
 constexpr int kMaxGroupBins = 4096;
-
-enum Op { kAdd = 0, kMin = 1, kMax = 2 };
-
-template <int OP, typename T>
-__device__ __forceinline__ T combine(T a, T b) {
-  if (OP == kAdd) return a + b;
-  if (OP == kMin) return b < a ? b : a;
-  return b > a ? b : a;
-}
-
-template <int OP>
-__device__ __forceinline__ void apply(int* p, int v) {
-  if (OP == kAdd) atomicAdd(p, v);
-  else if (OP == kMin) atomicMin(p, v);
-  else atomicMax(p, v);
-}
-
-template <int OP>
-__device__ __forceinline__ void apply(float* p, float v) {
-  if (OP == kAdd) {
-    atomicAdd(p, v);
-    return;
-  }
-  const int bits = __float_as_int(v);
-  const bool neg = bits < 0;  // sign bit, so -0.0f takes the negative side
-  if (OP == kMin) {
-    if (!neg) atomicMin(reinterpret_cast<int*>(p), bits);
-    else atomicMax(reinterpret_cast<unsigned*>(p), __float_as_uint(v));
-  } else {
-    if (!neg) atomicMax(reinterpret_cast<int*>(p), bits);
-    else atomicMin(reinterpret_cast<unsigned*>(p), __float_as_uint(v));
-  }
-}
 
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)

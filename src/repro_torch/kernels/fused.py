@@ -18,8 +18,11 @@ against a sequential sum the difference is bounded by about
 (eps = 2**-24), so comparisons allow 1e-5 * sum(|v|) per index: with
 cancelling signs the result itself can be far smaller than that sum.
 
-The row-block (SpMM) form, ``cobra_bin_accumulate_rows_pallas``, is not
-ported yet; see ROADMAP.md, Queue 2.
+``cobra_bin_accumulate_rows`` is the row-block (SpMM) form: ``(m, F)``
+values reduced into ``(num_indices, F)`` by ``csrc/fused_rows.cu`` on a
+CUDA tensor, by the same plain version on a CPU tensor, with the same
+index rule and tolerances (per column). Row offsets are 64-bit, so only
+m and num_indices, not m * F, must fit int32.
 """
 from __future__ import annotations
 
@@ -80,3 +83,62 @@ def cobra_bin_accumulate(
 
 
 cobra_bin_accumulate.launches = 0
+
+
+def cobra_bin_accumulate_rows(
+    idx: torch.Tensor,
+    val: torch.Tensor,
+    num_indices: int,
+    bin_range: int,
+    num_bins: int,
+    op: str = "add",
+    f_tile: int | None = None,
+) -> torch.Tensor:
+    """Dense ``(num_indices, F)`` reduction of a row-block stream; untouched
+    rows hold ``reduce_identity(op, val.dtype)``.
+
+    ``f_tile`` is the reference's feature-tile width (a TPU VMEM fit). It
+    is checked (``1 <= f_tile <= F``) and otherwise has no effect: the
+    kernel reads each row once, whole, with as many lanes as the row needs
+    (``csrc/fused_rows.cu``). ``bin_range`` and ``num_bins`` are checked
+    to cover the domain, as the reference asserts, and play no other part
+    (the accumulator is global memory).
+    """
+    if op not in FUSED_OPS:
+        raise ValueError(f"fused accumulate needs a commutative op, got {op!r}")
+    if val.ndim != 2 or idx.ndim != 1 or idx.shape[0] != val.shape[0]:
+        raise ValueError(
+            f"row-block accumulate wants idx (m,) and val (m, F), got "
+            f"{tuple(idx.shape)} and {tuple(val.shape)}"
+        )
+    m, F = val.shape
+    ident = reduce_identity(op, val.dtype)
+    if m == 0 or F == 0:
+        return torch.full((num_indices, F), ident, dtype=val.dtype, device=val.device)
+    if num_bins * bin_range < num_indices:
+        raise ValueError("accumulator must cover the domain: num_bins * bin_range < num_indices")
+    if f_tile is not None and not 1 <= int(f_tile) <= F:
+        raise ValueError(f"f_tile {f_tile} out of range for F={F}")
+    if idx.device.type == "cpu":
+        return scatter_reduce_ref(idx, val, num_indices, op=op)
+    _lib.require_cuda(idx, torch.int32, "idx")
+    if val.dtype not in _DTYPE_CODE:
+        raise ValueError(f"fused kernel takes float32 or int32 values, got {val.dtype}")
+    _lib.require_cuda(val, val.dtype, "val")
+    _lib.check_int32_size(m, "stream length")
+    _lib.check_int32_size(num_indices, "num_indices")
+    _lib.check_int32_size(F, "feature width")
+    out = torch.full((num_indices, F), ident, dtype=val.dtype, device=val.device)
+    lib = _lib.load()
+    _lib.check(
+        lib.pb_fused_accumulate_rows(
+            idx.data_ptr(), val.data_ptr(), m, F, out.data_ptr(), num_indices,
+            _OP_CODE[op], _DTYPE_CODE[val.dtype], _lib.stream(idx),
+        ),
+        "cobra_bin_accumulate_rows kernel",
+    )
+    cobra_bin_accumulate_rows.launches += 1
+    return out
+
+
+cobra_bin_accumulate_rows.launches = 0

@@ -1,8 +1,11 @@
 """Plain PyTorch oracles (port of ``repro/kernels/ref.py``).
 
-Three of them are also the **plain versions** of the port's kernels:
-``histogram_ref`` (kernels/histogram.py), ``counting_positions_ref``
-(kernels/binning.py) and ``scatter_reduce_ref`` (kernels/fused.py). A
+Each is also the **plain version** of one of the port's kernels:
+``histogram_ref`` (kernels/histogram.py), ``counting_positions_ref`` and
+``binned_stream_ref`` (kernels/binning.py: positions, COBRA pass),
+``scatter_reduce_ref`` (kernels/fused.py: flat and row-block),
+``binread_scatter_add_ref`` (kernels/binread.py) and
+``scatter_rows_ref`` (kernels/scatter_rows.py). A
 kernel wrapper runs its plain version only for CPU tensors; the tests and
 ``chip_smoke.py`` hold each kernel against it. They follow the Pallas
 kernels' treatment of out-of-range keys: ignored by the histogram, -1 in
@@ -50,10 +53,14 @@ def binned_stream_ref(keys, idx, val, num_bins):
 
 
 def binread_scatter_add_ref(idx_padded, val_padded, bin_range):
+    """(B * bin_range, d) sums of the padded rows at their indices, padding
+    (-1) and other out-of-range indices dropped; summed in float32 and
+    stored in the input dtype, as the Pallas kernel's float32 dot is."""
     B, L = idx_padded.shape
     d = val_padded.shape[-1]
-    out = torch.zeros((B * bin_range, d), dtype=val_padded.dtype, device=val_padded.device)
-    return scatter_reduce_into(out, idx_padded.reshape(-1), val_padded.reshape(-1, d), "add")
+    out = torch.zeros((B * bin_range, d), dtype=torch.float32, device=val_padded.device)
+    out = scatter_reduce_into(out, idx_padded.reshape(-1), val_padded.reshape(-1, d), "add")
+    return out.to(val_padded.dtype)
 
 
 def scatter_reduce_ref(idx, val, num_indices, op="add"):

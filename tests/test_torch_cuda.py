@@ -6,10 +6,11 @@ also run where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Histogram and positions must be equal; the fused reduce is exact for
-int32 and min/max, and a float32 add may differ from the sequential sum
-by at most 1e-5 of the magnitudes summed at an index (the order in which
-the atomics land changes from run to run).
+Histogram, positions, the COBRA pass and the row scatter must be equal;
+the fused reduces (flat and rows) are exact for int32 and min/max, and a
+float32 add (fused or Bin-Read) may differ from the sequential sum by at
+most 1e-5 of the magnitudes summed at an index (the order in which the
+atomics land changes from run to run); bfloat16 Bin-Read within 1e-1.
 """
 import numpy as np
 import pytest
@@ -17,9 +18,11 @@ import torch
 
 from repro_torch.core.pb import starts_from_counts
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.binning import counting_positions
-from repro_torch.kernels.fused import cobra_bin_accumulate
+from repro_torch.kernels.binning import cobra_binning_pass, counting_positions
+from repro_torch.kernels.binread import binread_scatter_add
+from repro_torch.kernels.fused import cobra_bin_accumulate, cobra_bin_accumulate_rows
 from repro_torch.kernels.histogram import histogram
+from repro_torch.kernels.scatter_rows import scatter_rows
 
 
 def _rng(seed=0):
@@ -72,3 +75,119 @@ def test_cuda_fused_matches_plain(cuda, dtype, op):
         else:  # order of the atomics: 1e-5 of the magnitudes summed
             scale = tref.scatter_reduce_ref(ti, tv.abs(), n, "add")
             assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+# -- the kernels of the second slice ----------------------------------------
+# Rows reduce: int32 and min/max equal, float32 add within 1e-5 of the
+# magnitudes summed per entry (order of the atomics). COBRA pass, row
+# scatter: equal (bit copies). Bin-Read: float32 within 1e-5 of the
+# summed magnitudes, bfloat16 within atol 1e-1 (tests/test_kernels.py).
+
+
+def _rows_ok(got, want, ti, tv, n, op):
+    if tv.dtype == torch.int32 or op != "add":
+        return torch.equal(got, want)
+    scale = tref.scatter_reduce_ref(ti, tv.abs(), n, "add")
+    return bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("F", [1, 3, 8, 7, 128, 260])
+@pytest.mark.parametrize("order", ["random", "sorted"])
+def test_cuda_rows_matches_plain(cuda, dtype, op, F, order):
+    n, m = 5003, 40_007
+    rng = _rng(F)
+    idx = rng.integers(0, n, m).astype(np.int32)
+    if order == "sorted":
+        idx.sort()
+    idx[::101] = -1
+    idx[::103] = n + 7
+    ti = torch.from_numpy(idx).to(cuda)
+    if dtype == torch.int32:
+        tv = torch.from_numpy(rng.integers(-50, 50, (m, F)).astype(np.int32)).to(cuda)
+    else:
+        tv = torch.from_numpy(rng.normal(size=(m, F)).astype(np.float32)).to(cuda)
+    got = cobra_bin_accumulate_rows(ti, tv, n, 512, -(-n // 512), op, f_tile=1)
+    want = tref.scatter_reduce_ref(ti, tv, n, op)
+    assert got.shape == (n, F) and _rows_ok(got, want, ti, tv, n, op)
+
+
+@pytest.mark.cuda
+def test_cuda_rows_edges(cuda):
+    ti = torch.zeros(0, dtype=torch.int32, device=cuda)
+    out = cobra_bin_accumulate_rows(ti, torch.zeros(0, 4, device=cuda), 10, 5, 2, "min")
+    assert out.shape == (10, 4) and bool((out == torch.finfo(torch.float32).max).all())
+    ti = torch.arange(6, dtype=torch.int32, device=cuda)
+    assert cobra_bin_accumulate_rows(ti, torch.zeros(6, 0, device=cuda), 6, 3, 2).shape == (6, 0)
+    # a strided view is refused, never copied behind the caller's back
+    with pytest.raises(ValueError, match="contiguous"):
+        cobra_bin_accumulate_rows(ti, torch.zeros(4, 6, device=cuda).t(), 6, 3, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_rows_past_int32_elements(cuda):
+    """m * F > 2^31: the rows are addressed with 64-bit offsets."""
+    n, m, F = 1 << 20, (1 << 25) + 3, 64
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ti = torch.randint(0, n, (m,), device=cuda, generator=gen, dtype=torch.int32).sort().values
+    tv = torch.randn(m, F, device=cuda, generator=gen)
+    assert m * F > 2**31
+    got = cobra_bin_accumulate_rows(ti, tv, n, 512, n // 512, "add")
+    want = tref.scatter_reduce_ref(ti, tv, n, "add")
+    del tv
+    assert bool(((got - want).abs() <= 1e-4 * want.abs().max() + 1e-6).all())
+    assert float(got[-1].abs().sum()) > 0  # the last rows were reached
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4095, 4097, 300_001])
+@pytest.mark.parametrize("num_bins", [1, 2, 257, 4096, 12288])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_cuda_cobra_pass_matches_plain(cuda, m, num_bins, dtype):
+    rng = _rng(m + num_bins)
+    keys = torch.from_numpy(rng.integers(0, num_bins, m).astype(np.int32)).to(cuda)
+    for k in (keys, torch.full_like(keys, num_bins // 2)):
+        idx = torch.from_numpy(rng.integers(0, 1 << 30, m).astype(np.int32)).to(cuda)
+        val = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(cuda)
+        val = val if dtype == torch.float32 else val.view(torch.int32)
+        starts = starts_from_counts(tref.histogram_ref(k, num_bins))[:-1].contiguous()
+        got = cobra_binning_pass(k, idx, val, starts, num_bins)
+        want = tref.binned_stream_ref(k, idx, val, num_bins)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[1].dtype == dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,R,d", [(4, 16, 8, 1), (8, 64, 32, 4), (16, 128, 128, 8),
+                                     (3, 1000, 64, 6), (5, 3001, 100, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_binread_matches_plain(cuda, B, L, R, d, dtype):
+    rng = _rng(B * L + d)
+    idx = np.stack([rng.integers(b * R, (b + 1) * R, L) for b in range(B)]).astype(np.int32)
+    idx[:, -3:] = -1
+    idx[0, : L // 2] = 1  # a hot index: duplicates coalesce
+    ti = torch.from_numpy(idx).to(cuda)
+    tv = torch.from_numpy(rng.normal(size=(B, L, d)).astype(np.float32)).to(cuda).to(dtype)
+    got = binread_scatter_add(ti, tv, R)
+    want = tref.binread_scatter_add_ref(ti, tv, R)
+    assert got.dtype == dtype and got.shape == (B * R, d)
+    if dtype == torch.bfloat16:
+        assert bool(((got.float() - want.float()).abs() <= 1e-1).all())
+    else:
+        scale = tref.binread_scatter_add_ref(ti, tv.abs(), R)
+        assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(1, 1), (64, 8), (1000, 3), (4097, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_cuda_scatter_rows_matches_plain(cuda, m, d, dtype):
+    rng = _rng(m * d)
+    x = torch.from_numpy(rng.integers(-100, 100, (m, d)).astype(np.float32)).to(cuda).to(dtype)
+    pos = rng.permutation(m + 5)[:m].astype(np.int32)
+    pos[::7] = -1
+    tp = torch.from_numpy(pos).to(cuda)
+    got = scatter_rows(x, tp, m + 5)
+    assert torch.equal(got, tref.scatter_rows_ref(x, tp, m + 5))
