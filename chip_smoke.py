@@ -44,11 +44,29 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    with the H100 plan must equal ``binned_stream_ref`` at the final range;
    ``pb_scatter_add_full`` at embed_grad's full shapes (zipf ids,
    bin_range 4096) against a float64 ``index_add_``.
-8. The ``kernels`` JSON line: each kernel's launches on the paths of
-   phases 3-4, 6 and 7 (counts set to 0 before each path, read after
-   it; the checks of phases 2, 5 and 8 do not count), its largest error
-   against its plain version, and times at a path's shapes; then the
-   result line.
+8. The flash-attention kernel against its plain version: float32 and
+   bfloat16, causal and not, at the JAX test's shapes (B, H, KH, S, hd) =
+   (1, 2, 1, 128, 16) and (2, 4, 2, 256, 32), at qwen2-1.5b's heads
+   (1, 12, 2, S, 128) for S in {1, 7, 500, 513, 2048, 4096}, and at
+   Sq = 256 against Skv = 512.
+9. The LM serving path: full-size ``qwen2-1.5b`` (28 layers, bf16, random
+   weights from seed 0) served by ``Engine`` with 4 slots and 4096
+   positions, 8 requests with prompts of 100-2048 tokens (numpy seed 0)
+   and 16 new tokens each. Every request must finish, and the flash
+   kernel must run once per layer per prefill; tokens/s, decode tokens/s,
+   each request's TTFT and the peak device memory are printed. The
+   longest prefill and one 4-slot decode tick then run once more under
+   ``torch.profiler``: wall time, device busy time, the kernels that take
+   it. Then one request served alone must give the tokens and the cache
+   of a manual prefill + decode loop.
+10. The same model at full width with 2 layers in float32 on the card
+   against its copy on the CPU (plain versions): a 300-token prefill's
+   last logits and 8 greedy decode steps.
+11. The ``kernels`` JSON line: each kernel's launches on the paths of
+   phases 3-4, 6, 7 and 9 (counts set to 0 before each path, read after
+   it; the checks of phases 2, 5, 8, 10 and 11 do not count), its largest
+   error against its plain version, and times at a path's shapes; then
+   the result line.
 
 Tolerances: integer outputs, CSRs, binned streams, COBRA passes, row
 scatters and min/max results must be equal. Float32 PageRank sums run in
@@ -72,10 +90,20 @@ arms agree within 1e-2 of the largest output (max |a - b| / max |b|),
 for the PageRank reason. The GNN layer is float32 products and sums:
 its output is held to 1e-5 and its gradients to 1e-4 times the same
 quantity computed on absolute values (the scale of float32 rounding in a
-sum, whatever the signs cancel), plus 1e-6.
+sum, whatever the signs cancel), plus 1e-6. Flash attention against its
+plain version, elementwise: float32 atol 1e-4 (``tests/test_kernels.py:217``);
+bfloat16 within one bfloat16 rounding step of the plain output,
+|got - want| <= 2^-7 |want| + 1e-4, since both round one float32 value
+(the floor covers float32 summation order near 0). The reference test's
+flat 5e-2 would be as large as a causal output at S = 2048 (about
+sqrt(e / S) for unit-normal inputs), so it could not see a dropped key
+tile there. The float32 model on the card against
+the CPU: logits within 1e-4 of max |logit| per step (sums of 1536 to
+8960 float32 products in another order), greedy tokens equal.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -96,6 +124,20 @@ FWD_TOL = 1e-5  # GNN output: times the same sum on absolute values
 GRAD_TOL = 1e-4  # GNN gradients: times the same sums on absolute values
 EMB_T, EMB_VOCAB, EMB_D = 262_144, 50_304, 256  # benchmarks/embed_grad.py, full scale
 EMB_BIN_RANGE = 4096
+BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor-core rate
+FLASH_SHAPES = (  # (B, H, KH, Sq, Skv, hd): the JAX test's, then qwen2-1.5b's heads
+    [(1, 2, 1, 128, 128, 16), (2, 4, 2, 256, 256, 32)]
+    + [(1, 12, 2, s, s, 128) for s in (1, 7, 500, 513, 2048, 4096)]
+    + [(1, 12, 2, 256, 512, 128)]
+)
+FLASH_F32_ATOL = 1e-4  # flash kernel vs plain, float32 (see flash_close)
+FLASH_BF16_REL, FLASH_BF16_FLOOR = 2.0**-7, 1e-4  # bfloat16: times |plain| plus the floor
+LM_ARCH = "qwen2-1.5b"
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 4, 4096, 8, 16
+LM_PROMPT_LENS = (100, 2048)
+LM_SEED = 0
+LM_TOL = 1e-4  # float32 logits: times max |logit| (tests/test_torch_lm.py)
+LM_CPU_PROMPT, LM_CPU_STEPS = 300, 8
 
 
 def fail(msg: str) -> None:
@@ -108,12 +150,219 @@ def require(cond, msg: str) -> None:
         fail(msg)
 
 
+def flash_close(got, want, dt):
+    """Kernel against plain, elementwise: float32 within atol 1e-4
+    (tests/test_kernels.py:217); bfloat16 within one rounding step of the
+    plain output, |got - want| <= 2^-7 |want| + 1e-4 (both round one
+    float32 value to bfloat16; the floor covers float32 summation order
+    near 0). Returns (max |got - want|, ok)."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    if dt == torch.float32:
+        ok = bool((diff <= FLASH_F32_ATOL).all())
+    else:
+        ok = bool((diff <= FLASH_BF16_REL * want.float().abs() + FLASH_BF16_FLOOR).all())
+    return float(diff.max()) if diff.numel() else 0.0, ok
+
+
 def say(*parts) -> None:
     print(*parts, flush=True)
 
 
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+# -- the LM serving path (phases 8-10) -------------------------------------------
+
+
+def flash_checks(dev, shapes):
+    """Phase 8: the flash kernel against its plain version at ``shapes``
+    (B, H, KH, Sq, Skv, hd) for float32 and bfloat16, causal and not;
+    returns the largest error."""
+    import torch
+
+    from repro_torch.kernels.flashattn import flash_attention, flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    worst = 0.0
+    for B, H, KH, Sq, Skv, hd in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, H, Sq, hd, device=dev, generator=gen).to(dt)
+            k = torch.randn(B, KH, Skv, hd, device=dev, generator=gen).to(dt)
+            v = torch.randn(B, KH, Skv, hd, device=dev, generator=gen).to(dt)
+            for causal in (True, False):
+                got = flash_attention(q, k, v, causal=causal)
+                want = flash_attention_ref(q, k, v, causal=causal)
+                err, close = flash_close(got, want, dt)
+                ok = got.shape == q.shape and got.dtype == dt and close
+                worst = max(worst, err)
+                say("phase8", json.dumps({"flash": [B, H, KH, Sq, Skv, hd], "dtype": str(dt),
+                                          "causal": causal, "max_abs_err": err, "ok": ok}))
+                require(ok, f"flash {dt} causal={causal} at {(B, H, KH, Sq, Skv, hd)} differs "
+                            f"from plain (max |diff| {err}; see flash_close)")
+            del q, k, v, got, want
+    return worst
+
+
+def lm_prompts(cfg, n, lo, hi, seed):
+    """``n`` prompts of lengths drawn from [lo, hi], tokens from the vocab."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n)
+    return [rng.integers(0, cfg.vocab_size, int(s)).astype(np.int32) for s in lens]
+
+
+def serve_lm(cfg, model, prompts, slots, max_len, max_new):
+    """Phase 9: serve ``prompts`` through ``Engine``; flash launches are
+    counted over the run alone (the main path), which must prefill each
+    prompt once through every layer's kernel. Returns the launch counts
+    and the record printed."""
+    import torch
+
+    import repro_torch.kernels as K
+    from repro_torch.serving.server import Engine, Request
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    dev = model.embed.table.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # warm-up: the first calls of cuBLAS and the allocator, outside the counts
+    warm = torch.from_numpy(prompts[0][None, :64]).to(dev)
+    _, st = make_prefill_step(cfg, 128)(model, {"tokens": warm})
+    make_decode_step(cfg)(model, st, warm[:, :1])
+    del st
+    sync()
+    eng = Engine(cfg, model, slots=slots, max_len=max_len)
+    times = {"prefill": [], "decode": []}
+
+    def timed(kind, fn):
+        def run(*a):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            sync()
+            times[kind].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    eng._prefill = timed("prefill", eng._prefill)
+    eng._decode = timed("decode", eng._decode)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()  # the serving path starts here
+    t0 = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new=max_new))
+    done = eng.run_until_drained()
+    sync()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()  # the serving path ends here
+    tokens = sum(len(r.out) for r in done)
+    decoded = tokens - len(done)  # each request's first token comes from its prefill
+    rec = {
+        "requests": len(done), "prompt_lens": [len(p) for p in prompts], "tokens": tokens,
+        "seconds": secs, "tokens_per_s": tokens / secs,
+        "decode_tokens_per_s": decoded / sum(times["decode"]),
+        "decode_ticks": len(times["decode"]), "decode_ms_per_tick": [
+            1e3 * min(times["decode"]), 1e3 * sum(times["decode"]) / len(times["decode"])],
+        "prefill_ms": [1e3 * t for t in times["prefill"]],
+        "ttft_s": {r.rid: r.t_first - r.t_submit for r in sorted(done, key=lambda r: r.rid)},
+        "max_memory_allocated": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+        "flash_launches": counts["flash_attention"], "final_index": eng.state.index,
+    }
+    require(len(done) == len(prompts) and all(len(r.out) == max_new for r in done),
+            f"serving finished {len(done)} of {len(prompts)} requests")
+    require(counts["flash_attention"] == cfg.num_layers * len(prompts),
+            f"flash launches {counts['flash_attention']} != {cfg.num_layers} layers x "
+            f"{len(prompts)} prefills")
+    return counts, rec
+
+
+def device_profile(fn, dev):
+    """One call of ``fn`` under ``torch.profiler``: its wall ms (which the
+    profiler's own bookkeeping lengthens), the device's busy ms (the sum
+    of its kernels' times; one stream, so they do not overlap), the
+    number of kernels and the six that took the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall, "device_busy_ms": busy, "busy_share": busy / wall,
+            "kernels": sum(e.count for e in kernels),
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+def engine_equals_manual_loop(cfg, model, prompt, max_len, max_new):
+    """One request served alone (one slot) gives the tokens of a prefill +
+    greedy decode loop, token for token (tests/test_serving.py:33-54), and
+    leaves the same cache, bit for bit: a random model's greedy tokens
+    often repeat, the cache holds every step's keys and values."""
+    import torch
+
+    from repro_torch.serving.server import Engine, Request
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    dev = model.embed.table.device
+    logits, st = make_prefill_step(cfg, max_len)(model, {"tokens": torch.from_numpy(prompt[None]).to(dev)})
+    want = [int(torch.argmax(logits[0]))]
+    tok = torch.tensor([[want[-1]]], dtype=torch.int32, device=dev)
+    decode = make_decode_step(cfg)
+    for _ in range(max_new - 1):
+        _, nxt, st = decode(model, st, tok)
+        want.append(int(nxt[0]))
+        tok = nxt[:, None]
+    eng = Engine(cfg, model, slots=1, max_len=max_len)
+    eng.submit(Request(rid=0, prompt=prompt, max_new=max_new))
+    (r,) = eng.run_until_drained()
+    same_cache = all(torch.equal(a, b) for a, b in zip(eng.state.caches, st.caches))
+    return r.out, want, same_cache
+
+
+def lm_vs_cpu(cfg, model, prompt, max_len, steps):
+    """Phase 10: the model on its device against a copy on the CPU (plain
+    versions): the prefill's last logits and ``steps`` greedy decode steps,
+    each side feeding its own tokens. Returns the largest logit error as a
+    share of max |logit| and whether every greedy token agreed."""
+    import torch
+
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    dev = model.embed.table.device
+    cpu = DenseLM(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    prefill, decode = make_prefill_step(cfg, max_len), make_decode_step(cfg)
+    toks = torch.from_numpy(prompt[None])
+    out = {}
+    for name, m, d in (("device", model, dev), ("cpu", cpu, torch.device("cpu"))):
+        logits, st = prefill(m, {"tokens": toks.to(d)})
+        seq = [logits[0].float().cpu()]
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        toks_out = [int(tok[0, 0])]
+        for _ in range(steps):
+            lg, nxt, st = decode(m, st, tok)
+            seq.append(lg[0].float().cpu())
+            tok = nxt[:, None]
+            toks_out.append(int(nxt[0]))
+        out[name] = (torch.stack(seq), toks_out)
+    (a, ta), (b, tb) = out["device"], out["cpu"]
+    share = float(((a - b).abs().max(dim=1).values / b.abs().max(dim=1).values).max())
+    return share, ta == tb, ta
 
 
 def main() -> None:
@@ -125,6 +374,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: chip_smoke.py drives the port on an NVIDIA card")
     os.environ.setdefault("REPRO_TORCH_CACHE_DIR", os.path.join(HERE, ".torch_cache"))
+    # float32 products in full float32 on the card, as on the CPU (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     import numpy as np
 
@@ -735,9 +987,75 @@ def main() -> None:
         require(ops_counts[k] > 0, f"the ops path never launched {k}")
     say(f"phase7 seconds: {time.perf_counter() - t7:.1f}")
 
-    # -- phase 8: the kernels line at the paths' shapes --------------------------
-    t8 = time.perf_counter()
+    # -- phases 8-10: the LM serving path -----------------------------------------
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flashattn import flash_attention_ref, flash_flops, flash_hbm_bytes
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
     T.set_default_executor(None)
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    worst["flash_attention"] = flash_checks(dev, FLASH_SHAPES)
+    torch.cuda.empty_cache()
+    say(f"phase8 seconds: {time.perf_counter() - t8:.1f}")
+
+    t9 = time.perf_counter()
+    lm_cfg = get_config(LM_ARCH)
+    mem0 = torch.cuda.memory_allocated()  # the earlier phases' tensors, still held
+    model = init_params(lm_cfg, seed=LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    say(f"phase9 {LM_ARCH}: {sum(p.numel() for p in model.parameters())} parameters "
+        f"({lm_cfg.param_dtype}, {lm_cfg.num_layers} layers) drawn in "
+        f"{time.perf_counter() - t9:.1f} s")
+    prompts = lm_prompts(lm_cfg, LM_REQUESTS, *LM_PROMPT_LENS, seed=LM_SEED)
+    serve_counts, rec = serve_lm(lm_cfg, model, prompts, LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW)
+    rec["earlier_phases_bytes"] = mem0
+    rec["serving_peak_bytes"] = rec["max_memory_allocated"] - mem0  # weights included
+    say("phase9 serve", json.dumps(rec))
+    say("phase9 serve launches:", json.dumps(serve_counts))
+    # where a step's time goes: the longest prefill, and a 4-slot decode tick
+    # at the run's final position (decode attends over the whole cache)
+    longest = torch.from_numpy(max(prompts, key=len)[None]).to(dev)
+    prefill = make_prefill_step(lm_cfg, LM_MAX_LEN)
+    prof = {"prefill": {"tokens": longest.shape[1],
+                        **device_profile(lambda: prefill(model, {"tokens": longest}), dev)}}
+    st = init_cache(lm_cfg, LM_SLOTS, LM_MAX_LEN, device=dev)._replace(index=rec["final_index"])
+    tok4 = torch.zeros(LM_SLOTS, 1, dtype=torch.int32, device=dev)
+    decode = make_decode_step(lm_cfg)
+    prof["decode_tick"] = {"slots": LM_SLOTS, "index": st.index,
+                           **device_profile(lambda: decode(model, st, tok4), dev)}
+    say("phase9 profile", json.dumps(prof))
+    del st, longest
+    got, want, same_cache = engine_equals_manual_loop(
+        lm_cfg, model, prompts[0], LM_MAX_LEN, LM_MAX_NEW)
+    say("phase9 engine vs manual loop:", json.dumps(
+        {"engine": got, "manual": want, "same_cache": same_cache}))
+    require(got == want and same_cache,
+            "the engine differs from a manual prefill + decode loop (tokens or cache)")
+    del model
+    torch.cuda.empty_cache()
+    say(f"phase9 seconds: {time.perf_counter() - t9:.1f}")
+
+    t10 = time.perf_counter()
+    cfg32 = dataclasses.replace(lm_cfg, num_layers=2, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = init_params(cfg32, seed=LM_SEED + 1, device=dev)
+    prompt32 = lm_prompts(cfg32, 1, LM_CPU_PROMPT, LM_CPU_PROMPT, seed=LM_SEED + 1)[0]
+    share, same_tokens, toks32 = lm_vs_cpu(cfg32, model32, prompt32, 512, LM_CPU_STEPS)
+    say("phase10", json.dumps({"layers": 2, "d_model": cfg32.d_model, "dtype": "float32",
+                               "prompt": LM_CPU_PROMPT, "decode_steps": LM_CPU_STEPS,
+                               "max_logit_err_share": share, "tolerance": LM_TOL,
+                               "tokens": toks32, "tokens_equal": same_tokens}))
+    require(share <= LM_TOL and same_tokens,
+            f"the float32 model on the card differs from the CPU (share {share}, "
+            f"tokens equal {same_tokens})")
+    del model32
+    torch.cuda.empty_cache()
+    say(f"phase10 seconds: {time.perf_counter() - t10:.1f}")
+
+    # -- phase 11: the kernels line at the paths' shapes -------------------------
+    t11 = time.perf_counter()
     n2, br2 = s2.num_nodes, min(max(64, T.compromise_bin_range(s2.num_nodes, hw)), s2.num_nodes)
     nb2 = -(-n2 // br2)
     keys = bin_ids(s2.dst, br2)
@@ -837,7 +1155,8 @@ def main() -> None:
          lambda: torch.zeros(T_, d_, device=dev).index_copy_(0, epos.long(), x),
          4 * T_ + 8 * T_ * d_),
     ]
-    path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] for k in after}
+    path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
+            for k in after}
     kernels = []
     for name, source, replaces, err, kfn, pfn, lfn, nbytes in rows:
         reps = 5 if name in ("cobra_binning_pass", "binread_scatter_add") else 20
@@ -848,10 +1167,33 @@ def main() -> None:
             "bound_ms": bound_ms(nbytes), "bound_bytes": nbytes, "bound_by": "bytes",
             "library_ms": cuda_ms(lfn, reps=reps) if lfn is not None else None,
         })
+    # flash: the longest prefill's attention, qwen2-1.5b's heads at S = 4096, bf16, causal
+    fB, fH, fKH, fS, fhd = 1, lm_cfg.num_heads, lm_cfg.num_kv_heads, LM_MAX_LEN, lm_cfg.head_dim
+    fq = torch.randn(fB, fH, fS, fhd, device=dev, generator=gen).to(torch.bfloat16)
+    fk = torch.randn(fB, fKH, fS, fhd, device=dev, generator=gen).to(torch.bfloat16)
+    fv = torch.randn(fB, fKH, fS, fhd, device=dev, generator=gen).to(torch.bfloat16)
+    ferr, fok = flash_close(K.flash_attention(fq, fk, fv), flash_attention_ref(fq, fk, fv), torch.bfloat16)
+    require(fok, f"flash at the timing shape differs from plain (max |diff| {ferr}; see flash_close)")
+    fflop = flash_flops(fB, fH, fS, fS, fhd, causal=True)
+    fbytes = 2 * (2 * fB * fH * fS * fhd + 2 * fB * fKH * fS * fhd)  # q, o, k, v once each
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flashattn.cu",
+        "replaces": "src/repro/kernels/flashattn.py:61", "launches": path["flash_attention"],
+        "checked_against_plain": True, "max_abs_err": max(worst["flash_attention"], ferr),
+        "ms": cuda_ms(lambda: K.flash_attention(fq, fk, fv), reps=20),
+        "plain_ms": cuda_ms(lambda: flash_attention_ref(fq, fk, fv), reps=5),
+        "bound_ms": max(fflop / BF16_FLOP_PER_S, fbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_flop": fflop, "bound_bytes": fbytes,
+        "bound_by": "operations" if fflop / BF16_FLOP_PER_S > fbytes / HBM_BYTES_PER_S else "bytes",
+        "flash_hbm_bytes": flash_hbm_bytes(fB, fH, fKH, fS, fS, fhd),
+        "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            fq, fk, fv, is_causal=True, enable_gqa=True), reps=20),
+    })
     require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on a path: {path}")
-    say(f"phase8 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}; rows F={GNN_D}; "
-        f"COBRA pass S3 m={m3} bins={nb3}; embedding T={T_} d={d_} B={B_} L={L}")
-    say(f"phase8 seconds: {time.perf_counter() - t8:.1f}; whole run {time.perf_counter() - T0:.1f} s")
+    say(f"phase11 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}; rows F={GNN_D}; "
+        f"COBRA pass S3 m={m3} bins={nb3}; embedding T={T_} d={d_} B={B_} L={L}; "
+        f"flash B={fB} H={fH} KH={fKH} S={fS} hd={fhd} bf16 causal")
+    say(f"phase11 seconds: {time.perf_counter() - t11:.1f}; whole run {time.perf_counter() - T0:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({

@@ -66,3 +66,55 @@ def gnn_layer_from_numpy(params, device=None):
             arr = np.array(params[name], dtype=np.float32)  # a writable copy
             getattr(layer, name).copy_(torch.from_numpy(arr))
     return layer
+
+
+def _torch_from_numpy(a) -> torch.Tensor:
+    """A CPU tensor of ``a``'s values. numpy has no bfloat16: the
+    reference's bf16 arrays arrive as ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses, so their bits go across as int16."""
+    arr = np.ascontiguousarray(np.asarray(a))
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def lm_params_from_numpy(params, cfg, device=None):
+    """A ``DenseLM`` holding the reference's unboxed ``init_params`` tree:
+    nested dicts of arrays, every ``blocks`` leaf with a leading layer axis.
+    Each of the model's parameters takes the leaf of the same path
+    (``blocks.i.attn.wq`` is ``params["blocks"]["attn"]["wq"][i]``), with
+    its dtype; every leaf of the tree must be used."""
+    from repro_torch.models.transformer import DenseLM
+
+    model = DenseLM(cfg, device=device)
+    used = set()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "blocks":
+                layer, path = int(parts[1]), ("blocks",) + tuple(parts[2:])
+            else:
+                layer, path = None, tuple(parts)
+            node = params
+            for key in path:
+                node = node[key]
+            t = _torch_from_numpy(node if layer is None else np.asarray(node)[layer])
+            if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+                raise ValueError(
+                    f"{name}: the tree holds {tuple(t.shape)} {t.dtype}, the model wants "
+                    f"{tuple(p.shape)} {p.dtype}"
+                )
+            p.copy_(t)
+            used.add(path)
+
+    def leaves(node, path=()):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from leaves(v, path + (k,))
+        else:
+            yield path
+
+    unused = sorted(set(leaves(params)) - used)
+    if unused:
+        raise ValueError(f"leaves of the tree the dense model has no place for: {unused}")
+    return model

@@ -6,6 +6,7 @@ PyTorch version on CPU tensors; each keeps a ``launches`` counter.
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.binning import cobra_binning_pass, counting_positions
 from repro_torch.kernels.binread import binread_scatter_add
+from repro_torch.kernels.flashattn import flash_attention
 from repro_torch.kernels.fused import cobra_bin_accumulate, cobra_bin_accumulate_rows
 from repro_torch.kernels.histogram import histogram
 from repro_torch.kernels.scatter_rows import scatter_rows
@@ -18,6 +19,7 @@ KERNELS = (
     cobra_bin_accumulate_rows,
     binread_scatter_add,
     scatter_rows,
+    flash_attention,
 )
 
 
@@ -41,6 +43,7 @@ __all__ = [
     "cobra_bin_accumulate_rows",
     "binread_scatter_add",
     "scatter_rows",
+    "flash_attention",
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",

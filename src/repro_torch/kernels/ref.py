@@ -5,7 +5,8 @@ Each is also the **plain version** of one of the port's kernels:
 ``binned_stream_ref`` (kernels/binning.py: positions, COBRA pass),
 ``scatter_reduce_ref`` (kernels/fused.py: flat and row-block),
 ``binread_scatter_add_ref`` (kernels/binread.py) and
-``scatter_rows_ref`` (kernels/scatter_rows.py). A
+``scatter_rows_ref`` (kernels/scatter_rows.py); the flash kernel's,
+``flash_attention_ref``, lives beside its wrapper in kernels/flashattn.py. A
 kernel wrapper runs its plain version only for CPU tensors; the tests and
 ``chip_smoke.py`` hold each kernel against it. They follow the Pallas
 kernels' treatment of out-of-range keys: ignored by the histogram, -1 in

@@ -1,0 +1,134 @@
+"""Batched LM serving: prefill + decode with continuous batching (port of
+``repro/serving/server.py``).
+
+Requests (prompt token arrays) are admitted into a fixed set of batch
+slots; every engine tick decodes one token for all active slots; finished
+slots (EOS or max tokens) are refilled by prefilling pending requests.
+Slot state lives in one ``StepState`` whose batch axis is the slot count:
+a prefill runs on a one-sequence cache, which ``_splice_slot`` copies into
+its slot in place. Everything runs under ``torch.inference_mode()`` on the
+model's device.
+
+Like the reference, every slot decodes at one shared position,
+``state.index``, the longest prompt admitted so far plus the ticks since:
+a slot whose prompt is shorter than another active slot's gets that
+position for its RoPE and its cache write. The port keeps this so that it
+gives the reference's tokens; the fault is recorded in ROADMAP Queue 3.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Deque, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.graph_frontend import Clock
+from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (S,) int32
+    max_new: int = 16
+    eos_id: Optional[int] = None
+    out: List[int] = dataclasses.field(default_factory=list)
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+
+
+class Engine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: T.DenseLM,
+        slots: int = 4,
+        max_len: int = 256,
+        clock: Optional[Clock] = None,
+    ):
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        # injected monotonic clock; tests inject a FakeClock
+        self.clock = clock or Clock()
+        self.device = params.embed.table.device
+        with torch.inference_mode():
+            self.state = T.init_cache(cfg, slots, max_len, device=self.device)
+        self.active: List[Optional[Request]] = [None] * slots
+        self.pending: Deque[Request] = deque()
+        self._prefill = make_prefill_step(cfg, max_len)
+        self._decode = make_decode_step(cfg)
+        self.last_tok = np.zeros((slots, 1), dtype=np.int32)
+
+    def submit(self, req: Request):
+        req.t_submit = self.clock.now()
+        self.pending.append(req)
+
+    @torch.inference_mode()
+    def _admit(self):
+        for s in range(self.slots):
+            if self.active[s] is None and self.pending:
+                req = self.pending.popleft()
+                # prefill a single-sequence batch, then splice into slot s
+                prompt = np.ascontiguousarray(req.prompt, dtype=np.int32)[None, :]
+                tokens = torch.from_numpy(prompt).to(self.device)
+                logits, st1 = self._prefill(self.params, {"tokens": tokens})
+                tok = int(torch.argmax(logits[0]))
+                req.out.append(tok)
+                req.t_first = self.clock.now()
+                self.last_tok[s, 0] = tok
+                self.state = _splice_slot(self.state, st1, s)
+                self.active[s] = req
+
+    def tick(self) -> int:
+        """One engine step: admit + decode all active slots. Returns the
+        number of active slots."""
+        self._admit()
+        if not any(a is not None for a in self.active):
+            return 0
+        tokens = torch.from_numpy(self.last_tok).to(self.device)
+        logits, nxt, self.state = self._decode(self.params, self.state, tokens)
+        nxt = nxt.cpu().numpy()
+        for s, req in enumerate(self.active):
+            if req is None:
+                continue
+            tok = int(nxt[s])
+            req.out.append(tok)
+            self.last_tok[s, 0] = tok
+            done = len(req.out) >= req.max_new or (
+                req.eos_id is not None and tok == req.eos_id
+            )
+            if done:
+                req.t_done = self.clock.now()
+                self.active[s] = None
+        return sum(a is not None for a in self.active)
+
+    def run_until_drained(self, max_ticks: int = 10_000) -> List[Request]:
+        finished: List[Request] = []
+        for _ in range(max_ticks):
+            before = [a for a in self.active if a is not None]
+            n = self.tick()
+            for r in before:
+                if r not in self.active and r.t_done:
+                    finished.append(r)
+            if n == 0 and not self.pending:
+                break
+        return finished
+
+
+def _splice_slot(state: T.StepState, single: T.StepState, slot: int) -> T.StepState:
+    """Copy a one-sequence prefill state into batch position ``slot`` of
+    ``state``, in place, and keep the larger index. The cache tensors carry
+    the batch at axis 1 (axis 0 is the layer); the whole ``S_max`` row is
+    copied, so nothing of the slot's previous request survives."""
+    for dst, src in zip(state.caches, single.caches):
+        dst[:, slot] = src[:, 0]
+    # decode positions are per-slot in intent; the reference keeps the
+    # max index and decodes every slot there (ROADMAP Queue 3)
+    return T.StepState(caches=state.caches, index=max(state.index, single.index))

@@ -191,3 +191,99 @@ def test_cuda_scatter_rows_matches_plain(cuda, m, d, dtype):
     tp = torch.from_numpy(pos).to(cuda)
     got = scatter_rows(x, tp, m + 5)
     assert torch.equal(got, tref.scatter_rows_ref(x, tp, m + 5))
+
+
+# -- the flash-attention kernel (third slice) ---------------------------------
+# Against its plain version on the same inputs, elementwise: float32 within
+# atol 1e-4 (tests/test_kernels.py:217); bfloat16 within one bfloat16
+# rounding step of the plain output, |got - want| <= 2^-7 |want| + 1e-4,
+# since both round one float32 value (the floor covers float32 summation
+# order near 0). A flat 5e-2 would be as large as a causal output at long S.
+
+
+def _flash_close(got, want, dtype):
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        return bool((diff <= 1e-4).all())
+    return bool((diff <= 2.0**-7 * want.float().abs() + 1e-4).all())
+
+
+def _qkv(cuda, B, H, KH, Sq, Skv, hd, dtype, seed=0):
+    rng = _rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B, H, Sq, hd)).astype(np.float32)).to(cuda, dtype)
+    k = torch.from_numpy(rng.normal(size=(B, KH, Skv, hd)).astype(np.float32)).to(cuda, dtype)
+    v = torch.from_numpy(rng.normal(size=(B, KH, Skv, hd)).astype(np.float32)).to(cuda, dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Skv,hd", [
+    (1, 2, 1, 128, 128, 16), (2, 4, 2, 256, 256, 32), (1, 12, 2, 1, 1, 128),
+    (1, 12, 2, 7, 7, 128), (1, 12, 2, 513, 513, 128), (2, 6, 6, 100, 100, 64),
+    (1, 12, 2, 256, 512, 128), (1, 4, 1, 300, 65, 16),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_matches_plain(cuda, B, H, KH, Sq, Skv, hd, causal, dtype):
+    from repro_torch.kernels.flashattn import flash_attention, flash_attention_ref
+
+    q, k, v = _qkv(cuda, B, H, KH, Sq, Skv, hd, dtype, seed=Sq + hd)
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _flash_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_reads_strided_layout(cuda):
+    """(B, S, H, hd) activations passed as transposed views: read in place,
+    output with q's strides, equal to the contiguous call."""
+    from repro_torch.kernels.flashattn import flash_attention
+
+    B, S, H, KH, hd = 2, 200, 12, 2, 128
+    rng = _rng(3)
+    qs = torch.from_numpy(rng.normal(size=(B, S, H, hd)).astype(np.float32)).to(cuda, torch.bfloat16)
+    ks = torch.from_numpy(rng.normal(size=(B, S, KH, hd)).astype(np.float32)).to(cuda, torch.bfloat16)
+    vs = torch.from_numpy(rng.normal(size=(B, S, KH, hd)).astype(np.float32)).to(cuda, torch.bfloat16)
+    got = flash_attention(qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2))
+    want = flash_attention(*(t.transpose(1, 2).contiguous() for t in (qs, ks, vs)))
+    assert got.transpose(1, 2).is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype", [(48, torch.float32), (256, torch.bfloat16),
+                                      (64, torch.float16)])
+def test_cuda_flash_raises_on_what_it_does_not_take(cuda, hd, dtype):
+    from repro_torch.kernels.flashattn import flash_attention
+
+    q = torch.zeros(1, 2, 8, hd, device=cuda, dtype=dtype)
+    k = torch.zeros(1, 1, 8, hd, device=cuda, dtype=dtype)
+    before = flash_attention.launches
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["address", "stride"])
+def test_cuda_flash_raises_on_unaligned_kv(cuda, which):
+    """k and v are staged with 16-byte loads: a view that starts or steps
+    off a 16-byte boundary raises before any launch."""
+    from repro_torch.kernels.flashattn import flash_attention
+
+    B, H, KH, S, hd = 2, 4, 2, 8, 16
+    q = torch.zeros(B, H, S, hd, device=cuda, dtype=torch.bfloat16)
+    if which == "address":  # one element (2 bytes) past an aligned start
+        k = torch.zeros(B * KH * S * hd + 1, device=cuda, dtype=torch.bfloat16)[1:]
+        k = k.view(B, KH, S, hd)
+    else:  # rows of hd + 1 elements: a position stride of 34 bytes
+        k = torch.zeros(B, KH, S, hd + 1, device=cuda, dtype=torch.bfloat16)[..., :hd]
+    good = torch.zeros(B, KH, S, hd, device=cuda, dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, k, good)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, good, k)
+    assert flash_attention.launches == before

@@ -1,0 +1,123 @@
+"""The port's flash attention on the CPU against the JAX package.
+
+The wrapper runs its plain version on CPU tensors; it is held against
+``repro.kernels.flashattn.flash_attention_pallas`` (interpret mode) at the
+reference test's parameters (``tests/test_kernels.py:199-221``: float32
+atol 1e-4, bfloat16 atol 5e-2), and the model's routing of attention
+through it (``repro_torch.models.layers.blockwise_attention``) against the
+reference's ``blockwise_attention`` and ``_direct_attention`` on ragged
+lengths with qwen2's head grouping (G = 6, hd = 128), float32 atol 1e-4.
+The CUDA kernel itself is held against the plain version on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flashattn import flash_attention_pallas
+from repro.kernels.flashattn import flash_hbm_bytes as ref_flash_hbm_bytes
+from repro.models import layers as RL
+from repro_torch.kernels.flashattn import (
+    flash_attention,
+    flash_attention_ref,
+    flash_flops,
+    flash_hbm_bytes,
+)
+from repro_torch.models import layers as L
+
+ATOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def _inputs(shape_q, shape_kv, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=shape_q).astype(np.float32)
+    k = rng.normal(size=shape_kv).astype(np.float32)
+    v = rng.normal(size=shape_kv).astype(np.float32)
+    return q, k, v
+
+
+def _both(a, dtype):
+    """The same values (rounded once, to nearest even) on both sides."""
+    return jnp.asarray(a, dtype=getattr(jnp, dtype)), torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("B,H,KH,S,hd", [(1, 2, 1, 128, 16), (2, 4, 2, 256, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_flash_matches_pallas_interpret(B, H, KH, S, hd, causal, dtype):
+    q, k, v = _inputs((B, H, S, hd), (B, KH, S, hd), seed=B * S + H)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, q_block=64, kv_block=64)
+    before = flash_attention.launches
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert flash_attention.launches == before  # CPU tensors: the plain version
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), atol=ATOL[dtype], rtol=0
+    )
+
+
+@pytest.mark.parametrize("S", [33, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_model_attention_matches_reference_on_ragged_lengths(S, causal):
+    """(B, S, H, hd) activations, H = 12 over KH = 2, hd = 128: the port's
+    blockwise_attention (the kernel's route) against the reference's
+    padded online-softmax loop and its direct attention."""
+    B, H, KH, hd = 2, 12, 2, 128
+    q, k, v = _inputs((B, S, H, hd), (B, S, KH, hd), seed=S)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    got = L.blockwise_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal
+    ).numpy()
+    blockwise = RL.blockwise_attention(jq, jk, jv, causal=causal, q_block=32, kv_block=32)
+    direct = RL._direct_attention(jq, jk, jv, causal=causal)
+    assert got.shape == (B, S, H * hd)
+    np.testing.assert_allclose(got, np.asarray(blockwise), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(direct), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(1, 1), (7, 7), (40, 65), (65, 40)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_flash_matches_direct_attention_for_any_lengths(Sq, Skv, causal):
+    """Sq != Skv: positions count from 0 for both q and k, as in the Pallas
+    kernel's mask; the reference's direct attention with q_offset = 0."""
+    q, k, v = _inputs((1, Sq, 12, 128), (1, Skv, 2, 128), seed=Sq * 100 + Skv)
+    got = flash_attention(
+        torch.from_numpy(q).transpose(1, 2), torch.from_numpy(k).transpose(1, 2),
+        torch.from_numpy(v).transpose(1, 2), causal=causal,
+    ).transpose(1, 2).reshape(1, Sq, -1)
+    want = RL._direct_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+
+
+def test_plain_flash_reads_strided_views_as_contiguous():
+    q, k, v = _inputs((2, 30, 12, 64), (2, 30, 2, 64), seed=5)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = flash_attention(tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2))
+    want = flash_attention_ref(*(t.transpose(1, 2).contiguous() for t in (tq, tk, tv)))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shapes", [
+    ((1, 3, 8, 16), (1, 2, 8, 16)),   # 3 heads over 2 KV heads
+    ((1, 2, 8, 16), (1, 1, 0, 16)),   # no keys
+    ((1, 2, 8, 16), (1, 1, 8, 32)),   # head_dim differs
+    ((2, 2, 8), (2, 1, 8)),           # not 4-D
+])
+def test_flash_rejects_bad_shapes(shapes):
+    q = torch.zeros(shapes[0])
+    k = torch.zeros(shapes[1])
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)
+
+
+def test_flash_bytes_and_flops_match_the_reference_model():
+    for args in [(1, 12, 2, 4096, 4096, 128), (2, 4, 2, 256, 512, 32), (1, 2, 1, 100, 100, 16)]:
+        for q_block in (64, 128, 512):
+            for nbytes in (2, 4):
+                assert flash_hbm_bytes(*args, q_block=q_block, dtype_bytes=nbytes) == \
+                    ref_flash_hbm_bytes(*args, q_block=q_block, dtype_bytes=nbytes)
+    # the prefill shape of qwen2-1.5b: 5.15e10 FLOP under the causal mask
+    assert flash_flops(1, 12, 4096, 4096, 128, causal=True) == 4 * 12 * 4096**2 * 128 / 2
+    assert flash_flops(1, 12, 4096, 4096, 128, causal=False) == 4 * 12 * 4096**2 * 128
