@@ -9,7 +9,9 @@ without a result line, when CUDA is unavailable, when the package is not
 beside it, or on any mismatch. Each phase prints its seconds. Phases:
 
 1. Device: ``nvidia-smi`` name and power limit, the device properties
-   beside ``HardwareModel.h100()``, then the kernels' build (nvcc, sm_90a).
+   beside ``HardwareModel.h100()``, then the kernels' build (nvcc, sm_90a),
+   and the HMMA (tensor-core) instructions that ``cuobjdump -sass`` finds
+   in each flash kernel: every bfloat16 one must have them.
 2. The first slice's kernels against their plain versions on the card:
    histogram and positions at m in {1, 17, 5000, 2^25} x B in
    {2, 257, 908, 65536} (random and all-one-key streams); the fused
@@ -44,11 +46,15 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    with the H100 plan must equal ``binned_stream_ref`` at the final range;
    ``pb_scatter_add_full`` at embed_grad's full shapes (zipf ids,
    bin_range 4096) against a float64 ``index_add_``.
-8. The flash-attention kernel against its plain version: float32 and
+8. The flash-attention kernels against their plain version: float32 and
    bfloat16, causal and not, at the JAX test's shapes (B, H, KH, S, hd) =
    (1, 2, 1, 128, 16) and (2, 4, 2, 256, 32), at qwen2-1.5b's heads
-   (1, 12, 2, S, 128) for S in {1, 7, 500, 513, 2048, 4096}, and at
-   Sq = 256 against Skv = 512.
+   (1, 12, 2, S, 128) for S in {1, 7, 500, 513, 2048, 4096}, at
+   Sq = 256 against Skv = 512, at qwen-like grouping (2, 12, 2, 300, hd)
+   for hd in {16, 32, 64}, and at every Sq, Skv in {1, 15, 63, 65, 127,
+   129} (around the 64-row tiles); then where outputs nearly cancel
+   (v = +-1 alternating by key), which a bfloat16-rounded P would fail.
+   The largest |diff| and share of the tolerance are printed per dtype.
 9. The LM serving path: full-size ``qwen2-1.5b`` (28 layers, bf16, random
    weights from seed 0) served by ``Engine`` with 4 slots and 4096
    positions, 8 requests with prompts of 100-2048 tokens (numpy seed 0)
@@ -129,7 +135,14 @@ FLASH_SHAPES = (  # (B, H, KH, Sq, Skv, hd): the JAX test's, then qwen2-1.5b's h
     [(1, 2, 1, 128, 128, 16), (2, 4, 2, 256, 256, 32)]
     + [(1, 12, 2, s, s, 128) for s in (1, 7, 500, 513, 2048, 4096)]
     + [(1, 12, 2, 256, 512, 128)]
+    # qwen-like grouping at the smaller head dims, lengths around the 64-row
+    # tiles (Sq < Skv and Sq > Skv among them)
+    + [(2, 12, 2, 300, 300, hd) for hd in (16, 32, 64)]
+    + [(1, 12, 2, sq, skv, 128) for sq in (1, 15, 63, 65, 127, 129)
+       for skv in (1, 15, 63, 65, 127, 129)]
 )
+FLASH_CANCEL_SHAPES = [(1, 2, 2, 128, 128, 16), (1, 12, 2, 512, 512, 128),
+                       (1, 12, 2, 2048, 2048, 128), (1, 12, 2, 100, 1000, 64)]
 FLASH_F32_ATOL = 1e-4  # flash kernel vs plain, float32 (see flash_close)
 FLASH_BF16_REL, FLASH_BF16_FLOOR = 2.0**-7, 1e-4  # bfloat16: times |plain| plus the floor
 LM_ARCH = "qwen2-1.5b"
@@ -155,15 +168,19 @@ def flash_close(got, want, dt):
     (tests/test_kernels.py:217); bfloat16 within one rounding step of the
     plain output, |got - want| <= 2^-7 |want| + 1e-4 (both round one
     float32 value to bfloat16; the floor covers float32 summation order
-    near 0). Returns (max |got - want|, ok)."""
+    near 0). Returns (max |got - want|, the largest share of its
+    tolerance that an entry uses, ok)."""
     import torch
 
     diff = (got.float() - want.float()).abs()
     if dt == torch.float32:
-        ok = bool((diff <= FLASH_F32_ATOL).all())
+        tol = torch.full_like(diff, FLASH_F32_ATOL)
     else:
-        ok = bool((diff <= FLASH_BF16_REL * want.float().abs() + FLASH_BF16_FLOOR).all())
-    return float(diff.max()) if diff.numel() else 0.0, ok
+        tol = FLASH_BF16_REL * want.float().abs() + FLASH_BF16_FLOOR
+    if not diff.numel():
+        return 0.0, 0.0, True
+    share = float((diff / tol).max())
+    return float(diff.max()), share, bool((diff <= tol).all())
 
 
 def say(*parts) -> None:
@@ -177,31 +194,41 @@ def bound_ms(nbytes: float) -> float:
 # -- the LM serving path (phases 8-10) -------------------------------------------
 
 
-def flash_checks(dev, shapes):
+def flash_checks(dev, shapes, cancel=False):
     """Phase 8: the flash kernel against its plain version at ``shapes``
-    (B, H, KH, Sq, Skv, hd) for float32 and bfloat16, causal and not;
-    returns the largest error."""
+    (B, H, KH, Sq, Skv, hd) for float32 and bfloat16, causal and not. With
+    ``cancel``, v = +-1 alternating by key, so that every output nearly
+    cancels: a kernel that rounded P to bfloat16 once would fail there.
+    Returns {dtype: (largest |diff|, largest share of the tolerance)}."""
     import torch
 
     from repro_torch.kernels.flashattn import flash_attention, flash_attention_ref
 
     gen = torch.Generator(device=dev).manual_seed(8)
-    worst = 0.0
+    worst = {}
     for B, H, KH, Sq, Skv, hd in shapes:
         for dt in (torch.float32, torch.bfloat16):
             q = torch.randn(B, H, Sq, hd, device=dev, generator=gen).to(dt)
             k = torch.randn(B, KH, Skv, hd, device=dev, generator=gen).to(dt)
-            v = torch.randn(B, KH, Skv, hd, device=dev, generator=gen).to(dt)
+            if cancel:
+                sign = 1.0 - 2.0 * (torch.arange(Skv, device=dev) % 2)
+                v = sign[None, None, :, None].expand(B, KH, Skv, hd).to(dt).contiguous()
+            else:
+                v = torch.randn(B, KH, Skv, hd, device=dev, generator=gen).to(dt)
             for causal in (True, False):
                 got = flash_attention(q, k, v, causal=causal)
                 want = flash_attention_ref(q, k, v, causal=causal)
-                err, close = flash_close(got, want, dt)
+                err, share, close = flash_close(got, want, dt)
                 ok = got.shape == q.shape and got.dtype == dt and close
-                worst = max(worst, err)
+                w = worst.get(str(dt), (0.0, 0.0))
+                worst[str(dt)] = (max(w[0], err), max(w[1], share))
                 say("phase8", json.dumps({"flash": [B, H, KH, Sq, Skv, hd], "dtype": str(dt),
-                                          "causal": causal, "max_abs_err": err, "ok": ok}))
-                require(ok, f"flash {dt} causal={causal} at {(B, H, KH, Sq, Skv, hd)} differs "
-                            f"from plain (max |diff| {err}; see flash_close)")
+                                          "causal": causal, "cancel": cancel,
+                                          "max_abs_err": err, "tolerance_share": share,
+                                          "ok": ok}))
+                require(ok, f"flash {dt} causal={causal} cancel={cancel} at "
+                            f"{(B, H, KH, Sq, Skv, hd)} differs from plain (max |diff| {err}; "
+                            f"see flash_close)")
             del q, k, v, got, want
     return worst
 
@@ -514,8 +541,14 @@ def main() -> None:
     _lib.load()
     say(f"phase1 kernels built in {time.perf_counter() - t0:.2f} s into {_lib.load().build_dir.name}")
     for line in _lib.build_log().splitlines():
-        if line.startswith("==") or "registers" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             say("phase1 nvcc:", line.strip())
+    # which flash kernels run on the tensor cores: HMMA lines in their SASS
+    hmma = {name: body.count("HMMA") for name, body in _lib.kernel_sass("flash_fwd_").items()}
+    say("phase1 flash SASS HMMA count:", json.dumps(hmma))
+    bf16_hmma = [n for name, n in hmma.items() if "flash_fwd_bf16_kernel" in name]
+    require(len(bf16_hmma) == 4 and min(bf16_hmma) > 0,
+            f"the bf16 flash kernels do not all run on the tensor cores: {hmma}")
 
     # -- phase 2: kernels against their plain versions -------------------------
     t2 = time.perf_counter()
@@ -996,7 +1029,10 @@ def main() -> None:
     T.set_default_executor(None)
     torch.cuda.empty_cache()
     t8 = time.perf_counter()
-    worst["flash_attention"] = flash_checks(dev, FLASH_SHAPES)
+    flash_worst = {"random": flash_checks(dev, FLASH_SHAPES),
+                   "cancel": flash_checks(dev, FLASH_CANCEL_SHAPES, cancel=True)}
+    say("phase8 largest |diff| and share of the tolerance by dtype:", json.dumps(flash_worst))
+    worst["flash_attention"] = max(e for w in flash_worst.values() for e, _ in w.values())
     torch.cuda.empty_cache()
     say(f"phase8 seconds: {time.perf_counter() - t8:.1f}")
 
@@ -1172,7 +1208,8 @@ def main() -> None:
     fq = torch.randn(fB, fH, fS, fhd, device=dev, generator=gen).to(torch.bfloat16)
     fk = torch.randn(fB, fKH, fS, fhd, device=dev, generator=gen).to(torch.bfloat16)
     fv = torch.randn(fB, fKH, fS, fhd, device=dev, generator=gen).to(torch.bfloat16)
-    ferr, fok = flash_close(K.flash_attention(fq, fk, fv), flash_attention_ref(fq, fk, fv), torch.bfloat16)
+    ferr, _, fok = flash_close(K.flash_attention(fq, fk, fv), flash_attention_ref(fq, fk, fv),
+                               torch.bfloat16)
     require(fok, f"flash at the timing shape differs from plain (max |diff| {ferr}; see flash_close)")
     fflop = flash_flops(fB, fH, fS, fS, fhd, causal=True)
     fbytes = 2 * (2 * fB * fH * fS * fhd + 2 * fB * fKH * fS * fhd)  # q, o, k, v once each

@@ -131,6 +131,21 @@ def build_log() -> str:
     return path.read_text() if path.exists() else ""
 
 
+def kernel_sass(name_part: str) -> dict:
+    """``cuobjdump -sass`` of the loaded library (the toolkit's, beside
+    nvcc): mangled name -> SASS of every kernel whose name holds
+    ``name_part``."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(load().build_dir / LIB_NAME)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name, _, body = block.partition("\n")
+        if name_part in name:
+            out[name.strip()] = body
+    return out
+
+
 def require_cuda(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
     """A kernel takes contiguous CUDA tensors of one dtype; raise otherwise."""
     if t.device.type != "cuda":

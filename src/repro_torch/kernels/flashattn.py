@@ -6,23 +6,33 @@ shared by groups of ``H // KH`` query heads, with an optional causal mask
 on absolute positions counted from 0 for both q and k. Scores, softmax and
 the accumulator are float32; the output has q's shape and dtype.
 
-On CUDA tensors it runs ``csrc/flashattn.cu`` (float32 or bfloat16, head
-dims 16, 32, 64 and 128; anything else raises); on CPU tensors its plain
-version ``flash_attention_ref``. The kernel takes any ``Sq`` and ``Skv``
-(the ragged tile is masked) and reads every tensor through its strides,
-with only the last axis contiguous: a ``(B, S, H, hd)`` activation passed
-as ``x.transpose(1, 2)`` is read in place, and the output is allocated
-with q's strides, so ``out.transpose(1, 2)`` is contiguous again. k and v
-are staged with 16-byte loads, so their data pointers and strides must be
-16-byte multiples (a fresh tensor's or a projection's view always is);
-others raise. The Pallas kernel's ``q_block``/``kv_block`` VMEM tiles have
-no counterpart: the CUDA kernel's tiles are fixed (64 queries, 64 keys).
+On CUDA tensors it runs ``csrc/flashattn.cu`` (head dims 16, 32, 64 and
+128; anything else raises); on CPU tensors its plain version
+``flash_attention_ref``. bfloat16 takes the tensor-core kernel
+(``mma.sync`` m16n8k16 with f32 accumulators; tiles of 64 queries, four
+warps of 16 rows, and a two-stage ``cp.async`` ring of 64-key K/V tiles);
+float32 takes a CUDA-core kernel in f32 (64 queries, 64-key tiles), since
+TF32 products would not hold the float32 model to its CPU copy. Both take
+any ``Sq`` and ``Skv`` (the ragged tile is masked) and read every tensor
+through its strides, with only the last axis contiguous: a
+``(B, S, H, hd)`` activation passed as ``x.transpose(1, 2)`` is read in
+place, and the output is allocated with q's strides, so
+``out.transpose(1, 2)`` is contiguous again. k and v are staged with
+16-byte copies, so their data pointers and strides must be 16-byte
+multiples (a fresh tensor's or a projection's view always is); others
+raise. The Pallas kernel's ``q_block``/``kv_block`` VMEM tiles have no
+counterpart: the CUDA kernels' tiles are fixed.
 
 Against the plain version on the same inputs the kernel is held to atol
 1e-4 in float32 and, in bfloat16, to one bfloat16 rounding step of the
 plain output, ``|got - want| <= 2**-7 * |want| + 1e-4`` elementwise: both
 compute in float32 and round once to bfloat16, so they differ by at most
-the one step that float32 summation order can tip a value across.
+the one step that float32 summation order can tip a value across. The
+bfloat16 kernel keeps that: q k^T multiplies bf16 values exactly into f32,
+and P enters P V as two bf16 halves, ``hi = bf16(p)`` and
+``lo = bf16(p - hi)``, whose sum is within 2**-17 of p, where a single bf16
+rounding (2**-9) fails the check on outputs that nearly cancel
+(``tests/test_torch_flashattn.py`` emulates both).
 ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations

@@ -208,12 +208,30 @@ def _flash_close(got, want, dtype):
     return bool((diff <= 2.0**-7 * want.float().abs() + 1e-4).all())
 
 
-def _qkv(cuda, B, H, KH, Sq, Skv, hd, dtype, seed=0):
+def _qkv(cuda, B, H, KH, Sq, Skv, hd, dtype, seed=0, cancel=False):
+    """Unit-normal q, k, v; with ``cancel``, v = +-1 alternating by key, so
+    that every output nearly cancels (a bf16-rounded P fails the check)."""
     rng = _rng(seed)
     q = torch.from_numpy(rng.normal(size=(B, H, Sq, hd)).astype(np.float32)).to(cuda, dtype)
     k = torch.from_numpy(rng.normal(size=(B, KH, Skv, hd)).astype(np.float32)).to(cuda, dtype)
     v = torch.from_numpy(rng.normal(size=(B, KH, Skv, hd)).astype(np.float32)).to(cuda, dtype)
+    if cancel:
+        sign = 1.0 - 2.0 * (torch.arange(Skv, device=cuda) % 2)
+        v = sign[None, None, :, None].expand(B, KH, Skv, hd).to(dtype).contiguous()
     return q, k, v
+
+
+def _flash_vs_plain(cuda, B, H, KH, Sq, Skv, hd, causal, dtype, **kw):
+    from repro_torch.kernels.flashattn import flash_attention, flash_attention_ref
+
+    q, k, v = _qkv(cuda, B, H, KH, Sq, Skv, hd, dtype, **kw)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _flash_close(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -225,14 +243,64 @@ def _qkv(cuda, B, H, KH, Sq, Skv, hd, dtype, seed=0):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_matches_plain(cuda, B, H, KH, Sq, Skv, hd, causal, dtype):
-    from repro_torch.kernels.flashattn import flash_attention, flash_attention_ref
+    _flash_vs_plain(cuda, B, H, KH, Sq, Skv, hd, causal, dtype, seed=Sq + hd)
 
-    q, k, v = _qkv(cuda, B, H, KH, Sq, Skv, hd, dtype, seed=Sq + hd)
-    got = flash_attention(q, k, v, causal=causal)
-    want = flash_attention_ref(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert got.shape == q.shape and got.dtype == dtype
-    assert _flash_close(got, want, dtype)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("S", [100, 300])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_bf16_head_dims_with_qwen_grouping(cuda, hd, S, causal):
+    _flash_vs_plain(cuda, 2, 12, 2, S, S, hd, causal, torch.bfloat16, seed=S + hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [1, 15, 63, 65, 127, 129])
+@pytest.mark.parametrize("Skv", [1, 15, 63, 65, 127, 129])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_bf16_ragged_tile_edges(cuda, Sq, Skv, causal):
+    """Lengths around the 64-row tiles, Sq < Skv and Sq > Skv included."""
+    _flash_vs_plain(cuda, 1, 12, 2, Sq, Skv, 128, causal, torch.bfloat16, seed=Sq * 1000 + Skv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Skv,hd", [
+    (1, 2, 2, 128, 128, 16), (1, 12, 2, 512, 512, 128), (1, 12, 2, 2048, 2048, 128),
+    (1, 12, 2, 100, 1000, 64),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_bf16_where_outputs_cancel(cuda, B, H, KH, Sq, Skv, hd, causal):
+    """v = +-1 alternating by key: a kernel that rounds P to bf16 once fails
+    here (tests/test_torch_flashattn.py emulates both)."""
+    _flash_vs_plain(cuda, B, H, KH, Sq, Skv, hd, causal, torch.bfloat16, seed=hd, cancel=True)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_reads_unaligned_q(cuda):
+    """q one element off a 16-byte boundary takes the element loads of the
+    Q tile; the result equals the aligned call's."""
+    from repro_torch.kernels.flashattn import flash_attention
+
+    B, H, KH, S, hd = 1, 4, 2, 70, 64
+    q, k, v = _qkv(cuda, B, H, KH, S, S, hd, torch.bfloat16, seed=11)
+    off = torch.empty(q.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(q.shape)
+    off.copy_(q)
+    assert off.data_ptr() % 16
+    assert torch.equal(flash_attention(off, k, v), flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernels_route_by_dtype(cuda):
+    """The bf16 kernels run on the tensor cores (HMMA in their SASS), the
+    float32 kernels on CUDA cores."""
+    from repro_torch.kernels import _lib
+
+    sass = _lib.kernel_sass("flash_fwd_")
+    bf16 = {n: body for n, body in sass.items() if "flash_fwd_bf16_kernel" in n}
+    f32 = {n: body for n, body in sass.items() if "flash_fwd_f32_kernel" in n}
+    assert len(bf16) == 4 and len(f32) == 4
+    assert all("HMMA" in body for body in bf16.values())
+    assert not any("HMMA" in body for body in f32.values())
 
 
 @pytest.mark.cuda

@@ -8,8 +8,12 @@ through it (``repro_torch.models.layers.blockwise_attention``) against the
 reference's ``blockwise_attention`` and ``_direct_attention`` on ragged
 lengths with qwen2's head grouping (G = 6, hd = 128), float32 atol 1e-4.
 The CUDA kernel itself is held against the plain version on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``). Its bfloat16
+arithmetic (tensor-core products, P split into two bfloat16 halves) is
+emulated here in plain torch and held to the card's bfloat16 check.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,3 +125,96 @@ def test_flash_bytes_and_flops_match_the_reference_model():
     # the prefill shape of qwen2-1.5b: 5.15e10 FLOP under the causal mask
     assert flash_flops(1, 12, 4096, 4096, 128, causal=True) == 4 * 12 * 4096**2 * 128 / 2
     assert flash_flops(1, 12, 4096, 4096, 128, causal=False) == 4 * 12 * 4096**2 * 128
+
+
+# -- the bfloat16 kernel's arithmetic, emulated ---------------------------------
+# csrc/flashattn.cu multiplies bf16 q, k, v on the tensor cores: f32 scores
+# (bf16 products are exact), scaled by hd^-0.5 * log2(e), an online softmax
+# over 64-key tiles with exp2, and P V with P split into hi = bf16(p) and
+# lo = bf16(p - hi), both products into one f32 accumulator. The emulation
+# below repeats that arithmetic and is held to the card's bfloat16 check
+# against the plain version: |got - want| <= 2^-7 |want| + 1e-4, one bf16
+# step of the plain output (tests/test_torch_cuda.py, chip_smoke.py).
+
+BF16_REL, BF16_FLOOR = 2.0**-7, 1e-4
+
+
+def _emulate_bf16_kernel(q, k, v, causal, split_p=True, tile=64):
+    B, H, Sq, hd = q.shape
+    KH, Skv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, KH, H // KH, Sq, hd)
+    kf, vf = k.float(), v.float()
+    scale = torch.tensor(hd**-0.5 * math.log2(math.e), dtype=torch.float32)
+    m = torch.full((B, KH, H // KH, Sq), -1e30)
+    l = torch.zeros(B, KH, H // KH, Sq)
+    acc = torch.zeros(B, KH, H // KH, Sq, hd)
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        s = torch.einsum("bkgqh,bksh->bkgqs", qf, kt) * scale
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = torch.where(keys <= rows, s, torch.full((), -1e30))
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(s - mx[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bksh->bkgqh", hi, vt)
+        if split_p:
+            lo = (p - hi).bfloat16().float()
+            acc = acc + torch.einsum("bkgqs,bksh->bkgqh", lo, vt)
+        m = mx
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.reshape(B, H, Sq, hd).bfloat16()
+
+
+def _bf16_misses(got, want):
+    """Entries outside one bf16 step of the plain output."""
+    diff = (got.float() - want.float()).abs()
+    return int((diff > BF16_REL * want.float().abs() + BF16_FLOOR).sum())
+
+
+def _bf16_qkv(B, H, KH, Sq, Skv, hd, seed, cancel=False):
+    """bf16 q, k, v from N(0, 1) (numpy); with ``cancel`` v = +-1 alternating
+    by key, so that every output is a near-cancelling sum."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B, H, Sq, hd)).astype(np.float32)).bfloat16()
+    k = torch.from_numpy(rng.normal(size=(B, KH, Skv, hd)).astype(np.float32)).bfloat16()
+    if cancel:
+        sign = 1.0 - 2.0 * (np.arange(Skv) % 2)
+        v = np.broadcast_to(sign[None, None, :, None], (B, KH, Skv, hd))
+    else:
+        v = rng.normal(size=(B, KH, Skv, hd))
+    return q, k, torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)).bfloat16()
+
+
+@pytest.mark.parametrize("B,H,KH,S,hd", [
+    (1, 2, 2, 128, 16), (1, 2, 2, 512, 128), (1, 2, 2, 2048, 128),  # the design's shapes
+    (1, 12, 2, 200, 32), (2, 12, 2, 130, 64), (1, 12, 2, 300, 128),  # qwen-like grouping
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_p_arithmetic_holds_the_bf16_check(B, H, KH, S, hd, causal):
+    q, k, v = _bf16_qkv(B, H, KH, S, S, hd, seed=0)
+    got = _emulate_bf16_kernel(q, k, v, causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert _bf16_misses(got, want) == 0
+
+
+@pytest.mark.parametrize("Sq", [1, 15, 63, 65, 127, 129])
+@pytest.mark.parametrize("Skv", [1, 15, 63, 65, 127, 129])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_p_arithmetic_on_ragged_lengths(Sq, Skv, causal):
+    q, k, v = _bf16_qkv(1, 12, 2, Sq, Skv, 32, seed=Sq * 1000 + Skv)
+    got = _emulate_bf16_kernel(q, k, v, causal)
+    assert _bf16_misses(got, flash_attention_ref(q, k, v, causal=causal)) == 0
+
+
+@pytest.mark.parametrize("S,hd", [(128, 16), (512, 128)])
+def test_split_p_is_needed_where_outputs_cancel(S, hd):
+    """v = +-1 alternating by key: the split-P arithmetic holds the check,
+    and a single bf16 rounding of P, as FlashAttention-2 does, fails it."""
+    q, k, v = _bf16_qkv(1, 2, 2, S, S, hd, seed=0, cancel=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    assert _bf16_misses(_emulate_bf16_kernel(q, k, v, True), want) == 0
+    assert _bf16_misses(_emulate_bf16_kernel(q, k, v, True, split_p=False), want) > 0
