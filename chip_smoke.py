@@ -14,9 +14,14 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    in each flash kernel: every bfloat16 one must have them.
 2. The first slice's kernels against their plain versions on the card:
    histogram and positions at m in {1, 17, 5000, 2^25} x B in
-   {2, 257, 908, 65536} (random and all-one-key streams); the fused
-   accumulate for {add, min, max} x {float32, int32} at n = 2^22, m = 2^25,
-   plus the skewed KRON edge stream.
+   {2, 257, 908, 65536} (random and all-one-key streams), and positions
+   at m = T - 1, T, T + 1 for the onesweep tile T = 16384 x B in
+   {2, 512, 2048, 2049} (both sides of the design switch); the fused
+   accumulate for {add, min, max} x {float32, int32} at n = 2^22, m = 2^25
+   on uniform indices, the skewed KRON edge stream, a hub stream (half of
+   the tuples to one index) and a one-key stream, the last two in both
+   designs. Each line names the design that ran (``positions_design``,
+   ``fused_design``).
 3. The main path, fig5's arms A-E (``benchmarks/fig5_end2end.py``) through
    the port's entry points with the default executor, at S1 (the five
    ``graph_suite("bench")`` graphs, checked against the port on the CPU),
@@ -72,7 +77,11 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    phases 3-4, 6, 7 and 9 (counts set to 0 before each path, read after
    it; the checks of phases 2, 5, 8, 10 and 11 do not count), its largest
    error against its plain version, and times at a path's shapes; then
-   the result line.
+   the result line. Before it: the same launches split by shape, the
+   fused accumulate and ``index_add_`` timed at the S1 KRON and DBP
+   streams (fig5's S1 PageRank shapes), and a ``torch.profiler`` listing
+   of one call of positions and of the fused accumulate at S2, kernel by
+   kernel.
 
 Tolerances: integer outputs, CSRs, binned streams, COBRA passes, row
 scatters and min/max results must be equal. Float32 PageRank sums run in
@@ -122,6 +131,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PR_RTOL = 1e-2  # elementwise, see the module docstring
 PR_L1 = 5e-3  # sum |x - y| / sum |y|
 ADD_TOL = 1e-5  # times the sum of |v| reaching an index
+POS_TILE = 16384  # csrc/positions.cu kPosTile: the onesweep tile
 F_GRID = (1, 8, 32, 128)  # benchmarks/fig9_spmm.py
 ITERS9 = 8  # fig9's chained reduce -> gather rounds at bench scale
 SPMM_TOL = 1e-2  # fig9 arms: max |a - b| / max |b|, see the module docstring
@@ -290,6 +300,7 @@ def serve_lm(cfg, model, prompts, slots, max_len, max_new):
     sync()
     secs = time.perf_counter() - t0
     counts = K.launch_counts()  # the serving path ends here
+    shapes = K.launch_shapes()
     tokens = sum(len(r.out) for r in done)
     decoded = tokens - len(done)  # each request's first token comes from its prefill
     rec = {
@@ -302,6 +313,7 @@ def serve_lm(cfg, model, prompts, slots, max_len, max_new):
         "ttft_s": {r.rid: r.t_first - r.t_submit for r in sorted(done, key=lambda r: r.rid)},
         "max_memory_allocated": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
         "flash_launches": counts["flash_attention"], "final_index": eng.state.index,
+        "launch_shapes": shapes,
     }
     require(len(done) == len(prompts) and all(len(r.out) == max_new for r in done),
             f"serving finished {len(done)} of {len(prompts)} requests")
@@ -332,6 +344,24 @@ def device_profile(fn, dev):
     return {"wall_ms": wall, "device_busy_ms": busy, "busy_share": busy / wall,
             "kernels": sum(e.count for e in kernels),
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+def kernel_profile(fn):
+    """Device ms of each kernel (and memset) of one call of ``fn`` under
+    ``torch.profiler``, after one call outside it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+            "kernels": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                        for e in sorted(rows, key=lambda e: -e.self_device_time_total)]}
 
 
 def engine_equals_manual_loop(cfg, model, prompt, max_len, max_new):
@@ -413,6 +443,8 @@ def main() -> None:
     from repro_torch.core.executor import execute_reduce
     from repro_torch.core.pb import bin_ids, reduce_identity, starts_from_counts
     from repro_torch.kernels import _lib, ref
+    from repro_torch.kernels.binning import positions_design
+    from repro_torch.kernels.fused import FUSED_DESIGNS, fused_design
     from repro_torch.models import GNNLayer
     from repro_torch.timing import cuda_ms, time_fn
 
@@ -583,7 +615,7 @@ def main() -> None:
                             "bound_ms": bound_ms(4 * m + 4 * B),
                         },
                         "counting_positions": {
-                            "max_abs_err": ep,
+                            "design": positions_design(B), "max_abs_err": ep,
                             "kernel_ms": cuda_ms(K.counting_positions, keys, starts, B, reps=reps),
                             "plain_ms": cuda_ms(ref.counting_positions_ref, keys, starts, B, reps=reps),
                             "library_ms": None,
@@ -592,23 +624,39 @@ def main() -> None:
                     }),
                 )
                 require(eh == 0 and ep == 0, f"histogram/positions differ from plain at m={m} B={B} {stream}")
+    for m in (POS_TILE - 1, POS_TILE, POS_TILE + 1):  # around the onesweep tile
+        for B in (2, 512, 2048, 2049):  # 2049: the first B of the three-phase design
+            keys = torch.randint(-1, B + 1, (m,), device=dev, generator=gen, dtype=torch.int32)
+            starts = starts_from_counts(ref.histogram_ref(keys, B))[:-1].contiguous()
+            ep = int((K.counting_positions(keys, starts, B)
+                      - ref.counting_positions_ref(keys, starts, B)).abs().max())
+            worst["counting_positions"] = max(worst["counting_positions"], ep)
+            say("phase2", json.dumps({"positions_tile_edge": m, "B": B,
+                                      "design": positions_design(B), "max_abs_err": ep}))
+            require(ep == 0, f"positions differ from plain at the tile edge m={m} B={B}")
 
     n, m = 1 << 22, 1 << 25
     r = min(max(64, T.compromise_bin_range(n, hw)), n)
     idx_u = torch.randint(0, n, (m,), device=dev, generator=gen, dtype=torch.int32)
     kron = T.gen_kron(18, 8, seed=2, device=dev)
-    streams = [("uniform", idx_u, n, r), ("kron-dst", kron.dst, kron.num_nodes,
-                                          min(max(64, T.compromise_bin_range(kron.num_nodes, hw)), kron.num_nodes))]
-    for sname, idx, nn, rr in streams:
+    idx_hub = idx_u.clone()
+    idx_hub[torch.rand(m, device=dev, generator=gen) < 0.5] = 12_345
+    streams = [("uniform", idx_u, n, r, [None]),
+               ("kron-dst", kron.dst, kron.num_nodes,
+                min(max(64, T.compromise_bin_range(kron.num_nodes, hw)), kron.num_nodes), [None]),
+               ("hub", idx_hub, n, r, FUSED_DESIGNS),
+               ("one-key", torch.full_like(idx_u, n // 3 + 5), n, r, FUSED_DESIGNS)]
+    for sname, idx, nn, rr, designs in streams:
         mm = idx.shape[0]
-        for dt in (torch.float32, torch.int32):
+        for dt, design in [(dt, d) for dt in (torch.float32, torch.int32) for d in designs]:
             if dt == torch.float32:
                 val = torch.randn(mm, device=dev, generator=gen)
             else:
                 val = torch.randint(-50, 50, (mm,), device=dev, generator=gen, dtype=torch.int32)
+            reps = 2 if design else 10
             for op in ("add", "min", "max"):
                 nb = -(-nn // rr)
-                got = K.cobra_bin_accumulate(idx, val, nn, rr, nb, op)
+                got = K.cobra_bin_accumulate(idx, val, nn, rr, nb, op, design=design)
                 want = ref.scatter_reduce_ref(idx, val, nn, op)
                 torch.cuda.synchronize()
                 err = float((got.double() - want.double()).abs().max())
@@ -629,15 +677,20 @@ def main() -> None:
                     "phase2",
                     json.dumps({
                         "fused": sname, "n": nn, "m": mm, "bin_range": rr, "dtype": str(dt),
-                        "op": op, "max_abs_err": err, "ok": bool(ok),
-                        "kernel_ms": cuda_ms(K.cobra_bin_accumulate, idx, val, nn, rr, nb, op, reps=10),
-                        "plain_ms": cuda_ms(ref.scatter_reduce_ref, idx, val, nn, op, reps=10),
-                        "library_ms": cuda_ms(lib_call, reps=10),
+                        "op": op, "design": design or fused_design(mm, nn),
+                        "max_abs_err": err, "ok": bool(ok),
+                        "kernel_ms": cuda_ms(K.cobra_bin_accumulate, idx, val, nn, rr, nb, op,
+                                             design, reps=10),
+                        # the library and plain calls serialise on a hub: 15-60 ms each
+                        "plain_ms": cuda_ms(ref.scatter_reduce_ref, idx, val, nn, op, reps=reps,
+                                            warmup=1),
+                        "library_ms": cuda_ms(lib_call, reps=reps, warmup=1),
                         "bound_ms": bound_ms(8 * mm + 4 * nn),
                     }),
                 )
-                require(ok, f"fused {op} {dt} on {sname} differs from plain (max err {err})")
-    del idx_u, val, got, want
+                require(ok, f"fused {op} {dt} on {sname} ({design or 'default'} design) "
+                            f"differs from plain (max err {err})")
+    del idx_u, idx_hub, val, got, want
     say(f"phase2 seconds: {time.perf_counter() - t2:.1f}")
 
     # -- phases 3 and 4: the main path ----------------------------------------
@@ -772,6 +825,7 @@ def main() -> None:
             ok, rel = close(ranks[a], r3[a])
             require(ok, f"phase4 {name}: arm {a} differs from phase 3 ({rel})")
     after = K.launch_counts()  # the main path ends here
+    after_shapes = K.launch_shapes()
     p4 = {k: after[k] - before[k] for k in after}
     say("phase4 launches:", json.dumps(p4))
     require(p4["histogram"] > 0 and p4["counting_positions"] > 0,
@@ -916,6 +970,7 @@ def main() -> None:
                 require(e <= SPMM_TOL, f"fig9 {name} F={F}: {a} off by {e} (> {SPMM_TOL})")
         say(f"phase6 fig9 {name}", json.dumps({"n": n, "m": m, "F": row}))
     fig9_counts = K.launch_counts()  # the fig9 path ends here
+    fig9_shapes = K.launch_shapes()
     say("phase6 fig9 launches:", json.dumps(fig9_counts))
     require(fig9_counts["cobra_bin_accumulate_rows"] > 0, "fig9: the rows kernel never launched")
     del outs, vals, vals_coo
@@ -965,6 +1020,7 @@ def main() -> None:
         del got, want, scale
         torch.cuda.empty_cache()
     gnn_counts = K.launch_counts()  # the GNN layer's path ends here
+    gnn_shapes = K.launch_shapes()
     say("phase6 gnn launches:", json.dumps(gnn_counts))
     del csr2, csc2, h2, rw2, layer
     torch.cuda.empty_cache()
@@ -1013,6 +1069,7 @@ def main() -> None:
     rec["index_add_ms"] = cuda_ms(
         lambda: torch.zeros(V, upd.shape[1], device=dev).index_add_(0, ids, upd), reps=10)
     ops_counts = K.launch_counts()  # the ops path ends here (timing launches included)
+    ops_shapes = K.launch_shapes()
     say("phase7", json.dumps(rec))
     require(ok, f"pb_scatter_add_full differs from float64 index_add_ ({rec['max_abs_err']})")
     say("phase7 ops launches:", json.dumps(ops_counts))
@@ -1046,6 +1103,7 @@ def main() -> None:
         f"{time.perf_counter() - t9:.1f} s")
     prompts = lm_prompts(lm_cfg, LM_REQUESTS, *LM_PROMPT_LENS, seed=LM_SEED)
     serve_counts, rec = serve_lm(lm_cfg, model, prompts, LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW)
+    serve_shapes = rec.pop("launch_shapes")
     rec["earlier_phases_bytes"] = mem0
     rec["serving_peak_bytes"] = rec["max_memory_allocated"] - mem0  # weights included
     say("phase9 serve", json.dumps(rec))
@@ -1193,7 +1251,40 @@ def main() -> None:
     ]
     path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
             for k in after}
+    path_shapes = {}
+    for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes):
+        for k, by in part.items():
+            for shp, c in by.items():
+                path_shapes.setdefault(k, {})[shp] = path_shapes.get(k, {}).get(shp, 0) + c
+    say("phase11 launches by shape (key: histogram, positions, COBRA pass m,B; fused m,n; "
+        "rows m,F,n; Bin-Read B,L,d; row scatter m,d; flash B,H,KH,Sq,Skv,hd):",
+        json.dumps(path_shapes))
+    # the fused accumulate where most of its launches are: fig5's S1 PageRank streams
+    for name in ("KRON", "DBP"):
+        g = suite[name]
+        n1 = g.num_nodes
+        br1 = min(max(64, T.compromise_bin_range(n1, hw)), n1)
+        c1 = (torch.full((n1,), 1.0 / n1, device=dev)
+              / T.degrees_from_coo(g, by="src").clamp(min=1).float())[g.src]
+        # the DBP hub sums about a million float32 terms: the PageRank rule
+        ok, rel = close(K.cobra_bin_accumulate(g.dst, c1, n1, br1, -(-n1 // br1)),
+                        ref.scatter_reduce_ref(g.dst, c1, n1))
+        require(ok, f"fused at S1 {name} differs from plain ({rel})")
+        say("phase11 S1", json.dumps({
+            "graph": name, "m": g.num_edges, "n": n1, "design": fused_design(g.num_edges, n1),
+            "fused_ms": {d: cuda_ms(lambda d=d: K.cobra_bin_accumulate(
+                g.dst, c1, n1, br1, -(-n1 // br1), design=d), reps=20) for d in FUSED_DESIGNS},
+            "index_add_ms": cuda_ms(lambda: torch.zeros(n1, device=dev).index_add_(0, g.dst, c1),
+                                    reps=20)}))
+    say("phase11 profile", json.dumps({
+        "counting_positions": {"m": m2, "B": nb2, "design": positions_design(nb2),
+                               **kernel_profile(lambda: K.counting_positions(keys, starts, nb2))},
+        "cobra_bin_accumulate": {"m": m2, "n": n2, "design": fused_design(m2, n2),
+                                 **kernel_profile(lambda: K.cobra_bin_accumulate(
+                                     s2.dst, contrib, n2, br2, nb2))}}))
     kernels = []
+    designs = {"counting_positions": positions_design(nb2),
+               "cobra_bin_accumulate": fused_design(m2, n2)}
     for name, source, replaces, err, kfn, pfn, lfn, nbytes in rows:
         reps = 5 if name in ("cobra_binning_pass", "binread_scatter_add") else 20
         kernels.append({
@@ -1202,6 +1293,7 @@ def main() -> None:
             "ms": cuda_ms(kfn, reps=reps), "plain_ms": cuda_ms(pfn, reps=reps),
             "bound_ms": bound_ms(nbytes), "bound_bytes": nbytes, "bound_by": "bytes",
             "library_ms": cuda_ms(lfn, reps=reps) if lfn is not None else None,
+            **({"design": designs[name]} if name in designs else {}),
         })
     # flash: the longest prefill's attention, qwen2-1.5b's heads at S = 4096, bf16, causal
     fB, fH, fKH, fS, fhd = 1, lm_cfg.num_heads, lm_cfg.num_kv_heads, LM_MAX_LEN, lm_cfg.head_dim

@@ -28,9 +28,15 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def launch_shapes() -> dict:
+    """Kernel launches so far, by wrapper name and then by shape (each
+    wrapper's own key, e.g. ``(m, num_bins)``), as ``{"m,B": count}``."""
+    return {k.__name__: {",".join(map(str, s)): c for s, c in k.shapes.items()} for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches, k.shapes = 0, {}
 
 
 __all__ = [
@@ -46,5 +52,6 @@ __all__ = [
     "flash_attention",
     "KERNELS",
     "launch_counts",
+    "launch_shapes",
     "reset_launch_counts",
 ]

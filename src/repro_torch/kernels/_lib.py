@@ -32,9 +32,10 @@ _L = ctypes.c_int64
 # name -> (argtypes, restype) of every C entry point in csrc/
 SIGNATURES = {
     "pb_histogram": ([_P, _L, _P, _I, _P], _I),
-    "pb_positions_scratch": ([_L, _I], _L),
-    "pb_counting_positions": ([_P, _L, _P, _I, _P, _P, _P], _I),
-    "pb_fused_accumulate": ([_P, _P, _L, _P, _I, _I, _I, _I, _I, _P], _I),
+    "pb_positions_scratch": ([_L, _I, _I], _L),
+    "pb_counting_positions": ([_P, _L, _P, _I, _P, _P, _I, _P], _I),
+    "pb_fused_scratch": ([_L, _I, _I], _L),
+    "pb_fused_accumulate": ([_P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P, _P], _I),
     "pb_fused_accumulate_rows": ([_P, _P, _L, _I, _P, _I, _I, _I, _P], _I),
     "pb_cobra_pass_scratch": ([_L, _I], _L),
     "pb_cobra_pass": ([_P, _P, _P, _L, _P, _I, _P, _P, _P, _P], _I),
@@ -165,6 +166,18 @@ def check(status: int, what: str) -> None:
     if status != 0:
         msg = load().pb_error_string(status)
         raise RuntimeError(f"{what} failed: CUDA error {status} ({msg.decode()})")
+
+
+def count_launch(wrapper, shape: tuple) -> None:
+    """One launch of ``wrapper``'s kernel: its count, and its count at ``shape``."""
+    wrapper.launches += 1
+    wrapper.shapes[shape] = wrapper.shapes.get(shape, 0) + 1
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 INT32_MAX = 2**31 - 1

@@ -2,9 +2,21 @@
 
 ``counting_positions`` gives each key its destination under a stable
 counting sort whose bin b region begins at ``starts[b]``; keys outside
-``[0, num_bins)`` get -1. On a CUDA tensor it runs the three-phase kernel
-of ``csrc/positions.cu`` (the wrapper allocates its (tiles, bins) count
-matrix); on a CPU tensor its plain version ``ref.counting_positions_ref``.
+``[0, num_bins)`` get -1. On a CPU tensor it runs its plain version
+``ref.counting_positions_ref``; on a CUDA tensor one of the two designs
+of ``csrc/positions.cu`` (``positions_design``):
+
+- ``"onesweep"`` for ``num_bins <= ONESWEEP_MAX_BINS`` (2048): one kernel
+  that reads each key once, with a decoupled look-back across tiles of
+  16384 keys (``csrc/pb_onesweep.cuh``); the switch point is its per-warp
+  counters, 16 warps x ``num_bins`` int32 in shared memory (128 KB at
+  2048);
+- ``"three-phase"`` above it: tile counts, a column scan, a stable warp
+  rank (the keys read three times).
+
+The wrapper allocates the design's scratch (the zeroed status words, or
+the (tiles, bins) count matrix) for each call. Both designs are exact:
+the result equals the plain version bit for bit.
 ``counting_positions.launches`` counts kernel launches.
 
 ``cobra_binning_pass`` is one COBRA C-Buffer pass (port of
@@ -23,14 +35,33 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import binned_stream_ref, counting_positions_ref
 
 
+POSITIONS_DESIGNS = ("onesweep", "three-phase")
+_POSITIONS_CODE = {"three-phase": 0, "onesweep": 1}
+ONESWEEP_MAX_BINS = 2048  # csrc/pb_onesweep.cuh: kMaxBins
+
+
+def positions_design(num_bins: int) -> str:
+    """The design ``counting_positions`` runs on the card for ``num_bins``."""
+    return "onesweep" if num_bins <= ONESWEEP_MAX_BINS else "three-phase"
+
+
 def counting_positions(
-    keys: torch.Tensor, starts: torch.Tensor, num_bins: int
+    keys: torch.Tensor, starts: torch.Tensor, num_bins: int, design: str | None = None
 ) -> torch.Tensor:
-    """pos[i] = starts[k_i] + #{j < i : k_j == k_i}; -1 for an out-of-range key."""
+    """pos[i] = starts[k_i] + #{j < i : k_j == k_i}; -1 for an out-of-range key.
+
+    ``design`` (``POSITIONS_DESIGNS``) forces a kernel on the card; None
+    takes ``positions_design(num_bins)``.
+    """
     if num_bins < 1:
         raise ValueError(f"num_bins must be >= 1, got {num_bins}")
     if starts.shape != (num_bins,):
         raise ValueError(f"starts must have shape ({num_bins},), got {tuple(starts.shape)}")
+    design = positions_design(num_bins) if design is None else design
+    if design not in POSITIONS_DESIGNS:
+        raise ValueError(f"design must be one of {POSITIONS_DESIGNS}, got {design!r}")
+    if design == "onesweep" and num_bins > ONESWEEP_MAX_BINS:
+        raise ValueError(f"the onesweep design takes at most {ONESWEEP_MAX_BINS} bins, got {num_bins}")
     if keys.device.type == "cpu":
         return counting_positions_ref(keys, starts, num_bins)
     _lib.require_cuda(keys, torch.int32, "keys")
@@ -41,21 +72,22 @@ def counting_positions(
     if m == 0:
         return pos
     lib = _lib.load()
+    code = _POSITIONS_CODE[design]
     scratch = torch.empty(
-        lib.pb_positions_scratch(m, num_bins), dtype=torch.int32, device=keys.device
+        lib.pb_positions_scratch(m, num_bins, code), dtype=torch.int32, device=keys.device
     )
     _lib.check(
         lib.pb_counting_positions(
             keys.data_ptr(), m, starts.data_ptr(), num_bins, pos.data_ptr(),
-            scratch.data_ptr(), _lib.stream(keys),
+            scratch.data_ptr(), code, _lib.stream(keys),
         ),
         "counting_positions kernel",
     )
-    counting_positions.launches += 1
+    _lib.count_launch(counting_positions, (m, num_bins))
     return pos
 
 
-counting_positions.launches = 0
+counting_positions.launches, counting_positions.shapes = 0, {}
 
 
 _PAYLOAD_DTYPES = (torch.int32, torch.float32)
@@ -110,8 +142,8 @@ def cobra_binning_pass(
         ),
         "cobra_binning_pass kernel",
     )
-    cobra_binning_pass.launches += 1
+    _lib.count_launch(cobra_binning_pass, (m, num_bins))
     return out_idx, out_val
 
 
-cobra_binning_pass.launches = 0
+cobra_binning_pass.launches, cobra_binning_pass.shapes = 0, {}

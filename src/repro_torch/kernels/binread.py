@@ -59,8 +59,8 @@ def binread_scatter_add(
         ),
         "binread_scatter_add kernel",
     )
-    binread_scatter_add.launches += 1
+    _lib.count_launch(binread_scatter_add, (B, L, d))
     return out
 
 
-binread_scatter_add.launches = 0
+binread_scatter_add.launches, binread_scatter_add.shapes = 0, {}

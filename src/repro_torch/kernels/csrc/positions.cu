@@ -4,31 +4,40 @@
 // Replaces: src/repro/kernels/binning.py::counting_positions_pallas. The
 // TPU kernel carries per-bin write cursors in VMEM from one grid step to
 // the next (binning.py:43-59); that works because a TPU grid runs its
-// steps in order. A GPU grid runs in no order, so the cursors are rebuilt
-// in three phases over fixed tiles of the stream:
-//   (a) tile_count: per-(tile, bin) counts into a (num_tiles, B) int32
-//       matrix (pb_tiles.cuh, shared with the COBRA pass);
-//   (b) column_scan (pb_tiles.cuh): an exclusive scan down each bin's column, in tile
-//       order, seeded with starts[b] — the matrix then holds each tile's
-//       first destination per bin;
-//   (c) tile_rank: inside a tile, each warp owns a contiguous sub-chunk
-//       and walks it 32 keys at a time in stream order. __match_any_sync
-//       groups equal keys; a lane's rank is the population count of its
-//       lower peers, its base the warp's per-bin cursor, and the lowest
-//       peer advances the cursor. Warp cursors start from (b) plus the
-//       counts of the earlier warps of the tile, so the result is stable.
+// steps in order. A GPU grid runs in no order, so the cursors are rebuilt.
 //
 // Bound on the H100: bytes — 4*m keys read and 4*m positions written
-// (8*m), plus the count matrix (written by (a), read and rewritten by (b),
-// read by (c)). The tile grows with B (at least 8*B keys) so the matrix
-// stays a small fraction of the key bytes: at B = 908 and m = 1.3e8 the
-// tile is 16384 keys and the matrix 29 MB, against 520 MB of keys.
-// Keys are read three times, which a fused later version can save.
+// (8*m), 0.080 ms at m = 2^25 and 3.35 TB/s.
 //
-// Per-warp cursors sit in shared memory while W*B int32 fit in 48 KB; for
-// a larger B one warp ranks each tile against the matrix row itself, in
-// global memory (L2).
+// Two designs; the wrapper (kernels/binning.py) picks by B:
+//
+// onesweep, for B <= pb::onesweep::kMaxBins (2048): one kernel that reads
+//   each key once (pb_onesweep.cuh). A block takes a tile of kPosTile
+//   keys (16384; 32 a thread, in registers) by ticket, ranks them in its
+//   warps (a multisplit of one ballot per key bit, instantiated for each
+//   bit count up to 12), publishes its per-bin counts into a (tiles, B) array of
+//   64-bit status words, looks back over the earlier tiles for each bin's
+//   first destination (tile 0 starts from starts[b]) and writes pos in
+//   stream order. Extra traffic: the status array, 8*B bytes a tile
+//   (zeroed, written once, read by the next tiles; 6% of the key bytes at
+//   B = 512), mostly in L2. The switch point is the shared memory of the
+//   per-warp counters: 16 warps x B int32, 128 KB at B = 2048.
+//
+// three-phase, for larger B (and on request): three kernels that read
+//   the keys three times:
+//   (a) tile_count: per-(tile, bin) counts into a (num_tiles, B) int32
+//       matrix (pb_tiles.cuh, shared with the COBRA pass);
+//   (b) column_scan (pb_tiles.cuh): an exclusive scan down each bin's
+//       column, in tile order, seeded with starts[b];
+//   (c) tile_rank: inside a tile, each warp walks its sub-chunk 32 keys
+//       at a time; __match_any_sync groups equal keys, a lane's rank is
+//       the count of its lower peers, its base the warp's per-bin cursor.
+//   Per-warp cursors sit in shared memory while W*B int32 fit in 48 KB;
+//   for a larger B one warp ranks each tile against the matrix row itself
+//   in global memory (L2). The tile grows with B (at least 8*B keys) so
+//   the matrix stays a small fraction of the key bytes.
 #include "pb_common.cuh"
+#include "pb_onesweep.cuh"
 #include "pb_tiles.cuh"
 
 namespace {
@@ -112,20 +121,105 @@ __global__ void tile_rank_kernel(const int* __restrict__ keys, long long m,
   }
 }
 
+namespace os = pb::onesweep;
+constexpr int kPosItems = 32;
+constexpr long long kPosTile = (long long)os::kThreads * kPosItems;  // 16384 keys
+
+template <int NBITS>
+__global__ void __launch_bounds__(os::kThreads)
+positions_onesweep_kernel(const int* __restrict__ keys, long long m,
+                          const int* __restrict__ starts, int num_bins,
+                          int* __restrict__ pos, unsigned long long* __restrict__ status,
+                          unsigned* __restrict__ ticket) {
+  extern __shared__ int sh[];
+  int* cnt = sh;                             // [kWarps][num_bins] warp counters
+  int* s_tot = cnt + os::kWarps * num_bins;  // [num_bins] tile counts, then prefixes
+  __shared__ int s_tile;
+  const long long tile = os::take_ticket(ticket, &s_tile);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long base = tile * kPosTile + (long long)warp * (kPosItems * 32) + lane;
+
+  int packed[kPosItems];
+#pragma unroll
+  for (int j = 0; j < kPosItems; ++j) {
+    const long long i = base + j * 32;
+    const int k = i < m ? __ldcs(keys + i) : -1;
+    packed[j] = (unsigned)k < (unsigned)num_bins ? k : os::kNoBin;
+  }
+  int* row = cnt + warp * num_bins;
+  for (int b = lane; b < num_bins; b += 32) row[b] = 0;
+  __syncwarp();
+  os::rank_warp<kPosItems, NBITS>(packed, row, num_bins);
+  __syncthreads();
+  os::scan_warps(cnt, s_tot, num_bins);
+  os::publish_aggregates(status, tile, s_tot, num_bins);
+  os::look_back(status, tile, s_tot, starts, s_tot, num_bins);
+  // fold each bin's first destination into its warp offsets (same owner thread)
+  for (int b = threadIdx.x; b < num_bins; b += os::kThreads) {
+    const int p = s_tot[b];
+    for (int w = 0; w < os::kWarps; ++w) cnt[w * num_bins + b] += p;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kPosItems; ++j) {
+    const long long i = base + j * 32;
+    const int b = packed[j] & os::kNoBin;
+    if (i < m)
+      __stcs(pos + i, b < num_bins ? row[b] + (packed[j] >> os::kBinBits) : -1);
+  }
+}
+
 }  // namespace
 
-// int32 elements of scratch the wrapper allocates: the (num_tiles, B) matrix.
-extern "C" long long pb_positions_scratch(long long m, int num_bins) {
+// Scratch the wrapper allocates, in int32 elements. onesweep (design 1):
+// a 16-byte header holding the tile ticket, then the (tiles, B) 64-bit
+// status words; three-phase (design 0): the (num_tiles, B) count matrix.
+extern "C" long long pb_positions_scratch(long long m, int num_bins, int design) {
   if (m <= 0 || num_bins <= 0) return 0;
+  if (design == 1) {
+    const long long tiles = (m + kPosTile - 1) / kPosTile;
+    return 4 + 2 * tiles * num_bins;
+  }
   const Plan p = plan_for(num_bins);
   return ((m + p.tile - 1) / p.tile) * (long long)num_bins;
 }
 
+static int positions_onesweep(const int* keys, long long m, const int* starts, int num_bins,
+                              int* pos, int* scratch, cudaStream_t s) {
+  if (num_bins > os::kMaxBins) return (int)cudaErrorInvalidValue;
+  const long long tiles = (m + kPosTile - 1) / kPosTile;
+  const size_t smem = (size_t)(os::kWarps + 1) * num_bins * sizeof(int);
+  void (*kernel)(const int*, long long, const int*, int, int*, unsigned long long*, unsigned*);
+  switch (32 - __builtin_clz((unsigned)num_bins)) {  // bit_length(num_bins): the ballots a key
+    case 1: kernel = positions_onesweep_kernel<1>; break;
+    case 2: kernel = positions_onesweep_kernel<2>; break;
+    case 3: kernel = positions_onesweep_kernel<3>; break;
+    case 4: kernel = positions_onesweep_kernel<4>; break;
+    case 5: kernel = positions_onesweep_kernel<5>; break;
+    case 6: kernel = positions_onesweep_kernel<6>; break;
+    case 7: kernel = positions_onesweep_kernel<7>; break;
+    case 8: kernel = positions_onesweep_kernel<8>; break;
+    case 9: kernel = positions_onesweep_kernel<9>; break;
+    case 10: kernel = positions_onesweep_kernel<10>; break;
+    case 11: kernel = positions_onesweep_kernel<11>; break;
+    default: kernel = positions_onesweep_kernel<12>; break;
+  }
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaMemsetAsync(scratch, 0, (size_t)pb_positions_scratch(m, num_bins, 1) * sizeof(int), s);
+  kernel<<<(unsigned)tiles, os::kThreads, smem, s>>>(
+      keys, m, starts, num_bins, pos, reinterpret_cast<unsigned long long*>(scratch + 4),
+      reinterpret_cast<unsigned*>(scratch));
+  return (int)cudaGetLastError();
+}
+
 extern "C" int pb_counting_positions(const int* keys, long long m, const int* starts,
-                                     int num_bins, int* pos, int* scratch,
+                                     int num_bins, int* pos, int* scratch, int design,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || num_bins <= 0) return (int)cudaGetLastError();
+  if (design == 1) return positions_onesweep(keys, m, starts, num_bins, pos, scratch, s);
+  if (design != 0) return (int)cudaErrorInvalidValue;
   const Plan p = plan_for(num_bins);
   const long long tiles = (m + p.tile - 1) / p.tile;
   const size_t smem_count = p.smem ? num_bins * sizeof(int) : 0;

@@ -134,11 +134,11 @@ def flash_attention(
         ),
         "flash attention kernel",
     )
-    flash_attention.launches += 1
+    _lib.count_launch(flash_attention, (B, H, KH, Sq, Skv, hd))
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches, flash_attention.shapes = 0, {}
 
 
 def flash_hbm_bytes(B, H, KH, Sq, Skv, hd, q_block: int = 128, dtype_bytes: int = 2) -> int:

@@ -1,22 +1,51 @@
 """Fused bin-and-accumulate wrapper (port of ``repro/kernels/fused.py``).
 
 ``cobra_bin_accumulate`` reduces one flat ``(idx, val)`` stream by add,
-min or max into a dense ``(num_indices,)`` output in a single sweep, the
-binned stream never written out. On a CUDA tensor it runs
-``csrc/fused.cu``; on a CPU tensor its plain version
-``ref.scatter_reduce_ref``. Both drop indices outside
-``[0, num_indices)``, negative ones included, as the Pallas kernel does.
+min or max into a dense ``(num_indices,)`` output. On a CPU tensor it
+runs its plain version ``ref.scatter_reduce_ref``; on a CUDA tensor one
+of the two designs of ``csrc/fused.cu`` (``fused_design``). Both drop
+indices outside ``[0, num_indices)``, negative ones included, as the
+Pallas kernel does.
 
-Fit rule: the kernel's accumulator is global memory, so the only limits
-are int32 addressing of the output and the stream. (The reference's
-32 MiB / 4096-bin limits are TPU VMEM facts and do not apply.)
+- ``"two-pass"``: propagation blocking on the card. The index range is
+  cut into slabs of ``2^shift`` entries (``fused_plan``: about two slabs
+  per SM, at most ``SLAB_MAX`` = 32768 so a slab's accumulator fits in
+  128 KB of shared memory and an offset in 16 bits). A binning pass
+  groups the tuples by slab (a slab count, then the one-pass look-back
+  core of ``csrc/pb_onesweep.cuh``) into a scratch stream of 6 bytes a
+  tuple; an accumulate pass reduces each slab in shared memory and
+  writes it out with coalesced stores. A slab that holds more than
+  ``chunk`` tuples (twice the mean) is cut into chunks, each reduced by
+  its own block and merged into ``out``. No global atomic per tuple.
+- ``"single-sweep"``: one kernel that groups each 2048-tuple tile by bin
+  in shared memory and applies one atomic per distinct index to an
+  L2-resident ``out``.
 
-Tolerance: int32 results and every min/max result are exact. A float32
-add sums in the order the atomics land, which changes from run to run;
-against a sequential sum the difference is bounded by about
-``(k - 1) * eps * sum(|v|)`` for an index that receives k tuples
-(eps = 2**-24), so comparisons allow 1e-5 * sum(|v|) per index: with
-cancelling signs the result itself can be far smaller than that sum.
+Design rule: two-pass when ``m >= TWO_PASS_MIN_M`` and ``num_indices <=
+TWO_PASS_MAX_INDICES`` (2048 slabs of 32768, the look-back core's bin
+limit); single sweep otherwise. TWO_PASS_MIN_M = 2^22 is the measured
+crossover on the H100 (PERF.md; ``scripts/torch_pb_kernels.py``):
+on uniform streams of m tuples into m / 8 indices the two designs tie at
+2^21 and the two-pass design wins by 16-44% from 2^22 to 2^24; fig5's S1
+graphs (2^21 tuples, KRON and DBP skew) run 2.4-2.7 times faster in the
+single sweep, whose L2-resident output absorbs the hubs.
+
+Fit rule: ``bin_range`` and ``num_bins`` must cover the domain, as the
+reference asserts; the single sweep groups by them, the two-pass design
+picks its own slab (a fact of shared memory, as the reference's bin range
+is a fact of VMEM). Otherwise the only limits are int32 addressing of the
+output and the stream. (The reference's 32 MiB / 4096-bin limits are TPU
+VMEM facts and do not apply.)
+
+Tolerance: int32 results and every min/max result are exact in both
+designs. A float32 add sums in an order that changes from run to run
+(shared-memory atomics within a slab, warp shuffles where a warp's
+tuples share an index, global atomics where a split slab's chunks merge,
+L2 atomics in the single sweep); against a sequential sum the difference
+is bounded by about ``(k - 1) * eps * sum(|v|)`` for an index that
+receives k tuples (eps = 2**-24), so comparisons allow 1e-5 * sum(|v|)
+per index: with cancelling signs the result itself can be far smaller
+than that sum.
 
 ``cobra_bin_accumulate_rows`` is the row-block (SpMM) form: ``(m, F)``
 values reduced into ``(num_indices, F)`` by ``csrc/fused_rows.cu`` on a
@@ -37,6 +66,35 @@ _OP_CODE = {"add": 0, "min": 1, "max": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
 
 
+FUSED_DESIGNS = ("two-pass", "single-sweep")
+_FUSED_CODE = {"single-sweep": 0, "two-pass": 1}
+TWO_PASS_MIN_M = 1 << 22  # the measured crossover (PERF.md)
+SLAB_MIN, SLAB_MAX = 256, 32768  # csrc/fused.cu: 16-bit offsets, 128 KB accumulator
+TWO_PASS_MAX_SLABS = 2048  # csrc/pb_onesweep.cuh: kMaxBins
+TWO_PASS_MAX_INDICES = SLAB_MAX * TWO_PASS_MAX_SLABS
+CHUNK_MIN = 4096
+
+
+def fused_design(m: int, num_indices: int) -> str:
+    """The design ``cobra_bin_accumulate`` runs on the card for m tuples."""
+    if m >= TWO_PASS_MIN_M and num_indices <= TWO_PASS_MAX_INDICES:
+        return "two-pass"
+    return "single-sweep"
+
+
+def fused_plan(m: int, num_indices: int, sms: int) -> tuple:
+    """``(shift, num_slabs, chunk)`` of the two-pass design: slabs of
+    ``2^shift`` indices, about two per SM, within [SLAB_MIN, SLAB_MAX];
+    a slab holding more than ``chunk`` tuples (twice the mean, at least
+    CHUNK_MIN) is reduced in chunks of that many."""
+    want = max(1, -(-num_indices // (2 * sms)))
+    shift = min(max((want - 1).bit_length(), SLAB_MIN.bit_length() - 1),
+                SLAB_MAX.bit_length() - 1)
+    slabs = -(-num_indices // (1 << shift))
+    chunk = max(2 * -(-m // slabs), CHUNK_MIN)
+    return shift, slabs, chunk
+
+
 def cobra_bin_accumulate(
     idx: torch.Tensor,
     val: torch.Tensor,
@@ -44,9 +102,12 @@ def cobra_bin_accumulate(
     bin_range: int,
     num_bins: int,
     op: str = "add",
+    design: str | None = None,
 ) -> torch.Tensor:
     """Dense ``(num_indices,)`` reduction of a flat stream; untouched
-    indices hold ``reduce_identity(op, val.dtype)``."""
+    indices hold ``reduce_identity(op, val.dtype)``. ``design``
+    (``FUSED_DESIGNS``) forces a kernel on the card; None takes
+    ``fused_design(m, num_indices)``."""
     if op not in FUSED_OPS:
         raise ValueError(f"fused accumulate needs a commutative op, got {op!r}")
     if val.ndim != 1 or idx.shape != val.shape:
@@ -56,6 +117,12 @@ def cobra_bin_accumulate(
         )
     ident = reduce_identity(op, val.dtype)
     m = idx.shape[0]
+    design = fused_design(m, num_indices) if design is None else design
+    if design not in FUSED_DESIGNS:
+        raise ValueError(f"design must be one of {FUSED_DESIGNS}, got {design!r}")
+    if design == "two-pass" and num_indices > TWO_PASS_MAX_INDICES:
+        raise ValueError(
+            f"the two-pass design takes at most {TWO_PASS_MAX_INDICES} indices, got {num_indices}")
     if m == 0:
         return torch.full((num_indices,), ident, dtype=val.dtype, device=val.device)
     if num_bins * bin_range < num_indices:
@@ -68,21 +135,28 @@ def cobra_bin_accumulate(
     _lib.require_cuda(val, val.dtype, "val")
     _lib.check_int32_size(m, "stream length")
     _lib.check_int32_size(num_indices, "num_indices")
-    out = torch.full((num_indices,), ident, dtype=val.dtype, device=val.device)
     lib = _lib.load()
+    shift, chunk, scratch = 0, 0, None  # the single sweep needs no scratch
+    if design == "two-pass":
+        shift, _, chunk = fused_plan(m, num_indices, _lib.num_sms(val.device.index or 0))
+        out = torch.empty((num_indices,), dtype=val.dtype, device=val.device)
+        scratch = torch.empty(lib.pb_fused_scratch(m, num_indices, shift), dtype=torch.uint8,
+                              device=val.device)
+    else:
+        out = torch.full((num_indices,), ident, dtype=val.dtype, device=val.device)
     _lib.check(
         lib.pb_fused_accumulate(
             idx.data_ptr(), val.data_ptr(), m, out.data_ptr(), num_indices,
-            bin_range, num_bins, _OP_CODE[op], _DTYPE_CODE[val.dtype],
-            _lib.stream(idx),
+            bin_range, num_bins, _OP_CODE[op], _DTYPE_CODE[val.dtype], _FUSED_CODE[design],
+            shift, chunk, None if scratch is None else scratch.data_ptr(), _lib.stream(idx),
         ),
         "cobra_bin_accumulate kernel",
     )
-    cobra_bin_accumulate.launches += 1
+    _lib.count_launch(cobra_bin_accumulate, (m, num_indices))
     return out
 
 
-cobra_bin_accumulate.launches = 0
+cobra_bin_accumulate.launches, cobra_bin_accumulate.shapes = 0, {}
 
 
 def cobra_bin_accumulate_rows(
@@ -137,8 +211,8 @@ def cobra_bin_accumulate_rows(
         ),
         "cobra_bin_accumulate_rows kernel",
     )
-    cobra_bin_accumulate_rows.launches += 1
+    _lib.count_launch(cobra_bin_accumulate_rows, (m, F, num_indices))
     return out
 
 
-cobra_bin_accumulate_rows.launches = 0
+cobra_bin_accumulate_rows.launches, cobra_bin_accumulate_rows.shapes = 0, {}

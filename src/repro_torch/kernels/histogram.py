@@ -30,8 +30,8 @@ def histogram(keys: torch.Tensor, num_bins: int) -> torch.Tensor:
         lib.pb_histogram(keys.data_ptr(), m, counts.data_ptr(), num_bins, _lib.stream(keys)),
         "histogram kernel",
     )
-    histogram.launches += 1
+    _lib.count_launch(histogram, (m, num_bins))
     return counts
 
 
-histogram.launches = 0
+histogram.launches, histogram.shapes = 0, {}

@@ -47,8 +47,8 @@ def scatter_rows(x: torch.Tensor, pos: torch.Tensor, out_rows: int) -> torch.Ten
         ),
         "scatter_rows kernel",
     )
-    scatter_rows.launches += 1
+    _lib.count_launch(scatter_rows, (m, d))
     return out
 
 
-scatter_rows.launches = 0
+scatter_rows.launches, scatter_rows.shapes = 0, {}

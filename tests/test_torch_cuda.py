@@ -6,8 +6,9 @@ also run where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Histogram, positions, the COBRA pass and the row scatter must be equal;
-the fused reduces (flat and rows) are exact for int32 and min/max, and a
+Histogram, positions (both designs: onesweep and three-phase), the
+COBRA pass and the row scatter must be equal; the fused reduces (flat,
+in both designs, and rows) are exact for int32 and min/max, and a
 float32 add (fused or Bin-Read) may differ from the sequential sum by at
 most 1e-5 of the magnitudes summed at an index (the order in which the
 atomics land changes from run to run); bfloat16 Bin-Read within 1e-1.
@@ -75,6 +76,137 @@ def test_cuda_fused_matches_plain(cuda, dtype, op):
         else:  # order of the atomics: 1e-5 of the magnitudes summed
             scale = tref.scatter_reduce_ref(ti, tv.abs(), n, "add")
             assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+# -- the one-pass designs: positions (onesweep) and fused (two-pass) ---------
+# Positions must equal the plain version in both designs; the fused
+# reduce is exact for int32 and min/max, float32 add within 1e-5 of the
+# magnitudes summed at an index (as above).
+
+POS_TILE = 16384  # csrc/positions.cu kPosTile: one onesweep tile
+BIN_TILE = 8192  # csrc/fused.cu kBinTile: one tile of the two-pass binning
+
+
+def _positions_vs_plain(keys, num_bins, design=None):
+    starts = starts_from_counts(tref.histogram_ref(keys, num_bins))[:-1].contiguous()
+    got = counting_positions(keys, starts, num_bins, design=design)
+    want = tref.counting_positions_ref(keys, starts, num_bins)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [POS_TILE - 1, POS_TILE, POS_TILE + 1, 3 * POS_TILE + 1])
+@pytest.mark.parametrize("num_bins", [2, 512, 2048])
+@pytest.mark.parametrize("design", ["onesweep", "three-phase"])
+def test_cuda_positions_at_tile_edges(cuda, m, num_bins, design):
+    rng = _rng(m + num_bins)
+    keys = rng.integers(-2, num_bins + 2, m).astype(np.int32)  # a few out of range
+    _positions_vs_plain(torch.from_numpy(keys).to(cuda), num_bins, design)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_bins", [2047, 2048, 2049, 4096])
+def test_cuda_positions_on_both_sides_of_the_design_switch(cuda, num_bins):
+    from repro_torch.kernels.binning import ONESWEEP_MAX_BINS, positions_design
+
+    assert positions_design(num_bins) == ("onesweep" if num_bins <= ONESWEEP_MAX_BINS
+                                          else "three-phase")
+    keys = torch.from_numpy(_rng(num_bins).integers(0, num_bins, 200_003).astype(np.int32))
+    _positions_vs_plain(keys.to(cuda), num_bins)
+    if num_bins > ONESWEEP_MAX_BINS:
+        with pytest.raises(ValueError, match="at most"):
+            _positions_vs_plain(keys.to(cuda), num_bins, "onesweep")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["one-key", "out-of-range", "empty-tiles"])
+def test_cuda_positions_skewed_streams(cuda, stream):
+    m, B = 5 * POS_TILE + 7, 512
+    keys = _rng(3).integers(0, B, m).astype(np.int32)
+    if stream == "one-key":
+        keys[:] = B // 3
+    elif stream == "out-of-range":
+        keys[:] = np.where(keys % 2, -5, B)
+    else:  # whole tiles of out-of-range keys between tiles of real ones
+        keys[POS_TILE:3 * POS_TILE] = B + 1
+    _positions_vs_plain(torch.from_numpy(keys).to(cuda), B)
+
+
+@pytest.mark.cuda
+def test_cuda_positions_past_2_to_the_30(cuda):
+    """m = 2^30 + 17 with B = 2: each bin's count exceeds 2^29 and the
+    later tiles' prefixes exceed 2^30, which a 30-bit count packed beside
+    a 2-bit flag would cut (the status words are 64-bit)."""
+    m = (1 << 30) + 17
+    keys = (torch.arange(m, device=cuda, dtype=torch.int32) % 3 == 0).to(torch.int32)
+    _positions_vs_plain(keys, 2)
+
+
+def _fused_ok(got, want, ti, tv, n, op):
+    if tv.dtype == torch.int32 or op != "add":
+        return torch.equal(got, want)
+    scale = tref.scatter_reduce_ref(ti, tv.abs(), n, "add")
+    return bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def _fused_values(m, dtype, cuda, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if dtype == torch.int32:
+        return torch.randint(-50, 50, (m,), device=cuda, generator=gen, dtype=torch.int32)
+    return torch.randn(m, device=cuda, generator=gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["one-key", "hub"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("design", ["two-pass", "single-sweep"])
+def test_cuda_fused_skewed_streams(cuda, stream, dtype, op, design):
+    """2^25 tuples at S2's n: all to one index, or half of them to one hub
+    (the S1 DBP shape of skew): the hot slab is cut into chunks."""
+    n, m = 1 << 22, 1 << 25
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    ti = torch.randint(0, n, (m,), device=cuda, generator=gen, dtype=torch.int32)
+    if stream == "one-key":
+        ti.fill_(n // 3 + 5)
+    else:
+        ti[torch.rand(m, device=cuda, generator=gen) < 0.5] = 12_345
+    tv = _fused_values(m, dtype, cuda, 12)
+    got = cobra_bin_accumulate(ti, tv, n, 8192, n // 8192, op, design=design)
+    assert _fused_ok(got, tref.scatter_reduce_ref(ti, tv, n, op), ti, tv, n, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, BIN_TILE - 1, BIN_TILE, BIN_TILE + 1, 300_001])
+@pytest.mark.parametrize("n", [50, 100_003, 1 << 22])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+def test_cuda_fused_two_pass_at_tile_edges(cuda, m, n, dtype, op):
+    """The two-pass design forced at small m: ragged tiles, a last slab
+    shorter than the others, untouched slabs, out-of-range tuples."""
+    idx = _rng(m).integers(-3, n + 3, m).astype(np.int32)
+    ti = torch.from_numpy(idx).to(cuda)
+    tv = _fused_values(m, dtype, cuda, m)
+    r = min(n, 4096)
+    got = cobra_bin_accumulate(ti, tv, n, r, -(-n // r), op, design="two-pass")
+    assert _fused_ok(got, tref.scatter_reduce_ref(ti, tv, n, op), ti, tv, n, op)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_design_rule(cuda):
+    from repro_torch.kernels.fused import (
+        TWO_PASS_MAX_INDICES, TWO_PASS_MIN_M, fused_design)
+
+    assert fused_design(TWO_PASS_MIN_M, 1 << 22) == "two-pass"
+    assert fused_design(TWO_PASS_MIN_M - 1, 1 << 22) == "single-sweep"
+    assert fused_design(1 << 25, TWO_PASS_MAX_INDICES + 1) == "single-sweep"
+    ti = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        cobra_bin_accumulate(ti, torch.ones(4, device=cuda), TWO_PASS_MAX_INDICES + 1,
+                             1 << 20, 65, design="two-pass")
+    before = cobra_bin_accumulate.launches
+    cobra_bin_accumulate(ti, torch.ones(4, device=cuda), 8, 8, 1, design="two-pass")
+    assert cobra_bin_accumulate.launches == before + 1
 
 
 # -- the kernels of the second slice ----------------------------------------
