@@ -16,7 +16,11 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    histogram and positions at m in {1, 17, 5000, 2^25} x B in
    {2, 257, 908, 65536} (random and all-one-key streams), and positions
    at m = T - 1, T, T + 1 for the onesweep tile T = 16384 x B in
-   {2, 512, 2048, 2049} (both sides of the design switch); the fused
+   {2, 512, 2048, 2049} (both sides of the design switch); the histogram
+   on skewed streams of 2^25 keys (a hub taking half of them, the
+   embedding gradient's zipf ids at 13 bins, keys outside [0, B) with
+   negatives) and on the embedding stream itself, each also from a view
+   one key off a 16-byte boundary; the fused
    accumulate for {add, min, max} x {float32, int32} at n = 2^22, m = 2^25
    on uniform indices, the skewed KRON edge stream, a hub stream (half of
    the tuples to one index) and a one-key stream, the last two in both
@@ -34,8 +38,10 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
 5. The second slice's kernels against their plain versions: the rows
    reduce for {add, min, max} x {float32, int32} on S1 KRON's
    destination-sorted stream at F in {1, 8, 32, 128} (and in COO order at
-   F = 32) and at S2 with F = 64 (m * F = 2^31); the COBRA pass at every
-   level of S2's and S3's ``CobraPlan`` with int32 and float32 values;
+   F = 32) and at S2 with F = 64 (m * F = 2^31); the COBRA pass in both
+   designs (onesweep, three-phase: ``cobra_pass_design``) at every level
+   of S2's and S3's ``CobraPlan`` with int32 and float32 values, and on
+   one-key and hub streams of S3's length at 2,203 bins;
    ``scatter_rows`` (float32, bfloat16, int32) and ``binread_scatter_add``
    (float32, bfloat16) at ``benchmarks/embed_grad.py``'s full shapes with
    uniform and zipf ids.
@@ -443,7 +449,7 @@ def main() -> None:
     from repro_torch.core.executor import execute_reduce
     from repro_torch.core.pb import bin_ids, reduce_identity, starts_from_counts
     from repro_torch.kernels import _lib, ref
-    from repro_torch.kernels.binning import positions_design
+    from repro_torch.kernels.binning import COBRA_PASS_DESIGNS, cobra_pass_design, positions_design
     from repro_torch.kernels.fused import FUSED_DESIGNS, fused_design
     from repro_torch.models import GNNLayer
     from repro_torch.timing import cuda_ms, time_fn
@@ -634,6 +640,31 @@ def main() -> None:
             say("phase2", json.dumps({"positions_tile_edge": m, "B": B,
                                       "design": positions_design(B), "max_abs_err": ep}))
             require(ep == 0, f"positions differ from plain at the tile edge m={m} B={B}")
+
+    # the histogram's skewed streams: 2^25 keys with a hub taking half of
+    # them, the embedding gradient's zipf ids at 13 bins, keys outside
+    # [0, B) with negatives; and the embedding stream itself (262,144 keys)
+    m = 1 << 25
+    zrng = np.random.default_rng(0)
+    zipf = torch.from_numpy((np.minimum((zrng.pareto(1.2, m) * 50).astype(np.int64), EMB_VOCAB - 1)
+                             // EMB_BIN_RANGE).astype(np.int32)).to(dev)
+    hub = torch.randint(0, 512, (m,), device=dev, generator=gen, dtype=torch.int32)
+    hub[torch.rand(m, device=dev, generator=gen) < 0.5] = 170
+    for sname, keys, B in (("hub", hub, 512), ("zipf", zipf, 13), ("embedding zipf", zipf[:EMB_T], 13),
+                           ("outside", torch.randint(-515, 1027, (m,), device=dev, generator=gen,
+                                                     dtype=torch.int32), 512)):
+        for off in (0, 1):  # 1: the first key is 4 bytes past a 16-byte boundary
+            k = keys[off:]
+            eh = int((K.histogram(k, B) - ref.histogram_ref(k, B)).abs().max())
+            worst["histogram"] = max(worst["histogram"], eh)
+            say("phase2", json.dumps({
+                "histogram_stream": sname, "m": k.shape[0], "B": B, "offset": off,
+                "max_abs_err": eh, "kernel_ms": cuda_ms(K.histogram, k, B, reps=10),
+                "library_ms": None if sname == "outside" else cuda_ms(
+                    torch.bincount, k, None, B, reps=10),
+                "bound_ms": bound_ms(4 * k.shape[0] + 4 * B)}))
+            require(eh == 0, f"histogram differs from plain on the {sname} stream (offset {off})")
+    del zipf, hub, keys, k
 
     n, m = 1 << 22, 1 << 25
     r = min(max(64, T.compromise_bin_range(n, hw)), n)
@@ -883,19 +914,35 @@ def main() -> None:
                        timed=dt == torch.float32 and op == "add")
     torch.cuda.empty_cache()
 
+    def cobra_check(tag, keys, idx, val, nb, rec):
+        starts = starts_from_counts(ref.histogram_ref(keys, nb))[:-1].contiguous()
+        want = ref.binned_stream_ref(keys, idx, val, nb)
+        for design in COBRA_PASS_DESIGNS:
+            got = K.cobra_binning_pass(keys, idx, val, starts, nb, design=design)
+            ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            say("phase5", json.dumps({
+                "cobra_pass": tag, **rec, "m": keys.shape[0], "num_bins": nb,
+                "dtype": str(val.dtype), "design": design, "default": cobra_pass_design(nb),
+                "equal": ok, "kernel_ms": cuda_ms(K.cobra_binning_pass, keys, idx, val, starts, nb,
+                                                  design, reps=3)}))
+            require(ok, f"COBRA pass ({design}) on {tag} ({val.dtype}) differs from binned_stream_ref")
+            del got
+
     for tag, g in (("S2", s2), ("S3", s3)):
         for rng_ in T.CobraPlan.from_hardware(g.num_nodes, hw).level_ranges():
             nb = -(-g.num_nodes // rng_)
             keys = bin_ids(g.dst, rng_)
-            starts = starts_from_counts(ref.histogram_ref(keys, nb))[:-1].contiguous()
             for val in (g.src, torch.randn(g.num_edges, device=dev, generator=gen)):
-                got = K.cobra_binning_pass(keys, g.dst, val, starts, nb)
-                want = ref.binned_stream_ref(keys, g.dst, val, nb)
-                ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-                say("phase5", json.dumps({"cobra_pass": tag, "m": g.num_edges, "bin_range": rng_,
-                                          "num_bins": nb, "dtype": str(val.dtype), "equal": ok}))
-                require(ok, f"COBRA pass on {tag} ({val.dtype}) differs from binned_stream_ref")
-            del keys, got, want
+                cobra_check(tag, keys, g.dst, val, nb, {"bin_range": rng_})
+            del keys
+    nb = 2203  # S3's second level, on one key and on a hub taking half of the stream
+    for sname in ("one-key", "hub"):
+        keys = torch.full_like(s3.dst, nb - 1) if sname == "one-key" else torch.where(
+            torch.rand(s3.num_edges, device=dev, generator=gen) < 0.5, 734,
+            bin_ids(s3.dst, -(-s3.num_nodes // nb))).to(torch.int32)
+        cobra_check("S3", keys, s3.dst, s3.src, nb, {"stream": sname})
+        del keys
+    torch.cuda.empty_cache()
 
     emb = embed_inputs()
     for ids_name in ("uniform", "zipf"):
@@ -1277,6 +1324,10 @@ def main() -> None:
             "index_add_ms": cuda_ms(lambda: torch.zeros(n1, device=dev).index_add_(0, g.dst, c1),
                                     reps=20)}))
     say("phase11 profile", json.dumps({
+        "histogram": {"m": m2, "B": nb2, **kernel_profile(lambda: K.histogram(keys, nb2))},
+        "cobra_binning_pass": {"m": m3, "B": nb3, "design": cobra_pass_design(nb3),
+                               **kernel_profile(lambda: K.cobra_binning_pass(
+                                   keys3, s3.dst, s3.src, starts3, nb3))},
         "counting_positions": {"m": m2, "B": nb2, "design": positions_design(nb2),
                                **kernel_profile(lambda: K.counting_positions(keys, starts, nb2))},
         "cobra_bin_accumulate": {"m": m2, "n": n2, "design": fused_design(m2, n2),
@@ -1284,6 +1335,7 @@ def main() -> None:
                                      s2.dst, contrib, n2, br2, nb2))}}))
     kernels = []
     designs = {"counting_positions": positions_design(nb2),
+               "cobra_binning_pass": cobra_pass_design(nb3),
                "cobra_bin_accumulate": fused_design(m2, n2)}
     for name, source, replaces, err, kfn, pfn, lfn, nbytes in rows:
         reps = 5 if name in ("cobra_binning_pass", "binread_scatter_add") else 20

@@ -21,11 +21,21 @@ the result equals the plain version bit for bit.
 
 ``cobra_binning_pass`` is one COBRA C-Buffer pass (port of
 ``cobra_binning_pass_pallas``): the ``(idx, val)`` stream stably
-partitioned by ``keys`` into regions that begin at ``starts``. On a CUDA
-tensor it runs ``csrc/cobra_pass.cu`` (tile counts, a column scan, then
-per-tile C-Buffers in shared memory flushed as contiguous runs); on a CPU
-tensor its plain version ``ref.binned_stream_ref``.
-``cobra_binning_pass.launches`` counts kernel launches.
+partitioned by ``keys`` into regions that begin at ``starts``. On a CPU
+tensor it runs its plain version ``ref.binned_stream_ref``; on a CUDA
+tensor one of the two designs of ``csrc/cobra_pass.cu``
+(``cobra_pass_design``):
+
+- ``"onesweep"`` for ``num_bins <= COBRA_ONESWEEP_MAX_BINS`` (4096, every
+  pass ``ops.cobra_binning`` makes): one kernel on the look-back core
+  that reads keys, idx and val once, stages each tile of 8192 tuples in
+  shared memory grouped by bin (the C-Buffers) and writes each bin's run
+  at its destination; the switch point is its per-warp 16-bit counters,
+  16 warps x ``num_bins`` in shared memory (128 KB at 4096);
+- ``"three-phase"`` above it, up to ``COBRA_MAX_BINS``: tile counts, a
+  column scan, then a per-tile radix sort whose runs gather idx and val.
+
+Both are exact. ``cobra_binning_pass.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -92,6 +102,14 @@ counting_positions.launches, counting_positions.shapes = 0, {}
 
 _PAYLOAD_DTYPES = (torch.int32, torch.float32)
 COBRA_MAX_BINS = 12288  # csrc/cobra_pass.cu: per-bin counters in 48 KB of shared memory
+COBRA_PASS_DESIGNS = ("onesweep", "three-phase")
+_COBRA_CODE = {"three-phase": 0, "onesweep": 1}
+COBRA_ONESWEEP_MAX_BINS = 4096  # csrc/pb_onesweep.cuh: kMaxBins16
+
+
+def cobra_pass_design(num_bins: int) -> str:
+    """The design ``cobra_binning_pass`` runs on the card for ``num_bins``."""
+    return "onesweep" if num_bins <= COBRA_ONESWEEP_MAX_BINS else "three-phase"
 
 
 def cobra_binning_pass(
@@ -100,6 +118,7 @@ def cobra_binning_pass(
     val: torch.Tensor,
     starts: torch.Tensor,
     num_bins: int,
+    design: str | None = None,
 ):
     """Binned ``(idx, val)``, exactly m long, stable within each bin;
     ``starts`` (num_bins,) are the exclusive bin starts of the key counts.
@@ -107,9 +126,17 @@ def cobra_binning_pass(
     Every key must lie in ``[0, num_bins)``, as ``ops.cobra_binning_pass``
     guarantees. Values keep their dtype (int32 or float32); the reference
     declares its value output int32 whatever came in (ROADMAP.md, Queue 3).
+    ``design`` (``COBRA_PASS_DESIGNS``) forces a kernel on the card; None
+    takes ``cobra_pass_design(num_bins)``.
     """
     if not 1 <= num_bins <= COBRA_MAX_BINS:
         raise ValueError(f"num_bins must be in [1, {COBRA_MAX_BINS}], got {num_bins}")
+    design = cobra_pass_design(num_bins) if design is None else design
+    if design not in COBRA_PASS_DESIGNS:
+        raise ValueError(f"design must be one of {COBRA_PASS_DESIGNS}, got {design!r}")
+    if design == "onesweep" and num_bins > COBRA_ONESWEEP_MAX_BINS:
+        raise ValueError(
+            f"the onesweep design takes at most {COBRA_ONESWEEP_MAX_BINS} bins, got {num_bins}")
     if starts.shape != (num_bins,):
         raise ValueError(f"starts must have shape ({num_bins},), got {tuple(starts.shape)}")
     if not (keys.ndim == idx.ndim == val.ndim == 1 and keys.shape == idx.shape == val.shape):
@@ -131,13 +158,14 @@ def cobra_binning_pass(
     if m == 0:
         return out_idx, out_val
     lib = _lib.load()
+    code = _COBRA_CODE[design]
     scratch = torch.empty(
-        lib.pb_cobra_pass_scratch(m, num_bins), dtype=torch.int32, device=keys.device
+        lib.pb_cobra_pass_scratch(m, num_bins, code), dtype=torch.int32, device=keys.device
     )
     _lib.check(
         lib.pb_cobra_pass(
             keys.data_ptr(), idx.data_ptr(), val.data_ptr(), m, starts.data_ptr(),
-            num_bins, out_idx.data_ptr(), out_val.data_ptr(), scratch.data_ptr(),
+            num_bins, out_idx.data_ptr(), out_val.data_ptr(), scratch.data_ptr(), code,
             _lib.stream(keys),
         ),
         "cobra_binning_pass kernel",

@@ -1,5 +1,5 @@
-// One-pass tile binning with decoupled look-back, shared by positions.cu
-// and the two-pass design of fused.cu.
+// One-pass tile binning with decoupled look-back, shared by positions.cu,
+// the two-pass design of fused.cu and the onesweep design of cobra_pass.cu.
 //
 // A GPU grid runs its blocks in no order, so the per-bin cursors that a
 // TPU kernel carries across sequential grid steps have to be rebuilt.
@@ -33,7 +33,9 @@
 //
 // Limits: a key's bin and its in-warp rank are packed into one register
 // (kBinBits bits of bin, the rank above), and each warp keeps one row of
-// num_bins int32 counters in shared memory, so num_bins <= kMaxBins.
+// num_bins counters in shared memory: int32 rows for num_bins <= kMaxBins
+// (positions.cu); 16-bit rows, which hold a warp's count of at most 1024
+// keys, for num_bins <= kMaxBins16 (cobra_pass.cu).
 #pragma once
 
 #include "pb_common.cuh"
@@ -43,8 +45,9 @@ namespace onesweep {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBins = 2048;            // kWarps rows of counters: 128 KB
-constexpr int kBinBits = 12;
+constexpr int kMaxBins = 2048;            // kWarps rows of int32 counters: 128 KB
+constexpr int kMaxBins16 = 4096;          // kWarps rows of 16-bit counters: 128 KB
+constexpr int kBinBits = 13;
 constexpr int kNoBin = (1 << kBinBits) - 1;  // out-of-range key
 constexpr unsigned long long kAggregate = 1ull << 32;
 constexpr unsigned long long kInclusive = 2ull << 32;
@@ -86,7 +89,8 @@ __device__ __forceinline__ long long take_ticket(unsigned* counter, int* s_slot)
 
 // packed[j] holds item j's bin (kNoBin if out of range) on entry; item j
 // of lane l is the warp's (32 j + l)-th key in stream order. `row` is the
-// warp's zeroed row of num_bins counters. On return row[b] is the warp's
+// warp's zeroed row of num_bins counters (int, or unsigned short where
+// ITEMS * 32 < 2^16). On return row[b] is the warp's
 // count of bin b, and packed[j] also carries, above kBinBits, the key's
 // rank among the warp's earlier keys of its bin.
 //
@@ -95,8 +99,8 @@ __device__ __forceinline__ long long take_ticket(unsigned* counter, int* s_slot)
 // from every bin), unrolled at compile time. __match_any_sync costs about
 // one pass per distinct key in the warp, and a warp of keys over 512 bins
 // holds some 30 distinct ones (PERF.md).
-template <int ITEMS, int NBITS>
-__device__ __forceinline__ void rank_warp(int (&packed)[ITEMS], int* row, int num_bins) {
+template <int ITEMS, int NBITS, typename C>
+__device__ __forceinline__ void rank_warp(int (&packed)[ITEMS], C* row, int num_bins) {
   const unsigned lt = pb_lanemask_lt();
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
@@ -109,10 +113,10 @@ __device__ __forceinline__ void rank_warp(int (&packed)[ITEMS], int* row, int nu
       peers &= set ? bal : ~bal;
     }
     const bool ok = b < num_bins;
-    const int before = ok ? row[b] : 0;
+    const int before = ok ? (int)row[b] : 0;
     __syncwarp();
     // one writer per distinct bin: the lowest lane of its peers
-    if (ok && (peers & lt) == 0) row[b] = before + __popc(peers);
+    if (ok && (peers & lt) == 0) row[b] = (C)(before + __popc(peers));
     __syncwarp();
     packed[j] = b | ((before + __popc(peers & lt)) << kBinBits);
   }
@@ -123,13 +127,14 @@ __device__ __forceinline__ void rank_warp(int (&packed)[ITEMS], int* row, int nu
 // the tile (warp order), and s_tot[b] the tile's count. Thread t owns
 // bins t, t + blockDim.x, ... here and in publish_aggregates and
 // look_back, so those need no barrier between them.
-__device__ __forceinline__ void scan_warps(int* cnt, int* s_tot, int num_bins) {
+template <typename C>
+__device__ __forceinline__ void scan_warps(C* cnt, int* s_tot, int num_bins) {
   for (int b = threadIdx.x; b < num_bins; b += kThreads) {
     int run = 0;
 #pragma unroll 4
     for (int w = 0; w < kWarps; ++w) {
       const int c = cnt[w * num_bins + b];
-      cnt[w * num_bins + b] = run;
+      cnt[w * num_bins + b] = (C)run;
       run += c;
     }
     s_tot[b] = run;

@@ -1,7 +1,9 @@
 """Histogram kernel wrapper (port of ``repro/kernels/histogram.py``).
 
 ``histogram`` runs the CUDA kernel in ``csrc/histogram.cu`` on a CUDA
-tensor and its plain version (``ref.histogram_ref``) on a CPU tensor.
+tensor (16-byte key loads, lane-private shared-memory copies of the
+counts merged at the end, one atomic for a warp of equal keys) and its
+plain version (``ref.histogram_ref``) on a CPU tensor.
 There is no other fallback: on any other device, or without ``nvcc``,
 it raises. ``histogram.launches`` counts kernel launches.
 """

@@ -6,8 +6,10 @@ also run where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Histogram, positions (both designs: onesweep and three-phase), the
-COBRA pass and the row scatter must be equal; the fused reduces (flat,
+Histogram (uniform, one-key, hub, 13-bin zipf and out-of-range streams,
+and views off a 16-byte boundary), positions (both designs: onesweep and
+three-phase), the COBRA pass (both designs: onesweep and three-phase)
+and the row scatter must be equal; the fused reduces (flat,
 in both designs, and rows) are exact for int32 and min/max, and a
 float32 add (fused or Bin-Read) may differ from the sequential sum by at
 most 1e-5 of the magnitudes summed at an index (the order in which the
@@ -19,7 +21,8 @@ import torch
 
 from repro_torch.core.pb import starts_from_counts
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.binning import cobra_binning_pass, counting_positions
+from repro_torch.kernels.binning import (
+    COBRA_ONESWEEP_MAX_BINS, cobra_binning_pass, cobra_pass_design, counting_positions)
 from repro_torch.kernels.binread import binread_scatter_add
 from repro_torch.kernels.fused import cobra_bin_accumulate, cobra_bin_accumulate_rows
 from repro_torch.kernels.histogram import histogram
@@ -45,12 +48,26 @@ def cuda():
     return torch.device("cuda")
 
 
+def _histogram_streams(m, num_bins, seed):
+    """Keys of the histogram's skewed streams: uniform, one key, a hub (half
+    of the stream on one key), the embedding gradient's 13-bin zipf ids
+    (bin_range 4096 over 50,304 ids), and keys outside [0, num_bins),
+    negatives included."""
+    rng = _rng(seed)
+    uniform = rng.integers(0, num_bins, m)
+    hub = np.where(rng.random(m) < 0.5, num_bins // 3, uniform)
+    zipf = np.minimum((rng.pareto(1.2, m) * 50).astype(np.int64), 50_303) // 4096
+    outside = rng.integers(-num_bins - 3, 2 * num_bins + 3, m)
+    return {"uniform": uniform, "one-key": np.full(m, num_bins - 1), "hub": hub, "zipf": zipf,
+            "outside": outside}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 17, 5000, 300_001])
-@pytest.mark.parametrize("num_bins", [2, 257, 908, 65536])
+@pytest.mark.parametrize("num_bins", [2, 13, 257, 908, 65536])
 def test_cuda_histogram_and_positions_match_plain(cuda, m, num_bins):
-    keys = torch.from_numpy(_rng(m).integers(0, num_bins, m).astype(np.int32)).to(cuda)
-    for k in (keys, torch.full_like(keys, num_bins - 1)):
+    for keys in _histogram_streams(m, num_bins, m).values():
+        k = torch.from_numpy(keys.astype(np.int32)).to(cuda)
         counts = histogram(k, num_bins)
         assert torch.equal(counts, tref.histogram_ref(k, num_bins))
         starts = starts_from_counts(counts)[:-1].contiguous()
@@ -58,6 +75,18 @@ def test_cuda_histogram_and_positions_match_plain(cuda, m, num_bins):
             counting_positions(k, starts, num_bins),
             tref.counting_positions_ref(k, starts, num_bins),
         )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("m", [1, 3, 4, 7, 8, 1023, 4097, 1 << 20])
+@pytest.mark.parametrize("num_bins", [13, 512, 2203, 12288, 12289])
+def test_cuda_histogram_unaligned_views(cuda, offset, m, num_bins):
+    """A view that starts off a 16-byte boundary: the kernel counts the keys
+    before the first boundary and after the last whole vector one by one."""
+    for keys in _histogram_streams(m + offset, num_bins, m).values():
+        k = torch.from_numpy(keys.astype(np.int32)).to(cuda)[offset:]
+        assert torch.equal(histogram(k, num_bins), tref.histogram_ref(k, num_bins))
 
 
 @pytest.mark.cuda
@@ -274,10 +303,13 @@ def test_cuda_rows_past_int32_elements(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 4095, 4097, 300_001])
-@pytest.mark.parametrize("num_bins", [1, 2, 257, 4096, 12288])
+@pytest.mark.parametrize("m", [1, 4095, 4097, 8191, 8192, 8193, 300_001])
+@pytest.mark.parametrize("num_bins", [1, 2, 257, 2203, 4096, 4097, 12288])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-def test_cuda_cobra_pass_matches_plain(cuda, m, num_bins, dtype):
+@pytest.mark.parametrize("design", ["onesweep", "three-phase"])
+def test_cuda_cobra_pass_matches_plain(cuda, m, num_bins, dtype, design):
+    """Both designs around their tiles (4096 tuples three-phase, 8192
+    onesweep) and on both sides of the onesweep design's 4096 bins."""
     rng = _rng(m + num_bins)
     keys = torch.from_numpy(rng.integers(0, num_bins, m).astype(np.int32)).to(cuda)
     for k in (keys, torch.full_like(keys, num_bins // 2)):
@@ -285,10 +317,49 @@ def test_cuda_cobra_pass_matches_plain(cuda, m, num_bins, dtype):
         val = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(cuda)
         val = val if dtype == torch.float32 else val.view(torch.int32)
         starts = starts_from_counts(tref.histogram_ref(k, num_bins))[:-1].contiguous()
-        got = cobra_binning_pass(k, idx, val, starts, num_bins)
+        if design == "onesweep" and num_bins > COBRA_ONESWEEP_MAX_BINS:
+            with pytest.raises(ValueError, match="onesweep"):
+                cobra_binning_pass(k, idx, val, starts, num_bins, design=design)
+            return
+        got = cobra_binning_pass(k, idx, val, starts, num_bins, design=design)
         want = tref.binned_stream_ref(k, idx, val, num_bins)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert got[1].dtype == dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["one-key", "hub", "clustered"])
+@pytest.mark.parametrize("num_bins", [289, 2203, 4096])
+@pytest.mark.parametrize("design", ["onesweep", "three-phase"])
+def test_cuda_cobra_pass_skewed_streams(cuda, stream, num_bins, design):
+    """Skewed keys at 3 x 2^20 tuples: one key; a hub taking half of the
+    stream; keys sorted by a coarser level (a second COBRA level's input),
+    so a tile sees a few bins."""
+    m = 3 << 20
+    gen = torch.Generator(device=cuda).manual_seed(num_bins)
+    keys = torch.randint(0, num_bins, (m,), device=cuda, generator=gen, dtype=torch.int32)
+    if stream == "one-key":
+        keys.fill_(num_bins - 1)
+    elif stream == "hub":
+        keys[torch.rand(m, device=cuda, generator=gen) < 0.5] = num_bins // 3
+    else:
+        keys = torch.sort(keys).values
+    idx = torch.arange(m, device=cuda, dtype=torch.int32)
+    val = torch.randn(m, device=cuda, generator=gen)
+    starts = starts_from_counts(tref.histogram_ref(keys, num_bins))[:-1].contiguous()
+    got = cobra_binning_pass(keys, idx, val, starts, num_bins, design=design)
+    want = tref.binned_stream_ref(keys, idx, val, num_bins)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_cobra_pass_design_rule(cuda):
+    assert cobra_pass_design(COBRA_ONESWEEP_MAX_BINS) == "onesweep"
+    assert cobra_pass_design(COBRA_ONESWEEP_MAX_BINS + 1) == "three-phase"
+    k = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="design"):
+        cobra_binning_pass(k, k, k, torch.zeros(2, dtype=torch.int32, device=cuda), 2,
+                           design="radix")
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The index arithmetic of the one-pass kernels, emulated in numpy on the CPU.
 
-``csrc/positions.cu`` (onesweep design) and the two-pass design of
-``csrc/fused.cu`` run only on the card. This file re-enacts what their
+``csrc/positions.cu`` (onesweep design), the two-pass design of
+``csrc/fused.cu``, the onesweep design of ``csrc/cobra_pass.cu`` and
+``csrc/histogram.cu`` run only on the card. This file re-enacts what their
 blocks compute, step by step, at small tiles, and holds the result
 against the Pallas kernels in interpret mode (as ``tests/test_kernels.py``
 and ``tests/test_fused.py`` run them) and the plain versions:
@@ -16,11 +17,21 @@ and ``tests/test_fused.py`` run them) and the plain versions:
   staging grouped by slab (the order inside a slab is free), the 16-bit
   offsets inside a slab, the work list of chunks of a hot slab, and the
   merge of a split slab (first chunk stores, the others merge the entries
-  they touched).
+  they touched);
+- the COBRA pass, onesweep design: the 13-bit bin field of the rank
+  register, the 16-bit per-warp counter rows, each tuple's staged slot
+  (tile-local bin start + warp offset + rank), the staged tile laid over
+  the counter rows, the run of each bin and its destination from the
+  look-back; at the kernel's own tile (16 warps x 32 x 16 = 8192 tuples)
+  and at a small one that needs many tiles;
+- the histogram: 16-byte vectors after a scalar head, lane-private copies
+  at an odd stride, one atomic of 32 for a warp of equal keys, and the
+  merge of the copies.
 
 Streams: uniform, one key, a hub (half of the stream to one index), all
-out of range, and whole tiles with no key in range. Positions must equal
-the Pallas kernel bit for bit; the fused result is exact for int32 and
+out of range, and whole tiles with no key in range (the histogram also
+the embedding gradient's 13-bin zipf ids). Positions, the COBRA pass and
+the histogram must equal the Pallas kernel bit for bit; the fused result is exact for int32 and
 min/max, and a float32 add is held to atol 1e-4, the reference's own
 tolerance in ``tests/test_fused.py`` (the Pallas kernel sums in flush
 order).
@@ -31,15 +42,18 @@ import pytest
 import torch
 
 from repro.kernels import ref as rref
-from repro.kernels.binning import counting_positions_pallas
+from repro.kernels.binning import cobra_binning_pass_pallas, counting_positions_pallas
 from repro.kernels.fused import cobra_bin_accumulate_pallas
+from repro.kernels.histogram import histogram_pallas
 from repro_torch.core.pb import reduce_identity
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.binning import ONESWEEP_MAX_BINS, positions_design
+from repro_torch.kernels.binning import (
+    COBRA_MAX_BINS, COBRA_ONESWEEP_MAX_BINS, ONESWEEP_MAX_BINS, cobra_pass_design,
+    positions_design)
 from repro_torch.kernels.fused import (
     CHUNK_MIN, SLAB_MAX, TWO_PASS_MAX_INDICES, TWO_PASS_MAX_SLABS, fused_design, fused_plan)
 
-BIN_BITS = 12  # csrc/pb_onesweep.cuh: kBinBits
+BIN_BITS = 13  # csrc/pb_onesweep.cuh: kBinBits
 NO_BIN = (1 << BIN_BITS) - 1
 WINDOW = 8  # csrc/pb_onesweep.cuh: kWindow
 
@@ -191,7 +205,7 @@ def test_positions_onesweep_tile_edges(m):
 def test_positions_design_switch():
     assert positions_design(ONESWEEP_MAX_BINS) == "onesweep"
     assert positions_design(ONESWEEP_MAX_BINS + 1) == "three-phase"
-    # bin and in-warp rank share one register: 12 bits of bin, the rank above
+    # bin and in-warp rank share one register: 13 bits of bin, the rank above
     assert ONESWEEP_MAX_BINS < NO_BIN and (32 * 32 - 1) << BIN_BITS < 2**31
 
 
@@ -334,3 +348,292 @@ def test_fused_plan_and_design_rule():
     assert fused_design(1 << 25, 1 << 22) == "two-pass"
     assert fused_design(1 << 21, 1 << 18) == "single-sweep"  # fig5's S1 graphs
     assert fused_design(1 << 25, TWO_PASS_MAX_INDICES + 1) == "single-sweep"
+
+
+# -- the COBRA pass, onesweep design ---------------------------------------------
+
+OS_WARPS, OS_ITEMS = 16, 16  # csrc/pb_onesweep.cuh kWarps, csrc/cobra_pass.cu kOsItems
+OS_TILE = OS_WARPS * 32 * OS_ITEMS  # 8192 tuples
+SLOT_BITS = 16  # csrc/cobra_pass.cu kSlotBits
+SMEM_MAX = 232_448  # bytes of shared memory a block may opt into on sm_90
+
+
+def _popc(x):
+    return np.bitwise_count(np.asarray(x, np.uint32)).astype(np.int64)
+
+
+def _rank_warps(k, num_bins):
+    """rank_warp over every warp of a tile at once: ``k`` (warps, items, 32)
+    holds bins (NO_BIN out of range) in stream order. Returns each key's
+    rank among its warp's earlier keys of its bin, and the warps' 16-bit
+    counter rows."""
+    warps, items, _ = k.shape
+    nbits = int(num_bins).bit_length()
+    lane_bit = np.int64(1) << np.arange(32, dtype=np.int64)
+    lt = lane_bit - 1
+    rows = np.zeros((warps, num_bins), np.uint16)
+    rank = np.zeros(k.shape, np.int64)
+    w = np.repeat(np.arange(warps), 32).reshape(warps, 32)
+    for j in range(items):
+        kj = k[:, j, :]
+        peers = np.full((warps, 32), 0xFFFFFFFF, np.int64)
+        for i in range(nbits):
+            bit = (kj >> i) & 1
+            ballot = (bit * lane_bit).sum(axis=1)[:, None]
+            peers &= np.where(bit == 1, ballot, ~ballot & 0xFFFFFFFF)
+        ok = kj < num_bins
+        kk = np.minimum(kj, num_bins - 1)
+        before = np.where(ok, rows[w, kk].astype(np.int64), 0)
+        rank[:, j, :] = before + _popc(peers & lt)
+        writer = ok & ((peers & lt) == 0)
+        total = before + _popc(peers)
+        assert total.max() < 2**16  # a warp's count fits its 16-bit counter
+        rows[w[writer], kj[writer]] = total[writer]
+    return rank, rows
+
+
+def cobra_onesweep(keys, idx, val, starts, num_bins, warps=OS_WARPS, items=OS_ITEMS, seed=0):
+    """csrc/cobra_pass.cu, onesweep design, at a tile of warps x 32 x items
+    tuples. Returns the binned (idx, val) and, per tile, its runs
+    (bin, destination, length)."""
+    m = len(keys)
+    T = warps * 32 * items
+    tiles = -(-m // T)
+    rng = np.random.default_rng(seed)
+    status = _Status(tiles, num_bins)
+    out_idx = np.full(m, -7, idx.dtype)
+    out_val = np.zeros(m, val.dtype)
+    runs = []
+    for tile in range(tiles):
+        i = tile * T + np.arange(T)  # item j of lane l in warp w: w * 32 * items + 32 j + l
+        inn = i < m
+        k = np.where(inn, keys[np.minimum(i, m - 1)], -1)
+        b = np.where((k >= 0) & (k < num_bins), k, NO_BIN).reshape(warps, items, 32)
+        rank, rows = _rank_warps(b, num_bins)
+        packed = b | (rank << BIN_BITS)  # rank_warp's register
+        assert packed.max() < 2**31 and np.array_equal(packed & NO_BIN, b)
+        # scan_warps: each warp's exclusive offset per bin, in its 16-bit
+        # row; block_exclusive_scan: the tile-local bin starts
+        cnt = rows.astype(np.int64)
+        tot = cnt.sum(axis=0)
+        first = np.cumsum(tot) - tot
+        staged = int(tot.sum())
+        cnt = np.cumsum(cnt, axis=0) - cnt
+        assert cnt.max() < 2**16
+        cnt = cnt.astype(np.uint16)
+        # each key's staged slot (bin start + warp offset + rank), packed with its bin
+        bb = packed & NO_BIN
+        ok = bb < num_bins
+        wi = np.arange(warps)[:, None, None]
+        kk = np.minimum(bb, num_bins - 1)
+        slot = first[kk] + cnt[wi, kk].astype(np.int64) + (packed >> BIN_BITS)
+        packed = np.where(ok, slot | (bb << SLOT_BITS), -1).ravel()
+        # the staged tile (over the counter rows): every slot in [0, staged) once
+        okf = packed >= 0
+        s = packed[okf] & ((1 << SLOT_BITS) - 1)
+        assert np.array_equal(np.sort(s), np.arange(staged))
+        st_idx = np.empty(staged, idx.dtype)
+        st_val = np.empty(staged, val.dtype)
+        st_bin = np.empty(staged, np.int64)
+        src = i[okf]
+        st_idx[s], st_val[s], st_bin[s] = idx[src], val[src], packed[okf] >> SLOT_BITS
+        # bin by bin in the staged tile, in stream order within a bin
+        assert np.all(np.diff(st_bin) >= 0)
+        pre = _look_back(status, tile, tot, starts.astype(np.int64), rng)
+        delta = pre - first  # s_tot after the look-back
+        d = delta[st_bin] + np.arange(staged)
+        out_idx[d] = st_idx
+        out_val[d] = st_val
+        runs += [(bin_, int(pre[bin_]), int(tot[bin_])) for bin_ in np.flatnonzero(tot)]
+    return out_idx, out_val, runs
+
+
+def _cobra_keys(kind, m, num_bins, seed):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, num_bins, m)
+    if kind == "one-key":
+        keys[:] = num_bins // 2
+    elif kind == "hub":
+        keys[rng.random(m) < 0.5] = num_bins // 3
+    return keys.astype(np.int32)
+
+
+def _cobra_check(kind, m, num_bins, **tile):
+    keys = _cobra_keys(kind, m, num_bins, m + num_bins)
+    rng = np.random.default_rng(num_bins)
+    idx = rng.integers(0, 1 << 30, m).astype(np.int32)
+    val = rng.integers(-(1 << 30), 1 << 30, m).astype(np.int32)
+    counts = np.bincount(keys, minlength=num_bins)
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    got_i, got_v, runs = cobra_onesweep(keys, idx, val, starts, num_bins, **tile)
+    want_i, want_v = cobra_binning_pass_pallas(jnp.asarray(keys), jnp.asarray(idx),
+                                               jnp.asarray(val), jnp.asarray(starts),
+                                               num_bins=num_bins)
+    np.testing.assert_array_equal(got_i, np.asarray(want_i))
+    np.testing.assert_array_equal(got_v, np.asarray(want_v))
+    # float32 values are copied as bits: the port's plain version
+    fval = rng.normal(size=m).astype(np.float32)
+    got_i, got_f, _ = cobra_onesweep(keys, idx, fval, starts, num_bins, **tile)
+    ti, tf = tref.binned_stream_ref(torch.from_numpy(keys), torch.from_numpy(idx),
+                                    torch.from_numpy(fval), num_bins)
+    np.testing.assert_array_equal(got_i, ti.numpy())
+    np.testing.assert_array_equal(got_f.view(np.int32), tf.numpy().view(np.int32))
+    # one run per bin per tile, laid end to end in each bin's region
+    for b in range(num_bins):
+        mine = [(d, n) for bin_, d, n in runs if bin_ == b]
+        assert sum(n for _, n in mine) == counts[b]
+        assert [d for d, _ in mine] == list(starts[b] + np.cumsum([0] + [n for _, n in mine])[:-1])
+    return runs
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one-key", "hub"])
+@pytest.mark.parametrize("num_bins", [1, 289, 735, 2203, 4096])
+@pytest.mark.parametrize("m", [OS_TILE - 1, OS_TILE, OS_TILE + 1])
+def test_cobra_onesweep_arithmetic_matches_pallas(kind, num_bins, m):
+    """At the kernel's tile: S2's (289) and S3's (735, 2203) pass widths and
+    the largest pass ops.cobra_binning makes (4096)."""
+    runs = _cobra_check(kind, m, num_bins)
+    assert len({d for _, d, _ in runs}) <= -(-m // OS_TILE) * num_bins
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one-key", "hub"])
+@pytest.mark.parametrize("num_bins", [1, 13, 300])
+def test_cobra_onesweep_over_many_tiles(kind, num_bins):
+    """Tiles of 2 x 32 x 3 tuples: 14 tiles, so the look-back walks past
+    predecessors that show only their aggregate, window by window."""
+    _cobra_check(kind, 2600, num_bins, warps=2, items=3)
+
+
+def test_cobra_pass_design_switch():
+    assert cobra_pass_design(COBRA_ONESWEEP_MAX_BINS) == "onesweep"
+    assert cobra_pass_design(COBRA_ONESWEEP_MAX_BINS + 1) == "three-phase"
+    assert cobra_pass_design(COBRA_MAX_BINS) == "three-phase"
+    # every pass ops.cobra_binning may make (max_bins_per_pass = 4096)
+    assert COBRA_ONESWEEP_MAX_BINS >= 4096 and COBRA_ONESWEEP_MAX_BINS < NO_BIN
+    # rank register: a warp's rank (< 32 x items) above the 13-bit bin
+    assert (32 * OS_ITEMS - 1) << BIN_BITS | NO_BIN < 2**31
+    # slot register: a staged slot (< the tile) below the bin
+    assert OS_TILE <= 1 << SLOT_BITS and (COBRA_ONESWEEP_MAX_BINS - 1) << SLOT_BITS < 2**31
+    # shared memory at 4096 bins: the C-Buffers (16-bit counter rows, or the
+    # staged idx, val and 16-bit bin laid over them) and two int32 per bin
+    B = COBRA_ONESWEEP_MAX_BINS
+    cbuf = max(OS_WARPS * B * 2, OS_TILE * (4 + 4 + 2))
+    assert cbuf + 2 * 4 * B <= SMEM_MAX
+    assert OS_WARPS * B * 4 + OS_TILE * 10 + 8 * B > SMEM_MAX  # why the rows are 16-bit
+
+
+# -- the histogram -------------------------------------------------------------------
+
+HIST_THREADS, HIST_VEC = 256, 4  # csrc/histogram.cu kThreads, kVec
+HIST_SMEM = 48 * 1024  # csrc/histogram.cu kSmemBytes
+HIST_SMEM_BINS = HIST_SMEM // 4
+
+
+def _copies_for(num_bins):
+    """copies_for: the most lane-private copies (a power of two, at most 32)
+    that fit HIST_SMEM at an odd stride."""
+    n, stride = 32, num_bins | 1
+    while n > 1 and n * stride * 4 > HIST_SMEM:
+        n >>= 1
+    return (n, stride) if n > 1 else (1, num_bins)
+
+
+def histogram_emulated(keys, num_bins, blocks, offset):
+    """csrc/histogram.cu with ``blocks`` blocks, for keys that begin
+    ``offset`` int32 past a 16-byte boundary. Returns the counts, the
+    number of atomics, and how many of those came from the scalar head and
+    tail and from warps that hold lanes past the end."""
+    m = len(keys)
+    shared = num_bins <= HIST_SMEM_BINS
+    copies, stride = _copies_for(num_bins) if shared else (1, 0)
+    head = min(m, (4 - offset) % 4)
+    nvec = (m - head) // 4
+    tail = head + 4 * nvec
+    counts = np.zeros(num_bins, np.int64)
+    atomics = ragged = 0
+    lanes = np.arange(32)
+    for blk in range(blocks):
+        h = np.zeros(max(copies * stride, 1), np.int64)
+        tgt = h if shared else counts  # the global path adds to the counts
+
+        def mine(lane, k):
+            return (lane % copies) * stride + k if shared else k
+
+        if blk == 0:  # the scalar head and tail: threads 0-3 and 4-7
+            for t in range(8):
+                i = t if t < 4 else tail + t - 4
+                if i < (head if t < 4 else m) and 0 <= keys[i] < num_bins:
+                    tgt[mine(t, keys[i])] += 1
+                    atomics += 1
+                    ragged += 1
+        step = blocks * HIST_THREADS * HIST_VEC
+        for base in range(blk * HIST_THREADS * HIST_VEC, nvec, step):
+            for j in range(HIST_VEC):
+                v = base + j * HIST_THREADS + np.arange(HIST_THREADS)
+                x = np.full((HIST_THREADS, 4), -1, np.int64)
+                live = v < nvec
+                x[live] = keys[head + 4 * v[live, None] + np.arange(4)]
+                for c in range(4):
+                    warps = zip(x[:, c].reshape(-1, 32), live.reshape(-1, 32))
+                    for wk, wlive in warps:
+                        if (wk == wk[0]).all():  # one atomic of 32 on copy 0
+                            if 0 <= wk[0] < num_bins:
+                                tgt[wk[0]] += 32
+                                atomics += 1
+                            continue
+                        ok = (wk >= 0) & (wk < num_bins)
+                        addr = mine(lanes[ok], wk[ok])
+                        # lane-private copies: no two lanes of a warp on one address
+                        assert copies < 32 or len(np.unique(addr)) == len(addr)
+                        np.add.at(tgt, addr, 1)
+                        atomics += int(ok.sum())
+                        ragged += int(ok.sum()) if not wlive.all() else 0
+        if shared:  # merge the copies, one global atomic per non-zero bin
+            counts += h[:copies * stride].reshape(copies, stride)[:, :num_bins].sum(axis=0)
+    return counts, atomics, ragged
+
+
+def _hist_keys(kind, m, num_bins, seed):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, num_bins, m)
+    if kind == "one-key":
+        keys[:] = num_bins - 1
+    elif kind == "hub":
+        keys[rng.random(m) < 0.5] = num_bins // 3
+    elif kind == "zipf":  # benchmarks/embed_grad.py's ids at bin_range 4096: 13 bins
+        keys = np.minimum((rng.pareto(1.2, m) * 50).astype(np.int64), 50_303) // 4096
+    elif kind == "outside":  # negatives and keys at or above num_bins
+        keys = rng.integers(-num_bins - 3, 2 * num_bins + 3, m)
+    return keys.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one-key", "hub", "zipf", "outside"])
+@pytest.mark.parametrize("num_bins", [1, 13, 512, 2203])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_histogram_arithmetic_matches_pallas(kind, num_bins, offset):
+    m = 9000 + offset  # 3 blocks, a grid-stride trip past the first, a ragged tail
+    keys = _hist_keys(kind, m, num_bins, num_bins + offset)
+    got, atomics, ragged = histogram_emulated(keys, num_bins, blocks=3, offset=offset)
+    want = histogram_pallas(jnp.asarray(keys), num_bins)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got, tref.histogram_ref(torch.from_numpy(keys), num_bins).numpy())
+    if kind == "one-key":  # every whole warp of equal keys made one atomic
+        assert atomics - ragged == (m - ragged) // 32
+
+
+def test_histogram_copies_and_global_path():
+    assert _copies_for(1) == (32, 1)
+    assert _copies_for(13) == (32, 13)  # the embedding stream: a copy per lane
+    assert _copies_for(512) == (16, 513)  # S2
+    assert _copies_for(735) == (16, 735) and _copies_for(2203) == (4, 2203)  # S3's levels
+    assert _copies_for(HIST_SMEM_BINS) == (1, HIST_SMEM_BINS)
+    for B in (1, 13, 512, 735, 2203):
+        n, stride = _copies_for(B)
+        assert stride % 2 == 1 and n * stride * 4 <= HIST_SMEM
+        # one bin's copies sit in distinct banks
+        assert len({(q * stride + B - 1) % 32 for q in range(n)}) == n
+    # above the shared copies: straight to the global counts
+    keys = _hist_keys("hub", 5000, HIST_SMEM_BINS + 1, 1)
+    got, _, _ = histogram_emulated(keys, HIST_SMEM_BINS + 1, blocks=2, offset=1)
+    np.testing.assert_array_equal(
+        got, tref.histogram_ref(torch.from_numpy(keys), HIST_SMEM_BINS + 1).numpy())
