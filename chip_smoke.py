@@ -38,13 +38,18 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
 5. The second slice's kernels against their plain versions: the rows
    reduce for {add, min, max} x {float32, int32} on S1 KRON's
    destination-sorted stream at F in {1, 8, 32, 128} (and in COO order at
-   F = 32) and at S2 with F = 64 (m * F = 2^31); the COBRA pass in both
+   F = 32) and at S2 with F = 64 (m * F = 2^31), and float32 add on the
+   EURO and HBUBL streams (fig9's other two lengths) at every F: each
+   float32 add is timed (events), with ``index_add_`` as its library
+   time, its bound, and its kernel's device time from ``torch.profiler``
+   (at F = 1 the event-timed loop measures the host); the COBRA pass in both
    designs (onesweep, three-phase: ``cobra_pass_design``) at every level
    of S2's and S3's ``CobraPlan`` with int32 and float32 values, and on
    one-key and hub streams of S3's length at 2,203 bins;
    ``scatter_rows`` (float32, bfloat16, int32) and ``binread_scatter_add``
    (float32, bfloat16) at ``benchmarks/embed_grad.py``'s full shapes with
-   uniform and zipf ids.
+   uniform and zipf ids; Bin-Read timed beside ``index_add_`` of the
+   compact stream (``compact_index_add_ms``) and its bound.
 6. The GNN/SpMM path: fig9's three arms (``benchmarks/fig9_spmm.py``:
    the fused row-block reduce on the destination-sorted stream, two-phase
    sort binning + Bin-Read, ``index_add_`` in COO order) on the five S1
@@ -82,7 +87,8 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
    phases 3-4, 6, 7 and 9 (counts set to 0 before each path, read after
    it; the checks of phases 2, 5, 8, 10 and 11 do not count), its largest
-   error against its plain version, and times at a path's shapes; then
+   error against its plain version, and times at a path's shapes
+   (Bin-Read's row also ``compact_index_add_ms``); then
    the result line. Before it: the same launches split by shape, the
    fused accumulate and ``index_add_`` timed at the S1 KRON and DBP
    streams (fig5's S1 PageRank shapes), and a ``torch.profiler`` listing
@@ -894,7 +900,14 @@ def main() -> None:
                 kernel_ms=cuda_ms(K.cobra_bin_accumulate_rows, idx, val, n, br, -(-n // br), op,
                                   reps=5),
                 plain_ms=cuda_ms(ref.scatter_reduce_ref, idx, val, n, op, reps=5),
+                library_ms=cuda_ms(lambda: torch.zeros(n, F, device=dev).index_add_(0, idx, val),
+                                   reps=5),
                 bound_ms=bound_ms(4 * m + 4 * m * F + 4 * n * F),
+                # the kernel's own device time: at F = 1 an event-timed loop
+                # measures the host's enqueue (PERF.md)
+                kernel_device_ms=sum(k[1] for k in kernel_profile(
+                    lambda: K.cobra_bin_accumulate_rows(idx, val, n, br, -(-n // br), op))[
+                        "kernels"] if "rows" in k[0]),
             )
         say("phase5", json.dumps(rec))
         require(ok, f"rows {op} {dt} on {tag} F={F} differs from plain (max err {err})")
@@ -906,6 +919,11 @@ def main() -> None:
             for op in ("add", "min", "max"):
                 rows_check("S1 KRON dst-sorted", kron_sorted, kron_g.num_nodes, F, dt, op,
                            timed=dt == torch.float32 and op == "add")
+    for name in ("EURO", "HBUBL"):  # fig9's other two stream lengths (DBP and URND: KRON's m)
+        g = suite[name]
+        for F in F_GRID:
+            rows_check(f"S1 {name} dst-sorted", torch.sort(g.dst, stable=True).values,
+                       g.num_nodes, F, torch.float32, "add", True)
     rows_check("S1 KRON coo-order", kron_g.dst, kron_g.num_nodes, 32, torch.float32, "add", True)
     s2_sorted = torch.sort(s2.dst, stable=True).values
     for dt in (torch.float32, torch.int32):
@@ -973,8 +991,19 @@ def main() -> None:
             else:  # bfloat16: atol 1e-1, as tests/test_kernels.py:139 allows
                 ok = err <= 1e-1
             worst["binread_scatter_add"] = max(worst["binread_scatter_add"], err)
-            say("phase5", json.dumps({"binread": ids_name, "dtype": str(dt), "B": emb["bins"],
-                                      "L": L, "d": x.shape[1], "max_abs_err": err, "ok": ok}))
+            esize = x.element_size()
+            say("phase5", json.dumps({
+                "binread": ids_name, "dtype": str(dt), "B": emb["bins"], "L": L, "d": x.shape[1],
+                "max_abs_err": err, "ok": ok,
+                "kernel_ms": cuda_ms(K.binread_scatter_add, idx_p, val_p, EMB_BIN_RANGE, reps=5),
+                "plain_ms": cuda_ms(ref.binread_scatter_add_ref, idx_p, val_p, EMB_BIN_RANGE,
+                                    reps=3),
+                # the same sum on the compact stream: no PyTorch call takes the padded layout
+                "compact_index_add_ms": cuda_ms(lambda: torch.zeros(
+                    emb["bins"] * EMB_BIN_RANGE, x.shape[1], dtype=dt, device=dev).index_add_(
+                        0, ids, x), reps=5),
+                "bound_ms": bound_ms(4 * idx_p.numel() + esize * ids.shape[0] * x.shape[1]
+                                     + esize * emb["bins"] * EMB_BIN_RANGE * x.shape[1])}))
             require(ok, f"binread {ids_name} {dt} differs from plain (max err {err})")
             del idx_p, val_p
     torch.cuda.empty_cache()
@@ -1347,6 +1376,11 @@ def main() -> None:
             "library_ms": cuda_ms(lfn, reps=reps) if lfn is not None else None,
             **({"design": designs[name]} if name in designs else {}),
         })
+    # Bin-Read's yardstick: the same sum by index_add_ on the compact stream
+    # (no single PyTorch call takes the padded layout, so library_ms is null)
+    next(k for k in kernels if k["name"] == "binread_scatter_add")["compact_index_add_ms"] = \
+        cuda_ms(lambda: torch.zeros(B_ * EMB_BIN_RANGE, d_, device=dev).index_add_(0, ids, x),
+                reps=5)
     # flash: the longest prefill's attention, qwen2-1.5b's heads at S = 4096, bf16, causal
     fB, fH, fKH, fS, fhd = 1, lm_cfg.num_heads, lm_cfg.num_kv_heads, LM_MAX_LEN, lm_cfg.head_dim
     fq = torch.randn(fB, fH, fS, fhd, device=dev, generator=gen).to(torch.bfloat16)

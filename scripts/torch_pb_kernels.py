@@ -2,6 +2,7 @@
 """Time and trace the port's PB binning kernels on one NVIDIA card.
 
     python3 scripts/torch_pb_kernels.py [--src DIR] [--base DIR] [--rounds 5] [--reps 20]
+                                        [--sections binning,binread,rows]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's
 ``src``). ``--base`` names another tree's ``src`` (a parent commit
@@ -44,17 +45,52 @@ Prints one JSON object per line:
   of the two trees compared opcode by opcode (they share the look-back
   core), after every trace.
 
-The card's name and power limit (``nvidia-smi``) come first. Exits
-non-zero without CUDA.
+``--sections`` picks among ``binning`` (every line above), ``binread``
+and ``rows`` (default: all three):
+
+- ``binread``: Bin-Read at ``benchmarks/embed_grad.py``'s full shapes
+  (T 262,144 rows of d 256, ``bin_range`` 4096, 13 bins) on its zipf ids
+  (L 260,808) and uniform ids (L 21,568), float32 and bfloat16, laid out
+  as ``ops.pb_scatter_add_full`` lays them out. Interleaved: the kernel,
+  the same kernel on the same rows sorted by index within each bin
+  (``sorted``), ``index_add_`` of the compact stream into the same
+  (B * bin_range, d) output (``compact_index_add_``), the variants below
+  and, with ``--base``, the base tree's kernel; each checked against the
+  plain version first. Then a ``torch.profiler`` breakdown of one call
+  (kernel, ``bf16_store_kernel``, the zeroing memset) in each tree, and
+  ``ops.pb_scatter_add_full`` at the zipf shape in both trees.
+  Variants, built from this tree's ``binread.cu`` when it has a
+  ``kBrTile`` constant: tiles of 2048 and 8192 positions, blocks of 1024
+  threads, and 8 or 16 rows gathered before they are folded (4 kept).
+- ``rows``: the row-block reduce (add, float32) at every fig9 shape: the
+  KRON, EURO and HBUBL graphs of the bench suite (m 2,097,152,
+  1,568,770 and 1,046,528 edges, n 262,144, destination-sorted) at F in
+  {1, 8, 32, 128}, and S2 (``gen_uniform(2^22, 8, seed=3)``) at F = 64.
+  Interleaved: the kernel, ``torch.zeros(n, F).index_add_(0, idx, val)``,
+  the base tree's kernel, and variants of the row walk built from
+  ``--base``'s sources (this tree's without it): ``kRowChunk`` 8 and 16,
+  and ``fill``, a chunk chosen from m so that the grid holds two waves of
+  2048 threads on every SM. min, max and int32 are checked against the
+  plain version at each shape, not timed. At S1 KRON, F = 1 and 8: a
+  ``torch.profiler`` breakdown in each tree and ``enqueue``, the host time
+  of one call of each function. With ``--base``: the SASS of every
+  ``rows_kernel`` instantiation both trees have, opcode by opcode.
+
+Variants go to ``_build/variants/`` beside the kernels' own build, one
+``nvcc`` each, all started together. The card's name and power limit
+(``nvidia-smi``) come first. Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import inspect
 import json
 import os
+import shutil
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -85,6 +121,24 @@ def interleaved(fns: dict, rounds: int, reps: int) -> dict:
             per[k].append(start.elapsed_time(end) / reps)
     return {k: {"mean_ms": sum(v) / len(v), "min_ms": min(v), "max_ms": max(v), "rounds": v}
             for k, v in per.items()}
+
+
+def enqueue_ms(fns: dict, calls: int = 200) -> dict:
+    """Host milliseconds a call of each function takes to enqueue its work
+    (host clock over ``calls`` calls, no synchronise between them): where
+    it exceeds the device time, an event-timed loop measures the host."""
+    import torch
+
+    out = {}
+    for k, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[k] = (time.perf_counter() - t) / calls * 1e3
+        torch.cuda.synchronize()
+    return out
 
 
 def kernel_profile(fn) -> dict:
@@ -128,6 +182,7 @@ def main() -> None:
     ap.add_argument("--base", default=None)
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--sections", default="binning,binread,rows")
     args = ap.parse_args()
     import torch
 
@@ -154,6 +209,33 @@ def main() -> None:
     dev = torch.device("cuda")
     hw = T.HardwareModel.h100()
     R, N = args.rounds, args.reps
+
+    sections = set(args.sections.split(","))
+    if "binning" in sections:
+        binning_section(K, KB, T, ref, bin_ids, starts_from_counts, with_base, R, N, dev, hw)
+    if "binread" in sections:
+        binread_section(K, KB, ref, bin_ids, starts_from_counts, with_base, R, N, dev, _lib,
+                        args.src)
+    if "rows" in sections:
+        rows_section(K, KB, T, ref, with_base, R, N, dev, _lib, args.base or args.src)
+    # last: profiles taken after cuobjdump has run came back empty
+    if KB is not None:  # kernels that share a changed header, in the two trees, opcode by opcode
+        names = (["positions_onesweep_kernel", "slab_bin_kernel"] if "binning" in sections
+                 else []) + (["rows_kernel"] if "rows" in sections else [])
+        for name in names:
+            ops = [{n[-48:]: [ln.split(";")[0].split("*/")[-1].split()[:1]
+                              for ln in body.splitlines() if ln.strip().startswith("/*")]
+                    for n, body in mod._lib.kernel_sass(name).items()} for mod in (K, KB)]
+            say("sass", {"kernel": name, **{k: {"instructions": len(v),
+                                               "base_instructions": len(ops[1].get(k, [])),
+                                               "same_opcodes": v == ops[1].get(k)}
+                                           for k, v in ops[0].items()}})
+    say("card", {"nvidia-smi": smi})
+
+
+def binning_section(K, KB, T, ref, bin_ids, starts_from_counts, with_base, R, N, dev, hw) -> None:
+    """The positions, fused, histogram and COBRA-pass lines (module docstring)."""
+    import torch
 
     def fused_inputs(g):
         n = g.num_nodes
@@ -242,17 +324,6 @@ def main() -> None:
                 for d in FUSED_DESIGNS}, R, N)})
     histogram_and_cobra(K, KB, T, ref, bin_ids, starts_from_counts, with_base, R, N, dev, hw,
                         s2, keys, nb2, suite)
-    # last: profiles taken after cuobjdump has run came back empty
-    if KB is not None:  # the look-back core's other kernels in the two trees, opcode by opcode
-        for name in ("positions_onesweep_kernel", "slab_bin_kernel"):
-            ops = [{n[-40:]: [ln.split(";")[0].split("*/")[-1].split()[:1]
-                              for ln in body.splitlines() if ln.strip().startswith("/*")]
-                    for n, body in mod._lib.kernel_sass(name).items()} for mod in (K, KB)]
-            say("sass", {"kernel": name, **{k: {"instructions": len(v),
-                                               "base_instructions": len(ops[1].get(k, [])),
-                                               "same_opcodes": v == ops[1].get(k)}
-                                           for k, v in ops[0].items()}})
-    say("card", {"nvidia-smi": smi})
 
 
 def histogram_and_cobra(K, KB, T, ref, bin_ids, starts_from_counts, with_base, R, N, dev, hw,
@@ -347,6 +418,245 @@ def histogram_and_cobra(K, KB, T, ref, bin_ids, starts_from_counts, with_base, R
         say("cobra_binning", {"at": tag, "m": g.num_edges, "pass_bins": [
             -(-g.num_nodes // r) for r in plans[tag]], **interleaved(with_base(
                 {"cobra_binning": lambda: cobra_binning(K)}, cobra_binning), R, max(2, N // 4))})
+
+
+EMB_T, EMB_VOCAB, EMB_D, EMB_BIN_RANGE = 262_144, 50_304, 256, 4096  # benchmarks/embed_grad.py
+F_GRID = (1, 8, 32, 128)  # benchmarks/fig9_spmm.py
+ROW_CHUNK = "constexpr int kRowChunk = 64;"
+# ``fill``: the row walk's chunk from m, two waves of 2048 threads on every SM
+FILL = [
+    ("pb_rows.cuh", ROW_CHUNK, "__constant__ int c_row_chunk;"),
+    ("pb_rows.cuh", "(t / lpr) * kRowChunk;", "(t / lpr) * c_row_chunk;"),
+    ("pb_rows.cuh", "i0 + kRowChunk < m ? i0 + kRowChunk : m;",
+     "i0 + c_row_chunk < m ? i0 + c_row_chunk : m;"),
+    ("pb_rows.cuh", "  const long long threads = ((m + kRowChunk - 1) / kRowChunk) * lpr;\n",
+     "  const long long fill = m * lpr / (2LL * 2048 * pb_num_sms());\n"
+     "  const int chunk = (int)(fill < 1 ? 1 : fill > kFillMax ? kFillMax : fill);\n"
+     "  cudaMemcpyToSymbolAsync(c_row_chunk, &chunk, sizeof(int), 0, cudaMemcpyHostToDevice, s);\n"
+     "  const long long threads = ((m + chunk - 1) / chunk) * lpr;\n"),
+    ("pb_rows.cuh", "constexpr int kRowThreads = 256;",
+     "constexpr int kRowThreads = 256;\nconstexpr int kFillMax = 64;"),
+]
+
+
+def build_variants(_lib, csrc: str, entry: str, variants: dict, root: str) -> dict:
+    """Compile each variant of ``csrc/entry`` (with every header of
+    ``csrc``) into ``root/<name>/lib.so``, one nvcc each, all started
+    together. ``variants``: name -> [(file, old, new)] text patches; a
+    patch whose ``old`` text is missing stops the script. Returns name ->
+    ctypes library."""
+    procs = {}
+    for name, patches in variants.items():
+        d = os.path.join(root, name)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        for f in os.listdir(csrc):
+            if f == entry or f.endswith(".cuh"):
+                shutil.copy(os.path.join(csrc, f), d)
+        for f, old, new in patches:
+            with open(os.path.join(d, f)) as fh:
+                text = fh.read()
+            if old not in text:
+                raise SystemExit(f"torch_pb_kernels: variant {name}: {f} has no {old!r}")
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text.replace(old, new))
+        lib = os.path.join(d, "lib.so")
+        procs[name] = (lib, subprocess.Popen(
+            [_lib.nvcc_path(), *_lib.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
+             "-o", lib, os.path.join(d, entry)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for name, (lib, p) in procs.items():
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            raise SystemExit(f"nvcc failed on variant {name}:\n{log}")
+        out[name] = ctypes.CDLL(lib)
+    return out
+
+
+def binread_section(K, KB, ref, bin_ids, starts_from_counts, with_base, R, N, dev, _lib,
+                    src) -> None:
+    """The ``binread`` and ``pb_scatter_add_full`` lines (module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import pb
+
+    csrc = os.path.join(os.path.abspath(src), "repro_torch", "kernels", "csrc")
+    tile = "constexpr int kBrTile = 4096;"
+    threads = "constexpr int kBrThreads = 512;"
+    unroll = "constexpr int kBrUnroll = 4;"
+    with open(os.path.join(csrc, "binread.cu")) as fh:
+        libs = {} if tile not in fh.read() else build_variants(_lib, csrc, "binread.cu", {
+            **{f"tile{t}": [("binread.cu", tile, f"constexpr int kBrTile = {t};")]
+               for t in (2048, 8192)},
+            "threads1024": [("binread.cu", threads, "constexpr int kBrThreads = 1024;")],
+            **{f"unroll{u}": [("binread.cu", unroll, f"constexpr int kBrUnroll = {u};")]
+               for u in (8, 16)}},
+            os.path.join(str(_lib.BUILD_ROOT), "variants", "binread"))
+    for lib in libs.values():
+        fn = lib.pb_binread_scatter_add
+        fn.argtypes, fn.restype = _lib.SIGNATURES["pb_binread_scatter_add"]
+    B, RB, d = -(-EMB_VOCAB // EMB_BIN_RANGE), EMB_BIN_RANGE, EMB_D
+
+    def variant(lib, idx_p, val_p):
+        """What ``binread_scatter_add`` does, with a variant's library."""
+        L = idx_p.shape[1]
+        acc = torch.zeros((B * RB, d), dtype=torch.float32, device=dev)
+        out = acc if val_p.dtype == torch.float32 else torch.empty(
+            (B * RB, d), dtype=val_p.dtype, device=dev)
+        _lib.check(lib.pb_binread_scatter_add(
+            idx_p.data_ptr(), val_p.data_ptr(), B, L, d, RB, acc.data_ptr(), out.data_ptr(),
+            0 if val_p.dtype == torch.float32 else 1, _lib.stream(idx_p)), "binread variant")
+        return out
+
+    rng = np.random.default_rng(0)  # embed_grad.py's zipf ids; uniform ids from seed 1
+    ids_np = {"zipf": np.minimum((rng.pareto(1.2, EMB_T) * 50).astype(np.int64), EMB_VOCAB - 1),
+              "uniform": np.random.default_rng(1).integers(0, EMB_VOCAB, EMB_T)}
+    g32 = torch.randn(EMB_T, d, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    for name, ids_n in ids_np.items():
+        ids = torch.from_numpy(ids_n.astype(np.int32)).to(dev)
+        keys = bin_ids(ids, RB)
+        counts = ref.histogram_ref(keys, B)
+        starts = starts_from_counts(counts)
+        pos = ref.counting_positions_ref(keys, starts[:-1].contiguous(), B).long()
+        L = max(8, -(-int(counts.max()) // 8) * 8)  # as ops.pb_scatter_add_full sizes it
+        bidx = torch.empty_like(ids)
+        bidx[pos] = ids
+        brows = torch.empty_like(g32)
+        brows[pos] = g32
+        idx_p, val_p32 = K.ops.padded_bin_layout(pb.Bins(bidx, brows, starts, RB), B, L)
+        del brows
+        # the same rows sorted by index within each bin, padding last
+        order = torch.argsort(torch.where(idx_p < 0, torch.iinfo(torch.int32).max, idx_p),
+                              dim=1, stable=True)
+        idx_s = torch.gather(idx_p, 1, order)
+        flat = (order + torch.arange(B, device=dev)[:, None] * L).reshape(-1)
+        for dt in (torch.float32, torch.bfloat16):
+            val_p = val_p32 if dt == torch.float32 else val_p32.to(dt)
+            val_s = val_p.reshape(B * L, d)[flat].reshape(B, L, d)
+            g = g32.to(dt)
+
+            def binread(mod, idx_p=idx_p, val_p=val_p):
+                return mod.binread_scatter_add(idx_p, val_p, RB)
+
+            fns = {"binread": lambda: binread(K),
+                   "sorted": lambda val_s=val_s: K.binread_scatter_add(idx_s, val_s, RB),
+                   "compact_index_add_": lambda g=g, dt=dt: torch.zeros(
+                       (B * RB, d), dtype=dt, device=dev).index_add_(0, ids, g)}
+            fns.update({v: lambda lib=lib, val_p=val_p: variant(lib, idx_p, val_p)
+                        for v, lib in libs.items()})
+            fns = with_base(fns, binread)
+            want = ref.binread_scatter_add_ref(idx_p, val_p, RB)
+            scale = ref.binread_scatter_add_ref(idx_p, val_p.abs(), RB).float()
+            for k, fn in fns.items():
+                if k == "compact_index_add_":
+                    continue
+                err = (fn().float() - want.float()).abs()
+                ok = bool((err <= 1e-5 * scale + 1e-6).all()) if dt == torch.float32 \
+                    else float(err.max()) <= 1e-1
+                if not ok:
+                    raise SystemExit(f"binread {k} differs from plain at {name} {dt} "
+                                     f"({float(err.max())})")
+            del want, scale, err
+            esize = 4 if dt == torch.float32 else 2
+            rec = {"ids": name, "dtype": str(dt), "B": B, "L": L, "d": d, "bin_range": RB,
+                   "real_rows": EMB_T,
+                   "bound_ms": (4 * B * L + esize * EMB_T * d + esize * B * RB * d) / 3.35e12 * 1e3}
+            say("binread", {**rec, **interleaved(fns, R, max(2, N // 4))})
+            say("profile", {"kernel": "binread", **rec, **kernel_profile(lambda: binread(K))})
+            say("profile", {"kernel": "binread", "input": "sorted", **rec,
+                            **kernel_profile(fns["sorted"])})
+            if KB is not None:
+                say("profile", {"kernel": "base:binread", **rec,
+                                **kernel_profile(lambda: binread(KB))})
+            del fns, val_s, val_p
+        del idx_p, val_p32, idx_s, order, flat
+        if name == "zipf":  # the caller: ops.pb_scatter_add_full at embed_grad's full shapes
+            def pb_scatter_add_full(mod):
+                return mod.ops.pb_scatter_add_full(ids, g32, EMB_VOCAB, bin_range=RB)
+
+            want = torch.zeros(EMB_VOCAB, d, dtype=torch.float64, device=dev).index_add_(
+                0, ids, g32.double())
+            err = float((pb_scatter_add_full(K).double() - want).abs().max())
+            if err > 1e-3:
+                raise SystemExit(f"pb_scatter_add_full differs from float64 index_add_ ({err})")
+            say("pb_scatter_add_full", {"ids": name, "T": EMB_T, "d": d, "max_abs_err": err,
+                                        **interleaved(with_base({
+                                            "pb_scatter_add_full": lambda: pb_scatter_add_full(K)},
+                                            pb_scatter_add_full),
+                                            R, max(2, N // 4))})
+            del want
+        torch.cuda.empty_cache()
+
+
+def rows_section(K, KB, T, ref, with_base, R, N, dev, _lib, variant_src) -> None:
+    """The ``rows`` lines (module docstring)."""
+    import torch
+
+    csrc = os.path.join(os.path.abspath(variant_src), "repro_torch", "kernels", "csrc")
+    libs = build_variants(_lib, csrc, "fused_rows.cu", {
+        "chunk8": [("pb_rows.cuh", ROW_CHUNK, "constexpr int kRowChunk = 8;")],
+        "chunk16": [("pb_rows.cuh", ROW_CHUNK, "constexpr int kRowChunk = 16;")],
+        "fill": FILL}, os.path.join(str(_lib.BUILD_ROOT), "variants", "rows"))
+    for lib in libs.values():
+        fn = lib.pb_fused_accumulate_rows
+        fn.argtypes, fn.restype = _lib.SIGNATURES["pb_fused_accumulate_rows"]
+
+    def variant(lib, idx, val, n):
+        out = torch.zeros(n, val.shape[1], device=dev)  # add's identity
+        _lib.check(lib.pb_fused_accumulate_rows(
+            idx.data_ptr(), val.data_ptr(), idx.shape[0], val.shape[1], out.data_ptr(), n, 0, 0,
+            _lib.stream(idx)), "rows variant")
+        return out
+
+    suite = T.graph_suite("bench", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    graphs = [(f"S1 {k}", suite[k], F_GRID) for k in ("KRON", "EURO", "HBUBL")]
+    graphs.append(("S2", T.gen_uniform(1 << 22, 8, seed=3, device=dev), (64,)))
+    for tag, g, fs in graphs:
+        idx = torch.sort(g.dst, stable=True).values
+        n, m = g.num_nodes, idx.shape[0]
+        br = min(512, n)
+        nb = -(-n // br)
+        for F in fs:
+            for dt, op in ((torch.float32, "min"), (torch.float32, "max"), (torch.int32, "add"),
+                           (torch.int32, "min"), (torch.int32, "max")):
+                v = torch.randn(m, F, device=dev, generator=gen) if dt == torch.float32 else \
+                    torch.randint(-50, 50, (m, F), device=dev, generator=gen, dtype=torch.int32)
+                if not torch.equal(K.cobra_bin_accumulate_rows(idx, v, n, br, nb, op),
+                                   ref.scatter_reduce_ref(idx, v, n, op)):
+                    raise SystemExit(f"rows {op} {dt} differs from plain at {tag} F={F}")
+                del v
+            val = torch.randn(m, F, device=dev, generator=gen)
+
+            def rows(mod, idx=idx, val=val, n=n, br=br, nb=nb):
+                return mod.cobra_bin_accumulate_rows(idx, val, n, br, nb, "add")
+
+            fns = {"rows": lambda: rows(K),
+                   "index_add_": lambda val=val, n=n, F=F: torch.zeros(
+                       n, F, device=dev).index_add_(0, idx, val)}
+            fns.update({k: lambda lib=lib, val=val, n=n: variant(lib, idx, val, n)
+                        for k, lib in libs.items()})
+            fns = with_base(fns, rows)
+            want = ref.scatter_reduce_ref(idx, val, n, "add")
+            scale = ref.scatter_reduce_ref(idx, val.abs(), n, "add")
+            for k, fn in fns.items():
+                if k != "index_add_" and not bool(((fn() - want).abs() <= 1e-5 * scale + 1e-6).all()):
+                    raise SystemExit(f"rows {k} (add) differs from plain at {tag} F={F}")
+            del want, scale
+            rec = {"at": tag, "m": m, "n": n, "F": F, "dtype": "torch.float32", "op": "add",
+                   "bound_ms": (4 * m + 4 * m * F + 4 * n * F) / 3.35e12 * 1e3}
+            say("rows", {**rec, **interleaved(fns, R, N)})
+            if tag == "S1 KRON" and F in (1, 8):
+                say("profile", {"kernel": "rows", **rec, **kernel_profile(lambda: rows(K))})
+                if KB is not None:
+                    say("profile", {"kernel": "base:rows", **rec,
+                                    **kernel_profile(lambda: rows(KB))})
+                say("enqueue", {**rec, **enqueue_ms(fns)})
+            del fns, val
+        del idx
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

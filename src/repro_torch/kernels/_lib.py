@@ -39,7 +39,7 @@ SIGNATURES = {
     "pb_fused_accumulate_rows": ([_P, _P, _L, _I, _P, _I, _I, _I, _P], _I),
     "pb_cobra_pass_scratch": ([_L, _I, _I], _L),
     "pb_cobra_pass": ([_P, _P, _P, _L, _P, _I, _P, _P, _P, _I, _P], _I),
-    "pb_binread_scatter_add": ([_P, _P, _L, _I, _L, _P, _P, _I, _P], _I),
+    "pb_binread_scatter_add": ([_P, _P, _I, _I, _I, _I, _P, _P, _I, _P], _I),
     "pb_scatter_rows": ([_P, _P, _L, _L, _P, _L, _P], _I),
     "pb_flash_attention": (
         [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, ctypes.c_float] + [_L] * 12 + [_P], _I

@@ -3,7 +3,9 @@
 ``binread_scatter_add`` adds the rows of a padded bin layout — indices
 ``(B, L)`` with -1 padding, values ``(B, L, d)`` — into a ``(B * R, d)``
 output, R = ``bin_range``; duplicates coalesce. On a CUDA tensor it runs
-``csrc/binread.cu``; on a CPU tensor its plain version
+``csrc/binread.cu`` (each block counting-sorts a 4096-position tile of one
+bin row by index in shared memory and applies each run of equal indices
+with one 16-byte reduction per 4 columns); on a CPU tensor its plain version
 ``ref.binread_scatter_add_ref``. Both sum in float32 and store the input
 dtype (float32 or bfloat16), as the Pallas kernel's float32 dot does, and
 both add an index at its global row wherever it lies in ``[0, B * R)``
@@ -53,7 +55,7 @@ def binread_scatter_add(
     lib = _lib.load()
     _lib.check(
         lib.pb_binread_scatter_add(
-            idx_padded.data_ptr(), val_padded.data_ptr(), B * L, d, out_rows,
+            idx_padded.data_ptr(), val_padded.data_ptr(), B, L, d, bin_range,
             acc.data_ptr(), out.data_ptr(), _DTYPE_CODE[val_padded.dtype],
             _lib.stream(idx_padded),
         ),

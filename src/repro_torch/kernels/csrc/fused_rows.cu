@@ -14,15 +14,19 @@
 // Bound on the H100: bytes — the 4*m*F bytes of rows and 4*m of indices
 // read once, 4*n*F of output written (and initialised by the caller).
 //
-// Design: the row walk of pb_rows.cuh — a group of lanes spans a row with
-// 16-byte loads, walks a chunk of the stream and keeps a run of equal
-// destinations in registers, applying each run with one atomic per column
-// (float min/max by pb_common.cuh's sign-split int/uint atomics). A
-// destination-sorted stream (the GNN and fig9 streams, sorted_within = 1)
-// therefore costs one atomic per column per (chunk, destination) pair; any
-// other order is still right, with more atomics. Row offsets are 64-bit:
-// m * F may exceed 2^31. Indices outside [0, num_indices), negative ones
-// included, are dropped.
+// Design: the row walks of pb_rows.cuh. A group of lanes spans a row with
+// 16-byte loads and a run of equal destinations is combined in registers,
+// then applied with one atomic per column (float min/max by
+// pb_common.cuh's sign-split int/uint atomics). Rows of at most 4 lanes
+// (F <= 16 with 16-byte loads: fig9's F = 1 and 8) take the narrow walk,
+// a warp-cooperative segmented scan over 32 / lpr rows a step, so that a
+// short row is not a long chain of dependent loads in one thread; wider
+// rows (the GNN layer's F = 64, fig9's 32 and 128) walk a 64-row chunk
+// per group of lanes. A destination-sorted stream (the GNN and fig9
+// streams, sorted_within = 1) therefore costs one atomic per column per
+// (chunk, destination) pair; any other order is still right, with more
+// atomics. Row offsets are 64-bit: m * F may exceed 2^31. Indices outside
+// [0, num_indices), negative ones included, are dropped.
 #include "pb_common.cuh"
 #include "pb_rows.cuh"
 

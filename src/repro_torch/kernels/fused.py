@@ -49,8 +49,10 @@ than that sum.
 
 ``cobra_bin_accumulate_rows`` is the row-block (SpMM) form: ``(m, F)``
 values reduced into ``(num_indices, F)`` by ``csrc/fused_rows.cu`` on a
-CUDA tensor, by the same plain version on a CPU tensor, with the same
-index rule and tolerances (per column). Row offsets are 64-bit, so only
+CUDA tensor (rows of up to 16 float32/int32 columns in a warp-cooperative
+segmented walk, wider ones a 64-row chunk per group of lanes), by the
+same plain version on a CPU tensor, with the same index rule and
+tolerances (per column). Row offsets are 64-bit, so only
 m and num_indices, not m * F, must fit int32.
 """
 from __future__ import annotations

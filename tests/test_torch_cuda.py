@@ -383,6 +383,160 @@ def test_cuda_binread_matches_plain(cuda, B, L, R, d, dtype):
         assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
 
 
+# Bin-Read's tile-sorted design (csrc/binread.cu): 4096-position tiles of one
+# bin row, a counting sort by local index, runs applied with vector
+# reductions, a side path for in-range indices outside their bin. bfloat16
+# sums can reach |x| ~ 100 here (one index over every row of a bin): held
+# within one bfloat16 rounding step of the plain output, 2^-7 |want|, plus
+# the reference's atol 1e-1.
+BINREAD_CASES = ["all-padding", "mid-row-padding", "out-of-bin", "out-of-range", "one-index",
+                 "wide-range"]
+
+
+def _binread_layout(case, B, L, d, seed):
+    """(idx, val, R) of one padded layout; idx as int64 numpy, val float32."""
+    rng = _rng(seed)
+    R = 5000 if case == "wide-range" else 64  # 5000 > the sort's 4096 keys: all on the side path
+    idx = np.stack([rng.integers(b * R, (b + 1) * R, L) for b in range(B)]).astype(np.int64)
+    hit = rng.random(idx.shape)
+    if case == "all-padding":  # every other bin holds nothing but padding
+        idx[1::2] = -1
+    elif case == "mid-row-padding":
+        idx[hit < 0.3] = -1
+    elif case == "out-of-bin":  # in range, but in another bin's range
+        idx[hit < 0.2] = rng.integers(0, B * R, int((hit < 0.2).sum()))
+    elif case == "out-of-range":  # dropped wherever they stand: < -1 and >= B * R too
+        idx[hit < 0.3] = rng.choice([-1, -2, -1000, B * R, B * R + 7, 2**31 - 1],
+                                    int((hit < 0.3).sum()))
+    elif case == "one-index":  # one index over every row of bin 0: runs across tiles
+        idx[0] = 3
+    idx[:, -5:] = -1
+    val = rng.normal(size=(B, L, d)).astype(np.float32)
+    return idx, val, R
+
+
+def _binread_ok(got, want, scale, dtype):
+    if dtype == torch.bfloat16:
+        diff = (got.float() - want.float()).abs()
+        return bool((diff <= 2.0**-7 * want.float().abs() + 1e-1).all())
+    return bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BINREAD_CASES)
+@pytest.mark.parametrize("d", [1, 3, 256, 1000])
+@pytest.mark.parametrize("L", [9000, 9001])  # three tiles; 9001: indices off a 16-byte row
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_binread_edge_streams(cuda, case, d, L, dtype):
+    B = 3
+    idx, val, R = _binread_layout(case, B, L, d, seed=d + L)
+    ti = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    tv = torch.from_numpy(val).to(cuda).to(dtype)
+    before = binread_scatter_add.launches
+    got = binread_scatter_add(ti, tv, R)
+    want = tref.binread_scatter_add_ref(ti, tv, R)
+    scale = tref.binread_scatter_add_ref(ti, tv.abs(), R).float()
+    torch.cuda.synchronize()
+    assert binread_scatter_add.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B * R, d)
+    assert _binread_ok(got, want, scale, dtype)
+    if case == "all-padding":
+        assert not bool(got[R:2 * R].any())  # a bin no tuple reaches stays zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_binread_unaligned_values(cuda, d, dtype):
+    """val one element past an aligned start: the kernel takes scalar
+    columns instead of 16- or 8-byte loads and vector reductions."""
+    B, L = 2, 5003
+    idx, val, R = _binread_layout("out-of-bin", B, L, d, seed=d)
+    ti = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    flat = torch.zeros(B * L * d + 1, device=cuda, dtype=dtype)
+    tv = flat[1:].view(B, L, d)
+    tv.copy_(torch.from_numpy(val).to(cuda).to(dtype))
+    assert tv.data_ptr() % 16 != 0
+    got = binread_scatter_add(ti, tv, R)
+    want = tref.binread_scatter_add_ref(ti, tv, R)
+    scale = tref.binread_scatter_add_ref(ti, tv.abs(), R).float()
+    assert _binread_ok(got, want, scale, dtype)
+
+
+# The narrow-row walk of csrc/pb_rows.cuh (rows of at most 4 lanes: F <= 16
+# with 16-byte loads, F <= 4 otherwise) against the plain version, around
+# it (F = 31, 32 take the wide walk): sorted, random, long runs that cross
+# a step and a chunk, one destination for the whole stream, and indices
+# out of range (negative ones too). m is not a multiple of 32.
+ROWS_ORDERS = ["sorted", "random", "runs", "one-destination"]
+
+
+def _rows_stream(order, n, m, seed):
+    rng = _rng(seed)
+    if order == "one-destination":
+        idx = np.full(m, n // 2, np.int64)
+    elif order == "runs":  # runs of 1 to 300 rows
+        idx = np.repeat(rng.integers(0, n, m // 50), rng.integers(1, 300, m // 50))[:m]
+    else:
+        idx = rng.integers(0, n, m)
+        if order == "sorted":
+            idx.sort()
+    bad = rng.random(m) < 0.01
+    idx[bad] = rng.choice([-1, -7, n, n + 11], int(bad.sum()))
+    return idx.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 8, 12, 16, 31, 32])
+@pytest.mark.parametrize("order", ROWS_ORDERS)
+def test_cuda_rows_narrow_walk(cuda, dtype, op, F, order):
+    n, m = 3001, 100_003
+    ti = torch.from_numpy(_rows_stream(order, n, m, seed=F)).to(cuda)
+    rng = _rng(F + 1)
+    if dtype == torch.int32:
+        tv = torch.from_numpy(rng.integers(-50, 50, (m, F)).astype(np.int32)).to(cuda)
+    else:
+        tv = torch.from_numpy(rng.normal(size=(m, F)).astype(np.float32)).to(cuda)
+    before = cobra_bin_accumulate_rows.launches
+    got = cobra_bin_accumulate_rows(ti, tv, n, 512, -(-n // 512), op)
+    want = tref.scatter_reduce_ref(ti, tv, n, op)
+    assert cobra_bin_accumulate_rows.launches == before + 1
+    assert got.shape == (n, F) and _rows_ok(got, want, ti, tv, n, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 2, 8, 16])
+@pytest.mark.parametrize("op", ["add", "max"])
+def test_cuda_rows_narrow_walk_long_chunks(cuda, F, op):
+    """m large enough that a warp's chunk takes many steps (m / (rows a
+    step x two waves of warps)), on a sorted stream with hubs."""
+    n, m = 50_000, 6_000_011
+    gen = torch.Generator(device=cuda).manual_seed(F)
+    ti = torch.randint(0, n, (m,), device=cuda, generator=gen, dtype=torch.int32)
+    ti[: m // 3] = 17  # a hub: one run across many chunks
+    ti = ti.sort().values
+    tv = torch.randn(m, F, device=cuda, generator=gen)
+    got = cobra_bin_accumulate_rows(ti, tv, n, 512, -(-n // 512), op)
+    want = tref.scatter_reduce_ref(ti, tv, n, op)
+    assert _rows_ok(got, want, ti, tv, n, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "min"])
+def test_cuda_rows_at_the_gnn_shape(cuda, op):
+    """S2's GNN layer: gen_uniform(2^22, 8)'s destination-sorted stream of
+    2^25 rows at F = 64 (the wide walk)."""
+    n, m, F = 1 << 22, 1 << 25, 64
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    ti = torch.randint(0, n, (m,), device=cuda, generator=gen, dtype=torch.int32).sort().values
+    tv = torch.randn(m, F, device=cuda, generator=gen)
+    got = cobra_bin_accumulate_rows(ti, tv, n, 512, n // 512, op)
+    want = tref.scatter_reduce_ref(ti, tv, n, op)
+    assert _rows_ok(got, want, ti, tv, n, op)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,d", [(1, 1), (64, 8), (1000, 3), (4097, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
