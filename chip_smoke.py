@@ -31,7 +31,11 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    ``graph_suite("bench")`` graphs, checked against the port on the CPU),
    S2 (``gen_uniform(2^22, 8)``) and S3 (``gen_uniform(32M, 4)``, the
    paper's scale). PB and COBRA CSRs must equal the baseline CSR; arms
-   C-E must agree with arm B.
+   C-E must agree with arm B. At S3 arm E runs the two-pass fused kernel
+   (the H100 model's fit rule): it must have launched there; its time is
+   printed beside arm B's and the 348.960 ms it took on the hierarchical
+   path, with the decisions, the peak device memory and a
+   ``torch.profiler`` listing of the whole arm.
 4. The same arms with ``PBExecutor(use_pallas=True)`` plus
    ``build_csr_pb(method="pallas")`` at S1 and S2: CSRs and binned
    streams identical to phase 3's, ranks within tolerance.
@@ -84,8 +88,29 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
 10. The same model at full width with 2 layers in float32 on the card
    against its copy on the CPU (plain versions): a 300-token prefill's
    last logits and 8 greedy decode steps.
+12. (Runs before phase 11.) The traversal path through the port's entry
+   points (``benchmarks/fig8_traversal.py``, ``fig2_preproc_cost.py``):
+   ``bfs`` with parents, ``sssp`` (weights from numpy seed 8, uniform in
+   [0.1, 1.1)), ``k_core`` (k = 3), ``connected_components_fused`` and
+   ``_pb`` (run to convergence: ``max_iters`` = n), ``radii`` (k = 4,
+   300 levels), ``bfs_batched`` (with parents) and ``sssp_batched`` from
+   8 sources and ``personalized_pagerank`` from the same 8 (the source
+   is the vertex of largest out-degree, the batch the 8 largest), under
+   the default executor, BFS and CC-PB also under ``use_pallas=True``,
+   on the five S1 graphs and S2, and BFS and CC at S3. At S1 each result
+   must equal the port's run on the CPU; at every size BFS levels and
+   parents must equal a dense plain-torch BFS (parent: the largest-id
+   predecessor on the previous level), CC labels scipy's weak components
+   (labelled by their smallest vertex), k-core ``k_core_oracle``; at S2
+   each batched lane must equal its single-source run and SSSP scipy's
+   Dijkstra in float64. S2 and S3 print ``timing.time_fn`` times beside
+   ``method="unbinned"`` (for CC: ``connected_components``, the
+   random-order baseline), levels, the per-level decision trace
+   (``L<level>:<method>@2^<bucketed length>``) and the peak device
+   memory; S2 also each BFS level's reduce on its padded stream and on
+   its real tuples only.
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
-   phases 3-4, 6, 7 and 9 (counts set to 0 before each path, read after
+   phases 3-4, 6, 7, 9 and 12 (counts set to 0 before each path, read after
    it; the checks of phases 2, 5, 8, 10 and 11 do not count), its largest
    error against its plain version, and times at a path's shapes
    (Bin-Read's row also ``compact_index_add_ms``); then
@@ -127,6 +152,15 @@ sqrt(e / S) for unit-normal inputs), so it could not see a dropped key
 tile there. The float32 model on the card against
 the CPU: logits within 1e-4 of max |logit| per step (sums of 1536 to
 8960 float32 products in another order), greedy tokens equal.
+Traversal (phase 12): levels, parents, labels, k-core membership,
+eccentricities and SSSP distances are exact (integer and min/max
+reductions; an SSSP distance is one float32 add per hop, then an exact
+min), so the card equals the CPU bit for bit; PPR sums float32 and is
+held to the PageRank tolerance. Against float64 Dijkstra, a float32
+distance is a float32 sum along a path of k hops, each add rounding by
+at most 2^-24 of its partial sum, so it is within about k * 2^-24 of the
+exact distance, relatively; k is at most the number of rounds or d /
+0.1 (the lightest weight), and the check allows k * 2^-23 * d.
 """
 from __future__ import annotations
 
@@ -173,6 +207,15 @@ LM_PROMPT_LENS = (100, 2048)
 LM_SEED = 0
 LM_TOL = 1e-4  # float32 logits: times max |logit| (tests/test_torch_lm.py)
 LM_CPU_PROMPT, LM_CPU_STEPS = 300, 8
+S3_ARM_E_HIERARCHICAL_S = 0.348960  # S3 arm E on the hierarchical path (PERF.md, section 5)
+INT32_MAX = 2**31 - 1
+F32_MAX = 3.4028234663852886e38  # float32's largest value: SSSP's unreached distance
+KCORE_K = 3  # benchmarks/fig8_traversal.py
+RADII_K, RADII_ITERS = 4, 300  # benchmarks/fig2_preproc_cost.py
+TRAV_BATCH = 8  # sources of the batched BFS/SSSP and of PPR
+TRAV_REPS = 3  # time_fn repetitions of the traversal phase
+SSSP_EPS = 2.0**-23  # per hop, relative: twice float32's unit roundoff
+SSSP_W_MIN = 0.1  # the lightest weight (fig8: uniform in [0.1, 1.1))
 
 
 def fail(msg: str) -> None:
@@ -207,6 +250,18 @@ def flash_close(got, want, dt):
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def pr_close(x, y):
+    """The PageRank tolerance: elementwise rtol PR_RTOL (atol 1e-6 of the
+    largest value) and PR_L1 in relative L1 norm; (ok, the errors)."""
+    import torch
+
+    x, y = x.double().cpu(), y.double().cpu()
+    rel = float(((x - y).abs() / y.abs().clamp(min=1e-30)).max())
+    l1 = float((x - y).abs().sum() / y.abs().sum())
+    ok = torch.allclose(x, y, rtol=PR_RTOL, atol=1e-6 * float(y.abs().max())) and l1 <= PR_L1
+    return ok, {"max_rel": rel, "l1_rel": l1}
 
 
 def bound_ms(nbytes: float) -> float:
@@ -432,6 +487,347 @@ def lm_vs_cpu(cfg, model, prompt, max_len, steps):
     (a, ta), (b, tb) = out["device"], out["cpu"]
     share = float(((a - b).abs().max(dim=1).values / b.abs().max(dim=1).values).max())
     return share, ta == tb, ta
+
+
+# -- the traversal path (phase 12) -------------------------------------------------
+
+
+def decision_trace(decisions) -> str:
+    """fig8's per-level trace: L<level>:<method>@2^<log2 bucketed length>."""
+    per_level = {}
+    for d in decisions:
+        per_level.setdefault(d.get("level", -1), d)
+    items = [f"L{lvl}:{d['method']}@2^{max(d['stream_len'], 1).bit_length() - 1}"
+             for lvl, d in sorted(per_level.items())[:12]]
+    return " ".join(items) + (" ..." if len(per_level) > 12 else "")
+
+
+def dense_bfs(T, csr, source):
+    """Level-synchronous BFS over every edge at once, independent of the
+    executor: levels, and the parent rule of ``traversal.bfs`` (the
+    largest-id predecessor on the previous level)."""
+    import torch
+
+    n = csr.num_nodes
+    src = T.segment_ids_from_offsets(csr.offsets, csr.num_edges).long()
+    dst = csr.neighs.long()
+    dist = torch.full((n,), INT32_MAX, dtype=torch.int32, device=src.device)
+    dist[source] = 0
+    front = torch.zeros(n, dtype=torch.bool, device=src.device)
+    front[source] = True
+    level = 0
+    while bool(front.any()):
+        hit = torch.zeros(n, dtype=torch.bool, device=src.device)
+        hit[dst[front[src]]] = True
+        front = hit & (dist == INT32_MAX)
+        level += 1
+        dist[front] = level
+    du, dv = dist[src], dist[dst]
+    e = (du != INT32_MAX) & (dv == du + 1)
+    parent = torch.full((n,), -1, dtype=torch.int32, device=src.device)
+    parent.scatter_reduce_(0, dst[e], src[e].to(torch.int32), "amax")
+    parent[source] = source
+    return dist, parent
+
+
+def scipy_cc_labels(g):
+    """Weakly connected components by scipy, each labelled with its
+    smallest vertex id."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    n = g.num_nodes
+    s, d = g.src.cpu().numpy(), g.dst.cpu().numpy()
+    a = sp.csr_matrix((np.ones(s.shape[0], np.float32), (s, d)), shape=(n, n))
+    _, comp = connected_components(a, directed=True, connection="weak")
+    first = np.full(int(comp.max()) + 1, n, np.int64)
+    np.minimum.at(first, comp, np.arange(n))
+    return first[comp].astype(np.int32)
+
+
+def scipy_sssp(csr, w, source):
+    """Dijkstra in float64 on the same weighted edges (parallel edges
+    reduced to their lightest first); unreached vertices are inf."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+
+    n = csr.num_nodes
+    off = csr.offsets.cpu().numpy().astype(np.int64)
+    u = np.repeat(np.arange(n, dtype=np.int64), np.diff(off))
+    v = csr.neighs.cpu().numpy().astype(np.int64)
+    w64 = w.cpu().numpy().astype(np.float64)
+    key = u * n + v
+    order = np.lexsort((w64, key))
+    keep = np.ones(order.shape[0], bool)
+    keep[1:] = key[order[1:]] != key[order[:-1]]
+    o = order[keep]
+    a = sp.csr_matrix((w64[o], (u[o], v[o])), shape=(n, n))
+    return dijkstra(a, directed=True, indices=source)
+
+
+def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
+    """Phase 12: BFS (with parents), SSSP, k-core, both CC forms, radii,
+    the batched BFS/SSSP and PPR through the port's entry points on
+    ``suite`` (S1, held against ``suite_cpu``'s run on the CPU) and on
+    ``sizes`` ({"S2": coo, "S3": coo}: all of it at S2, BFS and CC at S3).
+    Returns the kernel launches of the path (counts, shapes)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import components as TC
+    from repro_torch.core.executor import execute_reduce
+    from repro_torch.core.traversal import _expand_frontier, bucket_len
+    from repro_torch.timing import cuda_ms, time_fn
+
+    on_card = torch.device(dev).type == "cuda"
+    ex = T.PBExecutor(cache_dir=cache)
+    ex_pallas = T.PBExecutor(cache_dir=cache, use_pallas=True)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def prepare(g):
+        csr = T.build_csr(g, method="auto")
+        off = csr.offsets.cpu().numpy()
+        source = int(np.argmax(np.diff(off)))
+        w = torch.from_numpy(np.random.default_rng(8).random(csr.num_edges).astype(np.float32)
+                             + 0.1).to(csr.offsets.device)
+        deg = np.diff(off)
+        # the batch: the source and the next seven vertices by out-degree
+        srcs = [int(v) for v in np.argsort(-deg, kind="stable")[:TRAV_BATCH]]
+        return csr, source, w, srcs
+
+    def run_all(g, csr, source, w, srcs, executor, full=True):
+        """Every entry point once on one graph; the results by name."""
+        T.set_default_executor(executor)
+        out = {"bfs": T.bfs(csr, source, executor=executor),
+               "cc_fused": T.connected_components_fused(g, max_iters=g.num_nodes),
+               "cc_pb": TC.connected_components_pb(g, max_iters=g.num_nodes)}
+        if full:
+            out.update(
+                sssp=T.sssp(csr, w, source, executor=executor),
+                k_core=T.k_core(csr, KCORE_K, executor=executor),
+                radii=T.radii(csr, k=RADII_K, max_iters=RADII_ITERS, executor=executor),
+                bfs_batched=T.bfs_batched(csr, srcs, executor=executor, with_parents=True),
+                sssp_batched=T.sssp_batched(csr, w, srcs, executor=executor),
+                ppr=T.personalized_pagerank(csr, srcs, executor=executor),
+            )
+        sync()
+        return out
+
+    def same(a, b):
+        return torch.equal(a.cpu(), b.cpu())
+
+    def compare(tag, got, want):
+        """Card against CPU: integers, distances, labels, eccentricities
+        and parents equal; PPR to the PageRank tolerance."""
+        checks = {
+            "bfs": same(got["bfs"].dist, want["bfs"].dist)
+            and same(got["bfs"].parent, want["bfs"].parent)
+            and got["bfs"].levels == want["bfs"].levels,
+            "cc_fused": same(got["cc_fused"].labels, want["cc_fused"].labels)
+            and got["cc_fused"].iters == want["cc_fused"].iters,
+            "cc_pb": same(got["cc_pb"].labels, want["cc_pb"].labels),
+        }
+        if "sssp" in want:
+            checks.update(
+                sssp=same(got["sssp"].dist, want["sssp"].dist),
+                k_core=same(got["k_core"].in_core, want["k_core"].in_core),
+                radii=same(got["radii"].ecc, want["radii"].ecc),
+                bfs_batched=same(got["bfs_batched"].dist, want["bfs_batched"].dist)
+                and same(got["bfs_batched"].parent, want["bfs_batched"].parent),
+                sssp_batched=same(got["sssp_batched"].dist, want["sssp_batched"].dist),
+                ppr=pr_close(got["ppr"].ranks, want["ppr"].ranks)[0],
+            )
+        bad = [k for k, ok in checks.items() if not ok]
+        require(not bad, f"{tag}: card differs from the CPU run in {bad}")
+
+    def independent_checks(tag, g, csr, source, w, srcs, res, dijkstra=False, lanes=False):
+        """Results against code that does not use the executor."""
+        rec = {}
+        dd, dp = dense_bfs(T, csr, source)
+        b = res["bfs"]
+        require(same(b.dist, dd) and same(b.parent, dp),
+                f"{tag}: BFS levels or parents differ from the dense BFS")
+        want = torch.from_numpy(scipy_cc_labels(g))
+        for k in ("cc_fused", "cc_pb"):
+            require(same(res[k].labels, want), f"{tag}: {k} labels differ from scipy's components")
+        rec["components"] = int(torch.unique(want).numel())
+        if "k_core" in res:
+            require(same(res["k_core"].in_core, torch.from_numpy(T.k_core_oracle(csr, KCORE_K))),
+                    f"{tag}: k-core differs from k_core_oracle")
+        if lanes:  # each batched lane against its single-source run
+            for q, s in enumerate(srcs):
+                bq = T.bfs(csr, s, executor=ex)
+                sq = T.sssp(csr, w, s, executor=ex)
+                require(same(res["bfs_batched"].dist[q], bq.dist)
+                        and same(res["bfs_batched"].parent[q], bq.parent),
+                        f"{tag}: bfs_batched lane {q} differs from bfs")
+                require(same(res["sssp_batched"].dist[q], sq.dist),
+                        f"{tag}: sssp_batched lane {q} differs from sssp")
+                pq = T.personalized_pagerank(csr, s, executor=ex).ranks
+                ok, rel = pr_close(res["ppr"].ranks[q], pq)
+                require(ok, f"{tag}: PPR lane {q} differs from the single-source run ({rel})")
+        if dijkstra:
+            d64 = torch.from_numpy(scipy_sssp(csr, w, source))
+            d32 = res["sssp"].dist.cpu()
+            reached = torch.isfinite(d64)
+            require(torch.equal(reached, d32 < F32_MAX),
+                    f"{tag}: SSSP reaches other vertices than Dijkstra")
+            dr = d64[reached]
+            hops = torch.clamp(dr / SSSP_W_MIN, min=res["sssp"].levels)  # see the docstring
+            tol = hops * SSSP_EPS * dr
+            err = (d32[reached].double() - dr).abs()
+            rec["sssp_vs_dijkstra"] = {"max_abs_err": float(err.max()),
+                                       "worst_share_of_tol": float((err / tol.clamp(min=1e-30)).max())}
+            require(bool((err <= tol).all()), f"{tag}: SSSP differs from Dijkstra ({rec})")
+        return rec
+
+    def summary(res):
+        b = res["bfs"]
+        rec = {"bfs_levels": b.levels, "bfs_frontier_sizes": list(b.frontier_sizes[:12]),
+               "bfs_decisions": decision_trace(b.decisions),
+               "cc_fused_iters": res["cc_fused"].iters, "cc_pb_iters": res["cc_pb"].iters}
+        if "sssp" in res:
+            rec.update(
+                sssp_rounds=res["sssp"].levels, sssp_decisions=decision_trace(res["sssp"].decisions),
+                k_core_rounds=res["k_core"].rounds,
+                k_core_in_core=int(res["k_core"].in_core.sum()),
+                k_core_decisions=decision_trace(res["k_core"].decisions),
+                radii_ecc=res["radii"].ecc.tolist(), radii_converged=res["radii"].converged,
+                bfs_batched_levels=res["bfs_batched"].levels,
+                bfs_batched_decisions=decision_trace(res["bfs_batched"].decisions),
+                sssp_batched_rounds=res["sssp_batched"].levels,
+                ppr_decisions=decision_trace(res["ppr"].decisions[:1]),
+            )
+        return rec
+
+    def timings(g, csr, source, w, srcs, full=True):
+        """fig8's columns: the executor's run and the unbinned baseline
+        (for CC: the random-order baseline, ``connected_components``)."""
+        T.set_default_executor(ex)
+        fns = {
+            "bfs": (lambda: T.bfs(csr, source, executor=ex),
+                    lambda: T.bfs(csr, source, method="unbinned")),
+            "cc_fused": (lambda: T.connected_components_fused(g, max_iters=g.num_nodes),
+                         lambda: T.connected_components(g, max_iters=g.num_nodes)),
+            "cc_pb": (lambda: TC.connected_components_pb(g, max_iters=g.num_nodes), None),
+        }
+        if full:
+            fns.update({
+                "sssp": (lambda: T.sssp(csr, w, source, executor=ex),
+                         lambda: T.sssp(csr, w, source, method="unbinned")),
+                "k_core": (lambda: T.k_core(csr, KCORE_K, executor=ex),
+                           lambda: T.k_core(csr, KCORE_K, method="unbinned")),
+                "radii": (lambda: T.radii(csr, k=RADII_K, max_iters=RADII_ITERS, executor=ex),
+                          lambda: T.radii(csr, k=RADII_K, max_iters=RADII_ITERS,
+                                          method="unbinned")),
+                "bfs_batched": (lambda: T.bfs_batched(csr, srcs, executor=ex, with_parents=True),
+                                lambda: T.bfs_batched(csr, srcs, method="unbinned",
+                                                      with_parents=True)),
+                "sssp_batched": (lambda: T.sssp_batched(csr, w, srcs, executor=ex),
+                                 lambda: T.sssp_batched(csr, w, srcs, method="unbinned")),
+                "ppr": (lambda: T.personalized_pagerank(csr, srcs, executor=ex),
+                        lambda: T.personalized_pagerank(csr, srcs, method="unbinned")),
+            })
+        out = {}
+        for k, (f, base) in fns.items():
+            t = time_fn(f, reps=TRAV_REPS, warmup=1)
+            rec = {"s": t}
+            if base is not None:
+                tb = time_fn(base, reps=TRAV_REPS, warmup=1)
+                rec.update(unbinned_s=tb, speedup_vs_unbinned=tb / t)
+            out[k] = rec
+        return out
+
+    def padding_cost(csr, res):
+        """Per BFS level: the min reduce of the padded stream against the
+        same reduce of its real tuples only (the padding is the op's
+        identity at in-range indices), at the level's decision."""
+        n = csr.num_nodes
+        dist = res["bfs"].dist
+        rows = []
+        for e in res["bfs"].decisions:
+            if e["op"] != "min":
+                continue
+            lvl = e["level"]
+            frontier = torch.nonzero(dist == lvl).flatten().to(torch.int32)
+            total = int((csr.offsets[frontier.long() + 1] - csr.offsets[frontier.long()]).sum())
+            ids = torch.zeros(bucket_len(frontier.numel()), dtype=torch.int32, device=dist.device)
+            ids[: frontier.numel()] = frontier
+            nbr, _, _, ok = _expand_frontier(csr.offsets, csr.neighs, ids, frontier.numel(),
+                                             bucket_len(total))
+            val = torch.where(ok, lvl + 1, INT32_MAX).to(torch.int32)
+            d = ex.decide_or_forced(e["method"], n, int(nbr.shape[0]), torch.int32,
+                                    kind="reduce", op="min", device=nbr.device)
+
+            def red(i, v, d=d):
+                return execute_reduce(i, v, out_size=n, op="min", method=d.method,
+                                      bin_range=d.bin_range, num_bins=d.num_bins, plan=d.plan)
+
+            require(same(red(nbr, val), red(nbr[:total], val[:total])),
+                    f"BFS level {lvl}: the padded stream reduces to another result")
+            rows.append({"level": lvl, "tuples": total, "padded": int(nbr.shape[0]),
+                         "method": d.method,
+                         "padded_ms": cuda_ms(red, nbr, val, reps=10),
+                         "real_only_ms": cuda_ms(red, nbr[:total], val[:total], reps=10)})
+        return rows
+
+    K.reset_launch_counts()  # the traversal path starts here (CPU runs launch nothing)
+    for name, g in suite.items():
+        t0 = time.perf_counter()
+        csr, source, w, srcs = prepare(g)
+        res = run_all(g, csr, source, w, srcs, ex)
+        t_card = time.perf_counter() - t0
+        g_cpu = suite_cpu[name]
+        want = run_all(g_cpu, *prepare(g_cpu), T.PBExecutor(cache_dir=cache))
+        t_cpu = time.perf_counter() - t0 - t_card
+        compare(f"phase12 S1 {name}", res, want)
+        rec = independent_checks(f"phase12 S1 {name}", g, csr, source, w, srcs, res)
+        # BFS and CC-PB under the kernel-backed binning method
+        T.set_default_executor(ex_pallas)
+        bp = T.bfs(csr, source, executor=ex_pallas)
+        cp = TC.connected_components_pb(g, max_iters=g.num_nodes)
+        require(same(bp.dist, res["bfs"].dist) and same(bp.parent, res["bfs"].parent)
+                and same(cp.labels, res["cc_pb"].labels),
+                f"phase12 S1 {name}: use_pallas BFS / CC-PB differ from the default executor")
+        say(f"phase12 S1 {name}", json.dumps({"n": g.num_nodes, "m": g.num_edges, "source": source,
+                                             **summary(res), **rec, "card_run_s": t_card,
+                                             "cpu_run_s": t_cpu}))
+    for tag, g in sizes.items():
+        full = tag == "S2"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        csr, source, w, srcs = prepare(g)
+        res = run_all(g, csr, source, w, srcs, ex, full=full)
+        T.set_default_executor(ex_pallas)
+        bp = T.bfs(csr, source, executor=ex_pallas)
+        require(same(bp.dist, res["bfs"].dist) and same(bp.parent, res["bfs"].parent),
+                f"phase12 {tag}: use_pallas BFS differs from the default executor")
+        times = timings(g, csr, source, w, srcs, full=full)
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        rec = independent_checks(f"phase12 {tag}", g, csr, source, w, srcs, res, dijkstra=full,
+                                 lanes=full)
+        say(f"phase12 {tag}", json.dumps({"n": g.num_nodes, "m": g.num_edges, "source": source,
+                                         **summary(res), **rec, "times": times,
+                                         "max_memory_allocated": peak}))
+        if full:
+            padding = res, csr
+            if on_card:  # where a BFS's time goes: expansion, reduces, host syncs
+                say(f"phase12 {tag} BFS profile", json.dumps(device_profile(
+                    lambda: T.bfs(csr, source, executor=ex), dev)))
+        del csr, w, res
+    counts, shapes = K.launch_counts(), K.launch_shapes()  # the traversal path ends here
+    say("phase12 launches:", json.dumps(counts))
+    require(counts["cobra_bin_accumulate"] > 0 and counts["cobra_bin_accumulate_rows"] > 0,
+            f"the traversal path did not launch the fused kernels: {counts}")
+    if on_card:
+        say("phase12 S2 BFS padding", json.dumps(padding_cost(padding[1], padding[0])))
+    T.set_default_executor(None)
+    return counts, shapes
 
 
 def main() -> None:
@@ -773,17 +1169,13 @@ def main() -> None:
             rk = 0.15 / nn + 0.85 * inc
         return rk
 
-    def close(x, y):
-        x, y = x.double().cpu(), y.double().cpu()
-        rel = float(((x - y).abs() / y.abs().clamp(min=1e-30)).max())
-        l1 = float((x - y).abs().sum() / y.abs().sum())
-        ok = torch.allclose(x, y, rtol=PR_RTOL, atol=1e-6 * float(y.abs().max())) and l1 <= PR_L1
-        return ok, {"max_rel": rel, "l1_rel": l1}
+    close = pr_close
 
     def run_size(tag, g, reps, warmup, ref_cpu=None, pallas=False):
         br, plan, fns = arms(g)
         log0 = len(T.get_default_executor().decision_log)
         times = {a: time_fn(f, reps=reps, warmup=warmup) for a, f in fns.items()}
+        arm_times[tag] = times
         ranks = {a: f() for a, f in fns.items()}
         csrs = builds(g, br, plan, pallas=pallas)
         torch.cuda.synchronize()
@@ -800,17 +1192,21 @@ def main() -> None:
         l1_vs_f64 = {a: float((ranks[a].double() - exact).abs().sum() / exact.abs().sum())
                      for a in "ABCDE"}
         bins = T.pb_bin_edges(g, br)
+        ex = T.get_default_executor()
         decisions = sorted({
-            f"{e['kind']}:{e['method']}@r{e['bin_range']}"
-            for e in T.get_default_executor().decision_log[log0:]
+            f"{e['kind']}:{e['method']}@r{e['bin_range']}" for e in ex.decision_log[log0:]
         })
+        # a binning decision at the planned range (build_csr(method="auto")): the
+        # card's measured table for CUDA streams against the reference's table
+        auto_bin = {"cuda": ex.decide(g.num_nodes, g.num_edges, device=dev).describe(),
+                    "reference_table": ex.decide(g.num_nodes, g.num_edges, device="cpu").describe()}
         say(
             tag,
             json.dumps({
                 "n": g.num_nodes, "m": g.num_edges, "bin_range": br,
                 "plan": [plan.final_bin_range, list(plan.level_fanouts)],
                 "arm_s": times, "vs_B": rels, "l1_vs_f64": l1_vs_f64,
-                "decisions": decisions,
+                "decisions": decisions, "auto_bin_decision": auto_bin,
             }),
         )
         if ref_cpu is not None:
@@ -826,6 +1222,7 @@ def main() -> None:
         br, plan, fns = arms(g_cpu)
         return {a: f() for a, f in fns.items()}, builds(g_cpu, br, plan)
 
+    arm_times = {}
     cache = os.environ["REPRO_TORCH_CACHE_DIR"]
     T.set_default_executor(T.PBExecutor(cache_dir=cache))
     suite = T.graph_suite("bench", device=dev)
@@ -844,7 +1241,23 @@ def main() -> None:
     say(f"phase3 S2 fused launches: {s2_fused}")
     require(s2_fused > 0, "S2: the fused kernel was not launched on the main path")
     s3 = T.gen_uniform(32_000_000, 4, seed=3, device=dev)
+    before = K.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     run_size("phase3 S3", s3, 3, 1)
+    s3_fused = K.launch_counts()["cobra_bin_accumulate"] - before["cobra_bin_accumulate"]
+    t_s3 = arm_times["phase3 S3"]
+    say("phase3 S3 arm E", json.dumps({
+        "E_s": t_s3["E"], "B_s": t_s3["B"],
+        "E_s_on_the_hierarchical_path": S3_ARM_E_HIERARCHICAL_S,
+        "E_over_B": t_s3["E"] / t_s3["B"], "fused_launches": s3_fused,
+        "fused_design": fused_design(s3.num_edges, s3.num_nodes),
+        "reduce_decision": T.get_default_executor().decide(
+            s3.num_nodes, s3.num_edges, torch.float32, kind="reduce", device=dev).describe(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+    require(s3_fused > 0, "S3: the fused kernel was not launched on the main path")
+    # where arm E's time goes: the whole arm once, kernel by kernel
+    say("phase3 S3 arm E profile", json.dumps(device_profile(
+        lambda: T.pagerank_fused(s3, iters=ITERS), dev)))
     torch.cuda.empty_cache()
     say(f"phase3 seconds: {time.perf_counter() - t3:.1f}")
 
@@ -1224,6 +1637,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     say(f"phase10 seconds: {time.perf_counter() - t10:.1f}")
 
+    # -- phase 12: the traversal path (before phase 11's kernels line) --------------
+    t12 = time.perf_counter()
+    trav_counts, trav_shapes = traversal_phase(
+        dev, T, K, suite, suite_cpu, {"S2": s2, "S3": s3}, cache)
+    torch.cuda.empty_cache()
+    say(f"phase12 seconds: {time.perf_counter() - t12:.1f}")
+
     # -- phase 11: the kernels line at the paths' shapes -------------------------
     t11 = time.perf_counter()
     n2, br2 = s2.num_nodes, min(max(64, T.compromise_bin_range(s2.num_nodes, hw)), s2.num_nodes)
@@ -1326,9 +1746,9 @@ def main() -> None:
          4 * T_ + 8 * T_ * d_),
     ]
     path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
-            for k in after}
+            + trav_counts[k] for k in after}
     path_shapes = {}
-    for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes):
+    for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes):
         for k, by in part.items():
             for shp, c in by.items():
                 path_shapes.setdefault(k, {})[shp] = path_shapes.get(k, {}).get(shp, 0) + c

@@ -1,9 +1,16 @@
-"""Core of the PyTorch port: the slice's graph, plan, PB, executor,
-Neighbor-Populate and PageRank modules."""
+"""Core of the PyTorch port: graph, plan, PB, executor, Neighbor-Populate,
+PageRank, connected components, traversal and radii."""
 from repro_torch.core.cobra import cobra_scatter_add, hierarchical_binning
+from repro_torch.core.components import (
+    connected_components,
+    connected_components_fused,
+    connected_components_incremental,
+    connected_components_sharded,
+)
 from repro_torch.core.executor import (
     METHODS,
     REDUCE_METHODS,
+    BatchedBins,
     BinningDecision,
     PBExecutor,
     execute_binning,
@@ -49,10 +56,28 @@ from repro_torch.core.pagerank import (
 )
 from repro_torch.core.pb import Bins, binning, binning_counting, binning_sort
 from repro_torch.core.plan import CobraPlan, HardwareModel, compromise_bin_range
+from repro_torch.core.radii import RadiiResult, radii
+from repro_torch.core.traversal import (
+    BATCHED_TRAVERSAL_METHODS,
+    TRAVERSAL_METHODS,
+    KCoreResult,
+    PPRResult,
+    TraversalResult,
+    bfs,
+    bfs_batched,
+    k_core,
+    k_core_oracle,
+    personalized_pagerank,
+    personalized_pagerank_oracle,
+    sssp,
+    sssp_batched,
+)
 
 __all__ = [
     "cobra_scatter_add", "hierarchical_binning",
-    "METHODS", "REDUCE_METHODS", "BinningDecision", "PBExecutor", "execute_binning",
+    "connected_components", "connected_components_fused",
+    "connected_components_incremental", "connected_components_sharded",
+    "METHODS", "REDUCE_METHODS", "BatchedBins", "BinningDecision", "PBExecutor", "execute_binning",
     "execute_reduce", "get_default_executor", "set_default_executor",
     "COO", "CSR", "cached_graph", "degrees_from_coo", "gen_bubbles", "gen_kron",
     "gen_powerlaw", "gen_road", "gen_uniform", "graph_suite", "offsets_from_degrees",
@@ -63,4 +88,8 @@ __all__ = [
     "pagerank_incremental", "pagerank_pb", "pagerank_pb_prebinned", "pb_bin_edges",
     "Bins", "binning", "binning_counting", "binning_sort",
     "CobraPlan", "HardwareModel", "compromise_bin_range",
+    "RadiiResult", "radii",
+    "BATCHED_TRAVERSAL_METHODS", "TRAVERSAL_METHODS", "KCoreResult", "PPRResult",
+    "TraversalResult", "bfs", "bfs_batched", "k_core", "k_core_oracle",
+    "personalized_pagerank", "personalized_pagerank_oracle", "sssp", "sssp_batched",
 ]

@@ -16,6 +16,16 @@ What the port adds is ``HardwareModel.h100()``, its default model:
 constants, never read from the device at run time, so a CPU test and
 the card make the same plans; ``chip_smoke.py`` prints the device's own
 properties beside them so that a mismatch is visible.
+
+The H100 model also carries what the executor's fit rule for flat fused
+reductions reads (``PBExecutor.fused_fits``): the two-pass fused kernel
+(``kernels/fused.py``) reduces each slab of the output in shared memory,
+so its output need not be resident in any fast level. It takes up to
+``fused_max_indices`` = 2048 slabs of 32768 indices
+(``TWO_PASS_MAX_INDICES``) and ``fused_scratch_per_tuple`` = 6 bytes of
+scratch a tuple (a 16-bit offset and the 4-byte value), which must fit
+``device_memory`` (80 GB on the SXM part). The reference's models leave
+these fields at 0, which keeps the reference's rule.
 """
 from __future__ import annotations
 
@@ -33,6 +43,10 @@ class HardwareModel:
     cbuffer_bytes: int
     dram_bandwidth: float
     fast_bandwidth: float
+    # flat fused reductions that need no resident accumulator (0: none)
+    fused_max_indices: int = 0
+    fused_scratch_per_tuple: int = 0
+    device_memory: int = 0
 
     @staticmethod
     def cpu_xeon() -> "HardwareModel":
@@ -62,6 +76,9 @@ class HardwareModel:
             cbuffer_bytes=128,
             dram_bandwidth=3.35e12,
             fast_bandwidth=132 * 128 * 1.98e9,
+            fused_max_indices=32768 * 2048,
+            fused_scratch_per_tuple=6,
+            device_memory=80 * 10**9,
         )
 
 

@@ -712,3 +712,152 @@ def test_cuda_flash_raises_on_unaligned_kv(cuda, which):
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(q, good, k)
     assert flash_attention.launches == before
+
+
+# -- the traversal slice on the card against the CPU ------------------------------
+
+TRAV_GRAPHS = ("DBP", "KRON", "URND", "EURO", "HBUBL")
+
+
+def _trav_pair(cuda, name):
+    """One smoke graph on the card and on the CPU: (coo, csr, weights) each."""
+    import repro_torch.core as T
+
+    out = []
+    for dev in (cuda, "cpu"):
+        g = T.graph_suite("smoke", device=dev)[name]
+        csr = T.build_csr_baseline(g)
+        w = torch.from_numpy(np.random.default_rng(8).random(csr.num_edges).astype(np.float32)
+                             + 0.1).to(dev)
+        out.append((g, csr, w))
+    return out
+
+
+def _trav_source(csr):
+    return int(np.argmax(np.diff(csr.offsets.cpu().numpy())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TRAV_GRAPHS)
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_cuda_single_source_traversal_equals_cpu(cuda, name, use_pallas, tmp_path):
+    """BFS (levels, parents), SSSP, k-core and radii run the fused kernel
+    (or, with use_pallas, the kernel-backed binning where decided) and
+    equal the CPU run exactly, decisions included but for the device."""
+    import repro_torch.core as T
+    from repro_torch.core import traversal as tt
+
+    (_, gc, wc), (_, cc, wp) = _trav_pair(cuda, name)
+    s = _trav_source(cc)
+    ex = T.PBExecutor(cache_dir=str(tmp_path), use_pallas=use_pallas)
+    for fn in (lambda c, w: tt.bfs(c, s, executor=ex),
+               lambda c, w: tt.sssp(c, w, s, executor=ex),
+               lambda c, w: tt.bfs(c, s, executor=ex, method="fused")):
+        a, b = fn(gc, wc), fn(cc, wp)
+        assert torch.equal(a.dist.cpu(), b.dist)
+        assert (a.parent is None) == (b.parent is None)
+        if a.parent is not None:
+            assert torch.equal(a.parent.cpu(), b.parent)
+        assert (a.levels, a.frontier_sizes, a.level_edges) == (b.levels, b.frontier_sizes,
+                                                              b.level_edges)
+    for k in (2, 3):
+        a, b = tt.k_core(gc, k, executor=ex), tt.k_core(cc, k, executor=ex)
+        assert torch.equal(a.in_core.cpu(), b.in_core)
+        assert torch.equal(b.in_core, torch.from_numpy(tt.k_core_oracle(cc, k)))
+    a, b = T.radii(gc, k=4, executor=ex), T.radii(cc, k=4, executor=ex)
+    assert torch.equal(a.ecc.cpu(), b.ecc) and (a.iters, a.converged) == (b.iters, b.converged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TRAV_GRAPHS)
+@pytest.mark.parametrize("method", ["auto", "sort", "fused"])
+def test_cuda_batched_traversal_and_ppr_equal_cpu(cuda, name, method, tmp_path):
+    """Batched BFS/SSSP lanes equal the CPU's bit for bit and their own
+    single-source runs; PPR within rtol 2e-4, atol 1e-6: float32 adds in
+    another order, and DBP's hub sums hundreds of contributions an
+    iteration (observed: 1.3e-5 relative)."""
+    import repro_torch.core as T
+    from repro_torch.core import traversal as tt
+
+    (_, gc, wc), (_, cc, wp) = _trav_pair(cuda, name)
+    srcs = [int(v) for v in np.argsort(-np.diff(cc.offsets.numpy()), kind="stable")[:4]]
+    ex = T.PBExecutor(cache_dir=str(tmp_path))
+    a = tt.bfs_batched(gc, srcs, executor=ex, method=method, with_parents=True)
+    b = tt.bfs_batched(cc, srcs, executor=ex, method=method, with_parents=True)
+    assert torch.equal(a.dist.cpu(), b.dist) and torch.equal(a.parent.cpu(), b.parent)
+    for q, s in enumerate(srcs):
+        one = tt.bfs(gc, s, executor=ex, method=method)
+        assert torch.equal(a.dist[q], one.dist) and torch.equal(a.parent[q], one.parent)
+    a = tt.sssp_batched(gc, wc, srcs, executor=ex, method=method)
+    b = tt.sssp_batched(cc, wp, srcs, executor=ex, method=method)
+    assert torch.equal(a.dist.cpu(), b.dist)
+    for q, s in enumerate(srcs):
+        assert torch.equal(a.dist[q], tt.sssp(gc, wc, s, executor=ex, method=method).dist)
+    for sources in (None, srcs[0], srcs):
+        a = tt.personalized_pagerank(gc, sources, iters=10, executor=ex, method=method)
+        b = tt.personalized_pagerank(cc, sources, iters=10, executor=ex, method=method)
+        torch.testing.assert_close(a.ranks.cpu(), b.ranks, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TRAV_GRAPHS)
+@pytest.mark.parametrize("method", [None, "sort", "counting", "pallas", "hierarchical", "fused"])
+def test_cuda_connected_components_equal_cpu(cuda, name, method, tmp_path):
+    import repro_torch.core as T
+    from repro_torch.core import components as tc
+
+    (gd, _, _), (gp, _, _) = _trav_pair(cuda, name)
+    T.set_default_executor(T.PBExecutor(cache_dir=str(tmp_path)))
+    try:
+        fns = [lambda g: T.connected_components_fused(g, method=method),
+               lambda g: T.connected_components(g)]
+        if method != "fused":  # the PB form bins: fused is a reduce method only
+            fns.append(lambda g: tc.connected_components_pb(g, bin_range=64, method=method))
+        for fn in fns:
+            a, b = fn(gd), fn(gp)
+            assert torch.equal(a.labels.cpu(), b.labels) and a.iters == b.iters
+        half = gp.num_edges // 2
+        for g in (gd, gp):
+            prev = T.connected_components_fused(T.COO(g.src[:half], g.dst[:half], g.num_nodes))
+            r, mode = T.connected_components_incremental(g, prev.labels, method=method)
+            assert mode == "incremental"
+            assert torch.equal(r.labels.cpu(), T.connected_components_fused(gp).labels)
+    finally:
+        T.set_default_executor(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m", [(1, 1000, 5000), (4, 3000, 20000), (8, 1 << 19, 1 << 20),
+                                   (2, 1 << 25, 1 << 22), (3, 1 << 25, 1 << 16)])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_cuda_reduce_streams_lanes_equal_reduce_stream(cuda, B, n, m, op, dtype, tmp_path):
+    """Flattened fused lanes (one launch while B * n <= 2^26, else a launch
+    per lane) and the binning methods: each lane equals reduce_stream of
+    that lane, exactly but for float32 add (1e-5 of the summed
+    magnitudes); out-of-range indices are dropped, not moved to a
+    neighbouring lane (negative ones only for fused: a negative bin id is
+    undefined input to binning)."""
+    from repro_torch.core import executor as tex
+    from repro_torch.kernels.fused import cobra_bin_accumulate
+
+    rng = _rng(B * 7 + m)
+    ex = tex.PBExecutor(cache_dir=str(tmp_path))
+    for method in ("fused", "sort", "counting"):
+        lo = -3 if method == "fused" else 0
+        idx = torch.from_numpy(rng.integers(lo, n + 3, (B, m)).astype(np.int32)).to(cuda)
+        if dtype == torch.int32:
+            val = torch.from_numpy(rng.integers(-50, 50, (B, m)).astype(np.int32)).to(cuda)
+        else:
+            val = torch.from_numpy(rng.normal(size=(B, m)).astype(np.float32)).to(cuda)
+        before = cobra_bin_accumulate.launches
+        got = ex.reduce_streams(idx, val, out_size=n, op=op, method=method)
+        if method == "fused":
+            assert cobra_bin_accumulate.launches - before == (1 if B * n <= 1 << 26 else B)
+        for b in range(B):
+            want = ex.reduce_stream(idx[b], val[b], out_size=n, op=op, method=method)
+            if dtype == torch.float32 and op == "add":
+                scale = tref.scatter_reduce_ref(idx[b], val[b].abs(), n, "add")
+                assert bool(((got[b] - want).abs() <= 1e-5 * scale + 1e-6).all())
+            else:
+                assert torch.equal(got[b], want)
