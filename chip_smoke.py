@@ -109,8 +109,26 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    (``L<level>:<method>@2^<bucketed length>``) and the peak device
    memory; S2 also each BFS level's reduce on its padded stream and on
    its real tuples only.
+13. (Runs before phase 11.) Graph-query serving (``launch/serve_graphs.py``'s
+   path): ``GraphFrontend.register_graph`` of S1's DBP and KRON and S2
+   (degree_sort; the preprocessing pipeline, each stage's seconds,
+   modeled bytes and decisions printed), and S2 once more under
+   ``use_pallas=True`` (histogram and positions must launch); each
+   ``new_ids`` must be a permutation in non-increasing degree, the CSR
+   equal ``build_csr_baseline(relabel_coo(...))`` and ``slack.to_csr()``
+   the CSR. Then warmup and a seeded 64-query ``make_query_mix`` trace
+   (200 queries/s, max_batch 8) replayed on a FakeClock twice (tick logs
+   and latencies identical), with max_batch 1 (BFS/SSSP/k-core answers
+   equal, PPR/PageRank to the PageRank tolerance), and on the real clock
+   (throughput, p50/p99, mean batch). Four S2 update queries of 4096
+   edges (``random_edge_batch``, 10% deletes; each batch also timed
+   alone through ``apply_edge_batch``) must leave epoch 4 and the edge
+   multiset of ``build_csr(merge_batch_coo(...))``, and make the
+   PageRank memo recompute; a forced ``rebuild_slack_csr`` must keep the
+   graph, and ``bfs_incremental`` after an insert-only batch equal a
+   full ``bfs``. The fused kernels must launch in this phase.
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
-   phases 3-4, 6, 7, 9 and 12 (counts set to 0 before each path, read after
+   phases 3-4, 6, 7, 9, 12 and 13 (counts set to 0 before each path, read after
    it; the checks of phases 2, 5, 8, 10 and 11 do not count), its largest
    error against its plain version, and times at a path's shapes
    (Bin-Read's row also ``compact_index_add_ms``); then
@@ -214,6 +232,13 @@ KCORE_K = 3  # benchmarks/fig8_traversal.py
 RADII_K, RADII_ITERS = 4, 300  # benchmarks/fig2_preproc_cost.py
 TRAV_BATCH = 8  # sources of the batched BFS/SSSP and of PPR
 TRAV_REPS = 3  # time_fn repetitions of the traversal phase
+SERVE_REQUESTS = 64  # phase 13's trace: make_query_mix, Poisson arrivals
+SERVE_RATE = 200.0  # queries per second (launch/serve_graphs.py's default)
+SERVE_BATCH = 8  # max_batch (launch/serve_graphs.py's default)
+SERVE_TICK = 0.02  # FakeClock seconds a tick: arrivals (every 5 ms) queue and coalesce
+SERVE_SEED = 0
+UPDATE_BATCH = 4096  # edges a batch, 10% of them deletes
+UPDATE_BATCHES = 4
 SSSP_EPS = 2.0**-23  # per hop, relative: twice float32's unit roundoff
 SSSP_W_MIN = 0.1  # the lightest weight (fig8: uniform in [0.1, 1.1))
 
@@ -826,6 +851,225 @@ def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
             f"the traversal path did not launch the fused kernels: {counts}")
     if on_card:
         say("phase12 S2 BFS padding", json.dumps(padding_cost(padding[1], padding[0])))
+    T.set_default_executor(None)
+    return counts, shapes
+
+
+# -- the graph-serving path (phase 13) ---------------------------------------------
+
+
+def serving_phase(dev, T, K, suite, s2, cache):
+    """Phase 13: graph-query serving through ``GraphFrontend`` on S1's DBP
+    and KRON and S2: registration (the preprocessing pipeline, also once
+    under ``use_pallas=True``), warmup, FakeClock and real-clock replays
+    of one seeded ``make_query_mix`` trace, then S2 edge batches through
+    update queries, a forced rebuild and ``bfs_incremental``. Returns the
+    kernel launches of the path (counts, shapes)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import updates as U
+    from repro_torch.launch.serve_graphs import make_query_mix
+    from repro_torch.serving import graph_frontend as F
+
+    ex = T.PBExecutor(cache_dir=cache)
+    graphs = {"DBP": suite["DBP"], "KRON": suite["KRON"], "S2": s2}
+    names = list(graphs)
+    num_nodes = {k: g.num_nodes for k, g in graphs.items()}
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def frontend(max_batch, clock, tick_cost=0.0):
+        fe = F.GraphFrontend(executor=ex, max_batch=max_batch, clock=clock, tick_cost=tick_cost)
+        regs = {name: fe.register_graph(name, g, variant="degree_sort", seed=SERVE_SEED)
+                for name, g in graphs.items()}
+        return fe, regs
+
+    def trace():
+        return F.poisson_trace(SERVE_RATE, SERVE_REQUESTS, make_query_mix(names, num_nodes),
+                               seed=SERVE_SEED)
+
+    def same_csr(a, b):
+        return torch.equal(a.offsets, b.offsets) and torch.equal(a.neighs, b.neighs)
+
+    def same_edges(a, b):
+        """Equal as edge multisets: equal offsets, equal sorted (src, dst) keys."""
+        if not torch.equal(a.offsets, b.offsets):
+            return False
+        seg = T.segment_ids_from_offsets(a.offsets, a.num_edges).long() * a.num_nodes
+        return torch.equal(torch.sort(seg + a.neighs.long()).values,
+                           torch.sort(seg + b.neighs.long()).values)
+
+    def check_registration(tag, g, reg):
+        n = g.num_nodes
+        ids = reg.new_ids_dev
+        require(torch.equal(torch.sort(ids).values, torch.arange(n, device=dev)),
+                f"{tag}: new_ids is not a permutation")
+        deg = torch.empty(n, dtype=torch.long, device=dev)
+        deg[ids] = torch.bincount(g.src.long(), minlength=n)
+        require(bool((deg[:-1] >= deg[1:]).all()), f"{tag}: new ids not in non-increasing degree")
+        want = T.build_csr_baseline(T.relabel_coo(g, ids.to(torch.int32)))
+        require(same_csr(reg.csr, want), f"{tag}: CSR differs from build_csr_baseline(relabel)")
+        require(same_csr(reg.slack.to_csr(), reg.csr), f"{tag}: slack.to_csr() differs")
+        rep = reg.report
+        say(f"phase13 register {tag}", json.dumps({
+            "n": n, "m": g.num_edges, "variant": rep.variant,
+            "total_seconds": rep.total_seconds, "total_modeled_bytes": rep.total_modeled_bytes,
+            "stages": [{"name": st.name, "seconds": st.seconds,
+                        "compile_seconds": st.compile_seconds, "modeled_bytes": st.modeled_bytes,
+                        "decisions": [f"{d['kind']}:{d['method']}@r{d['bin_range']}[{d['source']}]"
+                                      for d in st.decisions]}
+                       for st in rep.stages]}))
+
+    def results(rep):
+        return [q.result for q in sorted(rep.completed, key=lambda q: q.qid)]
+
+    def latencies(rep):
+        return [q.latency for q in sorted(rep.completed, key=lambda q: q.qid)]
+
+    T.set_default_executor(ex)  # the builds decide through the default executor
+    K.reset_launch_counts()  # the serving path starts here
+    # registration (the preprocessing pipeline), checked, then warmup and the
+    # FakeClock replay, twice
+    t0 = time.perf_counter()
+    fe_a, regs = frontend(SERVE_BATCH, F.FakeClock(), SERVE_TICK)
+    sync()
+    say(f"phase13 registered {names} in {time.perf_counter() - t0:.3f} s")
+    for name, reg in regs.items():
+        check_registration(name, graphs[name], reg)
+    wr = fe_a.warmup(probe=True)
+    say("phase13 warmup", json.dumps(dataclasses.asdict(wr)))
+    rep_a = F.replay_trace(fe_a, trace())
+    fe_b, _ = frontend(SERVE_BATCH, F.FakeClock(), SERVE_TICK)
+    fe_b.warmup(probe=False)
+    rep_b = F.replay_trace(fe_b, trace())
+    require(len(rep_a.completed) == SERVE_REQUESTS, "the FakeClock replay left queries undone")
+    require(max(e["batch"] for e in fe_a.tick_log) > 1, "the FakeClock replay never coalesced")
+    require(fe_a.tick_log == fe_b.tick_log and latencies(rep_a) == latencies(rep_b)
+            and rep_a.stats() == rep_b.stats(), "two FakeClock replays differ")
+    say("phase13 fake-clock replay", json.dumps({
+        "queries": len(rep_a.completed), "ticks": rep_a.ticks, "span_s": rep_a.span_seconds,
+        "stats": rep_a.stats(), "kinds": sorted({e["kind"] for e in fe_a.tick_log}),
+        "mean_batch": sum(e["batch"] for e in fe_a.tick_log) / len(fe_a.tick_log)}))
+    del fe_b, rep_b
+    # coalescing: one query a tick gives the same answers
+    fe_c, _ = frontend(1, F.FakeClock(), SERVE_TICK)
+    rep_c = F.replay_trace(fe_c, trace())
+    worst = {}
+    for q, one, many in zip(sorted(rep_c.completed, key=lambda q: q.qid), results(rep_c),
+                            results(rep_a)):
+        if q.kind in ("ppr", "pagerank"):
+            ok, rel = pr_close(torch.from_numpy(many), torch.from_numpy(one))
+            worst[q.kind] = max(worst.get(q.kind, 0.0), rel["max_rel"])
+        else:
+            ok = np.array_equal(one, many)
+        require(ok, f"phase13: max_batch=1 and max_batch={SERVE_BATCH} differ on {q.kind}")
+    say("phase13 coalescing: max_batch 1 == 8", json.dumps({
+        "ticks": [rep_c.ticks, rep_a.ticks], "ppr_pagerank_max_rel": worst}))
+    del fe_a, rep_a, fe_c, rep_c
+
+    # S2 once more under use_pallas: the builds bin through histogram + positions
+    ex_p = T.PBExecutor(cache_dir=cache, use_pallas=True)
+    T.set_default_executor(ex_p)
+    c0 = K.launch_counts()
+    reg_p = F.GraphFrontend(executor=ex_p, clock=F.FakeClock()).register_graph(
+        "S2", s2, variant="degree_sort", seed=SERVE_SEED)
+    sync()
+    c1 = K.launch_counts()
+    T.set_default_executor(ex)
+    check_registration("S2 use_pallas", s2, reg_p)
+    require(c1["histogram"] > c0["histogram"] and c1["counting_positions"] > c0["counting_positions"],
+            f"the use_pallas registration did not launch histogram and positions: {c0} -> {c1}")
+    require(same_csr(reg_p.csr, regs["S2"].csr), "use_pallas registration's CSR differs")
+    del reg_p, regs
+
+    # the real clock
+    fe, regs = frontend(SERVE_BATCH, F.Clock())
+    wr = fe.warmup(probe=True)
+    sync()
+    rep = F.replay_trace(fe, trace())
+    sync()
+    st = rep.stats()
+    require(len(rep.completed) == SERVE_REQUESTS, "the real-clock replay left queries undone")
+    say("phase13 real-clock replay", json.dumps({
+        "queries": len(rep.completed), "ticks": rep.ticks, "span_s": rep.span_seconds,
+        "throughput_qps": rep.throughput_qps, "p50_ms": st["p50"] * 1e3,
+        "p99_ms": st["p99"] * 1e3, "mean_ms": st["mean"] * 1e3, "max_ms": st["max"] * 1e3,
+        "mean_batch": sum(e["batch"] for e in fe.tick_log) / len(fe.tick_log),
+        "rate_qps": SERVE_RATE, "warmup_s": wr.seconds}))
+
+    # S2 edge batches through update queries (original ids), 10% deletes
+    g = regs["S2"]
+    ids32 = g.new_ids_dev.to(torch.int32)
+    q0 = F.GraphQuery(tenant="u", graph="S2", kind="pagerank", iters=ITERS)
+    fe.submit(q0)
+    fe.run_until_drained()
+    coo = s2
+    ndel = UPDATE_BATCH // 10
+    apply_ms, tick_ms = [], []
+    for k in range(UPDATE_BATCHES):
+        b = U.random_edge_batch(coo, UPDATE_BATCH - ndel, ndel, seed=100 + k)
+        # the batch alone on the pre-batch slab, timed (its result dropped)
+        nb = U.make_batch(ids32[b.src.long()], ids32[b.dst.long()], b.insert, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        res = U.apply_edge_batch(g.slack, nb, executor=ex)
+        sync()
+        apply_ms.append((time.perf_counter() - t0) * 1e3)
+        coo = U.merge_batch_coo(coo, b)
+        uq = F.GraphQuery(tenant="u", graph="S2", kind="update", batch=b)
+        fe.submit(uq)
+        t0 = time.perf_counter()
+        fe.run_until_drained()
+        sync()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        require(uq.result.tolist() == [k + 1, UPDATE_BATCH - ndel, ndel, 0],
+                f"phase13 update {k}: {uq.result.tolist()}")
+    require(g.epoch == UPDATE_BATCHES, f"S2 epoch {g.epoch} after {UPDATE_BATCHES} batches")
+    want = T.build_csr_baseline(T.relabel_coo(coo, ids32))
+    require(same_edges(g.csr, want), "S2 after the batches differs from build_csr(merge_batch_coo)")
+    q1 = F.GraphQuery(tenant="u", graph="S2", kind="pagerank", iters=ITERS)
+    fe.submit(q1)
+    fe.run_until_drained()
+    require(fe.tick_log[-1]["memo"] is False and not np.array_equal(q0.result, q1.result)
+            and all(key[1] == UPDATE_BATCHES for key in fe._memo if key[0] == "S2"),
+            "the PageRank memo was not recomputed after the batches")
+    t0 = time.perf_counter()
+    rebuilt, rrep = U.rebuild_slack_csr(g.slack, executor=ex)
+    sync()
+    rebuild_s = time.perf_counter() - t0
+    require(same_csr(rebuilt.to_csr(), g.csr), "the forced rebuild changed the graph")
+    # an insert-only batch: bfs_incremental from the pre-batch levels == a full bfs
+    b = U.random_edge_batch(coo, UPDATE_BATCH, 0, seed=200)
+    nb = U.make_batch(ids32[b.src.long()], ids32[b.dst.long()], b.insert, device=dev)
+    source = 0  # degree_sort: new id 0 is the vertex of largest degree
+    prev = T.bfs(g.csr, source, executor=ex, with_parents=False).dist
+    csr1 = U.apply_edge_batch(g.slack, nb, executor=ex).graph.to_csr()
+    touched, has_del = U.touched_vertices(nb)
+    sync()
+    t0 = time.perf_counter()
+    inc, mode = T.bfs_incremental(csr1, source, prev, touched, has_deletes=has_del, executor=ex)
+    sync()
+    inc_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    full = T.bfs(csr1, source, executor=ex, with_parents=False)
+    sync()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    require(mode == "incremental" and torch.equal(inc.dist, full.dist),
+            "bfs_incremental differs from a full bfs at S2")
+    say("phase13 updates S2", json.dumps({
+        "batch": UPDATE_BATCH, "deletes": ndel, "apply_edge_batch_ms": apply_ms,
+        "update_tick_ms": tick_ms, "epoch": g.epoch, "slack_fraction": g.slack.slack_fraction,
+        "rebuild_s": rebuild_s, "rebuild_stages": {s.name: s.seconds for s in rrep.stages},
+        "bfs_incremental_ms": inc_ms, "bfs_incremental_rounds": inc.levels,
+        "bfs_full_ms": full_ms, "bfs_full_levels": full.levels,
+        "update_decisions": [f"{d['kind']}:{d['method']}@r{d['bin_range']}[{d['source']}]"
+                             for d in res.decisions]}))
+    counts, shapes = K.launch_counts(), K.launch_shapes()  # the serving path ends here
+    say("phase13 launches:", json.dumps(counts))
+    require(counts["cobra_bin_accumulate"] > 0 and counts["cobra_bin_accumulate_rows"] > 0,
+            f"the serving path did not launch the fused kernels: {counts}")
     T.set_default_executor(None)
     return counts, shapes
 
@@ -1644,6 +1888,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     say(f"phase12 seconds: {time.perf_counter() - t12:.1f}")
 
+    # -- phase 13: the graph-serving path (before phase 11's kernels line) ----------
+    t13 = time.perf_counter()
+    serving_counts, serving_shapes = serving_phase(dev, T, K, suite, s2, cache)
+    torch.cuda.empty_cache()
+    say(f"phase13 seconds: {time.perf_counter() - t13:.1f}")
+
     # -- phase 11: the kernels line at the paths' shapes -------------------------
     t11 = time.perf_counter()
     n2, br2 = s2.num_nodes, min(max(64, T.compromise_bin_range(s2.num_nodes, hw)), s2.num_nodes)
@@ -1746,9 +1996,10 @@ def main() -> None:
          4 * T_ + 8 * T_ * d_),
     ]
     path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
-            + trav_counts[k] for k in after}
+            + trav_counts[k] + serving_counts[k] for k in after}
     path_shapes = {}
-    for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes):
+    for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes,
+                 serving_shapes):
         for k, by in part.items():
             for shp, c in by.items():
                 path_shapes.setdefault(k, {})[shp] = path_shapes.get(k, {}).get(shp, 0) + c

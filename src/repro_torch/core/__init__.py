@@ -1,5 +1,6 @@
 """Core of the PyTorch port: graph, plan, PB, executor, Neighbor-Populate,
-PageRank, connected components, traversal and radii."""
+PageRank, connected components, traversal, radii, reordering,
+preprocessing and graph mutation."""
 from repro_torch.core.cobra import cobra_scatter_add, hierarchical_binning
 from repro_torch.core.components import (
     connected_components,
@@ -21,6 +22,8 @@ from repro_torch.core.executor import (
 from repro_torch.core.graph import (
     COO,
     CSR,
+    TOMBSTONE,
+    SlackCSR,
     cached_graph,
     degrees_from_coo,
     gen_bubbles,
@@ -42,6 +45,7 @@ from repro_torch.core.neighbor_populate import (
     build_csr_csc,
     build_csr_oracle,
     build_csr_pb,
+    build_slack_csr,
     csr_equal_as_sets,
 )
 from repro_torch.core.pagerank import (
@@ -56,7 +60,20 @@ from repro_torch.core.pagerank import (
 )
 from repro_torch.core.pb import Bins, binning, binning_counting, binning_sort
 from repro_torch.core.plan import CobraPlan, HardwareModel, compromise_bin_range
+from repro_torch.core.preprocess import (
+    PreprocessPipeline,
+    PreprocessReport,
+    PreprocessResult,
+    amortization_iters,
+)
 from repro_torch.core.radii import RadiiResult, radii
+from repro_torch.core.reorder import (
+    REORDER_VARIANTS,
+    degree_sort_rebuild,
+    relabel_coo,
+    reorder_mapping,
+    reorder_rebuild,
+)
 from repro_torch.core.traversal import (
     BATCHED_TRAVERSAL_METHODS,
     TRAVERSAL_METHODS,
@@ -65,12 +82,23 @@ from repro_torch.core.traversal import (
     TraversalResult,
     bfs,
     bfs_batched,
+    bfs_incremental,
     k_core,
     k_core_oracle,
     personalized_pagerank,
     personalized_pagerank_oracle,
     sssp,
     sssp_batched,
+)
+from repro_torch.core.updates import (
+    EdgeBatch,
+    UpdateResult,
+    apply_edge_batch,
+    make_batch,
+    merge_batch_coo,
+    random_edge_batch,
+    rebuild_slack_csr,
+    touched_vertices,
 )
 
 __all__ = [
@@ -79,17 +107,22 @@ __all__ = [
     "connected_components_incremental", "connected_components_sharded",
     "METHODS", "REDUCE_METHODS", "BatchedBins", "BinningDecision", "PBExecutor", "execute_binning",
     "execute_reduce", "get_default_executor", "set_default_executor",
-    "COO", "CSR", "cached_graph", "degrees_from_coo", "gen_bubbles", "gen_kron",
+    "COO", "CSR", "TOMBSTONE", "SlackCSR", "cached_graph", "degrees_from_coo", "gen_bubbles", "gen_kron",
     "gen_powerlaw", "gen_road", "gen_uniform", "graph_suite", "offsets_from_degrees",
     "segment_ids_from_offsets", "transpose_coo",
     "BUILD_METHODS", "build_csc", "build_csr", "build_csr_baseline", "build_csr_cobra",
-    "build_csr_csc", "build_csr_oracle", "build_csr_pb", "csr_equal_as_sets",
+    "build_csr_csc", "build_csr_oracle", "build_csr_pb", "build_slack_csr", "csr_equal_as_sets",
     "PRResult", "pagerank_coo_scatter", "pagerank_csr_pull", "pagerank_fused",
     "pagerank_incremental", "pagerank_pb", "pagerank_pb_prebinned", "pb_bin_edges",
     "Bins", "binning", "binning_counting", "binning_sort",
     "CobraPlan", "HardwareModel", "compromise_bin_range",
+    "PreprocessPipeline", "PreprocessReport", "PreprocessResult", "amortization_iters",
     "RadiiResult", "radii",
+    "REORDER_VARIANTS", "degree_sort_rebuild", "relabel_coo", "reorder_mapping",
+    "reorder_rebuild",
     "BATCHED_TRAVERSAL_METHODS", "TRAVERSAL_METHODS", "KCoreResult", "PPRResult",
-    "TraversalResult", "bfs", "bfs_batched", "k_core", "k_core_oracle",
+    "TraversalResult", "bfs", "bfs_batched", "bfs_incremental", "k_core", "k_core_oracle",
     "personalized_pagerank", "personalized_pagerank_oracle", "sssp", "sssp_batched",
+    "EdgeBatch", "UpdateResult", "apply_edge_batch", "make_batch", "merge_batch_coo",
+    "random_edge_batch", "rebuild_slack_csr", "touched_vertices",
 ]

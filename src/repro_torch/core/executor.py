@@ -30,8 +30,11 @@ Batched streams (``bin_streams``, ``reduce_streams``,
 vmapped programs do; the port runs the lanes one after another, or the
 fused reduce as one launch over the flattened lanes.
 
-Not ported yet: the ``update`` decision kind (ROADMAP.md, Queue 1,
-"Mutation"), the sharded path (``mesh``, ``shard_reduce_stream``: Queue
+``kind="update"`` (graph-mutation delta-merge streams, ``core/updates.py``)
+shares the reduce candidates and economics, under its own cache keys and
+decision records; a forced update method still logs (source "caller").
+
+Not ported yet: the sharded path (``mesh``, ``shard_reduce_stream``: Queue
 1, "Sharded PB"), the stream-contract check (Queue 1, "Analysis") and
 ``dispatch_permutation`` (Queue 1, "The rest of the LM stack").
 """
@@ -67,7 +70,8 @@ _SORT_THRESHOLD = 4096
 # decision_log is a bounded trace, not an audit trail.
 _DECISION_LOG_CAP = 512
 
-_NOT_PORTED_UPDATE = "not ported yet (ROADMAP.md, Queue 1, \"Mutation\")"
+# Decision kinds: binning, dense reductions and graph-mutation delta merges.
+DECISION_KINDS = ("bin", "reduce", "update")
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +537,7 @@ class PBExecutor:
         if self.use_pallas and flat_values:
             c.append("pallas")
         c.append("hierarchical")
-        if kind == "reduce":
+        if kind in ("reduce", "update"):  # update streams are reductions too
             c.append("fused")
         if stream_len is not None and stream_len > _INT32_LIMIT:
             c = [x for x in c if x not in _INT32_METHODS]
@@ -631,12 +635,12 @@ class PBExecutor:
     ) -> BinningDecision:
         """Pick (method, bin_range, plan) for a stream shape. Priority:
         cache -> autotuner (if on) -> fallback table -> analytic model.
-        ``kind`` is "bin" or "reduce"; ``dtype`` is the value dtype for
-        reductions. ``device`` is where the stream lives (default: the
+        ``kind`` is "bin", "reduce" or "update" (a reduction under its own
+        cache key); ``dtype`` is the value dtype for reductions. ``device`` is where the stream lives (default: the
         card): it names the cache key's device, the fallback table and
         where the autotuner measures."""
-        if kind not in ("bin", "reduce"):
-            raise NotImplementedError(f"decision kind {kind!r}: {_NOT_PORTED_UPDATE}")
+        if kind not in DECISION_KINDS:
+            raise ValueError(f"decision kind must be one of {DECISION_KINDS}, got {kind!r}")
         dev = torch.device("cuda") if device is None else torch.device(device)
         key = self._key(num_indices, stream_len, dtype, bin_range, kind, op, feature_dim, dev)
         d = self._decide_uncached(
@@ -888,15 +892,18 @@ class PBExecutor:
         ``method=None``/"auto" consults ``decide`` with the reduce
         candidate set (which includes ``fused``). Row-block values carry
         the F-tile the reference would choose; ``sorted_within`` and
-        ``in_bounds`` are passed on as hints (see ``execute_reduce``)."""
+        ``in_bounds`` are passed on as hints (see ``execute_reduce``).
+        ``kind="update"`` tags a graph-mutation delta-merge stream: its own
+        cache keys and decision records, and a forced method is logged
+        too (source "caller")."""
         if op not in REDUCE_OPS:
             raise ValueError(
                 f"reduce_stream only serves commutative reductions {REDUCE_OPS}; "
                 f"got op={op!r}. Non-commutative consumers need the stable "
                 "two-phase path: bin_stream() + an order-aware Bin-Read."
             )
-        if kind != "reduce":
-            raise NotImplementedError(f"reduce_stream kind {kind!r}: {_NOT_PORTED_UPDATE}")
+        if kind not in ("reduce", "update"):
+            raise ValueError(f"reduce_stream kind must be 'reduce' or 'update', got {kind!r}")
         vshape = pb.value_block_shape(values)
         flat = vshape == ()
         feat = vshape[0] if vshape else 0
@@ -912,6 +919,16 @@ class PBExecutor:
                 d = _dc_replace(
                     d, f_tile=self.choose_f_tile(feat, out_size, values.dtype.itemsize)
                 )
+            if kind == "update":
+                self._log_decision({
+                    "kind": kind,
+                    "num_indices": out_size,
+                    "stream_len": int(indices.shape[0]),
+                    "method": d.method,
+                    "bin_range": d.bin_range,
+                    "source": d.source,
+                    "op": op,
+                })
         if not flat and d.method == "pallas":
             # pallas binning is 1-D-only; row values take the sort path
             d = self._finalize("sort", out_size, bin_range, d.source)

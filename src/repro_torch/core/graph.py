@@ -4,6 +4,10 @@ The five generators are the reference's numpy code, seeded by
 ``default_rng``, so the COO arrays are bit-identical to the reference's;
 only the final hand-over makes int32 torch tensors on ``device``
 (``None`` = the card, see ``repro_torch.device``).
+
+``SlackCSR`` is the mutable layout ``core/updates.py`` edits. Unlike the
+reference, which copies its arrays to the host for every mask, it works
+where its tensors are; slot order and dtypes equal the reference's.
 """
 from __future__ import annotations
 
@@ -41,6 +45,112 @@ class CSR(NamedTuple):
     @property
     def num_edges(self) -> int:
         return int(self.neighs.shape[0])
+
+
+# Neighbour id of a deleted (tombstoned) slot in a SlackCSR slab: outside
+# every valid vertex id, so a live-slot test is one compare.
+TOMBSTONE = -1
+
+
+class SlackCSR(NamedTuple):
+    """Capacity-slack CSR: vertex v owns the slab
+    ``neighs[offsets[v] : offsets[v+1]]``, larger than its degree. The
+    first ``counts[v]`` slots are occupied (in insertion order); an
+    occupied slot holding ``TOMBSTONE`` is a deleted edge; slots past
+    ``counts[v]`` are free slack. Insertions append in place, deletions
+    tombstone in place; ``to_csr`` compacts."""
+
+    offsets: torch.Tensor  # (n+1,) int32 slab starts: capacity prefix sum
+    neighs: torch.Tensor  # (capacity,) int32 slot values; TOMBSTONE = deleted
+    counts: torch.Tensor  # (n,) int32 occupied slots per slab (live + tombstoned)
+    num_nodes: int
+
+    @property
+    def capacity(self) -> int:
+        return int(self.neighs.shape[0])
+
+    @property
+    def num_occupied(self) -> int:
+        return int(self.counts.sum())
+
+    @property
+    def num_edges(self) -> int:
+        """Live (non-tombstoned) edges."""
+        return int(self.live_degrees().sum())
+
+    @property
+    def slack_fraction(self) -> float:
+        """Free slots / capacity: the rebuild-threshold quantity."""
+        cap = self.capacity
+        if cap == 0:
+            return 1.0
+        return 1.0 - self.num_occupied / cap
+
+    def _slot_masks(self):
+        """(slot -> vertex, occupied mask, live mask), on the slab's device."""
+        off = self.offsets.long()
+        dev = off.device
+        seg = torch.repeat_interleave(
+            torch.arange(self.num_nodes, device=dev), off[1:] - off[:-1],
+            output_size=self.capacity,
+        )
+        r = torch.arange(self.capacity, device=dev) - off[seg]
+        occupied = r < self.counts.long()[seg]
+        return seg, occupied, occupied & (self.neighs != TOMBSTONE)
+
+    def live_degrees(self) -> torch.Tensor:
+        """(n,) int32 live out-degree (occupied minus tombstoned)."""
+        seg, _, live = self._slot_masks()
+        return torch.bincount(seg[live], minlength=self.num_nodes).to(torch.int32)
+
+    @classmethod
+    def from_csr(cls, csr: CSR, *, headroom: float = 0.25, min_slack: int = 4) -> "SlackCSR":
+        """Slack layout of ``csr``: per-vertex capacity = degree plus
+        ``max(min_slack, ceil(degree * headroom))`` (the product in
+        float64, as numpy computes it), slot order preserved, so
+        ``from_csr(c).to_csr()`` reproduces ``c`` exactly."""
+        if headroom < 0 or min_slack < 0:
+            raise ValueError(f"headroom/min_slack must be >= 0, got {headroom}/{min_slack}")
+        off = csr.offsets.long()
+        dev = off.device
+        deg = off[1:] - off[:-1]
+        cap = deg + torch.ceil(deg.double() * headroom).long().clamp(min=min_slack)
+        soff = torch.cat([torch.zeros(1, dtype=torch.long, device=dev), torch.cumsum(cap, 0)])
+        slab = torch.full((int(soff[-1]),), TOMBSTONE, dtype=torch.int32, device=dev)
+        m = csr.num_edges
+        # edge e of vertex v goes to slot soff[v] + (e - off[v])
+        seg = torch.repeat_interleave(torch.arange(csr.num_nodes, device=dev), deg,
+                                      output_size=m)
+        slab[soff[seg] + torch.arange(m, device=dev) - off[seg]] = csr.neighs.to(torch.int32)
+        return cls(
+            offsets=soff.to(torch.int32),
+            neighs=slab,
+            counts=deg.to(torch.int32),
+            num_nodes=csr.num_nodes,
+        )
+
+    def to_csr(self) -> CSR:
+        """Compact to an exact CSR: drop tombstones and free slack,
+        preserving per-vertex slot order."""
+        seg, _, live = self._slot_masks()
+        deg = torch.bincount(seg[live], minlength=self.num_nodes)
+        offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=deg.device),
+                             torch.cumsum(deg, 0)])
+        return CSR(
+            offsets=offsets.to(torch.int32),
+            neighs=self.neighs[live].to(torch.int32),
+            num_nodes=self.num_nodes,
+        )
+
+    def to_coo(self) -> COO:
+        """Live edges as an Edgelist in slot order: the rebuild path's
+        input to ``PreprocessPipeline``."""
+        seg, _, live = self._slot_masks()
+        return COO(
+            src=seg[live].to(torch.int32),
+            dst=self.neighs[live].to(torch.int32),
+            num_nodes=self.num_nodes,
+        )
 
 
 def degrees_from_coo(coo: COO, *, by: str = "src") -> torch.Tensor:

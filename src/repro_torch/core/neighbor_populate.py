@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.executor import execute_binning, get_default_executor
-from repro_torch.core.graph import COO, CSR, offsets_from_degrees, transpose_coo
+from repro_torch.core.graph import COO, CSR, SlackCSR, offsets_from_degrees, transpose_coo
 from repro_torch.core.plan import CobraPlan
 
 
@@ -130,6 +130,20 @@ def build_csr(
             "(ROADMAP.md, Queue 1 item 13)"
         )
     raise ValueError(f"unknown build method: {method!r} (want one of {BUILD_METHODS})")
+
+
+def build_slack_csr(
+    coo: COO,
+    headroom: float = 0.25,
+    min_slack: int = 4,
+    method: str = "auto",
+    bin_range: int | None = None,
+    degrees: torch.Tensor | None = None,
+) -> SlackCSR:
+    """EL->SlackCSR: ``build_csr``, then one re-slack with ``headroom``
+    (at least ``min_slack``) spare slots per vertex."""
+    csr = build_csr(coo, method=method, bin_range=bin_range, degrees=degrees)
+    return SlackCSR.from_csr(csr, headroom=headroom, min_slack=min_slack)
 
 
 def build_csc(coo: COO, method: str = "auto", bin_range: int | None = None) -> CSR:

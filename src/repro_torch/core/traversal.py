@@ -23,9 +23,9 @@ membership and SSSP distances (``dist[u] + w`` is one float32 add and
 and agrees to a tolerance. ``method="unbinned"`` is fig8's baseline, one
 dense scatter (``kernels/ref.py::scatter_reduce_ref``) with no executor.
 
-``bfs_incremental`` waits for graph mutation (ROADMAP.md, Queue 1,
-"Mutation") and every ``mesh=`` argument for the sharded path (Queue 1,
-"Sharded PB").
+``bfs_incremental`` re-relaxes BFS levels after an edge batch
+(``core/updates.py``) from the batch's touched vertices. Every ``mesh=``
+argument waits for the sharded path (ROADMAP.md, Queue 1, "Sharded PB").
 """
 from __future__ import annotations
 
@@ -371,6 +371,83 @@ def k_core(
     return KCoreResult(
         in_core=alive, rounds=rounds, converged=frontier.size == 0,
         removed_per_round=tuple(removed), decisions=tuple(red.decisions),
+    )
+
+
+def bfs_incremental(
+    csr: CSR,
+    source: int,
+    dist_prev: torch.Tensor,
+    touched,
+    *,
+    has_deletes: bool = False,
+    executor: Optional[PBExecutor] = None,
+    method: str = "auto",
+    max_iters: Optional[int] = None,
+) -> Tuple[TraversalResult, str]:
+    """BFS after an edge batch, re-relaxing only from the batch-touched
+    vertices. Inserts can only shorten BFS distances, so the pre-batch
+    ``dist_prev`` is an upper bound: seed the frontier with the reached
+    touched vertices and run the per-level ``op="min"`` relaxation of
+    ``dist[u] + 1`` (frontier vertices sit at different levels after a
+    batch) until it drains. Deletions can lengthen distances, so
+    ``has_deletes=True`` runs a from-scratch ``bfs`` without parents.
+
+    ``csr`` is the post-batch graph; ``touched`` the batch's endpoints
+    (``updates.touched_vertices``). Returns ``(result, mode)``, ``mode``
+    "incremental" or "full"; the incremental result has ``parent=None``
+    and counts only the re-relaxation rounds."""
+    _resolve(method)
+    ex = executor or get_default_executor()
+    n = csr.num_nodes
+    if not 0 <= source < n:
+        raise ValueError(f"source {source} outside [0, {n})")
+    if has_deletes:
+        return (
+            bfs(csr, source, executor=ex, method=method, max_iters=max_iters,
+                with_parents=False),
+            "full",
+        )
+    max_iters = n if max_iters is None else max_iters
+    dev = csr.offsets.device
+    offs_host = csr.offsets.cpu().numpy()
+    red = _LevelReducer(ex, method)
+
+    dist = torch.as_tensor(dist_prev).to(device=dev, dtype=torch.int32)
+    touched_np = np.unique(np.asarray(touched, np.int32))
+    # only reached endpoints can propagate a shorter level
+    reached = (dist[torch.from_numpy(touched_np).to(dev).long()] < _INT_MAX).cpu().numpy()
+    frontier = touched_np[reached]
+    sizes, edges, rounds = [int(frontier.size)], [], 0
+    while frontier.size and rounds < max_iters:
+        red.set_level(rounds)
+        total = _edges_of(offs_host, frontier)
+        edges.append(total)
+        if total == 0:  # the bfs zero-edge exit
+            rounds += 1
+            frontier = np.zeros(0, np.int32)
+            sizes.append(0)
+            break
+        nbr, srcv, _, ok = _expand_frontier(
+            csr.offsets, csr.neighs, _pad_frontier(frontier, dev), frontier.size,
+            bucket_len(total),
+        )
+        # padding slots read dist[0], which may be INT32_MAX: the add wraps
+        # there, as in the reference, and ``ok`` masks it
+        val = torch.where(ok, dist[srcv.long()] + 1, _INT_MAX).to(torch.int32)
+        cand = red(nbr, val, out_size=n, op="min")
+        improved = cand < dist
+        dist = torch.where(improved, cand, dist)
+        frontier = _frontier_of(improved)
+        sizes.append(int(frontier.size))
+        rounds += 1
+    return (
+        TraversalResult(
+            dist=dist, parent=None, levels=rounds, converged=frontier.size == 0,
+            frontier_sizes=tuple(sizes), level_edges=tuple(edges),
+            decisions=tuple(red.decisions),
+        ),
+        "incremental",
     )
 
 

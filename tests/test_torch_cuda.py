@@ -861,3 +861,126 @@ def test_cuda_reduce_streams_lanes_equal_reduce_stream(cuda, B, n, m, op, dtype,
                 assert bool(((got[b] - want).abs() <= 1e-5 * scale + 1e-6).all())
             else:
                 assert torch.equal(got[b], want)
+
+
+# -- the graph-serving slice on the card against the CPU -----------------------------
+
+
+def _coo_pair(cuda, name):
+    import repro_torch.core as T
+
+    return T.graph_suite("smoke", device=cuda)[name], T.graph_suite("smoke", device="cpu")[name]
+
+
+def _same_slack(a, b):
+    for f in ("offsets", "neighs", "counts"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TRAV_GRAPHS)
+@pytest.mark.parametrize("variant", ["identity", "random", "degree_sort", "hub_sort", "dbg"])
+def test_cuda_preprocess_pipeline_equals_cpu(cuda, name, variant, tmp_path):
+    """Every stage on the card (the degree count through the fused
+    kernel) gives the CPU's mapping, CSR, CSC and slack slab."""
+    import repro_torch.core as T
+
+    gc, gp = _coo_pair(cuda, name)
+    ex = T.PBExecutor(cache_dir=str(tmp_path))
+    kw = dict(variant=variant, slack_headroom=0.25, executor=ex, seed=4)
+    a, b = T.PreprocessPipeline(**kw).run(gc), T.PreprocessPipeline(**kw).run(gp)
+    for x, y in ((a.new_ids, b.new_ids), (a.degrees, b.degrees), (a.csr.offsets, b.csr.offsets),
+                 (a.csr.neighs, b.csr.neighs), (a.csc.neighs, b.csc.neighs)):
+        assert torch.equal(x.cpu(), y)
+    _same_slack(a.slack, b.slack)
+    assert [s.name for s in a.report.stages] == [s.name for s in b.report.stages]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["DBP", "KRON", "HBUBL"])
+@pytest.mark.parametrize("method", [None, "sort", "counting", "fused"])
+@pytest.mark.parametrize("ins,dels", [(300, 0), (300, 60), (3000, 300)])
+def test_cuda_apply_edge_batch_equals_cpu(cuda, name, method, ins, dels, tmp_path):
+    """Slot placement, tombstones, regrow and the accounting on the card
+    equal the CPU's; the batch's two delta reduces are update streams."""
+    import repro_torch.core as T
+
+    gc, gp = _coo_pair(cuda, name)
+    ex = T.PBExecutor(cache_dir=str(tmp_path))
+    sc = T.SlackCSR.from_csr(T.build_csr_baseline(gc), headroom=0.1, min_slack=1)
+    sp = T.SlackCSR.from_csr(T.build_csr_baseline(gp), headroom=0.1, min_slack=1)
+    b = T.random_edge_batch(gp, ins, dels, seed=ins + dels)
+    a = T.apply_edge_batch(sc, T.make_batch(*b, device=cuda), executor=ex, method=method)
+    r = T.apply_edge_batch(sp, b, executor=ex, method=method)
+    _same_slack(a.graph, r.graph)
+    assert (a.rebuilt, a.regrown, a.inserted, a.deleted, a.missed_deletes, a.slack_fraction) == (
+        r.rebuilt, r.regrown, r.inserted, r.deleted, r.missed_deletes, r.slack_fraction)
+    assert all(d["kind"] == "update" for d in a.decisions[:2])
+    merged = T.build_csr_baseline(T.merge_batch_coo(gc, T.make_batch(*b, device=cuda)))
+    assert T.csr_equal_as_sets(a.graph.to_csr(), merged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TRAV_GRAPHS)
+def test_cuda_bfs_incremental_equals_cpu_and_full_bfs(cuda, name, tmp_path):
+    import repro_torch.core as T
+
+    gc, gp = _coo_pair(cuda, name)
+    ex = T.PBExecutor(cache_dir=str(tmp_path))
+    b = T.random_edge_batch(gp, 200, 0, seed=1)
+    out = []
+    for g, dev in ((gc, cuda), (gp, "cpu")):
+        csr0 = T.build_csr_baseline(g)
+        s = _trav_source(csr0)
+        prev = T.bfs(csr0, s, executor=ex).dist
+        nb = T.make_batch(*b, device=dev)
+        csr1 = T.apply_edge_batch(T.SlackCSR.from_csr(csr0), nb, executor=ex).graph.to_csr()
+        touched, has_del = T.touched_vertices(nb)
+        res, mode = T.bfs_incremental(csr1, s, prev, touched, has_deletes=has_del, executor=ex)
+        assert mode == "incremental"
+        assert torch.equal(res.dist, T.bfs(csr1, s, executor=ex).dist)
+        out.append(res)
+    a, r = out
+    assert torch.equal(a.dist.cpu(), r.dist)
+    assert (a.levels, a.frontier_sizes, a.level_edges) == (r.levels, r.frontier_sizes,
+                                                          r.level_edges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_batch", [1, 4])
+def test_cuda_frontend_replay_equals_cpu(cuda, max_batch, tmp_path):
+    """A FakeClock replay with update queries on the card gives the CPU's
+    tick log and latencies, its integer and SSSP answers exactly and its
+    PPR / PageRank answers within rtol 2e-4, atol 1e-6."""
+    import repro_torch.core as T
+    from repro_torch.serving import graph_frontend as F
+
+    def replay(dev):
+        suite = T.graph_suite("smoke", device=dev)
+        fe = F.GraphFrontend(executor=T.PBExecutor(cache_dir=str(tmp_path)),
+                             max_batch=max_batch, clock=F.FakeClock(), tick_cost=0.004)
+        for name in ("DBP", "EURO"):
+            fe.register_graph(name, suite[name], seed=2)
+        fe.warmup(probe=False)
+        rng = np.random.default_rng(5)
+        kinds = ("bfs", "sssp", "ppr", "pagerank", "kcore", "update")
+
+        def make(r, i):
+            name = ("DBP", "EURO")[i % 2]
+            kind = kinds[i % len(kinds)]
+            q = F.GraphQuery(tenant=f"t{i % 3}", graph=name, kind=kind,
+                             source=int(rng.integers(0, 1024)), iters=5)
+            if kind == "update":
+                q.batch = T.random_edge_batch(suite[name], 40, 8, seed=i)
+            return q
+
+        return fe, F.replay_trace(fe, F.poisson_trace(1000.0, 36, make, seed=3))
+
+    (fa, ra), (fb, rb) = replay(cuda), replay("cpu")
+    assert fa.tick_log == fb.tick_log
+    assert [q.latency for q in ra.completed] == [q.latency for q in rb.completed]
+    for qa, qb in zip(ra.completed, rb.completed):
+        if qa.kind in ("ppr", "pagerank"):
+            np.testing.assert_allclose(qa.result, qb.result, rtol=2e-4, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(qa.result, qb.result)

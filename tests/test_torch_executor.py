@@ -95,7 +95,8 @@ def test_main_path_decisions_on_h100_model(tmp_path):
 def test_autotune_and_unported_kinds_raise(tmp_path):
     """The autotuner measures every candidate on the stream's device,
     caches the fastest under the port's namespace and a new executor
-    reads it back; the update kind is still not ported."""
+    reads it back; the update kind decides and reduces like a reduce
+    under its own key, and a kind outside bin/reduce/update raises."""
     ex = tex.PBExecutor(autotune=True, cache_dir=str(tmp_path))
     d = ex.decide(3000, 20_000, torch.int32, device="cpu")
     assert d.source == "autotuned"
@@ -109,10 +110,14 @@ def test_autotune_and_unported_kinds_raise(tmp_path):
     r = ex.decide(3000, 20_000, torch.float32, kind="reduce", op="min", device="cpu")
     assert r.source == "autotuned" and len(ex.cache.mem) == 2
     i, v = torch.zeros(3, dtype=torch.int32), torch.ones(3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.reduce_stream(i, v, out_size=4, kind="update")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.decide(4, 3, kind="update")
+    u = ex.decide(3000, 20_000, torch.float32, kind="update", op="min", device="cpu")
+    assert u.source == "autotuned" and len(ex.cache.mem) == 3
+    assert torch.equal(ex.reduce_stream(i, v, out_size=4, kind="update"),
+                       torch.tensor([3.0, 0.0, 0.0, 0.0]))
+    with pytest.raises(ValueError, match="kind"):
+        ex.reduce_stream(i, v, out_size=4, kind="bin")
+    with pytest.raises(ValueError, match="kind"):
+        ex.decide(4, 3, kind="scatter")
     with pytest.raises(ValueError, match="commutative"):
         ex.reduce_stream(i, v, out_size=4, op="mul")
 
