@@ -127,11 +127,35 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    PageRank memo recompute; a forced ``rebuild_slack_csr`` must keep the
    graph, and ``bfs_incremental`` after an insert-only batch equal a
    full ``bfs``. The fused kernels must launch in this phase.
+14. (Runs before phase 11.) LM training (``launch/train.py``'s path).
+   a) ``_pb_take``'s backward at the training shape: 4 x 4096
+   Markov-synthetic ids (``SyntheticLM``), bfloat16 cotangent rows of
+   1536 into the 152,064-row padded vocabulary, through autograd (it must
+   launch the rows kernel) and through ``execute_reduce``, held to a
+   float64 ``index_add_`` (and the bfloat16 table gradient to one
+   bfloat16 rounding of it); timed beside ``index_add_`` and its bound,
+   with a profile (the output's fill and the kernel). b) Flash attention's
+   q, k, v gradients (the kernel's forward, the plain function's float32
+   backward by query blocks) on the card against the CPU at (B, H, KH, S,
+   hd) = (1, 12, 2, 1024, 128), causal, float32 and bfloat16. c) One
+   AdamW step of a 2-layer full-width float32 copy on the card and on the
+   CPU from one state (S = 256). d) ``launch/train.py`` at full width,
+   28 layers in bfloat16 with remat and AdamW, B 4, S 4096 (train_4k's
+   sequence; its global batch of 256 cut to 4 for one card): 3 steps
+   with a checkpoint every 2 and at the end, the checkpoint restored and
+   compared bit for bit with the state, then a resume to step 4, and one
+   more step under ``torch.profiler``. Losses and grad norms must be
+   finite, every moment must have moved (attention's key bias aside: its
+   gradient is rounding, see ``_scale_name``), and each step must launch
+   the rows kernel and the flash kernel for every layer. Printed: ms per
+   step, tokens/s, model FLOP/s (6 N per token) beside 989 TFLOP/s, peak
+   memory, the profile, the card's name and power limit.
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
-   phases 3-4, 6, 7, 9, 12 and 13 (counts set to 0 before each path, read after
-   it; the checks of phases 2, 5, 8, 10 and 11 do not count), its largest
-   error against its plain version, and times at a path's shapes
-   (Bin-Read's row also ``compact_index_add_ms``); then
+   phases 3-4, 6, 7, 9, 12, 13 and 14 (counts set to 0 before each path, read
+   after it; the checks of phases 2, 5, 8, 10, 11 and 14a-c do not count), its
+   largest error against its plain version, and times at a path's shapes
+   (Bin-Read's row also ``compact_index_add_ms``, the rows kernel's an
+   ``embedding_backward`` record at phase 14's shape); then
    the result line. Before it: the same launches split by shape, the
    fused accumulate and ``index_add_`` timed at the S1 KRON and DBP
    streams (fig5's S1 PageRank shapes), and a ``torch.profiler`` listing
@@ -169,7 +193,14 @@ flat 5e-2 would be as large as a causal output at S = 2048 (about
 sqrt(e / S) for unit-normal inputs), so it could not see a dropped key
 tile there. The float32 model on the card against
 the CPU: logits within 1e-4 of max |logit| per step (sums of 1536 to
-8960 float32 products in another order), greedy tokens equal.
+8960 float32 products in another order), greedy tokens equal. Training
+(phase 14): flash gradients are held to the forward's rule (both sides
+compute the plain function's gradient in float32; bfloat16 rounds it
+once); the float32 step's loss to rtol 1e-5, each gradient and moment
+within 1e-4 of its tensor's max (the key bias's of the key weight's),
+parameters within 2 lr_1 plus two float32 roundings (AdamW's first step
+moves a parameter by about lr in the sign of its gradient, and a
+gradient that is 0 up to rounding can take either sign).
 Traversal (phase 12): levels, parents, labels, k-core membership,
 eccentricities and SSSP distances are exact (integer and min/max
 reductions; an SSSP distance is one float32 add per hop, then an exact
@@ -184,6 +215,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -225,6 +257,11 @@ LM_PROMPT_LENS = (100, 2048)
 LM_SEED = 0
 LM_TOL = 1e-4  # float32 logits: times max |logit| (tests/test_torch_lm.py)
 LM_CPU_PROMPT, LM_CPU_STEPS = 300, 8
+TRAIN_B, TRAIN_S = 4, 4096  # train_4k's sequence; its global batch of 256 cut to 4 for one card
+TRAIN_STEPS = 3  # then one more from the checkpoint
+TRAIN_CPU_S = 256  # phase 14's card-vs-CPU step: 2 float32 layers, B 1
+TRAIN_TOL = 1e-4  # card vs CPU gradients and moments: times the tensor's max
+FLASH_GRAD_SHAPE = (1, 12, 2, 1024, 128)  # (B, H, KH, S, hd): qwen2-1.5b's heads
 S3_ARM_E_HIERARCHICAL_S = 0.348960  # S3 arm E on the hierarchical path (PERF.md, section 5)
 INT32_MAX = 2**31 - 1
 F32_MAX = 3.4028234663852886e38  # float32's largest value: SSSP's unreached distance
@@ -415,11 +452,13 @@ def serve_lm(cfg, model, prompts, slots, max_len, max_new):
     return counts, rec
 
 
-def device_profile(fn, dev):
+def device_profile(fn, dev, kinds=None):
     """One call of ``fn`` under ``torch.profiler``: its wall ms (which the
     profiler's own bookkeeping lengthens), the device's busy ms (the sum
     of its kernels' times; one stream, so they do not overlap), the
-    number of kernels and the six that took the most device time."""
+    number of kernels and the six that took the most device time. With
+    ``kinds`` ({label: substrings of a kernel's name}, first match wins)
+    also the device ms of each kind, the rest under ``other``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -433,9 +472,17 @@ def device_profile(fn, dev):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return {"wall_ms": wall, "device_busy_ms": busy, "busy_share": busy / wall,
-            "kernels": sum(e.count for e in kernels),
-            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]}
+    out = {"wall_ms": wall, "device_busy_ms": busy, "busy_share": busy / wall,
+           "kernels": sum(e.count for e in kernels),
+           "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]}
+    if kinds:
+        by = dict.fromkeys(list(kinds) + ["other"], 0.0)
+        for e in kernels:
+            label = next((k for k, pats in kinds.items() if any(p in e.key for p in pats)),
+                         "other")
+            by[label] += e.self_device_time_total / 1e3
+        out["by_kind_ms"] = by
+    return out
 
 
 def kernel_profile(fn):
@@ -512,6 +559,250 @@ def lm_vs_cpu(cfg, model, prompt, max_len, steps):
     (a, ta), (b, tb) = out["device"], out["cpu"]
     share = float(((a - b).abs().max(dim=1).values / b.abs().max(dim=1).values).max())
     return share, ta == tb, ta
+
+
+# -- the LM training path (phase 14) ------------------------------------------------
+
+
+def _scale_name(name):
+    """A gradient's rounding scale: attention's key bias shifts every score
+    of a query alike, which the softmax ignores, so its gradient is 0 but
+    for rounding of a sum of dL/dk, whose scale is dL/dwk's."""
+    return name[:-2] + "wk" if name.endswith("attn.bk") else name
+
+
+def embedding_backward_check(dev, K, cfg):
+    """Phase 14a: ``_pb_take``'s backward at the training shape (B*S token
+    rows of d_model float32 from a bfloat16 cotangent into the padded
+    vocabulary; Markov-synthetic ids) against index_add_ in float64, then
+    timed beside index_add_ and its bound. Returns the record."""
+    import torch
+
+    from repro_torch.core.executor import execute_reduce
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.ref import scatter_reduce_ref
+    from repro_torch.models import layers as L
+    from repro_torch.timing import cuda_ms
+
+    ids = torch.from_numpy(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_B)).batch_at(0)["tokens"]).to(dev)
+    n, F = cfg.padded_vocab, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(14)
+    g = torch.randn(TRAIN_B, TRAIN_S, F, device=dev, generator=gen).to(torch.bfloat16)
+    table = torch.zeros(n, F, dtype=torch.bfloat16, device=dev, requires_grad=True)
+    before = K.cobra_bin_accumulate_rows.launches
+    (dtab,) = torch.autograd.grad(L._pb_take(table, ids), table, g)
+    require(K.cobra_bin_accumulate_rows.launches == before + 1,
+            "the embedding backward did not launch the rows kernel")
+    flat, rows = ids.reshape(-1), g.reshape(-1, F).float()
+    m = flat.shape[0]
+
+    def kernel():
+        return execute_reduce(flat, rows, out_size=n, op="add", method="fused")
+
+    got = kernel()
+    want = torch.zeros(n, F, dtype=torch.float64, device=dev).index_add_(0, flat, rows.double())
+    scale = torch.zeros_like(want).index_add_(0, flat, rows.abs().double())
+    err = float((got.double() - want).abs().max())
+    require(bool(((got.double() - want).abs() <= ADD_TOL * scale + 1e-6).all()),
+            f"the embedding backward differs from index_add_ in float64 ({err})")
+    # the table's gradient: that sum rounded once to bfloat16
+    require(bool(((dtab.double() - want).abs()
+                  <= 2.0**-8 * want.abs() + ADD_TOL * scale + 1e-6).all()),
+            "the embedding gradient differs from index_add_ beyond one bfloat16 rounding")
+    del want, scale, got, dtab, table
+    nbytes = 4 * m * F + 4 * m + 4 * n * F  # rows, ids, the output once each
+    rec = {"m": m, "F": F, "n": n, "max_abs_err": err,
+           "ms": cuda_ms(kernel, reps=10),
+           "plain_ms": cuda_ms(lambda: scatter_reduce_ref(flat, rows, n), reps=10),
+           "library_ms": cuda_ms(lambda: torch.zeros(n, F, device=dev).index_add_(0, flat, rows),
+                                 reps=10),
+           "bound_ms": bound_ms(nbytes), "bound_bytes": nbytes, "bound_by": "bytes",
+           "profile": kernel_profile(kernel)}
+    return rec
+
+
+def flash_grad_checks(dev, q_block):
+    """Phase 14b: flash attention's q, k, v gradients on the card (kernel
+    forward, plain float32 backward) against the CPU's, causal, float32
+    and bfloat16, held to the forward check's rule (flash_close)."""
+    import torch
+
+    from repro_torch.kernels.flashattn import flash_attention
+
+    B, H, KH, S, hd = FLASH_GRAD_SHAPE
+    gen = torch.Generator().manual_seed(141)  # on the CPU: the same inputs on both sides
+    q, go = (torch.randn(B, H, S, hd, generator=gen) for _ in range(2))
+    k, v = (torch.randn(B, KH, S, hd, generator=gen) for _ in range(2))
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        grads = {}
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            args = [x.to(d, dt).requires_grad_() for x in (q, k, v)]
+            out = flash_attention(*args, causal=True, q_block=q_block)
+            grads[side] = torch.autograd.grad(out, args, go.to(d, dt))
+        for name, a, b in zip("qkv", grads["card"], grads["cpu"]):
+            err, share, ok = flash_close(a.cpu(), b, dt)
+            worst[f"d{name} {dt}"] = (err, share)
+            require(ok and a.dtype == dt,
+                    f"flash d{name} {dt} on the card differs from the CPU (max |diff| {err})")
+    return worst
+
+
+def train_step_vs_cpu(dev, cfg):
+    """Phase 14c: one AdamW step of a 2-layer full-width float32 copy on
+    the card and on the CPU from the same state: the loss to rtol 1e-5,
+    each gradient and moment within TRAIN_TOL of its max, parameters
+    within 2 lr_1 plus two float32 roundings."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.transformer import DenseLM, init_params
+    from repro_torch.train.optimizer import apply_updates, init_opt_state
+    from repro_torch.train.steps import default_opt_config, make_loss_fn
+
+    cfg32 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32", compute_dtype="float32")
+    model = init_params(cfg32, seed=LM_SEED + 2, device=dev)
+    cpu = DenseLM(cfg32, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_CPU_S,
+                                   global_batch=1)).batch_at(0)
+    oc = default_opt_config(cfg32)
+    loss_fn = make_loss_fn(cfg32)
+    out = {}
+    for side, m in (("card", model), ("cpu", cpu)):
+        d = m.embed.table.device
+        params = dict(m.named_parameters())
+        loss = loss_fn(m, {k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        _, opt, met = apply_updates(params, grads, init_opt_state(params, oc), oc)
+        out[side] = (float(loss.detach()), {n: g.cpu() for n, g in grads.items()},
+                     {n: t.cpu() for n, t in opt.m.items()}, {n: t.cpu() for n, t in opt.v.items()},
+                     {n: p.detach().cpu() for n, p in params.items()}, met)
+    (la, ga, ma, va, pa, met), (lb, gb, mb, vb, pb, _) = out["card"], out["cpu"]
+    shares = {"loss_rel": abs(la - lb) / abs(lb)}
+    for what, a, b in (("grad", ga, gb), ("m", ma, mb), ("v", va, vb)):
+        shares[what] = max(float((a[n] - b[n]).abs().max() / b[_scale_name(n)].abs().max())
+                           for n in b)
+    lr = met["lr"]
+    shares["param_vs_2lr"] = max(float(((pa[n] - pb[n]).abs() - 2.0**-22 * pb[n].abs()).max())
+                                 for n in pb) / (2 * lr)
+    ok = (shares["loss_rel"] <= 1e-5 and max(shares["grad"], shares["m"], shares["v"]) <= TRAIN_TOL
+          and shares["param_vs_2lr"] <= 1.0)
+    require(ok, f"the 2-layer float32 train step on the card differs from the CPU: {shares}")
+    return {"loss": [la, lb], "lr": lr, **shares}
+
+
+def train_phase(dev, K, smi):
+    """Phase 14: the LM training path. The backward kernels against their
+    plain versions (14a, 14b), a float32 step against the CPU (14c), then
+    ``launch/train.py`` at full width: 3 steps with checkpoints, the
+    checkpoint restored bit for bit, one more step from it, and one step
+    under the profiler (14d). Returns (launches, launches by shape, the
+    embedding-backward record)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager, _flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.config import flops_per_token
+    from repro_torch.train.steps import default_opt_config, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    t = time.perf_counter()
+    emb = embedding_backward_check(dev, K, cfg)
+    say("phase14 embedding backward", json.dumps(dict(emb, card=smi)))
+    torch.cuda.empty_cache()
+    say("phase14 flash gradients card vs CPU (max |diff|, share of tolerance):",
+        json.dumps({k: list(v) for k, v in flash_grad_checks(dev, cfg.attn_q_block).items()}))
+    say("phase14 float32 step card vs CPU", json.dumps(train_step_vs_cpu(dev, cfg)))
+    torch.cuda.empty_cache()
+    say(f"phase14 checks seconds: {time.perf_counter() - t:.1f}")
+
+    flags = ["--arch", LM_ARCH, "--preset", "full", "--seq-len", str(TRAIN_S),
+             "--batch", str(TRAIN_B), "--log-every", "1"]
+    counts, shapes = {}, {}
+
+    def add(c, sh):
+        for k, x in c.items():
+            counts[k] = counts.get(k, 0) + x
+        for k, by in sh.items():
+            for key, x in by.items():
+                shapes.setdefault(k, {})[key] = shapes.get(k, {}).get(key, 0) + x
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        args = train_mod.parse_args(flags + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", ck,
+                                             "--ckpt-every", "2"])
+        K.reset_launch_counts()  # the training path starts here
+        run = train_mod.train(args)
+        torch.cuda.synchronize()
+        c1, s1 = K.launch_counts(), K.launch_shapes()  # and ends here
+        add(c1, s1)
+        peak = torch.cuda.max_memory_allocated() - mem0
+        opt = run.state.opt
+        require(all(math.isfinite(x) for x in run.losses + run.grad_norms)
+                and len(run.losses) == TRAIN_STEPS, f"training diverged: {run.losses}")
+        stale = [n for n in opt.m if not n.endswith("attn.bk")
+                 and not (float(opt.m[n].abs().max()) > 0 and float(opt.v[n].abs().max()) > 0)]
+        require(opt.step == TRAIN_STEPS and not stale, f"moments that did not move: {stale}")
+        require(c1["cobra_bin_accumulate_rows"] >= TRAIN_STEPS
+                and c1["flash_attention"] >= cfg.num_layers * TRAIN_STEPS,
+                f"training launched {c1} in {TRAIN_STEPS} steps")
+        restored, at = CheckpointManager(ck).restore(run.state)
+        same = all((torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+                   for (_, a), (_, b) in zip(_flatten_with_paths(restored),
+                                             _flatten_with_paths(run.state)))
+        require(at == TRAIN_STEPS and same, f"checkpoint step {at} does not restore bit for bit")
+        rec = {"arch": LM_ARCH, "layers": cfg.num_layers, "param_dtype": cfg.param_dtype,
+               "remat": cfg.remat, "optimizer": default_opt_config(cfg).kind,
+               "batch": TRAIN_B, "seq_len": TRAIN_S,
+               "cut": f"global batch {TRAIN_B} of train_4k's 256 (one card)",
+               "losses": run.losses, "grad_norms": run.grad_norms, "lrs": run.lrs,
+               "step_ms": [1e3 * x for x in run.step_seconds],
+               "launches": {k: c1[k] for k in ("cobra_bin_accumulate_rows", "flash_attention")},
+               "peak_bytes_above_earlier_phases": peak, "earlier_phases_bytes": mem0,
+               "checkpoint_restored_bit_equal": same, "card": smi}
+        del restored, run, opt
+        torch.cuda.empty_cache()
+        K.reset_launch_counts()  # the resumed run starts here
+        run = train_mod.train(train_mod.parse_args(
+            flags + ["--steps", str(TRAIN_STEPS + 1), "--ckpt-dir", ck, "--ckpt-every", "100"]))
+        torch.cuda.synchronize()
+        c2, s2 = K.launch_counts(), K.launch_shapes()  # and ends here
+        add(c2, s2)
+        require(run.start_step == TRAIN_STEPS and len(run.losses) == 1
+                and math.isfinite(run.losses[0]) and c2["cobra_bin_accumulate_rows"] >= 1
+                and c2["flash_attention"] >= cfg.num_layers,
+                f"the resumed run: start {run.start_step}, losses {run.losses}, launches {c2}")
+        rec["resumed"] = {"start_step": run.start_step, "loss": run.losses[0],
+                          "step_ms": 1e3 * run.step_seconds[0]}
+    steady = [x for x in rec["step_ms"][1:]] + [rec["resumed"]["step_ms"]]
+    tokens = TRAIN_B * TRAIN_S
+    ms = min(steady)
+    rec.update({"steady_step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
+                "model_flop_per_s": flops_per_token(cfg) * tokens / ms * 1e3,
+                "model_flop_share_of_989T": flops_per_token(cfg) * tokens / ms * 1e3
+                / BF16_FLOP_PER_S})
+    say("phase14 train", json.dumps(rec))
+    # one more step under the profiler, from the resumed state
+    step = make_train_step(cfg, default_opt_config(cfg, total_steps=TRAIN_STEPS + 2))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_B))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(TRAIN_STEPS + 1).items()}
+    state = run.state
+    prof = device_profile(lambda: step(state, batch), dev, kinds={
+        "flash kernel": ("flash_fwd",), "rows kernel": ("rows_kernel",),
+        "float32 GEMM": ("f32f32_f32",), "other GEMM": ("gemm", "nvjet", "cutlass"),
+        "elementwise": ("elementwise",), "reductions": ("reduce",),
+        "copies and fills": ("Memcpy", "Memset", "fill")})
+    say("phase14 profile", json.dumps(dict(prof, card=smi)))
+    del run, state, batch
+    torch.cuda.empty_cache()
+    return counts, shapes, emb
 
 
 # -- the traversal path (phase 12) -------------------------------------------------
@@ -1894,6 +2185,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     say(f"phase13 seconds: {time.perf_counter() - t13:.1f}")
 
+    # -- phase 14: the LM training path (before phase 11's kernels line) ------------
+    t14 = time.perf_counter()
+    train_counts, train_shapes, emb_bwd = train_phase(dev, K, smi)
+    say(f"phase14 seconds: {time.perf_counter() - t14:.1f}")
+
     # -- phase 11: the kernels line at the paths' shapes -------------------------
     t11 = time.perf_counter()
     n2, br2 = s2.num_nodes, min(max(64, T.compromise_bin_range(s2.num_nodes, hw)), s2.num_nodes)
@@ -1996,10 +2292,10 @@ def main() -> None:
          4 * T_ + 8 * T_ * d_),
     ]
     path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
-            + trav_counts[k] + serving_counts[k] for k in after}
+            + trav_counts[k] + serving_counts[k] + train_counts[k] for k in after}
     path_shapes = {}
     for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes,
-                 serving_shapes):
+                 serving_shapes, train_shapes):
         for k, by in part.items():
             for shp, c in by.items():
                 path_shapes.setdefault(k, {})[shp] = path_shapes.get(k, {}).get(shp, 0) + c
@@ -2052,6 +2348,10 @@ def main() -> None:
     next(k for k in kernels if k["name"] == "binread_scatter_add")["compact_index_add_ms"] = \
         cuda_ms(lambda: torch.zeros(B_ * EMB_BIN_RANGE, d_, device=dev).index_add_(0, ids, x),
                 reps=5)
+    # the rows kernel at its second shape: the embedding backward of phase 14
+    next(k for k in kernels if k["name"] == "cobra_bin_accumulate_rows")["embedding_backward"] = {
+        k: emb_bwd[k] for k in ("m", "F", "n", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                "bound_ms", "bound_bytes")}
     # flash: the longest prefill's attention, qwen2-1.5b's heads at S = 4096, bf16, causal
     fB, fH, fKH, fS, fhd = 1, lm_cfg.num_heads, lm_cfg.num_kv_heads, LM_MAX_LEN, lm_cfg.head_dim
     fq = torch.randn(fB, fH, fS, fhd, device=dev, generator=gen).to(torch.bfloat16)

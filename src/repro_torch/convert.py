@@ -1,7 +1,8 @@
 """Carrying state across from numpy (and so from the reference package).
 
 In this system the "weights" are the graph, the plan and, for the GNN
-layer, its three parameters. The tests take the reference's outputs
+layer, its three parameters; for the LM, its parameter tree and, for
+training, the optimizer state. The tests take the reference's outputs
 through ``np.asarray`` and these functions, and compare like with like:
 index layouts are int32 on both sides.
 """
@@ -76,6 +77,52 @@ def _torch_from_numpy(a) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(arr.copy())
+
+
+def _tree_node(tree, dotted: str):
+    node = tree
+    for key in dotted.split("."):
+        node = node[key]
+    return node
+
+
+def _leaf_tensor(tree, name: str, device) -> torch.Tensor:
+    """The leaf of the reference's tree for the port's parameter ``name``:
+    layer i of the stacked leaf for ``blocks.<i>.<rest>``."""
+    from repro_torch.train.optimizer import reference_leaf
+
+    key, layer = reference_leaf(name)
+    node = _tree_node(tree, key)
+    return _torch_from_numpy(node if layer is None else np.asarray(node)[layer]).to(device)
+
+
+def train_state_from_numpy(params, opt, cfg, device=None):
+    """A ``TrainState`` holding the reference's: ``params`` its unboxed
+    parameter tree (as for ``lm_params_from_numpy``), ``opt`` its
+    ``OptState`` (``step``, ``m``, ``v``: AdamW's moments trees like the
+    parameters; Adafactor's ``m`` None and ``v`` a tree whose factored
+    leaves are (rows, cols) pairs). AdamW's moments are split by layer
+    like the parameters; Adafactor's stay the reference's stacked leaves,
+    keyed ``blocks.<rest>`` (``train/optimizer.py``)."""
+    from repro_torch.train.optimizer import OptState, reference_leaf
+    from repro_torch.train.steps import TrainState
+
+    dev = resolve_device(device)
+    model = lm_params_from_numpy(params, cfg, device=dev)
+    names = [n for n, _ in model.named_parameters()]
+    step = int(np.asarray(opt.step))
+    if opt.m is not None:
+        m = {n: _leaf_tensor(opt.m, n, dev) for n in names}
+        v = {n: _leaf_tensor(opt.v, n, dev) for n in names}
+        return TrainState(model, OptState(step, m, v))
+    v = {}
+    for key in dict.fromkeys(reference_leaf(n)[0] for n in names):
+        node = _tree_node(opt.v, key)
+        if isinstance(node, (tuple, list)):
+            v[key] = tuple(_torch_from_numpy(x).to(dev) for x in node)
+        else:
+            v[key] = _torch_from_numpy(node).to(dev)
+    return TrainState(model, OptState(step, None, v))
 
 
 def lm_params_from_numpy(params, cfg, device=None):

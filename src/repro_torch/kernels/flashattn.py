@@ -34,6 +34,13 @@ and P enters P V as two bf16 halves, ``hi = bf16(p)`` and
 rounding (2**-9) fails the check on outputs that nearly cancel
 (``tests/test_torch_flashattn.py`` emulates both).
 ``flash_attention.launches`` counts kernel launches.
+
+``flash_attention`` is differentiable in q, k and v
+(``_FlashAttention``): the backward is the plain function's gradient,
+recomputed in float32 from the saved inputs by blocks of ``q_block``
+queries (``attention_grads``) on whatever device they lie, as the
+reference differentiates its plain ``_blockwise_attention``; the
+reference has no backward kernel, and neither has the port.
 """
 from __future__ import annotations
 
@@ -64,10 +71,12 @@ def _check_shapes(q, k, v):
 
 
 def flash_attention_ref(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_offset: int = 0
 ) -> torch.Tensor:
     """Plain version: the whole (Sq, Skv) score matrix in float32, masked
-    scores -1e30, softmax, then the value sum; cast to q's dtype."""
+    scores -1e30, softmax, then the value sum; cast to q's dtype. The
+    queries sit at positions ``q_offset`` on (the backward's query
+    blocks); the keys at 0 on."""
     _check_shapes(q, k, v)
     B, H, Sq, hd = q.shape
     KH, Skv = k.shape[1], k.shape[2]
@@ -75,7 +84,8 @@ def flash_attention_ref(
     qf = q.float().reshape(B, KH, G, Sq, hd) * hd**-0.5
     s = torch.einsum("bkgqh,bksh->bkgqs", qf, k.float())
     if causal:
-        keep = torch.arange(Sq, device=q.device)[:, None] >= torch.arange(Skv, device=q.device)
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        keep = qpos[:, None] >= torch.arange(Skv, device=q.device)
         s = torch.where(keep, s, torch.full((), MASKED, device=q.device))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bksh->bkgqh", w, v.float())
@@ -88,12 +98,72 @@ def flash_attention(
     v: torch.Tensor,
     *,
     causal: bool = True,
+    q_block: int = 512,
 ) -> torch.Tensor:
     """``(B, H, Sq, hd)`` attention output in q's dtype (see the module
-    docstring)."""
+    docstring), differentiable in q, k and v. ``q_block`` is the query
+    rows of one step of the backward (see ``_FlashAttention``)."""
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
+    if q_block < 1:
+        raise ValueError(f"q_block must be positive, got {q_block}")
+    return _FlashAttention.apply(q, k, v, causal, q_block)
+
+
+def attention_grads(q, k, v, g, *, causal: bool, q_block: int):
+    """Gradients (dq, dk, dv) of the plain function at (q, k, v) for the
+    output cotangent ``g``, in the inputs' dtypes: autograd of
+    ``flash_attention_ref`` in float32, one block of ``q_block`` queries at
+    a time, so that no more than (B, H, q_block, Skv) scores live at once.
+    Under the causal mask a block needs only the keys up to its last
+    query. A GQA group's k and v gradients sum over its query heads (the
+    einsum's own backward), and over the blocks in float32."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    kf, vf = k.detach().float(), v.detach().float()
+    for s in range(0, Sq, q_block):
+        e = min(s + q_block, Sq)
+        n = min(e, Skv) if causal else Skv
+        with torch.enable_grad():
+            qb = q[:, :, s:e].detach().float().requires_grad_()
+            kb = kf[:, :, :n].requires_grad_()
+            vb = vf[:, :, :n].requires_grad_()
+            out = flash_attention_ref(qb, kb, vb, causal=causal, q_offset=s)
+            gq, gk, gv = torch.autograd.grad(out, (qb, kb, vb), g[:, :, s:e].float())
+        dq[:, :, s:e] = gq
+        dk[:, :, :n] += gk
+        dv[:, :, :n] += gv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU ones.
+    Backward: the gradient of the plain function, recomputed from the
+    saved q, k and v (``attention_grads``), as the reference differentiates
+    its plain-jnp ``_blockwise_attention`` (it has no flash backward
+    kernel either). The kernel's bfloat16 output differs from the plain
+    one by at most one rounding step (module docstring); the gradient is
+    the plain function's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_block):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.q_block = causal, q_block
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, causal=causal)
+        return _flash_forward_cuda(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_grads(q, k, v, g, causal=ctx.causal, q_block=ctx.q_block)
+        return dq, dk, dv, None, None
+
+
+def _flash_forward_cuda(q, k, v, causal: bool) -> torch.Tensor:
+    """Launch ``csrc/flashattn.cu`` (inputs checked; see the module
+    docstring); counts the launch on ``flash_attention``."""
     B, H, Sq, hd = q.shape
     KH, Skv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE:

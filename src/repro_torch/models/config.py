@@ -5,13 +5,16 @@ of the port equals the reference's field by field; ``pdtype`` and
 ``cdtype`` return torch dtypes. Exact per-architecture values live in
 ``repro_torch.configs.<id>``.
 
-Fields that only steer JAX (``scan_layers``, ``remat``,
-``sharding_profile``, ``ablate_attn_scores``) are kept and ignored: the
-port runs its layers in a Python loop, eagerly, on one card.
-``attn_q_block``, ``attn_kv_block`` and ``use_blockwise_attn`` were VMEM
-sizes and a switch between two renderings of one function; the port's
-flash kernel computes that function with its own tiles, so they are
-kept for field equality and ignored (``models/layers.py``).
+Fields that only steer JAX (``scan_layers``, ``sharding_profile``,
+``ablate_attn_scores``) are kept and ignored: the port runs its layers in
+a Python loop, eagerly, on one card. ``remat`` means what it means there:
+under autograd each layer's activations are recomputed in the backward
+(``torch.utils.checkpoint``; ``models/transformer.py``).
+``attn_kv_block`` and ``use_blockwise_attn`` were VMEM sizes and a switch
+between two renderings of one function; the port's flash kernel computes
+that function with its own tiles, so they are kept for field equality and
+ignored. ``attn_q_block`` is the query block of attention's backward
+(``models/layers.py``).
 """
 from __future__ import annotations
 
@@ -70,9 +73,9 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     vocab_pad_multiple: int = 256
-    remat: bool = True  # JAX only
+    remat: bool = True  # recompute each layer in the backward
     scan_layers: bool = True  # JAX only
-    attn_q_block: int = 512  # ignored by the port
+    attn_q_block: int = 512  # query rows of one step of attention's backward
     attn_kv_block: int = 1024  # ignored by the port
     use_blockwise_attn: bool = True  # ignored by the port
     attn_tile_f32: bool = True  # score tiles in f32 (False: the compute dtype)

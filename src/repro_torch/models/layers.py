@@ -1,7 +1,7 @@
 """Dense-LM layers (port of the dense half of ``repro/models/layers.py``):
 norms, RoPE, GQA attention with a KV cache, MLPs, the embedding and the
-logits. The GNN half lives in ``models/gnn.py``; MoE and the PB embedding
-backward (``_pb_take``, training only) wait for ROADMAP Queue 1 item 15.
+logits, with the PB embedding backward (``_pb_take``). The GNN half
+lives in ``models/gnn.py``; MoE waits for ROADMAP Queue 1 item 2.
 
 Parameters live in small ``nn.Module``s whose attribute names are the
 reference's keys (``w``/``b`` of a norm; ``wq``, ``wk``, ``wv``, ``wo`` and
@@ -21,9 +21,13 @@ over those tokens' own keys and values (the reference's
 version on the CPU, so the CPU tests cover the routing the card runs.
 Decode (one token at ``cache_index`` against the whole cache) stays plain
 torch, as ``_direct_attention`` is plain jnp in the reference.
-``cfg.attn_q_block`` / ``attn_kv_block`` / ``use_blockwise_attn`` chose
-between two renderings of one function there; the port ignores them (the
-kernel's tiles are fixed), so every such call takes the kernel.
+``cfg.attn_kv_block`` / ``use_blockwise_attn`` chose between two
+renderings of one function there; the port ignores them (the kernel's
+tiles are fixed), so every such call takes the kernel.
+``cfg.attn_q_block`` is the query rows of one step of the kernel's
+backward (the plain function's gradient, recomputed block by block:
+``kernels.flashattn.attention_grads``), as it is the query block of the
+reference's differentiated loop.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.executor import execute_reduce
 from repro_torch.kernels.flashattn import MASKED, flash_attention
 from repro_torch.models.config import ModelConfig
 
@@ -148,15 +153,18 @@ def _direct_attention(q, k, v, causal: bool, q_offset=0, tile_f32: bool = True):
     return out.reshape(B, Sq, H * hd)
 
 
-def blockwise_attention(q, k, v, *, causal):
+def blockwise_attention(q, k, v, *, causal, q_block: int = 512):
     """Attention of q: (B, S, H, hd) over k, v: (B, Skv, KH, hd) with both
     position ranges starting at 0, through the flash kernel; returns
     (B, S, H * hd). The reference's online-softmax loop computes the same
     function; the kernel reads the (B, S, heads, hd) layout in place and
     writes its output in that layout. The kernel keeps its scores in
-    float32 whatever ``cfg.attn_tile_f32`` says."""
+    float32 whatever ``cfg.attn_tile_f32`` says. ``q_block``: the query
+    rows of one backward step."""
     B, S, H, hd = q.shape
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
+    out = flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, q_block=q_block
+    )
     return out.transpose(1, 2).reshape(B, S, H * hd)
 
 
@@ -207,10 +215,10 @@ def attention_apply(
             # query (its score is -1e30 and exp(-1e30 - m) is exactly 0 in
             # float32), so attending over the prompt's own k and v gives the
             # same result: that is what the kernel computes.
-            out = blockwise_attention(q, k, v, causal=causal)
+            out = blockwise_attention(q, k, v, causal=causal, q_block=cfg.attn_q_block)
         new_cache = (kc, vc)
     elif S > 1:
-        out = blockwise_attention(q, k, v, causal=causal)
+        out = blockwise_attention(q, k, v, causal=causal, q_block=cfg.attn_q_block)
     else:
         out = _direct_attention(q, k, v, causal=causal, tile_f32=cfg.attn_tile_f32)
     dt = cfg.cdtype
@@ -262,9 +270,39 @@ class Embedding(nn.Module):
         self.unembed = None if cfg.tie_embeddings else _param((d, V), dt, device)
 
 
+class _PBTake(torch.autograd.Function):
+    """``table[ids]`` whose backward is a PB reduction (reference
+    ``_pb_take``, ``layers.py:327-352``): the embedding gradient is a
+    commutative scatter-add of the (tokens, d) cotangent rows over the
+    vocabulary, the canonical fused PB stream (DESIGN.md §8), so it runs
+    ``execute_reduce(method="fused")``: the rows kernel
+    (``cobra_bin_accumulate_rows``) on CUDA tensors, its plain version on
+    CPU ones. Rows accumulate in float32 in token order and the table's
+    gradient is cast to its dtype; the ids get none."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.vocab, ctx.dtype = table.shape[0], table.dtype
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat_ids = ids.reshape(-1).to(torch.int32)
+        flat_g = g.reshape(-1, g.shape[-1]).float().contiguous()
+        dtable = execute_reduce(flat_ids, flat_g, out_size=ctx.vocab, op="add", method="fused")
+        return dtable.to(ctx.dtype), None
+
+
+_pb_take = _PBTake.apply  # (table, ids) -> table[ids]
+
+
 def embed_apply(p: Embedding, ids: torch.Tensor, cfg: ModelConfig, positions=None):
-    """``table[ids]`` in the compute dtype (the PB backward is training)."""
-    x = F.embedding(ids, p.table).to(cfg.cdtype)
+    """``table[ids]`` in the compute dtype; with ``cfg.pb_embedding`` its
+    backward is the PB reduction of ``_pb_take``, else autograd's own."""
+    x = _pb_take(p.table, ids) if cfg.pb_embedding else F.embedding(ids, p.table)
+    x = x.to(cfg.cdtype)
     if p.pos is not None and positions is not None:
         x = x + F.embedding(positions.clamp(max=cfg.learned_pos - 1), p.pos).to(cfg.cdtype)
     return x

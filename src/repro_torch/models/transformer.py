@@ -8,19 +8,27 @@ keys: ``embed.table``, ``final_ln.w`` and, per layer ``i``,
 ``blocks.i.mlp.w1`` / ``w3`` / ``w2`` (the reference stacks each of these
 along a leading layer axis and scans it; the port loops over an
 ``nn.ModuleList``). The other families (moe, vlm, ssm, hybrid, encdec)
-raise ``NotImplementedError``: they wait for ROADMAP Queue 1 item 15.
+raise ``NotImplementedError``: they wait for ROADMAP Queue 1 item 2.
 
 The cache is one pair of tensors ``(L, B, S_max, KH, hd)``, layer i's
 ``(B, S_max, KH, hd)`` view being the reference's per-layer cache, and
 ``StepState.index`` is a Python int, so that a decode step never waits
 for the card to learn its position. Attention writes the cache in place.
+
+Training: ``hidden_forward`` under autograd with ``cfg.remat`` recomputes
+each layer in the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` scan body), and ``chunked_lm_loss`` recomputes each
+sequence chunk's logits, so neither the layers' activations nor the
+(B, S, V) logits are held whole.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -40,7 +48,7 @@ def _require_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port runs "
-            "the dense family (ROADMAP Queue 1 item 15)"
+            "the dense family (ROADMAP Queue 1 item 2)"
         )
 
 
@@ -121,7 +129,9 @@ def hidden_forward(
 ) -> Tuple[torch.Tensor, Optional[StepState]]:
     """Backbone only: (final-norm hidden (B, S, d), new state). With a
     state, each layer writes its cache in place and the new state's index
-    is the old one plus S."""
+    is the old one plus S. Under autograd, without a state and with
+    ``cfg.remat``, each layer keeps only its input and is recomputed in the
+    backward."""
     _require_dense(cfg)
     B, S = tokens.shape
     if positions is None:
@@ -129,9 +139,14 @@ def hidden_forward(
         positions = (base + torch.arange(S, dtype=torch.int32, device=tokens.device)).expand(B, S)
     x = L.embed_apply(params.embed, tokens, cfg, positions=positions)
     index = state.index if state is not None else None
+    remat = cfg.remat and state is None and torch.is_grad_enabled()
     for i, blk in enumerate(params.blocks):
-        cache = None if state is None else (state.caches[0][i], state.caches[1][i])
-        x = _apply_dense_layer(blk, x, cfg, positions, cache, index)
+        if remat:
+            x = checkpoint(_apply_dense_layer, blk, x, cfg, positions, None, None,
+                           use_reentrant=False)
+        else:
+            cache = None if state is None else (state.caches[0][i], state.caches[1][i])
+            x = _apply_dense_layer(blk, x, cfg, positions, cache, index)
     new_state = None if state is None else StepState(state.caches, state.index + S)
     return L.apply_norm(params.final_ln, x, cfg), new_state
 
@@ -145,3 +160,48 @@ def forward(params: DenseLM, tokens, cfg: ModelConfig, **kw):
 def last_logits(params: DenseLM, hidden, cfg: ModelConfig):
     """Logits of the final position only (prefill)."""
     return L.logits_apply(params.embed, hidden[:, -1:], cfg)[:, 0]
+
+
+def _masked_nll_sum(logits, labels, vocab_size: int) -> torch.Tensor:
+    """Sum of the next-token NLL over positions with ``label >= 0``; the
+    padded-vocab logits are set to -1e30 before the float32 softmax."""
+    V_pad = logits.shape[-1]
+    if V_pad > vocab_size:
+        pad = torch.arange(V_pad, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    valid = labels >= 0
+    nll = -logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return (nll * valid).sum()
+
+
+def _chunk_nll_sum(embed: L.Embedding, h, labels, cfg: ModelConfig) -> torch.Tensor:
+    return _masked_nll_sum(L.logits_apply(embed, h, cfg), labels, cfg.vocab_size)
+
+
+def chunked_lm_loss(
+    params: DenseLM, hidden: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean next-token cross entropy without materialising (B, S, V): a
+    loop over sequence chunks of ``chunk`` positions (the last one may be
+    shorter; the reference pads it with label -1, which adds nothing),
+    each chunk's logits recomputed in the backward
+    (``torch.utils.checkpoint``), as the reference's checkpointed scan
+    (``transformer.py:471-510``). Labels < 0 are masked; float32."""
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s in range(0, hidden.shape[1], chunk):
+        h, lab = hidden[:, s:s + chunk], labels[:, s:s + chunk]
+        if torch.is_grad_enabled():
+            part = checkpoint(_chunk_nll_sum, params.embed, h, lab, cfg, use_reentrant=False)
+        else:
+            part = _chunk_nll_sum(params.embed, h, lab, cfg)
+        tot = tot + part
+    return tot / (labels >= 0).sum().clamp(min=1)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Next-token cross entropy; positions with label < 0 are masked;
+    padded-vocab logits are excluded from the softmax."""
+    valid = (labels >= 0).sum()
+    return _masked_nll_sum(logits, labels, vocab_size) / valid.clamp(min=1)

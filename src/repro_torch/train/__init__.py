@@ -1,1 +1,1 @@
-"""Step functions of the PyTorch port (serving only so far)."""
+"""Training and serving steps of the PyTorch port, and the optimizers."""

@@ -1,0 +1,179 @@
+"""Optimizers (port of ``repro/train/optimizer.py:16-138``): AdamW and
+Adafactor, written out by hand as in the reference.
+
+Moments are kept in ``moment_dtype`` (float32); each update is computed
+in float32 from the gradient scaled by the global-norm clip, weight decay
+inside the step, and cast back to the parameter's dtype.
+``torch.optim.AdamW`` is a different function: it keeps bf16 moments for
+bf16 parameters and has neither the clip nor the schedule.
+
+Parameters, gradients and AdamW's moments are dicts keyed like the
+model's ``named_parameters()``. Adafactor factors a leaf's last two axes,
+and the reference's leaves are the layer-stacked ones: its ``blocks``
+norm weight is one (L, d) leaf, factored into L rows and d columns across
+the layers. So Adafactor's second moments are keyed by the reference's
+leaf: ``blocks.ln1.w`` for the ``blocks.<i>.ln1.w`` of every layer i, its
+factors over the stacked (L, ...) shape; other names keep their own key
+(``reference_leaf``).
+
+``apply_updates`` writes the new parameters and moments into the tensors
+it is given (the reference's launcher donates its state to the step, so
+the old one is gone there as well) and returns the state with the step
+advanced. The step is a Python int and the learning rate a Python float,
+computed in float32 on the host as the reference computes them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+class OptState(NamedTuple):
+    step: int
+    m: Optional[Dict[str, torch.Tensor]]  # first moment (None for adafactor)
+    v: Dict[str, Any]  # second moment: a tensor, or Adafactor's (rows, cols)
+
+
+class OptConfig(NamedTuple):
+    kind: str = "adamw"  # adamw | adafactor
+    lr_peak: float = 3e-4
+    warmup_steps: int = 200
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    moment_dtype: str = "float32"
+
+
+def lr_schedule(oc: OptConfig, step) -> np.float32:
+    """Linear warmup -> cosine decay to 10% of peak, in float32 (``step``
+    an int or an integer array)."""
+    f32 = np.float32
+    step = np.asarray(step).astype(f32)
+    warm = np.minimum(step / f32(max(oc.warmup_steps, 1)), f32(1.0))
+    t = np.clip(
+        (step - f32(oc.warmup_steps)) / f32(max(oc.total_steps - oc.warmup_steps, 1)),
+        f32(0.0), f32(1.0),
+    )
+    cos = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t))
+    return f32(oc.lr_peak) * warm * (f32(0.1) + f32(0.9) * cos)
+
+
+def _factored_shape(shape):
+    """Adafactor factors the last two dims when both >= 2."""
+    if len(shape) >= 2 and shape[-1] >= 2 and shape[-2] >= 2:
+        return shape[:-1], shape[:-2] + shape[-1:]
+    return None
+
+
+def reference_leaf(name: str) -> Tuple[str, Optional[int]]:
+    """(the reference's leaf, layer): ``blocks.3.attn.wq`` is layer 3 of
+    ``blocks.attn.wq``; any other name is its own leaf (layer None)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return ".".join(["blocks"] + parts[2:]), int(parts[1])
+    return name, None
+
+
+def _leaf_groups(names) -> Dict[str, List[str]]:
+    """The reference's leaves, each with its names in layer order."""
+    groups: Dict[str, List[str]] = {}
+    for n in names:
+        groups.setdefault(reference_leaf(n)[0], []).append(n)
+    return groups
+
+
+def _stacked(tensors: Dict[str, torch.Tensor], key: str, names: List[str]) -> torch.Tensor:
+    """The reference's float32 leaf: the layers stacked for a ``blocks``
+    leaf, the tensor itself otherwise."""
+    if reference_leaf(names[0])[1] is None:
+        return tensors[names[0]].float()
+    return torch.stack([tensors[n].float() for n in names])
+
+
+def init_opt_state(params: Dict[str, torch.Tensor], oc: OptConfig) -> OptState:
+    """Zero moments beside ``params`` (name -> tensor), on their devices."""
+    mdt = getattr(torch, oc.moment_dtype)
+    if oc.kind == "adamw":
+        m = {n: torch.zeros_like(p, dtype=mdt) for n, p in params.items()}
+        v = {n: torch.zeros_like(p, dtype=mdt) for n, p in params.items()}
+        return OptState(0, m, v)
+    if oc.kind == "adafactor":
+        v = {}
+        for key, names in _leaf_groups(params).items():
+            p = params[names[0]]
+            shape = tuple(p.shape) if key == names[0] else (len(names),) + tuple(p.shape)
+            fs = _factored_shape(shape)
+            if fs is None:
+                v[key] = torch.zeros(shape, dtype=mdt, device=p.device)
+            else:
+                v[key] = (torch.zeros(fs[0], dtype=mdt, device=p.device),
+                          torch.zeros(fs[1], dtype=mdt, device=p.device))
+        return OptState(0, None, v)
+    raise ValueError(oc.kind)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in float32 (0-d)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+
+
+@torch.no_grad()
+def apply_updates(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+                  state: OptState, oc: OptConfig):
+    """One optimizer step, in place (module docstring). Returns (params,
+    new state, {"lr", "grad_norm"}); ``grad_norm`` is a 0-d float32 tensor
+    on the gradients' device, taken before the clip."""
+    step = state.step + 1
+    lr = float(lr_schedule(oc, step))
+    gnorm = global_norm(grads[n] for n in params)
+    scale = torch.clamp(oc.clip_norm / (gnorm + 1e-9), max=1.0)
+
+    if oc.kind == "adamw":
+        f32 = np.float32
+        b1c = float(f32(1) - f32(oc.b1) ** f32(step))
+        b2c = float(f32(1) - f32(oc.b2) ** f32(step))
+        for n, p in params.items():
+            g = grads[n].float() * scale
+            m, v = state.m[n], state.v[n]
+            m2 = oc.b1 * m.float() + (1 - oc.b1) * g
+            v2 = oc.b2 * v.float() + (1 - oc.b2) * g * g
+            delta = (m2 / b1c) / (torch.sqrt(v2 / b2c) + oc.eps)
+            delta = delta + oc.weight_decay * p.float()
+            p.copy_(p.float() - lr * delta)
+            m.copy_(m2)
+            v.copy_(v2)
+        return params, OptState(step, state.m, state.v), {"lr": lr, "grad_norm": gnorm}
+
+    if oc.kind == "adafactor":
+        d = 1e-30
+        new_v = {}
+        for key, names in _leaf_groups(params).items():
+            g = _stacked(grads, key, names) * scale
+            p = _stacked(params, key, names)
+            v = state.v[key]
+            g2 = g * g + d
+            if isinstance(v, tuple):
+                vr, vc = v
+                vr2 = oc.b2 * vr + (1 - oc.b2) * g2.mean(-1)
+                vc2 = oc.b2 * vc + (1 - oc.b2) * g2.mean(-2)
+                rfac = vr2 / torch.clamp(vr2.mean(-1, keepdim=True), min=d)
+                precond = g / (torch.sqrt(rfac[..., None] * vc2[..., None, :]) + oc.eps)
+                new_v[key] = (vr.copy_(vr2), vc.copy_(vc2))
+            else:
+                v2 = oc.b2 * v + (1 - oc.b2) * g2
+                precond = g / (torch.sqrt(v2) + oc.eps)
+                new_v[key] = v.copy_(v2)
+            p2 = p - lr * (precond + oc.weight_decay * p)
+            if reference_leaf(names[0])[1] is None:
+                params[names[0]].copy_(p2)
+            else:
+                for i, n in enumerate(names):
+                    params[n].copy_(p2[i])
+        return params, OptState(step, None, new_v), {"lr": lr, "grad_norm": gnorm}
+
+    raise ValueError(oc.kind)

@@ -984,3 +984,53 @@ def test_cuda_frontend_replay_equals_cpu(cuda, max_batch, tmp_path):
             np.testing.assert_allclose(qa.result, qb.result, rtol=2e-4, atol=1e-6)
         else:
             np.testing.assert_array_equal(qa.result, qb.result)
+
+
+# -- the training slice: backward paths on the card ---------------------------
+# Flash's backward is the plain function's gradient in float32 on both
+# sides (the kernel is only the forward): held to the forward's rule. The
+# PB embedding backward is a float32 add by the rows kernel, within 1e-5
+# of the magnitudes summed at a row, then one bfloat16 rounding.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,q_block", [(300, 128), (1024, 512)])
+def test_cuda_flash_backward_matches_the_cpu(cuda, dtype, S, q_block):
+    from repro_torch.kernels.flashattn import flash_attention
+
+    q, k, v = _qkv(cuda, 1, 12, 2, S, S, 128, torch.float32, seed=S)
+    go = torch.from_numpy(_rng(S + 1).normal(size=q.shape).astype(np.float32))
+    grads = {}
+    for side, d in (("card", cuda), ("cpu", torch.device("cpu"))):
+        args = [x.to(d, dtype).requires_grad_() for x in (q, k, v)]
+        before = flash_attention.launches
+        out = flash_attention(*args, causal=True, q_block=q_block)
+        assert flash_attention.launches == before + (side == "card")
+        assert out.grad_fn is not None
+        grads[side] = torch.autograd.grad(out, args, go.to(d, dtype))
+    for a, b in zip(grads["card"], grads["cpu"]):
+        assert a.dtype == dtype and _flash_close(a.cpu(), b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_pb_embedding_backward_runs_the_rows_kernel(cuda, dtype):
+    from repro_torch.models.layers import _pb_take
+
+    rng = _rng(20)
+    V, d = 5000, 256
+    ids = rng.integers(0, V, (4, 512)).astype(np.int32)
+    ids[0, :100] = V - 1  # a hot row
+    g = rng.normal(size=(4, 512, d)).astype(np.float32)
+    table = torch.zeros(V, d, dtype=dtype, device=cuda, requires_grad=True)
+    before = cobra_bin_accumulate_rows.launches
+    out = _pb_take(table, torch.from_numpy(ids).to(cuda))
+    (got,) = torch.autograd.grad(out, table, torch.from_numpy(g).to(cuda, dtype))
+    assert cobra_bin_accumulate_rows.launches == before + 1 and got.dtype == dtype
+    rows = torch.from_numpy(g).to(dtype).float().reshape(-1, d).double()
+    flat = torch.from_numpy(ids.reshape(-1)).long()
+    want = torch.zeros(V, d, dtype=torch.float64).index_add_(0, flat, rows)
+    scale = torch.zeros(V, d, dtype=torch.float64).index_add_(0, flat, rows.abs())
+    tol = 1e-5 * scale + 1e-6 + (2.0**-8 * want.abs() if dtype == torch.bfloat16 else 0)
+    assert bool(((got.cpu().double() - want).abs() <= tol).all())
