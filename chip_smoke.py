@@ -150,17 +150,41 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    the rows kernel and the flash kernel for every layer. Printed: ms per
    step, tokens/s, model FLOP/s (6 N per token) beside 989 TFLOP/s, peak
    memory, the profile, the card's name and power limit.
+15. (Runs before phase 11.) MoE serving: ``qwen3-moe-235b-a22b`` at full
+   width (d 4096, 64/4 heads of 128, 128 experts of d_ff 1536, top-8,
+   vocab 151,936) with 8 of its 94 layers, bfloat16 weights from a seeded
+   generator, counting dispatch (histogram + positions kernels). Checks:
+   (a) ``sort`` and ``counting`` dispatch route bit for bit at 2048 and 4
+   tokens, with equal layer outputs; (b) one layer against
+   ``_moe_dense_oracle`` at 256 tokens, capacity factor 16 (no drops);
+   (c) flash at 64 query heads over 4 KV heads against its plain version,
+   and the histogram, positions, row scatter and rows kernel (bfloat16
+   and float32) against theirs at the longest prefill's shapes; (d) the
+   engine against a manual prefill + decode loop; (e) a 2-layer float32
+   copy with 16 experts on the card against the CPU; (f) in the serve
+   (``Engine``, 4 slots, 8 requests of 256-1024 prompt tokens, 32 new
+   each, 2048 positions) the rows, histogram, positions and row-scatter
+   kernels launch once per layer per forward call and flash once per
+   layer per prefill. Printed: prefill tokens/s, decode ms a tick and
+   tokens/s, peak memory, a profile of the longest prefill and a decode
+   tick (device busy share, ms by kernel kind), dropped assignments and
+   top-k ties per layer, and one layer's dispatch, expert-FFN and combine
+   ms at prefill and decode.
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
-   phases 3-4, 6, 7, 9, 12, 13 and 14 (counts set to 0 before each path, read
-   after it; the checks of phases 2, 5, 8, 10, 11 and 14a-c do not count), its
-   largest error against its plain version, and times at a path's shapes
-   (Bin-Read's row also ``compact_index_add_ms``, the rows kernel's an
-   ``embedding_backward`` record at phase 14's shape); then
-   the result line. Before it: the same launches split by shape, the
-   fused accumulate and ``index_add_`` timed at the S1 KRON and DBP
-   streams (fig5's S1 PageRank shapes), and a ``torch.profiler`` listing
-   of one call of positions and of the fused accumulate at S2, kernel by
-   kernel.
+   phases 3-4, 6, 7, 9, 12, 13, 14 and 15 (counts set to 0 before each
+   path, read after it; the checks of phases 2, 5, 8, 10, 11, 14a-c and
+   15a-e do not count), its largest error against its plain version, and
+   times at a path's shapes (Bin-Read's row also ``compact_index_add_ms``,
+   the rows kernel's an ``embedding_backward`` record at phase 14's
+   shape), then rows 2b, 5c, 7b and 8b (``<kernel>:moe_...``): positions,
+   the bfloat16 rows kernel, the row scatter and flash at phase 15's
+   shapes with phase 15's launches; then the result line. Before it: the
+   same launches split by shape, the fused accumulate and ``index_add_``
+   timed at the S1 KRON and DBP streams (fig5's S1 PageRank shapes), and a
+   ``torch.profiler`` listing of one call of positions and of the fused
+   accumulate at S2, kernel by kernel. Every profile opens and closes its
+   window with ``PROFILE_GUARD_MS`` or more of spin kernels, which the
+   listings leave out, and fails the run when it finds no CUDA row.
 
 Tolerances: integer outputs, CSRs, binned streams, COBRA passes, row
 scatters and min/max results must be equal. Float32 PageRank sums run in
@@ -201,6 +225,14 @@ within 1e-4 of its tensor's max (the key bias's of the key weight's),
 parameters within 2 lr_1 plus two float32 roundings (AdamW's first step
 moves a parameter by about lr in the sign of its gradient, and a
 gradient that is 0 up to rounding can take either sign).
+MoE (phase 15): the dispatch is integer routing and equal bit for bit;
+the row scatter and histogram/positions are exact; the bfloat16 rows
+kernel is a float32 sum rounded once, within one bfloat16 step (at most
+2^-7 relative) of the plain version's plus the float32 add tolerance; the
+layer against the dense oracle within 2^-8 of the sum of its terms'
+magnitudes (``moe_oracle_check``, which also shows that the limit rejects
+a combine that drops one assignment); the float32 copy against the CPU
+as phase 10.
 Traversal (phase 12): levels, parents, labels, k-core membership,
 eccentricities and SSSP distances are exact (integer and min/max
 reductions; an SSSP distance is one float32 add per hop, then an exact
@@ -251,12 +283,25 @@ FLASH_CANCEL_SHAPES = [(1, 2, 2, 128, 128, 16), (1, 12, 2, 512, 512, 128),
                        (1, 12, 2, 2048, 2048, 128), (1, 12, 2, 100, 1000, 64)]
 FLASH_F32_ATOL = 1e-4  # flash kernel vs plain, float32 (see flash_close)
 FLASH_BF16_REL, FLASH_BF16_FLOOR = 2.0**-7, 1e-4  # bfloat16: times |plain| plus the floor
+PROFILE_GUARD_MS = 20.0  # least spin time before and after a profiled call (_profiled)
+PROFILE_SPIN_MS = 1.0  # one spin kernel of the guard
+_PROFILE_CLOCK = {"cycles_per_ms": None, "lost_ms": 0.0}  # _spin_rate, the largest loss
 LM_ARCH = "qwen2-1.5b"
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 4, 4096, 8, 16
 LM_PROMPT_LENS = (100, 2048)
 LM_SEED = 0
 LM_TOL = 1e-4  # float32 logits: times max |logit| (tests/test_torch_lm.py)
 LM_CPU_PROMPT, LM_CPU_STEPS = 300, 8
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_LAYERS = 8  # of its 94: 8 layers' experts are 38.7 GB in bfloat16
+MOE_SEED = 15
+MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS, MOE_MAX_NEW = 4, 2048, 8, 32
+MOE_PROMPT_LENS = (256, 1024)
+MOE_DISPATCH_T = (2048, 4)  # check (a): a prefill of max_len tokens and a 4-slot decode tick
+MOE_ORACLE_T = 256  # check (b): capacity_factor 16 gives C = T, so nothing drops
+MOE_BF16_TOL = 2.0**-8  # check (b): times the sum of |terms| (moe_oracle_check)
+MOE_FLASH_SHAPES = [(1, 64, 4, S, S, 128) for S in (256, 1000, 2048)]  # qwen3-moe's heads
+MOE_CPU_EXPERTS = 16  # check (e): 2 float32 layers at full width, 16 experts, on both devices
 TRAIN_B, TRAIN_S = 4, 4096  # train_4k's sequence; its global batch of 256 cut to 4 for one card
 TRAIN_STEPS = 3  # then one more from the checkpoint
 TRAIN_CPU_S = 256  # phase 14's card-vs-CPU step: 2 float32 layers, B 1
@@ -452,28 +497,137 @@ def serve_lm(cfg, model, prompts, slots, max_len, max_new):
     return counts, rec
 
 
-def device_profile(fn, dev, kinds=None):
-    """One call of ``fn`` under ``torch.profiler``: its wall ms (which the
-    profiler's own bookkeeping lengthens), the device's busy ms (the sum
-    of its kernels' times; one stream, so they do not overlap), the
-    number of kernels and the six that took the most device time. With
-    ``kinds`` ({label: substrings of a kernel's name}, first match wins)
-    also the device ms of each kind, the rest under ``other``."""
+def _spin_rate(dev) -> float:
+    """Clock cycles per ms of a spin kernel (``torch.cuda._sleep``), from
+    CUDA events around a 20M-cycle spin the first time."""
+    import torch
+
+    if _PROFILE_CLOCK["cycles_per_ms"] is None:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        a.record()
+        torch.cuda._sleep(20_000_000)
+        b.record()
+        b.synchronize()
+        _PROFILE_CLOCK["cycles_per_ms"] = 20_000_000 / a.elapsed_time(b)
+    return _PROFILE_CLOCK["cycles_per_ms"]
+
+
+def _profiled(fn, dev):
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA), between
+    a lead and a trail of spin kernels. Returns (the profile, the call's
+    wall ms, the guard: the lead's and trail's ms, how many of their spin
+    records the profiler dropped, and the host ms each loss reached from
+    the window's opening or to its close).
+
+    The guard is the repair of an empty ``kernel_profile`` (PERF.md §7).
+    On the H100 the profiler drops the device records of a window's
+    first D ms, or of its last, as device and host clocks part; D varies
+    from window to window and grows over a process's life (44 ms late in
+    one whole ``chip_smoke.py`` run), so short calls were lost whole.
+    Lead and trail are series of ``PROFILE_SPIN_MS`` spins, each
+    synchronised, for ``PROFILE_GUARD_MS`` or twice the largest D seen,
+    whichever is longer, with a short marker spin right before the call
+    and a longer one right after it. When a marker's record is missing,
+    D reached the call: it is profiled again with a longer guard, at
+    most four times, then the run fails. ``_cuda_rows`` leaves the spin
+    kernels out of the listings."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    spin = int(PROFILE_SPIN_MS * _spin_rate(dev))  # cycles
+
+    def spins(guard_ms, t_from):  # host ms since t_from at each spin's launch
+        launched = []
+        while not launched or launched[-1] - launched[0] < guard_ms:
+            launched.append((time.perf_counter() - t_from) * 1e3)
+            torch.cuda._sleep(spin)
+            torch.cuda.synchronize(dev)
+        return launched
+
+    for _ in range(5):
+        guard_ms = max(PROFILE_GUARD_MS, 2 * _PROFILE_CLOCK["lost_ms"])
         torch.cuda.synchronize(dev)
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_open = time.perf_counter()
+            lead = spins(guard_ms, t_open)
+            torch.cuda._sleep(spin // 20)  # the marker before the call
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            torch.cuda._sleep(spin // 4)  # the marker after it
+            torch.cuda.synchronize(dev)
+            trail = spins(guard_ms, t1)
+            t_close = time.perf_counter()
+        recs = sorted((e.start_ns(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == DeviceType.CUDA and "spin_kernel" in e.name())
+        short = [(t, d) for t, d in recs if d < PROFILE_SPIN_MS / 8]  # before the call
+        mid = [(t, d) for t, d in recs if PROFILE_SPIN_MS / 8 <= d < 0.6 * PROFILE_SPIN_MS]
+        full = [t for t, d in recs if d >= 0.6 * PROFILE_SPIN_MS]
+        kept_lead = sum(t < short[0][0] for t in full) if short else 0
+        kept_trail = sum(t > mid[0][0] for t in full) if mid else 0
+        lead_lost = len(lead) - kept_lead + (not short)
+        trail_lost = len(trail) - kept_trail + (not mid)
+        t_call = (t0 - t_open) * 1e3
+        lost_start = (lead + [t_call])[len(lead) - kept_lead] if short else t_call
+        lost_end = (t_close - t1) * 1e3 - ([0.0] + trail)[kept_trail] if mid else (t_close - t1) * 1e3
+        _PROFILE_CLOCK["lost_ms"] = max(_PROFILE_CLOCK["lost_ms"], lost_start, lost_end)
+        guard = {"lead_ms": t_call, "trail_ms": (t_close - t1) * 1e3,
+                 "spins": [len(lead), len(trail)], "spins_lost": [lead_lost, trail_lost],
+                 "lost_ms": [lost_start, lost_end]}
+        if short and mid:
+            return prof, (t1 - t0) * 1e3, guard
+    fail(f"torch.profiler dropped a marker beside the call ({guard}, {profile_skew(prof)})")
+
+
+def _cuda_rows(prof):
+    """The profile's CUDA rows, the spin kernels of ``_profiled`` left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+
+
+def profile_skew(prof) -> dict:
+    """What an empty profile's trace holds, for the failure messages of
+    ``_profiled``, ``device_profile`` and ``kernel_profile``: the runtime
+    calls and device records Kineto returned, how many were spin records,
+    the names of the others, and the range over device records of the
+    start of its activity minus the start of the runtime call that
+    launched it (same correlation id), in microseconds."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    dev_ev = [e for e in events if e.device_type() == DeviceType.CUDA]
+    calls = [e for e in events if e.device_type() == DeviceType.CPU and e.name().startswith("cu")]
+    launch = {e.correlation_id(): e.start_ns() for e in calls if e.correlation_id()}
+    skew = [(e.start_ns() - launch[e.correlation_id()]) / 1e3 for e in dev_ev
+            if e.correlation_id() in launch]
+    return {"runtime_calls": len(calls), "device_records": len(dev_ev),
+            "spin_records": sum("spin_kernel" in e.name() for e in dev_ev),
+            "device_record_names": sorted({e.name()[:40] for e in dev_ev if "spin" not in e.name()}),
+            "launch_to_kernel_us": [min(skew), max(skew)] if skew else None}
+
+
+def device_profile(fn, dev, kinds=None):
+    """One call of ``fn`` under ``torch.profiler`` (``_profiled``): its wall
+    ms (which the profiler's own bookkeeping lengthens), the device's busy
+    ms (the sum of its kernels' times; one stream, so they do not
+    overlap), the number of kernels and the six that took the most device
+    time. With ``kinds`` ({label: substrings of a kernel's name}, first
+    match wins) also the device ms of each kind, the rest under
+    ``other``, and ``_profiled``'s guard. Fails the run when the profile
+    holds no device time."""
+    prof, wall, guard = _profiled(fn, dev)
+    kernels = _cuda_rows(prof)
+    require(kernels, f"device_profile: torch.profiler recorded no CUDA kernel ({profile_skew(prof)})")
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     out = {"wall_ms": wall, "device_busy_ms": busy, "busy_share": busy / wall,
-           "kernels": sum(e.count for e in kernels),
+           "kernels": sum(e.count for e in kernels), "guard": guard,
            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]}
     if kinds:
         by = dict.fromkeys(list(kinds) + ["other"], 0.0)
@@ -487,18 +641,18 @@ def device_profile(fn, dev, kinds=None):
 
 def kernel_profile(fn):
     """Device ms of each kernel (and memset) of one call of ``fn`` under
-    ``torch.profiler``, after one call outside it."""
+    ``torch.profiler`` (``_profiled``), after one call outside it, and
+    ``_profiled``'s guard (its ms and the spin records lost). Fails
+    the run when the profile lists no CUDA row: every ``fn`` given here
+    launches kernels."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+    prof, _, guard = _profiled(fn, torch.device("cuda"))
+    rows = _cuda_rows(prof)
+    require(rows, f"kernel_profile: torch.profiler recorded no CUDA kernel ({profile_skew(prof)})")
+    return {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3, "guard": guard,
             "kernels": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
                         for e in sorted(rows, key=lambda e: -e.self_device_time_total)]}
 
@@ -803,6 +957,380 @@ def train_phase(dev, K, smi):
     del run, state, batch
     torch.cuda.empty_cache()
     return counts, shapes, emb
+
+
+# -- the MoE serving path (phase 15) -------------------------------------------------
+
+
+def moe_dispatch_checks(cfg, moe, dev, gen):
+    """Check (a): ``sort`` and ``counting`` dispatch give bit-equal
+    ``(order, key_sorted, starts, rank)`` on one layer's router at each of
+    ``MOE_DISPATCH_T`` tokens, and bit-equal layer outputs (the same slots,
+    so the same products and sums: the combine's one atomic a column per
+    token leaves no order to differ). Returns the records."""
+    import torch
+
+    from repro_torch.core.executor import dispatch_permutation
+    from repro_torch.models import layers as L
+
+    out = []
+    for T_ in MOE_DISPATCH_T:
+        x = torch.randn(T_, cfg.d_model, device=dev, generator=gen).to(cfg.cdtype)
+        _, ids = L.moe_route(x, moe.wr, cfg)
+        key = ids.reshape(-1).to(torch.int32)
+        res = {m: dispatch_permutation(key, cfg.num_experts, method=m) for m in ("sort", "counting")}
+        same = all(torch.equal(a, b) for a, b in zip(res["sort"], res["counting"]))
+        y = {m: L.moe_apply(moe, x[None], dataclasses.replace(cfg, moe_dispatch_method=m))
+             for m in ("sort", "counting")}
+        same_y = torch.equal(y["sort"], y["counting"])
+        rec = {"tokens": T_, "assignments": key.shape[0], "slots": cfg.num_experts + 1,
+               "capacity": L.moe_capacity(T_, cfg), "routing_equal": same,
+               "layer_output_equal": same_y}
+        say("phase15 (a) dispatch sort vs counting", json.dumps(rec))
+        require(same and same_y, f"sort and counting dispatch differ at T={T_}: {rec}")
+        out.append(rec)
+    return out
+
+
+def moe_oracle_check(cfg, moe, dev, gen):
+    """Check (b): one MoE layer (PB dispatch, experts, rows-kernel combine)
+    against ``_moe_dense_oracle`` on the card, bfloat16, at
+    ``MOE_ORACLE_T`` tokens with ``capacity_factor`` 16 (C = T: no drops).
+    Tolerance: |got - want| <= MOE_BF16_TOL * S elementwise, S being the
+    same weighted sum of absolute values (|gate| * |h| @ |w2|, float32).
+    Both sides round h, each expert row and the output to bfloat16, and
+    the PB side also each weighted row; the matrix products sum in float32
+    in other orders, so a rounded value differs between the sides by at
+    most one ulp (2^-8 relative), and only where the two float32 sums fall
+    on either side of a rounding boundary. Each rounding's difference is
+    bounded by 2^-9 of S and they rarely meet in one element: 2^-8 of S.
+
+    The planted fault: the same output with one assignment's weighted row
+    taken out of the combine (its weight zeroed), for every assignment in
+    turn; the limit must reject every such fault, and the record gives
+    the smallest and median share of the limit they reach."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+
+    c = dataclasses.replace(cfg, capacity_factor=16.0)
+    T_ = MOE_ORACLE_T
+    x = torch.randn(T_, c.d_model, device=dev, generator=gen).to(c.cdtype)
+    got = L._moe_expert_shard(x, moe.wr, moe.w1, moe.w3, moe.w2, c, 0, c.num_experts)
+    want = L._moe_dense_oracle(x, moe.wr, moe.w1, moe.w3, moe.w2, c)
+    gw, gi = L.moe_route(x, moe.wr, c)
+    h = F.silu(torch.einsum("td,edf->tef", x, moe.w1)) * torch.einsum("td,edf->tef", x, moe.w3)
+    y_abs = torch.einsum("tef,efd->ted", h.abs().float(), moe.w2.abs().float())
+    gates = (F.one_hot(gi, c.num_experts).float() * gw[..., None]).sum(1)
+    limit = MOE_BF16_TOL * torch.einsum("te,ted->td", gates, y_abs)
+    del y_abs
+    delta = got.float() - want.float()
+    diff = delta.abs()
+    # every assignment's weighted expert row, (T, k, d): the planted faults
+    y = torch.einsum("tef,efd->ted", h, moe.w2).float()
+    row = torch.gather(y, 1, gi[..., None].expand(-1, -1, c.d_model)) * gw[..., None]
+    del y, h
+    fault = ((delta[:, None] - row).abs() / limit[:, None]).amax(-1).flatten()
+    rec = {"tokens": T_, "capacity": L.moe_capacity(T_, c), "capacity_factor": 16.0,
+           "max_abs_err": float(diff.max()), "max_abs_want": float(want.float().abs().max()),
+           "tolerance_share": float((diff / limit).max()),
+           "tolerance": f"{MOE_BF16_TOL} * sum of |terms|",
+           "planted_fault_share": {"min": float(fault.min()), "median": float(fault.median()),
+                                   "rejected": float((fault > 1).float().mean())}}
+    say("phase15 (b) MoE layer vs the dense oracle", json.dumps(rec))
+    require(bool((diff <= limit).all()),
+            f"the MoE layer differs from the dense oracle: {rec}")
+    require(rec["planted_fault_share"]["min"] > 1,
+            f"check (b)'s limit passes a combine that drops one assignment: {rec}")
+    return rec
+
+
+def moe_kernel_rows(cfg, moe, dev, gen, T_, launches, K):
+    """Check (c) for the histogram, positions, row scatter and rows kernel
+    (bfloat16 and float32) against their plain versions on one layer at
+    ``T_`` tokens (the serve's longest prefill), then the kernels line's
+    rows 2b, 5c and 7b at those shapes: ms, plain ms, bound and the
+    library call's ms. ``launches``: phase 15's serve counts."""
+    import torch
+
+    from repro_torch.core.executor import dispatch_permutation
+    from repro_torch.core.pb import starts_from_counts
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.timing import cuda_ms
+
+    E, k, d = cfg.num_experts, cfg.top_k, cfg.d_model
+    x = torch.randn(T_, d, device=dev, generator=gen).to(cfg.cdtype)
+    disp = L.moe_dispatch(x, moe.wr, cfg, 0, E)
+    _, ids = L.moe_route(x, moe.wr, cfg)
+    key = ids.reshape(-1).to(torch.int32)
+    m, nb = key.shape[0], E + 1
+    h = K.histogram(key, nb)
+    starts = starts_from_counts(h)[:-1].contiguous()
+    pos = K.counting_positions(key, starts, nb)
+    require(torch.equal(h, ref.histogram_ref(key, nb))
+            and torch.equal(pos, ref.counting_positions_ref(key, starts, nb)),
+            "histogram / positions at the MoE dispatch differ from plain")
+    order, key_s, _, rank = dispatch_permutation(key, E, method="counting")
+    C = disp.capacity
+    slot = torch.where((key_s < E) & (rank < C), key_s * C + rank, -1)
+    xs = x[torch.div(order.long(), k, rounding_mode="floor")]
+    srows = K.scatter_rows(xs, slot, E * C)
+    require(torch.equal(srows, ref.scatter_rows_ref(xs, slot, E * C))
+            and torch.equal(srows, disp.xbuf), "scatter_rows at the MoE dispatch differs from plain")
+    yb = L.moe_experts(disp.xbuf, moe.w1, moe.w3, moe.w2, cfg, C)
+    kept = disp.slot_of_assign >= 0
+    rows = yb[disp.slot_of_assign.clamp(min=0).long()].masked_fill_(~kept[:, None], 0)
+    vals = rows * disp.gate_w.reshape(-1).to(cfg.cdtype)[:, None]
+    tokens = torch.arange(T_, dtype=torch.int32, device=dev).repeat_interleave(k)
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        v = vals.to(dt)
+        got = K.cobra_bin_accumulate_rows(tokens, v, T_, T_, 1)
+        want = ref.scatter_reduce_ref(tokens, v, T_)
+        scale = ref.scatter_reduce_ref(tokens, v.float().abs(), T_)
+        diff = (got.float() - want.float()).abs()
+        # bfloat16: one step of bfloat16 (at most 2^-7 relative), where the
+        # two float32 sums straddle a rounding boundary
+        tol = ADD_TOL * scale + 1e-6 + (2.0**-7 * want.float().abs() if dt == torch.bfloat16 else 0)
+        errs[str(dt)] = float(diff.max())
+        require(got.dtype == dt and bool((diff <= tol).all()),
+                f"the rows kernel ({dt}) at the MoE combine differs from plain ({errs})")
+    say("phase15 (c) kernels vs plain at the MoE shapes", json.dumps({
+        "tokens": T_, "assignments": m, "bins": nb, "capacity": C, "histogram_equal": True,
+        "positions_equal": True, "scatter_rows_equal": True, "rows_max_abs_err": errs}))
+    cap_rows = E * C
+    kept_i = slot >= 0
+    lib_pos, lib_x = slot[kept_i].long(), xs[kept_i]
+    xw = xs.element_size()
+    vb = vals.to(torch.bfloat16)
+    return [
+        {"name": "counting_positions:moe_dispatch", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/positions.cu",
+         "replaces": "src/repro/kernels/binning.py:62", "launches": launches["counting_positions"],
+         "checked_against_plain": True, "max_abs_err": 0, "shape": {"m": m, "B": nb},
+         "ms": cuda_ms(lambda: K.counting_positions(key, starts, nb), reps=20),
+         "plain_ms": cuda_ms(lambda: ref.counting_positions_ref(key, starts, nb), reps=20),
+         "bound_ms": bound_ms(8 * m + 4 * nb), "bound_bytes": 8 * m + 4 * nb,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "cobra_bin_accumulate_rows:moe_combine", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_rows.cu",
+         "replaces": "src/repro/kernels/fused.py:263",
+         "launches": launches["cobra_bin_accumulate_rows"], "checked_against_plain": True,
+         "max_abs_err": errs[str(torch.bfloat16)], "shape": {"m": m, "F": d, "n": T_},
+         "dtype": "bfloat16",
+         "ms": cuda_ms(lambda: K.cobra_bin_accumulate_rows(tokens, vb, T_, T_, 1), reps=20),
+         "plain_ms": cuda_ms(lambda: ref.scatter_reduce_ref(tokens, vb, T_), reps=20),
+         "bound_ms": bound_ms(2 * m * d + 4 * m + 2 * T_ * d),
+         "bound_bytes": 2 * m * d + 4 * m + 2 * T_ * d, "bound_by": "bytes",
+         "float32_ms": cuda_ms(lambda: K.cobra_bin_accumulate_rows(
+             tokens, vals.float(), T_, T_, 1), reps=20),
+         "library_ms": cuda_ms(lambda: torch.zeros(T_, d, dtype=torch.bfloat16, device=dev)
+                               .index_add_(0, tokens, vb), reps=20)},
+        {"name": "scatter_rows:moe_dispatch", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/scatter_rows.cu",
+         "replaces": "src/repro/kernels/scatter_rows.py:37", "launches": launches["scatter_rows"],
+         "checked_against_plain": True, "max_abs_err": 0,
+         "shape": {"m": m, "d": d, "out_rows": cap_rows}, "dtype": str(xs.dtype),
+         "ms": cuda_ms(lambda: K.scatter_rows(xs, slot, cap_rows), reps=20),
+         "plain_ms": cuda_ms(lambda: ref.scatter_rows_ref(xs, slot, cap_rows), reps=20),
+         "bound_ms": bound_ms(4 * m + xw * (m + cap_rows) * d),
+         "bound_bytes": 4 * m + xw * (m + cap_rows) * d, "bound_by": "bytes",
+         "library_ms": cuda_ms(lambda: torch.zeros(cap_rows, d, dtype=xs.dtype, device=dev)
+                               .index_copy_(0, lib_pos, lib_x), reps=20)},
+    ]
+
+
+def moe_layer_stage_ms(cfg, moe, dev, gen, T_):
+    """One layer's dispatch, expert FFN and combine ms at ``T_`` tokens
+    (CUDA events over ``moe_dispatch``, ``moe_experts``, ``moe_combine``)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.timing import cuda_ms
+
+    x = torch.randn(T_, cfg.d_model, device=dev, generator=gen).to(cfg.cdtype)
+    E = cfg.num_experts
+    disp = L.moe_dispatch(x, moe.wr, cfg, 0, E)
+    yb = L.moe_experts(disp.xbuf, moe.w1, moe.w3, moe.w2, cfg, disp.capacity)
+    return {"tokens": T_, "capacity": disp.capacity,
+            "dispatch_ms": cuda_ms(lambda: L.moe_dispatch(x, moe.wr, cfg, 0, E), reps=10),
+            "experts_ms": cuda_ms(lambda: L.moe_experts(disp.xbuf, moe.w1, moe.w3, moe.w2, cfg,
+                                                        disp.capacity), reps=10),
+            "combine_ms": cuda_ms(lambda: L.moe_combine(yb, disp.slot_of_assign, disp.gate_w, cfg),
+                                  reps=10)}
+
+
+def moe_routing_stats(cfg, fn):
+    """Run ``fn`` with every MoE layer's routing recorded: per layer call
+    the tokens, capacity, the heaviest expert's load, the assignments
+    dropped past capacity and the tokens with a top-k tie
+    (``layers.moe_topk_ties``)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    stats, plain = [], L.moe_apply
+
+    def recording(p, x, c):
+        x2d = x.reshape(-1, x.shape[-1])
+        _, ids = L.moe_route(x2d, p.wr, c)
+        load = torch.bincount(ids.reshape(-1), minlength=c.num_experts)
+        C = L.moe_capacity(x2d.shape[0], c)
+        stats.append({"tokens": x2d.shape[0], "capacity": C, "max_load": int(load.max()),
+                      "dropped": int((load - C).clamp(min=0).sum()),
+                      "topk_ties": L.moe_topk_ties(x2d, p.wr, c)})
+        return plain(p, x, c)
+
+    L.moe_apply = recording
+    try:
+        fn()
+    finally:
+        L.moe_apply = plain
+    return stats
+
+
+def moe_phase(dev, K, smi):
+    """Phase 15: MoE serving at ``qwen3-moe-235b-a22b``'s full width with
+    ``MOE_LAYERS`` of its 94 layers (bfloat16, random weights from a seeded
+    generator, counting dispatch): checks (a) dispatch sort == counting,
+    (b) a layer against the dense oracle, (c) the kernels against their
+    plain versions at the phase's shapes (flash at 64 heads over 4), then
+    the serve (``Engine``: MOE_REQUESTS requests of MOE_PROMPT_LENS tokens,
+    MOE_MAX_NEW new each, MOE_SLOTS slots) with (f) its launch counts,
+    routing statistics, per-layer stage ms, a profile, (d) the engine
+    against a manual loop, and (e) a 2-layer float32 copy with
+    MOE_CPU_EXPERTS experts against the CPU. Returns (launches, launches by
+    shape, the kernels line's rows 2b, 5c, 7b and 8b)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flashattn import flash_attention_ref, flash_flops
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.timing import cuda_ms
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    t = time.perf_counter()
+    base = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(base, num_layers=MOE_LAYERS, moe_dispatch_method="counting")
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    model = init_params(cfg, seed=MOE_SEED, device=dev)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    say("phase15 model", json.dumps({
+        "arch": MOE_ARCH, "layers": cfg.num_layers, "of_layers": base.num_layers,
+        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+        "experts": cfg.num_experts, "d_ff": cfg.d_ff, "top_k": cfg.top_k,
+        "capacity_factor": cfg.capacity_factor, "dispatch": cfg.moe_dispatch_method,
+        "vocab": cfg.vocab_size, "parameters": nparams,
+        "parameter_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+        "earlier_phases_bytes": mem0, "seconds_to_draw": time.perf_counter() - t,
+        "reduced": f"{MOE_LAYERS} of {base.num_layers} layers (one card)"}))
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    moe0 = model.blocks[0].moe
+    with torch.inference_mode():
+        # (c) flash at the model's heads first: the serve trusts it
+        flash_worst = flash_checks(dev, MOE_FLASH_SHAPES)
+        say("phase15 (c) flash at 64 heads over 4, largest |diff| and share:", json.dumps(flash_worst))
+        moe_dispatch_checks(cfg, moe0, dev, gen)
+        moe_oracle_check(cfg, moe0, dev, gen)
+    torch.cuda.empty_cache()
+    say(f"phase15 checks seconds: {time.perf_counter() - t:.1f}")
+
+    prompts = lm_prompts(cfg, MOE_REQUESTS, *MOE_PROMPT_LENS, seed=MOE_SEED)
+    counts, rec = serve_lm(cfg, model, prompts, MOE_SLOTS, MOE_MAX_LEN, MOE_MAX_NEW)
+    shapes = rec.pop("launch_shapes")
+    forwards = len(rec["prefill_ms"]) + rec["decode_ticks"]
+    prompt_tokens = sum(len(p) for p in prompts)
+    rec.update({"arch": MOE_ARCH, "layers": cfg.num_layers, "forward_calls": forwards,
+                "prefill_tokens_per_s": prompt_tokens / (sum(rec["prefill_ms"]) / 1e3),
+                "serving_peak_bytes": (rec["max_memory_allocated"] - mem0
+                                       if dev.type == "cuda" else None),
+                "earlier_phases_bytes": mem0, "launches": counts, "card": smi})
+    say("phase15 serve", json.dumps(rec))
+    # (f) every forward call runs each layer's dispatch and combine once
+    L_ = cfg.num_layers
+    for name in ("cobra_bin_accumulate_rows", "histogram", "counting_positions", "scatter_rows"):
+        require(counts[name] == L_ * forwards,
+                f"{name}: {counts[name]} launches != {L_} layers x {forwards} forward calls")
+    longest = torch.from_numpy(max(prompts, key=len)[None]).to(dev)
+    T_long = longest.shape[1]
+    prefill, decode = make_prefill_step(cfg, MOE_MAX_LEN), make_decode_step(cfg)
+    st = init_cache(cfg, MOE_SLOTS, MOE_MAX_LEN, device=dev)._replace(index=rec["final_index"])
+    tok4 = torch.zeros(MOE_SLOTS, 1, dtype=torch.int32, device=dev)
+    routing = {"prefill": moe_routing_stats(cfg, lambda: prefill(model, {"tokens": longest})),
+               "decode_tick": moe_routing_stats(cfg, lambda: decode(model, st, tok4))}
+    say("phase15 routing per layer (dropped assignments, top-k ties)", json.dumps(dict({
+        k: {"dropped": sum(r["dropped"] for r in v), "topk_ties": sum(r["topk_ties"] for r in v),
+            "layers": v} for k, v in routing.items()}, card=smi)))
+    kinds = {"flash kernel": ("flash_fwd",), "rows kernel": ("rows_kernel", "f32_to_bf16"),
+             "row scatter": ("scatter_rows",), "histogram+positions": ("histogram", "positions"),
+             "GEMM": ("gemm", "nvjet", "cutlass", "xmma"), "elementwise": ("elementwise",),
+             "copies and fills": ("Memcpy", "Memset", "fill")}
+    prof = {"prefill": {"tokens": T_long, **device_profile(
+                lambda: prefill(model, {"tokens": longest}), dev, kinds)},
+            "decode_tick": {"slots": MOE_SLOTS, "index": st.index, **device_profile(
+                lambda: decode(model, st, tok4), dev, kinds)}}
+    say("phase15 profile", json.dumps(dict(prof, card=smi)))
+    with torch.inference_mode():
+        say("phase15 per-layer stage ms", json.dumps({
+            "prefill": moe_layer_stage_ms(cfg, moe0, dev, gen, T_long),
+            "decode": moe_layer_stage_ms(cfg, moe0, dev, gen, MOE_SLOTS), "card": smi}))
+        rows = moe_kernel_rows(cfg, moe0, dev, gen, T_long, counts, K)
+        fB, fH, fKH, fhd = 1, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        fq = torch.randn(fB, fH, T_long, fhd, device=dev, generator=gen).to(torch.bfloat16)
+        fk = torch.randn(fB, fKH, T_long, fhd, device=dev, generator=gen).to(torch.bfloat16)
+        fv = torch.randn(fB, fKH, T_long, fhd, device=dev, generator=gen).to(torch.bfloat16)
+        ferr, _, fok = flash_close(K.flash_attention(fq, fk, fv), flash_attention_ref(fq, fk, fv),
+                                   torch.bfloat16)
+        require(fok, f"flash at the MoE prefill shape differs from plain ({ferr})")
+        fflop = flash_flops(fB, fH, T_long, T_long, fhd, causal=True)
+        fbytes = 2 * (2 * fB * fH * T_long * fhd + 2 * fB * fKH * T_long * fhd)
+        rows.append({
+            "name": "flash_attention:moe_prefill", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flashattn.cu",
+            "replaces": "src/repro/kernels/flashattn.py:61", "launches": counts["flash_attention"],
+            "checked_against_plain": True,
+            "max_abs_err": max([ferr] + [e for e, _ in flash_worst.values()]),
+            "shape": {"B": fB, "H": fH, "KH": fKH, "S": T_long, "hd": fhd},
+            "ms": cuda_ms(lambda: K.flash_attention(fq, fk, fv), reps=20),
+            "plain_ms": cuda_ms(lambda: flash_attention_ref(fq, fk, fv), reps=5),
+            "bound_ms": max(fflop / BF16_FLOP_PER_S, fbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_flop": fflop, "bound_bytes": fbytes,
+            "bound_by": "operations" if fflop / BF16_FLOP_PER_S > fbytes / HBM_BYTES_PER_S
+            else "bytes",
+            "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                fq, fk, fv, is_causal=True, enable_gqa=True), reps=20)})
+        del fq, fk, fv
+    del st
+    got, want, same_cache = engine_equals_manual_loop(cfg, model, prompts[0], MOE_MAX_LEN,
+                                                      MOE_MAX_NEW)
+    say("phase15 (d) engine vs manual loop:", json.dumps(
+        {"engine": got, "manual": want, "same_cache": same_cache}))
+    require(got == want and same_cache,
+            "the MoE engine differs from a manual prefill + decode loop (tokens or cache)")
+    del model, moe0
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=2, num_experts=MOE_CPU_EXPERTS,
+                                param_dtype="float32", compute_dtype="float32")
+    model32 = init_params(cfg32, seed=MOE_SEED + 1, device=dev)
+    prompt32 = lm_prompts(cfg32, 1, LM_CPU_PROMPT, LM_CPU_PROMPT, seed=MOE_SEED + 1)[0]
+    share, same_tokens, toks32 = lm_vs_cpu(cfg32, model32, prompt32, 512, LM_CPU_STEPS)
+    say("phase15 (e) card vs CPU", json.dumps({
+        "layers": 2, "experts": MOE_CPU_EXPERTS, "d_model": cfg32.d_model, "dtype": "float32",
+        "prompt": LM_CPU_PROMPT, "decode_steps": LM_CPU_STEPS, "max_logit_err_share": share,
+        "tolerance": LM_TOL, "tokens": toks32, "tokens_equal": same_tokens,
+        "reduced": f"2 layers, {MOE_CPU_EXPERTS} of {base.num_experts} experts (the CPU copy)",
+        "card": smi}))
+    require(share <= LM_TOL and same_tokens,
+            f"the float32 MoE model on the card differs from the CPU (share {share}, "
+            f"tokens equal {same_tokens})")
+    del model32
+    torch.cuda.empty_cache()
+    return counts, shapes, rows
 
 
 # -- the traversal path (phase 12) -------------------------------------------------
@@ -2190,6 +2718,11 @@ def main() -> None:
     train_counts, train_shapes, emb_bwd = train_phase(dev, K, smi)
     say(f"phase14 seconds: {time.perf_counter() - t14:.1f}")
 
+    # -- phase 15: the MoE serving path (before phase 11's kernels line) ------------
+    t15 = time.perf_counter()
+    moe_counts, moe_shapes, moe_rows = moe_phase(dev, K, smi)
+    say(f"phase15 seconds: {time.perf_counter() - t15:.1f}")
+
     # -- phase 11: the kernels line at the paths' shapes -------------------------
     t11 = time.perf_counter()
     n2, br2 = s2.num_nodes, min(max(64, T.compromise_bin_range(s2.num_nodes, hw)), s2.num_nodes)
@@ -2292,10 +2825,10 @@ def main() -> None:
          4 * T_ + 8 * T_ * d_),
     ]
     path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
-            + trav_counts[k] + serving_counts[k] + train_counts[k] for k in after}
+            + trav_counts[k] + serving_counts[k] + train_counts[k] + moe_counts[k] for k in after}
     path_shapes = {}
     for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes,
-                 serving_shapes, train_shapes):
+                 serving_shapes, train_shapes, moe_shapes):
         for k, by in part.items():
             for shp, c in by.items():
                 path_shapes.setdefault(k, {})[shp] = path_shapes.get(k, {}).get(shp, 0) + c
@@ -2375,6 +2908,7 @@ def main() -> None:
         "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             fq, fk, fv, is_causal=True, enable_gqa=True), reps=20),
     })
+    kernels += moe_rows  # rows 2b, 5c, 7b and 8b: phase 15's shapes and launches
     require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on a path: {path}")
     say(f"phase11 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}; rows F={GNN_D}; "
         f"COBRA pass S3 m={m3} bins={nb3}; embedding T={T_} d={d_} B={B_} L={L}; "

@@ -129,8 +129,9 @@ def lm_params_from_numpy(params, cfg, device=None):
     """A ``DenseLM`` holding the reference's unboxed ``init_params`` tree:
     nested dicts of arrays, every ``blocks`` leaf with a leading layer axis.
     Each of the model's parameters takes the leaf of the same path
-    (``blocks.i.attn.wq`` is ``params["blocks"]["attn"]["wq"][i]``), with
-    its dtype; every leaf of the tree must be used."""
+    (``blocks.i.attn.wq`` is ``params["blocks"]["attn"]["wq"][i]``; in the
+    moe family ``blocks.i.moe.w1`` is ``params["blocks"]["moe"]["w1"][i]``,
+    (E, d, f)), with its dtype; every leaf of the tree must be used."""
     from repro_torch.models.transformer import DenseLM
 
     model = DenseLM(cfg, device=device)

@@ -34,9 +34,11 @@ fused reduce as one launch over the flattened lanes.
 shares the reduce candidates and economics, under its own cache keys and
 decision records; a forced update method still logs (source "caller").
 
+``dispatch_permutation`` routes MoE assignments to expert slots (the
+histogram and positions kernels under ``counting``).
+
 Not ported yet: the sharded path (``mesh``, ``shard_reduce_stream``: Queue
-1, "Sharded PB"), the stream-contract check (Queue 1, "Analysis") and
-``dispatch_permutation`` (Queue 1, "The rest of the LM stack").
+1, "Sharded PB") and the stream-contract check (Queue 1, "Analysis").
 """
 from __future__ import annotations
 
@@ -120,18 +122,14 @@ def _fused_reduce_plain(
     indices: torch.Tensor, values: torch.Tensor, out_size: int, op: str
 ) -> torch.Tensor:
     """The plain counterpart of the reference's ``_fused_reduce_jnp`` for
-    CPU tensors: one vectorised ``index_add_`` / ``scatter_reduce_`` into
-    an identity-filled output; indices outside ``[0, out_size)`` dropped."""
-    vshape = pb.value_block_shape(values)
-    out = torch.full(
-        (out_size,) + vshape,
-        pb.reduce_identity(op, values.dtype),
-        dtype=values.dtype,
-        device=values.device,
-    )
-    if indices.shape[0] == 0:
-        return out
-    return pb.scatter_reduce_into(out, indices, values, op)
+    CPU tensors: the kernels' plain version ``scatter_reduce_ref``, one
+    vectorised ``index_add_`` / ``scatter_reduce_`` into an
+    identity-filled output; indices outside ``[0, out_size)`` dropped,
+    bfloat16 reduced in float32 and rounded once."""
+    from repro_torch.kernels.ref import scatter_reduce_ref  # deferred: kernels import core.pb
+
+    pb.value_block_shape(values)  # raises on ranks the reduce does not take
+    return scatter_reduce_ref(indices, values, out_size, op)
 
 
 def execute_reduce(
@@ -286,6 +284,49 @@ def _reduce_lanes(
         )
         for b in range(B)
     ])
+
+
+# ---------------------------------------------------------------------------
+# Dispatch routing (MoE): Binning of a (token, expert) assignment stream.
+# ---------------------------------------------------------------------------
+
+def dispatch_permutation(
+    key: torch.Tensor, num_slots: int, method: str = "sort"
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stable counting-sort routing for capacity-bounded dispatch (the
+    reference's ``dispatch_permutation``): ``key[a]`` is the slot of
+    assignment ``a`` in ``[0, num_slots]``, slot ``num_slots`` being the
+    overflow bin. Returns int32 ``(order, key_sorted, starts, rank)``:
+    the stable permutation grouping assignments by slot, ``key[order]``,
+    the (num_slots + 2,) exclusive prefix of slot counts, and each sorted
+    assignment's rank within its slot.
+
+    ``sort``: ``torch.argsort(stable=True)`` and a bincount, as the
+    reference. ``counting``: the histogram kernel for the slot counts,
+    the positions kernel for each assignment's destination, and one int32
+    scatter that inverts them (``pb.inverse_permutation``), composed as
+    the ``pallas`` binning method is (``kernels/ops.py::pb_binning``); on
+    CPU tensors the wrappers run their plain versions. Both are stable,
+    so both give the same four tensors bit for bit. The reference's
+    ``block`` (its counting sort's block size) has no counterpart: the
+    kernels need none."""
+    nb = num_slots + 1
+    a = key.shape[0]
+    key = key.to(torch.int32)
+    if method == "counting":
+        from repro_torch.kernels.binning import counting_positions  # deferred: kernels import core
+        from repro_torch.kernels.histogram import histogram
+
+        starts = pb.starts_from_counts(histogram(key, nb))
+        order = pb.inverse_permutation(counting_positions(key, starts[:-1], nb))
+    elif method == "sort":
+        order = torch.argsort(key, stable=True).to(torch.int32)
+        starts = pb.starts_from_counts(pb.bincount(key, nb))
+    else:
+        raise ValueError(f"unknown dispatch method: {method!r} (want 'sort' or 'counting')")
+    key_s = key[order.long()]
+    rank = torch.arange(a, dtype=torch.int32, device=key.device) - starts[key_s.long()]
+    return order, key_s, starts, rank
 
 
 # ---------------------------------------------------------------------------

@@ -127,7 +127,7 @@ def build_csr(
     if method == "sharded":
         raise NotImplementedError(
             "build_csr(method='sharded'): the sharded path is not ported yet "
-            "(ROADMAP.md, Queue 1 item 13)"
+            "(ROADMAP.md, Queue 1, \"Sharded PB\", item 3)"
         )
     raise ValueError(f"unknown build method: {method!r} (want one of {BUILD_METHODS})")
 

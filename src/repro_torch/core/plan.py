@@ -34,6 +34,14 @@ from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 
+# The H100 SXM's peaks, the defaults of the port's rooflines
+# (repro_torch/roofline.py) and of the sharded cost terms (core/traffic.py):
+# NVIDIA's data sheet, dense rates, at the 700 W power limit.
+H100_BF16_FLOPS = 989e12  # bf16 tensor-core FLOP/s, dense
+H100_HBM_BW = 3.35e12  # HBM3 bytes/s (the h100() model's dram_bandwidth)
+H100_NVLINK_BW = 900e9  # NVLink bytes/s a card sends and receives together (450 each way)
+
+
 @dataclass(frozen=True)
 class HardwareModel:
     """Capacities that bound C-Buffer fan-out per level (bytes, bytes/s)."""
@@ -74,7 +82,7 @@ class HardwareModel:
             name="h100-sxm",
             fast_levels=(232_448, 50 * 2**20),
             cbuffer_bytes=128,
-            dram_bandwidth=3.35e12,
+            dram_bandwidth=H100_HBM_BW,
             fast_bandwidth=132 * 128 * 1.98e9,
             fused_max_indices=32768 * 2048,
             fused_scratch_per_tuple=6,

@@ -37,6 +37,7 @@ SIGNATURES = {
     "pb_fused_scratch": ([_L, _I, _I], _L),
     "pb_fused_accumulate": ([_P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P, _P], _I),
     "pb_fused_accumulate_rows": ([_P, _P, _L, _I, _P, _I, _I, _I, _P], _I),
+    "pb_fused_accumulate_rows_bf16": ([_P, _P, _L, _I, _P, _P, _I, _I, _P], _I),
     "pb_cobra_pass_scratch": ([_L, _I, _I], _L),
     "pb_cobra_pass": ([_P, _P, _P, _L, _P, _I, _P, _P, _P, _I, _P], _I),
     "pb_binread_scatter_add": ([_P, _P, _I, _I, _I, _I, _P, _P, _I, _P], _I),

@@ -14,8 +14,12 @@
 // registers (in TAcc); when the index changes it applies the run with one
 // atomic per column. A stream sorted by index costs one atomic per column
 // per (chunk, index) pair; any other order is still right, with more
-// atomics. Rows wider than lpr * VEC columns are swept in column groups,
-// re-reading the (cheap) index chunk.
+// atomics. Rows wider than lpr * VEC columns are cut into column groups of
+// that width, one group per blockIdx.y (at most 65,535 of them; wider
+// rows stride over them), each re-reading the (cheap) index chunk: at
+// F = 4096 (the MoE combine) a group walking all 32 column groups of its
+// chunk in turn would leave 8,192 threads for m = 16,384 rows on a card
+// that holds 270,336.
 //
 // Narrow rows (lpr <= kSegMaxLpr, rows_seg_kernel): one lane a row at
 // F = 1, so a group walking 64 rows one after another leaves a chain of
@@ -100,7 +104,8 @@ rows_kernel(const int* __restrict__ idx, const TIn* __restrict__ val, long long 
   if (i0 >= m) return;
   const long long i1 = i0 + kRowChunk < m ? i0 + kRowChunk : m;
   const int width = lpr * VEC;
-  for (int c0 = (int)(t % lpr) * VEC; c0 < F; c0 += width) {
+  const long long stride = (long long)gridDim.y * width;
+  for (long long c0 = (long long)blockIdx.y * width + (t % lpr) * VEC; c0 < F; c0 += stride) {
     long long run = -1;
     TAcc acc[VEC];
     for (long long i = i0; i < i1; ++i) {
@@ -257,13 +262,15 @@ int launch_rows(cudaStream_t s, const int* idx, const TIn* val, long long m, int
                 : launch_seg_lpr<TIn, TAcc, OP, 1>(s, lpr, idx, val, m, F, out, num_out);
   const long long threads = ((m + kRowChunk - 1) / kRowChunk) * lpr;
   const long long blocks = (threads + kRowThreads - 1) / kRowThreads;
+  const int width = lpr * (vec4 ? 4 : 1);
+  long long groups = (F + width - 1) / width;  // column groups over blockIdx.y
+  groups = groups < 65535 ? groups : 65535;    // wider rows stride over them
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)groups);
   if (vec4)
-    rows_kernel<TIn, TAcc, OP, 4><<<(unsigned)blocks, kRowThreads, 0, s>>>(idx, val, m, F, out,
-                                                                          num_out, lpr);
+    rows_kernel<TIn, TAcc, OP, 4><<<grid, kRowThreads, 0, s>>>(idx, val, m, F, out, num_out, lpr);
   else
-    rows_kernel<TIn, TAcc, OP, 1><<<(unsigned)blocks, kRowThreads, 0, s>>>(idx, val, m, F, out,
-                                                                          num_out, lpr);
+    rows_kernel<TIn, TAcc, OP, 1><<<grid, kRowThreads, 0, s>>>(idx, val, m, F, out, num_out, lpr);
   return (int)cudaGetLastError();
 }
 

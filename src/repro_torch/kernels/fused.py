@@ -50,10 +50,16 @@ than that sum.
 ``cobra_bin_accumulate_rows`` is the row-block (SpMM) form: ``(m, F)``
 values reduced into ``(num_indices, F)`` by ``csrc/fused_rows.cu`` on a
 CUDA tensor (rows of up to 16 float32/int32 columns in a warp-cooperative
-segmented walk, wider ones a 64-row chunk per group of lanes), by the
-same plain version on a CPU tensor, with the same index rule and
-tolerances (per column). Row offsets are 64-bit, so only
-m and num_indices, not m * F, must fit int32.
+segmented walk, wider ones a 64-row chunk per group of lanes and column
+group), by the same plain version on a CPU tensor, with the same index
+rule and tolerances (per column). Row offsets are 64-bit, so only
+m and num_indices, not m * F, must fit int32. bfloat16 rows (the MoE
+combine) are read as bfloat16, reduced in float32 into a float32
+accumulator and rounded once to bfloat16 (round to nearest even); the
+plain version does the same. So a bfloat16 result is the float32 result's
+rounding: it differs from the plain one by at most one bfloat16 step
+(at most 2^-7 relative) where the float32 sums differ by the add tolerance above
+across a rounding boundary, and is exact for min and max.
 """
 from __future__ import annotations
 
@@ -66,6 +72,7 @@ from repro_torch.kernels.ref import scatter_reduce_ref
 FUSED_OPS = ("add", "min", "max")
 _OP_CODE = {"add": 0, "min": 1, "max": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
+ROW_DTYPES = (torch.float32, torch.int32, torch.bfloat16)  # bfloat16: the rows kernel only
 
 
 FUSED_DESIGNS = ("two-pass", "single-sweep")
@@ -198,21 +205,27 @@ def cobra_bin_accumulate_rows(
     if idx.device.type == "cpu":
         return scatter_reduce_ref(idx, val, num_indices, op=op)
     _lib.require_cuda(idx, torch.int32, "idx")
-    if val.dtype not in _DTYPE_CODE:
-        raise ValueError(f"fused kernel takes float32 or int32 values, got {val.dtype}")
+    if val.dtype not in ROW_DTYPES:
+        raise ValueError(f"the rows kernel takes {ROW_DTYPES} values, got {val.dtype}")
     _lib.require_cuda(val, val.dtype, "val")
     _lib.check_int32_size(m, "stream length")
     _lib.check_int32_size(num_indices, "num_indices")
     _lib.check_int32_size(F, "feature width")
-    out = torch.full((num_indices, F), ident, dtype=val.dtype, device=val.device)
     lib = _lib.load()
-    _lib.check(
-        lib.pb_fused_accumulate_rows(
+    if val.dtype == torch.bfloat16:
+        acc = torch.full((num_indices, F), ident, dtype=torch.float32, device=val.device)
+        out = torch.empty((num_indices, F), dtype=torch.bfloat16, device=val.device)
+        status = lib.pb_fused_accumulate_rows_bf16(
+            idx.data_ptr(), val.data_ptr(), m, F, acc.data_ptr(), out.data_ptr(), num_indices,
+            _OP_CODE[op], _lib.stream(idx),
+        )
+    else:
+        out = torch.full((num_indices, F), ident, dtype=val.dtype, device=val.device)
+        status = lib.pb_fused_accumulate_rows(
             idx.data_ptr(), val.data_ptr(), m, F, out.data_ptr(), num_indices,
             _OP_CODE[op], _DTYPE_CODE[val.dtype], _lib.stream(idx),
-        ),
-        "cobra_bin_accumulate_rows kernel",
-    )
+        )
+    _lib.check(status, "cobra_bin_accumulate_rows kernel")
     _lib.count_launch(cobra_bin_accumulate_rows, (m, F, num_indices))
     return out
 

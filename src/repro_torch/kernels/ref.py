@@ -66,14 +66,17 @@ def binread_scatter_add_ref(idx_padded, val_padded, bin_range):
 
 def scatter_reduce_ref(idx, val, num_indices, op="add"):
     """Dense commutative scatter-reduce; untouched indices hold the op's
-    identity and indices outside [0, num_indices) are dropped."""
+    identity and indices outside [0, num_indices) are dropped. bfloat16
+    values are reduced in float32 and rounded once, as the rows kernel
+    does."""
+    acc = torch.float32 if val.dtype == torch.bfloat16 else val.dtype
     out = torch.full(
         (num_indices,) + tuple(val.shape[1:]),
         reduce_identity(op, val.dtype),
-        dtype=val.dtype,
+        dtype=acc,
         device=val.device,
     )
-    return scatter_reduce_into(out, idx, val, op)
+    return scatter_reduce_into(out, idx, val, op).to(val.dtype)
 
 
 def scatter_rows_ref(x, pos, out_rows):

@@ -7,6 +7,13 @@
 It runs on the CUDA card unless ``--device`` names another; the weights
 are random (``init_params`` with seed 0) and the prompts are drawn from
 ``numpy.random.default_rng(0)`` as in the reference.
+
+The moe family serves too (``--arch qwen3-moe-235b-a22b --preset smoke``,
+on the card or with ``--device cpu``). ``--preset full`` of that model
+does not fit one card: its 94 layers hold about 235 billion parameters,
+about 470 GB in bfloat16, against the H100's 80 GB (nor does it fit one
+chip of the reference). ``chip_smoke.py`` serves it at full width with 8
+of its layers.
 """
 from __future__ import annotations
 

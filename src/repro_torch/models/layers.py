@@ -1,7 +1,10 @@
-"""Dense-LM layers (port of the dense half of ``repro/models/layers.py``):
-norms, RoPE, GQA attention with a KV cache, MLPs, the embedding and the
-logits, with the PB embedding backward (``_pb_take``). The GNN half
-lives in ``models/gnn.py``; MoE waits for ROADMAP Queue 1 item 2.
+"""LM layers (port of the dense and MoE parts of ``repro/models/layers.py``):
+norms, RoPE, GQA attention with a KV cache, MLPs, the MoE layer with its
+PB dispatch and row-block combine, the embedding and the logits, with the
+PB embedding backward (``_pb_take``). The GNN half lives in
+``models/gnn.py``. Not ported: the sharded MoE (``moe_combine_sharded``,
+``_moe_weight_stationary``; ROADMAP Queue 1 item 3) and MoE training
+(the backward of dispatch and combine; Queue 1 item 2).
 
 Parameters live in small ``nn.Module``s whose attribute names are the
 reference's keys (``w``/``b`` of a norm; ``wq``, ``wk``, ``wv``, ``wo`` and
@@ -31,14 +34,15 @@ reference's differentiated loop.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.executor import execute_reduce
+from repro_torch.core.executor import dispatch_permutation, execute_reduce
 from repro_torch.kernels.flashattn import MASKED, flash_attention
+from repro_torch.kernels.scatter_rows import scatter_rows
 from repro_torch.models.config import ModelConfig
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
@@ -254,6 +258,159 @@ def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return (h @ p.w2.to(dt)).to(x.dtype)
     h = F.gelu(xx @ p.w1.to(dt) + p.b1.to(dt), approximate="tanh")  # jax.nn.gelu's default
     return (h @ p.w2.to(dt) + p.b2.to(dt)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE: PB dispatch (a stable counting sort by expert), Bin-Read, the combine
+# ---------------------------------------------------------------------------
+
+
+class MoE(nn.Module):
+    """The router ``wr`` (d, E) in float32 and the experts' SwiGLU weights
+    ``w1``, ``w3`` (E, d, f) and ``w2`` (E, f, d) in ``cfg.pdtype``
+    (reference ``init_moe``)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, f, E, dt = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.pdtype
+        self.wr = _param((d, E), torch.float32, device)
+        self.w1 = _param((E, d, f), dt, device)
+        self.w3 = _param((E, d, f), dt, device)
+        self.w2 = _param((E, f, d), dt, device)
+
+
+def moe_route(x2d: torch.Tensor, wr: torch.Tensor, cfg: ModelConfig):
+    """The router in float32: the top ``cfg.top_k`` logits of each token,
+    largest first, and their softmax. ``jax.lax.top_k`` keeps the lower
+    expert on a tie and ``torch.topk`` promises no order there, so tied
+    logits may route differently (``moe_topk_ties`` counts them)."""
+    logits = x2d.float() @ wr.float()
+    gate_w, gate_ids = torch.topk(logits, cfg.top_k, dim=-1)
+    return torch.softmax(gate_w, dim=-1), gate_ids
+
+
+def moe_topk_ties(x2d: torch.Tensor, wr: torch.Tensor, cfg: ModelConfig) -> int:
+    """Tokens whose k-th and (k+1)-th largest router logits are equal: the
+    only ties that can change which experts a token reaches."""
+    logits = x2d.float() @ wr.float()
+    k = cfg.top_k
+    if k >= logits.shape[-1]:
+        return 0
+    top = torch.topk(logits, k + 1, dim=-1).values
+    return int((top[:, k - 1] == top[:, k]).sum())
+
+
+def moe_capacity(num_tokens: int, cfg: ModelConfig) -> int:
+    """Rows of each expert's bin (the reference's ``C``)."""
+    return max(8, int(num_tokens * cfg.top_k * cfg.capacity_factor / cfg.num_experts))
+
+
+class MoEDispatch(NamedTuple):
+    """What ``moe_dispatch`` hands to the experts and the combine."""
+
+    xbuf: torch.Tensor  # (E_local * C, d) the binned token rows, cdtype; empty slots zero
+    slot_of_assign: torch.Tensor  # (T * k,) int32 slot of each assignment, -1 if dropped
+    gate_w: torch.Tensor  # (T, k) float32 router weights
+    capacity: int  # C, rows of each expert's bin
+
+
+def moe_dispatch(x2d, wr, cfg: ModelConfig, e_start: int, E_local: int) -> MoEDispatch:
+    """Binning: route all T tokens and write each kept (token, expert)
+    assignment's row to its slot ``expert * C + rank``. The assignments,
+    keyed by local expert (the rest to the overflow bin ``E_local``), go
+    through ``dispatch_permutation`` (``cfg.moe_dispatch_method``); one of
+    rank ``>= C`` in its bin is dropped. The rows are written by the
+    row-scatter kernel (``scatter_rows``, ``pos = -1`` for a dropped one),
+    which is the reference's ``xbuf.at[slot].set(..., mode="drop")``."""
+    T, d = x2d.shape
+    k = cfg.top_k
+    dev = x2d.device
+    C = moe_capacity(T, cfg)
+    gate_w, gate_ids = moe_route(x2d, wr, cfg)
+    local_e = gate_ids.reshape(-1).to(torch.int32) - e_start
+    valid = (local_e >= 0) & (local_e < E_local)
+    key = torch.where(valid, local_e, E_local)  # others -> the overflow bin
+    order, key_s, _, rank = dispatch_permutation(key, E_local, method=cfg.moe_dispatch_method)
+    order = order.long()
+    keep = (key_s < E_local) & (rank < C)
+    slot = torch.where(keep, key_s * C + rank, -1)  # -1: dropped
+    token_of = torch.div(order, k, rounding_mode="floor")  # assignment a is token a // k's
+    xbuf = scatter_rows(x2d[token_of].to(cfg.cdtype), slot, E_local * C)
+    slot_of_assign = torch.empty(T * k, dtype=torch.int32, device=dev)
+    slot_of_assign[order] = slot
+    return MoEDispatch(xbuf, slot_of_assign, gate_w, C)
+
+
+def moe_experts(xbuf, w1, w3, w2, cfg: ModelConfig, capacity: int) -> torch.Tensor:
+    """Bin-Read: each expert's SwiGLU over its C contiguous rows, as
+    batched matrix products (outside any kernel, as in the reference)."""
+    dt = cfg.cdtype
+    E_local, d = w1.shape[0], xbuf.shape[1]
+    xb = xbuf.view(E_local, capacity, d)
+    h = F.silu(torch.bmm(xb, w1.to(dt))) * torch.bmm(xb, w3.to(dt))
+    return torch.bmm(h, w2.to(dt)).reshape(E_local * capacity, d)
+
+
+def moe_combine(yb, slot_of_assign, gate_w, cfg: ModelConfig) -> torch.Tensor:
+    """Each kept assignment's expert row times its router weight, summed
+    into its token: ``execute_reduce(method="fused")`` over the
+    token-ordered stream of k rows a token, the rows kernel on the card."""
+    T, k = gate_w.shape
+    dt = cfg.cdtype
+    kept = slot_of_assign >= 0
+    rows = yb[slot_of_assign.clamp(min=0).long()].masked_fill_(~kept[:, None], 0)
+    w = gate_w.reshape(-1).to(dt)
+    tokens = torch.arange(T, dtype=torch.int32, device=yb.device).repeat_interleave(k)
+    return execute_reduce(
+        tokens, rows * w[:, None], out_size=T, op="add", method="fused",
+        sorted_within=1, in_bounds=True,
+    )
+
+
+def _moe_expert_shard(x2d, wr, w1, w3, w2, cfg: ModelConfig, e_start: int, E_local: int):
+    """Route all T tokens; run experts ``[e_start, e_start + E_local)``
+    (reference ``_moe_expert_shard``). Propagation Blocking written out:
+    Binning (``moe_dispatch``), Bin-Read (``moe_experts``) and the
+    row-block combine (``moe_combine``)."""
+    disp = moe_dispatch(x2d, wr, cfg, e_start, E_local)
+    yb = moe_experts(disp.xbuf, w1, w3, w2, cfg, disp.capacity)
+    return moe_combine(yb, disp.slot_of_assign, disp.gate_w, cfg)
+
+
+def _moe_dense_oracle(x2d, wr, w1, w3, w2, cfg: ModelConfig):
+    """O(T * E) dense reference: every expert on every token, weighted by
+    the router's gates (``moe_dispatch == "dense"``)."""
+    dt = cfg.cdtype
+    gw, gi = moe_route(x2d, wr, cfg)
+    xx = x2d.to(dt)
+    h = F.silu(torch.einsum("td,edf->tef", xx, w1.to(dt))) * torch.einsum(
+        "td,edf->tef", xx, w3.to(dt)
+    )
+    y_all = torch.einsum("tef,efd->ted", h, w2.to(dt))  # (T, E, d)
+    gates = (F.one_hot(gi, cfg.num_experts).to(dt) * gw[..., None].to(dt)).sum(1)  # (T, E)
+    return torch.einsum("te,ted->td", gates, y_all)
+
+
+def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MoE layer on (B, S, d) activations on one device (reference
+    ``moe_apply`` without a mesh: all experts, ``e_start = 0``); the dense
+    oracle under ``cfg.moe_dispatch == "dense"``. MoE over a mesh (expert
+    shards, ``moe_combine_sharded``, the weight-stationary decode) is not
+    ported (ROADMAP.md, Queue 1, "Sharded PB", item 3). Serving only:
+    under autograd it raises, since dispatch and combine have no backward
+    yet."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, p.wr, p.w1, p.w3, p.w2)):
+        raise NotImplementedError(
+            "MoE training (the backward of dispatch and combine) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 2); run the MoE layer under torch.no_grad()"
+        )
+    B, S, d = x.shape
+    x2d = x.reshape(-1, d)
+    if cfg.moe_dispatch == "dense":
+        out = _moe_dense_oracle(x2d, p.wr, p.w1, p.w3, p.w2, cfg)
+    else:
+        out = _moe_expert_shard(x2d, p.wr, p.w1, p.w3, p.w2, cfg, 0, cfg.num_experts)
+    return out.reshape(B, S, d).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

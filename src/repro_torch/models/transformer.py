@@ -1,4 +1,4 @@
-"""Dense decoder-only LM (port of the dense family of
+"""Decoder-only LM (port of the dense and moe families of
 ``repro/models/transformer.py``): parameters, the KV cache, the backbone
 and the logits.
 
@@ -7,8 +7,11 @@ keys: ``embed.table``, ``final_ln.w`` and, per layer ``i``,
 ``blocks.i.ln1.w``, ``blocks.i.attn.wq`` / ``bq`` / ..., ``blocks.i.ln2.w``,
 ``blocks.i.mlp.w1`` / ``w3`` / ``w2`` (the reference stacks each of these
 along a leading layer axis and scans it; the port loops over an
-``nn.ModuleList``). The other families (moe, vlm, ssm, hybrid, encdec)
-raise ``NotImplementedError``: they wait for ROADMAP Queue 1 item 2.
+``nn.ModuleList``). In the moe family a block carries
+``blocks.i.moe.wr`` / ``w1`` / ``w3`` / ``w2`` in place of ``mlp``
+(``layers.moe_apply``; serving only). The other families (vlm, ssm,
+hybrid, encdec) raise ``NotImplementedError``: they wait for ROADMAP
+Queue 1 item 2.
 
 The cache is one pair of tensors ``(L, B, S_max, KH, hd)``, layer i's
 ``(B, S_max, KH, hd)`` view being the reference's per-layer cache, and
@@ -44,11 +47,14 @@ class StepState(NamedTuple):
     index: int
 
 
+PORTED_FAMILIES = ("dense", "moe")
+
+
 def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port runs "
-            "the dense family (ROADMAP Queue 1 item 2)"
+            "the dense and moe families (ROADMAP Queue 1 item 2)"
         )
 
 
@@ -58,7 +64,10 @@ class DenseBlock(nn.Module):
         self.ln1 = L.Norm(cfg, device)
         self.attn = L.Attention(cfg, device)
         self.ln2 = L.Norm(cfg, device)
-        self.mlp = L.MLP(cfg, device)
+        if cfg.family == "moe":
+            self.moe = L.MoE(cfg, device)
+        else:
+            self.mlp = L.MLP(cfg, device)
 
 
 class DenseLM(nn.Module):
@@ -79,9 +88,11 @@ class DenseLM(nn.Module):
 @torch.no_grad()
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> DenseLM:
     """A ``DenseLM`` with the reference's init rule (``layers.py`` init_*):
-    truncated-normal projections scaled by fan-in (``wo`` by (H hd)^-0.5,
-    ``w2`` by d_ff^-0.5, the embedding by 1.0), norm weights one, biases
-    zero; drawn from a generator seeded with ``seed`` on the device."""
+    truncated-normal projections scaled by fan-in, the leading axis (so
+    an expert's ``w1`` / ``w3`` (E, d, f) by E^-0.5, as in the reference;
+    ``wo`` by (H hd)^-0.5, ``w2`` by d_ff^-0.5, the embedding by 1.0),
+    norm weights one, biases zero; drawn from a generator seeded with
+    ``seed`` on the device."""
     model = DenseLM(cfg, device)
     dev = model.embed.table.device
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -115,6 +126,8 @@ def _apply_dense_layer(pl: DenseBlock, x, cfg, positions, cache, cache_index):
     )
     x = x + attn_out
     h = L.apply_norm(pl.ln2, x, cfg)
+    if cfg.family == "moe":
+        return x + L.moe_apply(pl.moe, h, cfg)
     return x + L.mlp_apply(pl.mlp, h, cfg)
 
 

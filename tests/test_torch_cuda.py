@@ -288,6 +288,20 @@ def test_cuda_rows_edges(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F", [65536 * 128 + 4, 65536 * 32 + 1])
+def test_cuda_rows_wider_than_the_grid(cuda, F):
+    """More column groups than grid.y holds (65,535): the wide walk strides
+    over them (16-byte lanes, then scalar lanes)."""
+    n = 3
+    gen = torch.Generator(device=cuda).manual_seed(F)
+    ti = torch.tensor([0, 2, 0, 1, -1], dtype=torch.int32, device=cuda)
+    tv = torch.randn(5, F, device=cuda, generator=gen)
+    got = cobra_bin_accumulate_rows(ti, tv, n, 2, 2, "add")
+    want = tref.scatter_reduce_ref(ti, tv, n, "add")
+    assert got.shape == (n, F) and _rows_ok(got, want, ti, tv, n, "add")
+
+
+@pytest.mark.cuda
 def test_cuda_rows_past_int32_elements(cuda):
     """m * F > 2^31: the rows are addressed with 64-bit offsets."""
     n, m, F = 1 << 20, (1 << 25) + 3, 64
@@ -1034,3 +1048,65 @@ def test_cuda_pb_embedding_backward_runs_the_rows_kernel(cuda, dtype):
     scale = torch.zeros(V, d, dtype=torch.float64).index_add_(0, flat, rows.abs())
     tol = 1e-5 * scale + 1e-6 + (2.0**-8 * want.abs() if dtype == torch.bfloat16 else 0)
     assert bool(((got.cpu().double() - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["tokens", "random"])
+@pytest.mark.parametrize("m,F,n", [(2048 * 8, 4096, 2048), (32, 4096, 4), (1000, 64, 97),
+                                   (5000, 12, 300), (777, 130, 50)])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+def test_cuda_rows_kernel_takes_bfloat16(cuda, order, m, F, n, op):
+    """bfloat16 rows (the MoE combine's, k = 8 a token in token order, and
+    any order with indices out of range): float32 sums rounded once,
+    within one bfloat16 step of the plain version's (which rounds the same
+    float32 sum, summed in another order); min/max equal."""
+    rng = _rng(21)
+    if order == "tokens":
+        idx = np.repeat(np.arange(n, dtype=np.int32), m // n)
+    else:
+        idx = rng.integers(-3, n + 3, m).astype(np.int32)
+    val = torch.from_numpy(rng.normal(size=(len(idx), F)).astype(np.float32)).to(cuda, torch.bfloat16)
+    ti = torch.from_numpy(idx).to(cuda)
+    got = cobra_bin_accumulate_rows(ti, val, n, n, 1, op)
+    want = tref.scatter_reduce_ref(ti, val, n, op)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, F)
+    if op != "add":
+        assert torch.equal(got, want)
+        return
+    scale = tref.scatter_reduce_ref(ti, val.float().abs(), n)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= 2.0**-7 * want.float().abs() + 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [4, 300])
+def test_cuda_moe_layer_dispatch_methods_agree_and_launch_the_kernels(cuda, T):
+    """One full-width qwen3-moe layer (d 4096, 128 experts of 1536, top-8,
+    bfloat16): sort and counting dispatch route bit for bit and give equal
+    outputs; counting launches the histogram and positions kernels once,
+    both launch the row scatter and the rows kernel once."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import winit_
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), num_layers=1)
+    moe = L.MoE(cfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    with torch.no_grad():
+        for name, p in moe.named_parameters():
+            winit_(p, gen, cfg.d_ff ** -0.5 if name == "w2" else None)
+    x = torch.randn(1, T, cfg.d_model, device=cuda, generator=gen).to(torch.bfloat16)
+    out = {}
+    with torch.inference_mode():
+        for method in ("sort", "counting"):
+            c = dataclasses.replace(cfg, moe_dispatch_method=method)
+            K.reset_launch_counts()
+            out[method] = L.moe_apply(moe, x, c)
+            counts = K.launch_counts()
+            assert counts["scatter_rows"] == 1 and counts["cobra_bin_accumulate_rows"] == 1
+            want = 1 if method == "counting" else 0
+            assert counts["histogram"] == want and counts["counting_positions"] == want
+    assert torch.equal(out["sort"], out["counting"]) and out["sort"].dtype == torch.bfloat16

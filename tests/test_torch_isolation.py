@@ -53,6 +53,35 @@ def test_every_module_imports_without_jax_or_repro():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_the_moe_path_and_the_cost_models_run_without_jax_or_repro():
+    """Not only imports: a reduced MoE model's prefill and decode (both
+    dispatch methods) and a roofline evaluated in one process that never
+    loads ``jax`` or ``repro``."""
+    mods = _modules()
+    assert "repro_torch.roofline" in mods and "repro_torch.core.traffic" in mods
+    code = (
+        "import dataclasses, json, sys, torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import transformer as T\n"
+        "from repro_torch.roofline import ShardedPBStreamRoofline\n"
+        "from repro_torch.train.steps import make_decode_step, make_prefill_step\n"
+        "for method in ('sort', 'counting'):\n"
+        "    cfg = get_config('qwen3-moe-235b-a22b').reduced(moe_dispatch_method=method)\n"
+        "    model = T.init_params(cfg, seed=0, device='cpu')\n"
+        "    logits, st = make_prefill_step(cfg, 16)(model, {'tokens': torch.ones(1, 5, dtype=torch.int32)})\n"
+        "    make_decode_step(cfg)(model, st, torch.ones(1, 1, dtype=torch.int32))\n"
+        "assert ShardedPBStreamRoofline(1 << 20, 1 << 16, 4).best_pipeline_chunks() >= 1\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("path", sorted(
     [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")] + [SMOKE]
 ))

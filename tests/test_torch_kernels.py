@@ -19,11 +19,11 @@ import torch
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro.kernels.binning import counting_positions_pallas
-from repro.kernels.fused import cobra_bin_accumulate_pallas
+from repro.kernels.fused import cobra_bin_accumulate_pallas, cobra_bin_accumulate_rows_pallas
 from repro_torch.convert import to_numpy
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.binning import counting_positions
-from repro_torch.kernels.fused import cobra_bin_accumulate
+from repro_torch.kernels.fused import cobra_bin_accumulate, cobra_bin_accumulate_rows
 from repro_torch.kernels.histogram import histogram
 from repro_torch.kernels.ops import pb_binning
 
@@ -160,6 +160,36 @@ def test_fused_drops_negative_indices_as_the_pallas_kernel_does():
     _eq(got, want)
     assert float(got[7]) == 3.0
     _eq(tref.scatter_reduce_ref(torch.from_numpy(idx), torch.from_numpy(val), 8), want)
+
+
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+def test_rows_plain_version_takes_bfloat16_as_the_moe_combine_sends_it(op):
+    """The MoE combine's stream: k = 8 bfloat16 rows a token, in token
+    order. The plain version reduces in float32 and rounds once (what the
+    rows kernel does on the card), so it equals the float32 reduction of
+    the same values rounded to bfloat16, bit for bit. Against the Pallas
+    kernel, which sums each token's run in one float32 dot and rounds it
+    to bfloat16: min/max equal, an add within one bfloat16 step
+    (at most 2^-7 |want|) plus the float32 order (1e-5 * sum |v|)."""
+    T, k, F = 96, 8, 32
+    idx = np.repeat(np.arange(T, dtype=np.int32), k)
+    val = torch.from_numpy(_rng(41).normal(size=(T * k, F)).astype(np.float32)).to(torch.bfloat16)
+    ti = torch.from_numpy(idx)
+    got = cobra_bin_accumulate_rows(ti, val, T, T, 1, op)
+    assert got.dtype == torch.bfloat16 and got.shape == (T, F)
+    f32 = tref.scatter_reduce_ref(ti, val.float(), T, op)
+    _eq(got.view(torch.int16), f32.to(torch.bfloat16).view(torch.int16))
+    want = cobra_bin_accumulate_rows_pallas(
+        jnp.asarray(idx), jnp.asarray(val.float().numpy()).astype(jnp.bfloat16), num_indices=T,
+        bin_range=T, num_bins=1, op=op, block=256, cap=512, interpret=True,
+    )
+    want = np.asarray(want.astype(jnp.float32))
+    if op == "add":
+        scale = tref.scatter_reduce_ref(ti, val.float().abs(), T, op).numpy()
+        diff = np.abs(got.float().numpy() - want)
+        assert (diff <= 2.0**-7 * np.abs(want) + 1e-5 * scale).all(), float(diff.max())
+    else:
+        np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def test_fused_argument_checks():

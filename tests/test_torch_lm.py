@@ -76,8 +76,8 @@ def test_config_fields_equal_the_reference(arch):
     assert cfg.cdtype == getattr(torch, ref.compute_dtype)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama-3.2-vision-11b", "xlstm-350m",
-                                  "zamba2-2.7b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "xlstm-350m", "zamba2-2.7b",
+                                  "whisper-base"])
 def test_other_families_return_a_config_and_the_model_raises(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
