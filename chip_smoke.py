@@ -170,15 +170,47 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    tick (device busy share, ms by kernel kind), dropped assignments and
    top-k ties per layer, and one layer's dispatch, expert-FFN and combine
    ms at prefill and decode.
+16. (Runs before phase 11.) Sharded PB: four ranks of one gloo group on
+   ``cuda:0`` (``launch/ranks.py``: spawned, a FileStore in a temporary
+   directory, joined with a deadline; a rank that fails or hangs fails
+   the run). Every rank builds S2 and S3 from the same seeds and computes
+   the single-device results first; then, with the launch counts set to
+   0: ``shard_reduce_stream`` on S2's destination stream for add
+   (float32, PageRank's contributions), min and max (int32) at K = 1, 2,
+   4, packed and with two collectives, and at the executor's decided K,
+   each against ``execute_reduce``; a row-valued add at F = 64 on the
+   first 2^24 tuples against the plain sum (the whole stream's 8.6 GB of
+   values, which every rank holds, ran the card out of memory: 17.3 GiB
+   on a rank, four ranks); a forced overflow (capacity 1: ``fallback`` and an
+   equal result); ``build_csr(method="sharded")`` equal to
+   ``build_csr_baseline``; ``pagerank_sharded`` (10 iterations) against
+   ``pagerank_fused``; ``connected_components_sharded`` labels and rounds
+   equal to the fused run's; ``bfs(mesh=)`` levels and parents equal to
+   ``bfs``; ``PreprocessPipeline(mesh=)`` ids, CSR and CSC equal to the
+   single-device pipeline's; one in-degree reduce under
+   ``PBExecutor(use_pallas=True)``, method pallas (histogram and
+   positions must launch). At S3 (counted apart): ``build_csr_sharded``
+   equal to the single-device build bit for bit and ``pagerank_sharded``
+   against arm E, held on rank 0. Printed: each call's seconds on rank 0
+   after a barrier (a one-card emulation: gloo stages every collective
+   through host memory, so these are no interconnect's times), the info
+   dicts, the decisions, the modeled per-device bytes
+   (``traffic.sharded_*``), a ``torch.profiler`` listing of rank 0's S2
+   reduce, each rank's peak memory and the launches summed over the
+   ranks. Rank 0 also holds the fused and rows kernels against their
+   plain versions at its local reduce's shapes (rows 4c and 5d).
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
-   phases 3-4, 6, 7, 9, 12, 13, 14 and 15 (counts set to 0 before each
+   phases 3-4, 6, 7, 9, 12, 13, 14, 15 and 16 (counts set to 0 before each
    path, read after it; the checks of phases 2, 5, 8, 10, 11, 14a-c and
-   15a-e do not count), its largest error against its plain version, and
+   15a-e do not count; ``launches_16`` is phase 16's share, summed over
+   its ranks), its largest error against its plain version, and
    times at a path's shapes (Bin-Read's row also ``compact_index_add_ms``,
    the rows kernel's an ``embedding_backward`` record at phase 14's
    shape), then rows 2b, 5c, 7b and 8b (``<kernel>:moe_...``): positions,
    the bfloat16 rows kernel, the row scatter and flash at phase 15's
-   shapes with phase 15's launches; then the result line. Before it: the
+   shapes with phase 15's launches, and rows 4c and 5d
+   (``<kernel>:sharded_s2_local``): the fused and rows kernels at phase
+   16's local shapes with its launches; then the result line. Before it: the
    same launches split by shape, the fused accumulate and ``index_add_``
    timed at the S1 KRON and DBP streams (fig5's S1 PageRank shapes), and a
    ``torch.profiler`` listing of one call of positions and of the fused
@@ -200,7 +232,11 @@ largest rank) and within 5e-3 in relative L1 norm; each size also
 prints every arm's L1 distance to a float64 PageRank. A float32 add
 (fused, rows, Bin-Read) differs from the plain sum by at most about
 (k - 1) * 2^-24 * sum|v| at an index that receives k tuples; it is held
-to 1e-5 * sum|v| + 1e-6 per entry; ``pb_scatter_add_full`` to that plus
+to 1e-5 * sum|v| plus 1e-6 times the largest sum|v| when that is below
+1 (a flat 1e-6 would pass an all-zero sum of PageRank's contributions,
+about 3e-8 each at S2), and phases 11 and 16 plant faults (all zeros,
+the odd tuples dropped, the one weakest tuple dropped) that this rule
+must refuse; ``pb_scatter_add_full`` to that plus
 atol 1e-4 (``tests/test_kernels.py:191``), bfloat16 Bin-Read to atol 1e-1
 (``tests/test_kernels.py:139``). fig9's arms sum the same rows in other
 orders, and the DBP hub sums 1.1M of them into one float32 value, so
@@ -242,6 +278,11 @@ distance is a float32 sum along a path of k hops, each add rounding by
 at most 2^-24 of its partial sum, so it is within about k * 2^-24 of the
 exact distance, relatively; k is at most the number of rounds or d /
 0.1 (the lightest weight), and the check allows k * 2^-23 * d.
+Sharded PB (phase 16): min, max, integer add, CSRs, labels, levels and
+parents equal the single-device results exactly (order-free ops, stable
+exchanges); a float32 add sums per rank and per chunk, and is held to
+the float32 add rule above against ``execute_reduce``; PageRank to the
+PageRank tolerance.
 """
 from __future__ import annotations
 
@@ -259,6 +300,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PR_RTOL = 1e-2  # elementwise, see the module docstring
 PR_L1 = 5e-3  # sum |x - y| / sum |y|
 ADD_TOL = 1e-5  # times the sum of |v| reaching an index
+ADD_ATOL = 1e-6  # times the largest such sum, when below 1 (_add_limit)
 POS_TILE = 16384  # csrc/positions.cu kPosTile: the onesweep tile
 F_GRID = (1, 8, 32, 128)  # benchmarks/fig9_spmm.py
 ITERS9 = 8  # fig9's chained reduce -> gather rounds at bench scale
@@ -285,6 +327,7 @@ FLASH_F32_ATOL = 1e-4  # flash kernel vs plain, float32 (see flash_close)
 FLASH_BF16_REL, FLASH_BF16_FLOOR = 2.0**-7, 1e-4  # bfloat16: times |plain| plus the floor
 PROFILE_GUARD_MS = 20.0  # least spin time before and after a profiled call (_profiled)
 PROFILE_SPIN_MS = 1.0  # one spin kernel of the guard
+PROFILE_TRIES = 5  # profiles of one call before the run fails (_profiled)
 _PROFILE_CLOCK = {"cycles_per_ms": None, "lost_ms": 0.0}  # _spin_rate, the largest loss
 LM_ARCH = "qwen2-1.5b"
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 4, 4096, 8, 16
@@ -321,6 +364,15 @@ SERVE_TICK = 0.02  # FakeClock seconds a tick: arrivals (every 5 ms) queue and c
 SERVE_SEED = 0
 UPDATE_BATCH = 4096  # edges a batch, 10% of them deletes
 UPDATE_BATCHES = 4
+SHARD_RANKS = 4  # phase 16's ranks, all on cuda:0 (NCCL refuses two ranks on one card)
+SHARD_TIMEOUT = 420  # s: the deadline of phase 16's ranks (spawn, build, run, join)
+SHARD_KS = (1, 2, 4)  # pipeline depths held against the single-device reduce
+SHARD_S2 = (1 << 22, 8)  # gen_uniform's (vertices, degree): phases 3-4's S2
+SHARD_S3 = (32_000_000, 4)  # and S3, the paper's scale
+# phase 16's row stream (F = GNN_D): the first half of S2's destinations. The
+# whole stream does not fit: every rank holds the whole 8.6 GB value tensor,
+# and on the H100 a rank ran out at 17.3 GiB allocated (80 GB for four)
+SHARD_ROWS_M = 1 << 24
 SSSP_EPS = 2.0**-23  # per hop, relative: twice float32's unit roundoff
 SSSP_W_MIN = 0.1  # the lightest weight (fig8: uniform in [0.1, 1.1))
 
@@ -373,6 +425,59 @@ def pr_close(x, y):
 
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _add_limit(scale):
+    """The float32 ``add`` rule's limit at each index: ``ADD_TOL`` times
+    the sum of |v| reaching it (``scale``), plus ``ADD_ATOL`` times the
+    largest such sum when that is below 1. A fixed 1e-6 would exceed
+    every sum of PageRank's contributions at S2 (about 3e-8 each), so an
+    all-zero result would pass; the absolute term follows the data down."""
+    top = float(scale.max()) if scale.numel() else 0.0
+    return ADD_TOL * scale + ADD_ATOL * min(1.0, top)
+
+
+def add_ratio(got, want, scale) -> float:
+    """The largest error of a float32 ``add`` result over its limit
+    (``_add_limit``): at most 1 where the result holds."""
+    import torch
+
+    lim = _add_limit(scale).clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((got - want).abs() / lim).max()) if want.numel() else 0.0
+
+
+def add_close(got, want, scale) -> bool:
+    return add_ratio(got, want, scale) <= 1.0
+
+
+def add_faults(idx, val, n, want, scale, chunk=1 << 22) -> dict:
+    """Plants three faults in the float32 ``add`` result ``want`` of
+    ``val`` reduced at ``idx`` into ``n`` entries (or rows) and fails the
+    run unless ``add_close`` refuses each: all zeros, the odd tuples
+    dropped, and the one tuple dropped whose value is smallest beside the
+    limit at its index. Returns each fault's ``add_ratio`` (all above 1)."""
+    import torch
+
+    lim = _add_limit(scale).clamp_min(torch.finfo(torch.float32).tiny)
+    odd = torch.zeros_like(want)
+    weakest, j = math.inf, None
+    for a in range(0, idx.shape[0], chunk):  # chunk is even: odd stays global
+        i, v = idx[a:a + chunk].long(), val[a:a + chunk]
+        odd.index_add_(0, i[1::2], v[1::2].to(want.dtype))
+        r = v.abs().to(lim.dtype) / lim[i]
+        r = r.amax(1) if r.dim() > 1 else r
+        r = torch.where(v.reshape(v.shape[0], -1).abs().amax(1) > 0, r, math.inf)
+        k = int(torch.argmin(r))
+        if float(r[k]) < weakest:
+            weakest, j = float(r[k]), a + k
+    one = want.clone()
+    one[int(idx[j])] -= val[j].to(want.dtype)
+    faults = {"zeros": torch.zeros_like(want), "odd_tuples_dropped": want - odd,
+              "weakest_tuple_dropped": one}
+    ratios = {k: add_ratio(f, want, scale) for k, f in faults.items()}
+    require(all(r > 1.0 for r in ratios.values()),
+            f"the float32 add check passed a planted fault ({ratios})")
+    return ratios
 
 
 # -- the LM serving path (phases 8-10) -------------------------------------------
@@ -513,7 +618,7 @@ def _spin_rate(dev) -> float:
     return _PROFILE_CLOCK["cycles_per_ms"]
 
 
-def _profiled(fn, dev):
+def _profiled(fn, dev, agree=None):
     """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA), between
     a lead and a trail of spin kernels. Returns (the profile, the call's
     wall ms, the guard: the lead's and trail's ms, how many of their spin
@@ -531,7 +636,9 @@ def _profiled(fn, dev):
     and a longer one right after it. When a marker's record is missing,
     D reached the call: it is profiled again with a longer guard, at
     most four times, then the run fails. ``_cuda_rows`` leaves the spin
-    kernels out of the listings."""
+    kernels out of the listings. ``agree`` (for a call that runs
+    collectives) turns whether this try kept both markers into whether
+    every rank takes it, so that all ranks try again together."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -546,7 +653,7 @@ def _profiled(fn, dev):
             torch.cuda.synchronize(dev)
         return launched
 
-    for _ in range(5):
+    for _ in range(PROFILE_TRIES):
         guard_ms = max(PROFILE_GUARD_MS, 2 * _PROFILE_CLOCK["lost_ms"])
         torch.cuda.synchronize(dev)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -578,7 +685,8 @@ def _profiled(fn, dev):
         guard = {"lead_ms": t_call, "trail_ms": (t_close - t1) * 1e3,
                  "spins": [len(lead), len(trail)], "spins_lost": [lead_lost, trail_lost],
                  "lost_ms": [lost_start, lost_end]}
-        if short and mid:
+        kept = bool(short and mid)
+        if agree(kept) if agree is not None else kept:
             return prof, (t1 - t0) * 1e3, guard
     fail(f"torch.profiler dropped a marker beside the call ({guard}, {profile_skew(prof)})")
 
@@ -639,20 +747,21 @@ def device_profile(fn, dev, kinds=None):
     return out
 
 
-def kernel_profile(fn):
+def kernel_profile(fn, agree=None):
     """Device ms of each kernel (and memset) of one call of ``fn`` under
-    ``torch.profiler`` (``_profiled``), after one call outside it, and
-    ``_profiled``'s guard (its ms and the spin records lost). Fails
-    the run when the profile lists no CUDA row: every ``fn`` given here
-    launches kernels."""
+    ``torch.profiler`` (``_profiled``, ``agree`` passed on), after one
+    call outside it, the call's wall ms and ``_profiled``'s guard (its ms
+    and the spin records lost). Fails the run when the profile lists no
+    CUDA row: every ``fn`` given here launches kernels."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    prof, _, guard = _profiled(fn, torch.device("cuda"))
+    prof, wall, guard = _profiled(fn, torch.device("cuda"), agree)
     rows = _cuda_rows(prof)
     require(rows, f"kernel_profile: torch.profiler recorded no CUDA kernel ({profile_skew(prof)})")
-    return {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3, "guard": guard,
+    return {"wall_ms": wall, "device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+            "guard": guard,
             "kernels": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
                         for e in sorted(rows, key=lambda e: -e.self_device_time_total)]}
 
@@ -758,11 +867,11 @@ def embedding_backward_check(dev, K, cfg):
     want = torch.zeros(n, F, dtype=torch.float64, device=dev).index_add_(0, flat, rows.double())
     scale = torch.zeros_like(want).index_add_(0, flat, rows.abs().double())
     err = float((got.double() - want).abs().max())
-    require(bool(((got.double() - want).abs() <= ADD_TOL * scale + 1e-6).all()),
+    require(add_close(got.double(), want, scale),
             f"the embedding backward differs from index_add_ in float64 ({err})")
     # the table's gradient: that sum rounded once to bfloat16
     require(bool(((dtab.double() - want).abs()
-                  <= 2.0**-8 * want.abs() + ADD_TOL * scale + 1e-6).all()),
+                  <= 2.0**-8 * want.abs() + _add_limit(scale)).all()),
             "the embedding gradient differs from index_add_ beyond one bfloat16 rounding")
     del want, scale, got, dtab, table
     nbytes = 4 * m * F + 4 * m + 4 * n * F  # rows, ids, the output once each
@@ -1093,7 +1202,7 @@ def moe_kernel_rows(cfg, moe, dev, gen, T_, launches, K):
         diff = (got.float() - want.float()).abs()
         # bfloat16: one step of bfloat16 (at most 2^-7 relative), where the
         # two float32 sums straddle a rounding boundary
-        tol = ADD_TOL * scale + 1e-6 + (2.0**-7 * want.float().abs() if dt == torch.bfloat16 else 0)
+        tol = _add_limit(scale) + (2.0**-7 * want.float().abs() if dt == torch.bfloat16 else 0)
         errs[str(dt)] = float(diff.max())
         require(got.dtype == dt and bool((diff <= tol).all()),
                 f"the rows kernel ({dt}) at the MoE combine differs from plain ({errs})")
@@ -1893,6 +2002,379 @@ def serving_phase(dev, T, K, suite, s2, cache):
     return counts, shapes
 
 
+# -- Sharded PB over four ranks (phase 16) ---------------------------------------------
+
+
+def _rank_timed(rec, name, fn, mesh):
+    """One call of ``fn`` on every rank; this rank's seconds for it, from
+    a barrier (every rank starts together) to a device synchronisation."""
+    import torch
+
+    from repro_torch.core.distributed_pb import barrier
+
+    barrier(mesh)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rec["seconds"][name] = time.perf_counter() - t
+    return out
+
+
+def _rank_profile(fn, mesh):
+    """``kernel_profile`` of ``fn`` on rank 0 of ``mesh``, while every other
+    rank calls ``fn`` (which runs collectives) once outside the profile
+    and once beside each of rank 0's tries; whether a try kept its markers
+    is agreed over the ranks, so all of them try again together. Returns
+    rank 0's listing (None on the other ranks)."""
+    import torch
+
+    from repro_torch.core.distributed_pb import any_across
+
+    def agree(kept):
+        return not bool(any_across(torch.tensor(not kept), mesh))
+
+    if mesh.rank == 0:
+        return kernel_profile(fn, agree)
+    fn()
+    for _ in range(PROFILE_TRIES):
+        fn()
+        torch.cuda.synchronize()
+        if agree(True):
+            return None
+    fail(f"phase16 rank {mesh.rank}: rank 0's profile kept no try")
+
+
+def sharded_rank(rank, world, outdir, device="cuda:0"):
+    """One of phase 16's ranks (``repro_torch.launch.ranks.spawn_ranks``):
+    every rank builds S2 and S3 from the same seeds on ``cuda:0``, computes
+    the single-device results the sharded ones are held to, then drives
+    the sharded path with the launch counts set to 0 and reads them after
+    (two windows, S2 and S3), and writes what it measured to
+    ``outdir/rank<rank>.json``."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import numpy as np
+
+    import repro_torch.core as T
+    import repro_torch.kernels as K
+    from repro_torch.core import distributed_pb as dpb
+    from repro_torch.core import traffic
+    from repro_torch.core.executor import execute_reduce
+    from repro_torch.core.pb import bin_ids
+    from repro_torch.kernels import _lib, ref
+    from repro_torch.kernels.fused import fused_design
+    from repro_torch.timing import cuda_ms
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _lib.load()  # built by the parent: this finds the library
+        torch.cuda.set_device(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cache = os.path.join(outdir, "cache")  # one directory: only rank 0 writes it
+    T.set_default_executor(T.PBExecutor(cache_dir=cache))
+    ex = T.PBExecutor(cache_dir=cache)
+    mesh = T.make_stream_mesh(device=dev)
+    require(mesh.size == world, f"phase16: mesh {mesh}")
+    rec = {"rank": rank, "seconds": {}, "info": {}, "checks": {}, "decided": {}}
+    t_rank = time.perf_counter()
+
+    # -- S2: the single-device results first (their launches do not count)
+    s2 = T.gen_uniform(*SHARD_S2, seed=3, device=dev)
+    n2, m2 = s2.num_nodes, s2.num_edges
+    gen = torch.Generator(device=dev).manual_seed(16)
+    outdeg = T.degrees_from_coo(s2, by="src").clamp(min=1).float()
+    vals = {
+        "add": (torch.full((n2,), 1.0 / n2, device=dev) / outdeg)[s2.src],  # PageRank's stream
+        "min": torch.randint(-2**30, 2**30, (m2,), dtype=torch.int32, device=dev, generator=gen),
+        "max": torch.randint(-2**30, 2**30, (m2,), dtype=torch.int32, device=dev, generator=gen),
+    }
+    want = {op: execute_reduce(s2.dst, v, out_size=n2, op=op) for op, v in vals.items()}
+    ones = torch.ones(m2, dtype=torch.int32, device=dev)
+    outdeg_i = execute_reduce(s2.src, ones, out_size=n2)
+    indeg_i = execute_reduce(s2.dst, ones, out_size=n2)
+    base = T.build_csr_baseline(s2)
+    pr_ref = T.pagerank_fused(s2, iters=ITERS).ranks
+    cc_ref = T.connected_components_fused(s2)
+    source = int(torch.argmax(outdeg_i))
+    bfs_ref = T.bfs(base, source, with_parents=True)
+    pre_ref = T.PreprocessPipeline(warmup=False).run(s2)
+    ex_pallas = T.PBExecutor(cache_dir=cache, use_pallas=True)
+    if rank == 0:  # the float32 add check must refuse a wrong sum of PageRank's stream
+        rec["faults"] = {"S2 add": add_faults(s2.dst, vals["add"], n2, want["add"], want["add"])}
+
+    def check(name, ok, err=None):
+        rec["checks"][name] = err if err is not None else bool(ok)
+        require(ok, f"phase16 rank {rank}: {name} ({err})")
+
+    # -- S2: the sharded path, counted; first the row-valued add, whose
+    # values (4.3 GB, on every rank) go before the other calls
+    K.reset_launch_counts()
+    ridx = s2.dst[:SHARD_ROWS_M]
+    rval = torch.randn(SHARD_ROWS_M, GNN_D, device=dev, generator=gen)
+    peak_before = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    name = f"S2 rows F={GNN_D} add (first {SHARD_ROWS_M} tuples)"
+    got, info = _rank_timed(rec, name, lambda: dpb.shard_reduce_stream_info(
+        ridx, rval, out_size=n2, mesh=mesh, op="add"), mesh)
+    rec["info"][name] = info
+    rec["rows_bytes"] = {"values": rval.numel() * 4, "held_before": held,
+                         "peak": torch.cuda.max_memory_allocated(dev)}
+    if rank == 0:  # against the plain sum, which takes no kernel
+        want_rows = ref.scatter_reduce_ref(ridx, rval, n2)
+        scale = torch.zeros_like(want_rows)
+        for a in range(0, SHARD_ROWS_M, 1 << 22):
+            scale.index_add_(0, ridx[a:a + (1 << 22)], rval[a:a + (1 << 22)].abs())
+        check(name, add_close(got, want_rows, scale), add_ratio(got, want_rows, scale))
+        rec["faults"]["S2 rows"] = add_faults(ridx, rval, n2, want_rows, scale)
+        del want_rows, scale
+    del got
+    # the rows kernel's input at a rank's local reduce (row 5d, timed below)
+    r2 = dpb.shard_range_for(n2, world)
+    rows_loc = -(-SHARD_ROWS_M // world)
+    rli, rlv, _ = dpb.owner_exchange(
+        dpb._rank_block(ridx, rank, rows_loc, n2), dpb._rank_block(rval, rank, rows_loc, 0),
+        out_size=n2, shard_range=r2, mesh=mesh,
+        capacity=dpb.estimate_capacity(ridx, out_size=n2, n_dev=world))
+    rli = dpb.clamp_for_local_reduce(rli, r2)
+    del ridx, rval
+    if rank != 0:
+        del rli, rlv
+    torch.cuda.empty_cache()
+    for op, v in vals.items():
+        for k in SHARD_KS:
+            for packed in (True, False):
+                name = f"S2 {op} K{k} {'packed' if packed else 'two collectives'}"
+                got, info = _rank_timed(rec, name, lambda: dpb.shard_reduce_stream_info(
+                    s2.dst, v, out_size=n2, mesh=mesh, op=op, pipeline_chunks=k, packed=packed),
+                    mesh)
+                rec["info"][name] = info
+                if op == "add":
+                    check(name, add_close(got, want[op], want[op]),
+                          add_ratio(got, want[op], want[op]))
+                else:
+                    check(name, torch.equal(got, want[op]))
+        name = f"S2 {op} decided"
+        got = _rank_timed(rec, name, lambda: ex.shard_reduce_stream(
+            s2.dst, v, out_size=n2, mesh=mesh, op=op), mesh)
+        entry = ex.decision_log[-1]
+        rec["decided"][op] = {k: entry[k] for k in (
+            "method", "bin_range", "source", "num_indices", "stream_len", "pipeline_chunks",
+            "capacity", "capacity_source", "overflow", "packed")}
+        if op == "add":
+            check(name, add_close(got, want[op], want[op]), add_ratio(got, want[op], want[op]))
+        else:
+            check(name, torch.equal(got, want[op]))
+    name = "S2 degrees at capacity 1 (forced overflow)"
+    got, info = _rank_timed(rec, name, lambda: dpb.shard_reduce_stream_info(
+        s2.src, ones, out_size=n2, mesh=mesh, capacity=1), mesh)
+    rec["info"][name] = info
+    check(name, info["overflow"] and info["fallback"] and torch.equal(got, outdeg_i))
+    csr = _rank_timed(rec, "S2 build_csr sharded", lambda: T.build_csr(
+        s2, method="sharded", mesh=mesh), mesh)
+    check("S2 build_csr sharded == build_csr_baseline",
+          torch.equal(csr.offsets, base.offsets) and torch.equal(csr.neighs, base.neighs))
+    del csr
+    pr = _rank_timed(rec, f"S2 pagerank_sharded {ITERS} iterations",
+                     lambda: T.pagerank_sharded(s2, mesh, iters=ITERS), mesh)
+    ok, errs = pr_close(pr.ranks, pr_ref)
+    check("S2 pagerank_sharded vs pagerank_fused", ok, errs)
+    cc = _rank_timed(rec, "S2 connected_components_sharded",
+                     lambda: T.connected_components_sharded(s2, mesh), mesh)
+    check("S2 CC sharded labels == fused", torch.equal(cc.labels, cc_ref.labels)
+          and cc.iters == cc_ref.iters)
+    rec["cc_iters"] = cc.iters
+    b = _rank_timed(rec, "S2 bfs over the mesh", lambda: T.bfs(
+        base, source, mesh=mesh, with_parents=True), mesh)
+    check("S2 bfs(mesh=) levels and parents == bfs", torch.equal(b.dist, bfs_ref.dist)
+          and torch.equal(b.parent, bfs_ref.parent) and b.levels == bfs_ref.levels)
+    rec["bfs_levels"] = b.levels
+    pre = _rank_timed(rec, "S2 PreprocessPipeline over the mesh", lambda: T.PreprocessPipeline(
+        mesh=mesh, warmup=False).run(s2), mesh)
+    check("S2 PreprocessPipeline(mesh=) == single device", pre.report.sharded
+          and torch.equal(pre.new_ids, pre_ref.new_ids)
+          and all(torch.equal(getattr(pre, f).offsets, getattr(pre_ref, f).offsets)
+                  and torch.equal(getattr(pre, f).neighs, getattr(pre_ref, f).neighs)
+                  for f in ("csr", "csc")))
+    rec["preprocess_stages_s"] = {s.name: s.seconds for s in pre.report.stages}
+    del pre, pre_ref
+    got = _rank_timed(rec, "S2 in-degrees, use_pallas executor, method pallas",
+                      lambda: ex_pallas.shard_reduce_stream(
+                          s2.dst, ones, out_size=n2, mesh=mesh, method="pallas"), mesh)
+    check("S2 pallas reduce == in-degrees", torch.equal(got, indeg_i))
+    rec["counts"] = [K.launch_counts()]
+    rec["shapes"] = [K.launch_shapes()]
+    require(all(rec["counts"][0][k] > 0 for k in (
+        "cobra_bin_accumulate", "cobra_bin_accumulate_rows", "histogram", "counting_positions")),
+        f"phase16 rank {rank}: a kernel of the sharded S2 path never launched: {rec['counts']}")
+
+    # -- S2: the kernels at the shapes the ranks' local reduces take, the profile
+    m_loc = -(-m2 // world)
+    cap = dpb.estimate_capacity(s2.dst, out_size=n2, n_dev=world)
+    li, lv, _ = dpb.owner_exchange(dpb._rank_block(s2.dst, rank, m_loc, n2),
+                                   dpb._rank_block(vals["add"], rank, m_loc, 0), out_size=n2,
+                                   shard_range=r2, mesh=mesh, capacity=cap)
+    li = dpb.clamp_for_local_reduce(li, r2)
+    br = min(max(64, T.compromise_bin_range(r2, T.HardwareModel.h100())), r2)
+    keys = bin_ids(li, br)
+    nb = -(-r2 // br)
+    hist = K.histogram(keys, nb)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                        torch.cumsum(hist, 0, dtype=torch.int32)])[:-1].contiguous()
+    check("local histogram == plain", torch.equal(hist, ref.histogram_ref(keys, nb)))
+    check("local positions == plain", torch.equal(K.counting_positions(keys, starts, nb),
+                                                  ref.counting_positions_ref(keys, starts, nb)))
+    if rank == 0:
+        m_l, mr = int(li.shape[0]), int(rli.shape[0])
+        got, plain = K.cobra_bin_accumulate(li, lv, r2, br, nb), ref.scatter_reduce_ref(li, lv, r2)
+        check("local fused == plain", add_close(got, plain, plain), add_ratio(got, plain, plain))
+        fused_err = float((got - plain).abs().max())
+        rec["faults"]["local fused"] = add_faults(li, lv, r2, plain, plain)
+        got = K.cobra_bin_accumulate_rows(rli, rlv, r2, 512, -(-r2 // 512))
+        plain = ref.scatter_reduce_ref(rli, rlv, r2)
+        scale = ref.scatter_reduce_ref(rli, rlv.abs(), r2)
+        check("local rows == plain", add_close(got, plain, scale), add_ratio(got, plain, scale))
+        rows_err = float((got - plain).abs().max())
+        del got, plain, scale
+        fb, rb = 8 * m_l + 4 * r2, 4 * mr + 4 * mr * GNN_D + 4 * r2 * GNN_D
+        rec["kernel_rows"] = [
+            {"name": "cobra_bin_accumulate:sharded_s2_local", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/fused.cu",
+             "replaces": "src/repro/kernels/fused.py:344", "checked_against_plain": True,
+             "max_abs_err": fused_err, "shape": {"m": m_l, "n": r2, "bin_range": br},
+             "design": fused_design(m_l, r2),
+             "ms": cuda_ms(lambda: K.cobra_bin_accumulate(li, lv, r2, br, nb), reps=20),
+             "plain_ms": cuda_ms(lambda: ref.scatter_reduce_ref(li, lv, r2), reps=20),
+             "bound_ms": bound_ms(fb), "bound_bytes": fb, "bound_by": "bytes",
+             "library_ms": cuda_ms(lambda: torch.zeros(r2, device=dev).index_add_(0, li, lv),
+                                   reps=20)},
+            {"name": "cobra_bin_accumulate_rows:sharded_s2_local", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/fused_rows.cu",
+             "replaces": "src/repro/kernels/fused.py:263", "checked_against_plain": True,
+             "max_abs_err": rows_err, "shape": {"m": mr, "F": GNN_D, "n": r2},
+             "ms": cuda_ms(lambda: K.cobra_bin_accumulate_rows(rli, rlv, r2, 512, -(-r2 // 512)),
+                           reps=10),
+             "plain_ms": cuda_ms(lambda: ref.scatter_reduce_ref(rli, rlv, r2), reps=10),
+             "bound_ms": bound_ms(rb), "bound_bytes": rb, "bound_by": "bytes",
+             "library_ms": cuda_ms(lambda: torch.zeros(r2, GNN_D, device=dev)
+                                   .index_add_(0, rli, rlv), reps=10)},
+        ]
+        rec["modeled"] = {
+            f"S2 m={m2} n={n2}": {
+                "hbm_bytes_per_device": traffic.sharded_fused_hbm_bytes_per_device(m2, n2, world),
+                "exchange_bytes_per_device": traffic.sharded_exchange_bytes_per_device(m2, world),
+                "padded_exchange_bytes_per_device": traffic.sharded_exchange_bytes_per_device(
+                    m2, world, padded_capacity=cap),
+                "single_device_fused_bytes": traffic.fused_stream_bytes(m2, n2)}}
+        del rli, rlv
+    del li, lv, keys
+    rec["profile"] = _rank_profile(lambda: dpb.shard_reduce_stream(
+        s2.dst, vals["add"], out_size=n2, mesh=mesh, op="add"), mesh)
+    if rank == 0:  # fused.cu's single-sweep or two-pass kernel
+        require(any(n in k[0] for k in rec["profile"]["kernels"]
+                    for n in ("fused_accumulate_kernel", "slab_reduce_kernel")),
+                f"phase16: rank 0's profile lists no fused kernel: {rec['profile']}")
+    rec["peak_bytes_s2"] = max(peak_before, torch.cuda.max_memory_allocated(dev))
+    del s2, vals, want, ones, base, pr_ref, cc_ref, bfs_ref
+    del outdeg, outdeg_i, indeg_i, pr, cc, b
+    torch.cuda.empty_cache()
+
+    # -- S3 (the paper's scale): rank 0 computes the single-device results
+    torch.cuda.reset_peak_memory_stats(dev)
+    s3 = T.gen_uniform(*SHARD_S3, seed=3, device=dev)
+    n3, m3 = s3.num_nodes, s3.num_edges
+    if rank == 0:
+        base3 = T.build_csr_baseline(s3)
+        pr3_ref = T.pagerank_fused(s3, iters=ITERS).ranks
+    dpb.barrier(mesh)
+    K.reset_launch_counts()
+    csr3 = _rank_timed(rec, "S3 build_csr_sharded", lambda: T.build_csr_sharded(s3, mesh), mesh)
+    pr3 = _rank_timed(rec, f"S3 pagerank_sharded {ITERS} iterations",
+                      lambda: T.pagerank_sharded(s3, mesh, iters=ITERS), mesh)
+    rec["counts"].append(K.launch_counts())
+    rec["shapes"].append(K.launch_shapes())
+    require(rec["counts"][1]["cobra_bin_accumulate"] > 0,
+            f"phase16 rank {rank}: the fused kernel never launched at S3: {rec['counts'][1]}")
+    if rank == 0:
+        check("S3 build_csr_sharded == build_csr_baseline",
+              torch.equal(csr3.offsets, base3.offsets) and torch.equal(csr3.neighs, base3.neighs))
+        ok, errs = pr_close(pr3.ranks, pr3_ref)
+        check("S3 pagerank_sharded vs arm E (pagerank_fused)", ok, errs)
+        rec["modeled"][f"S3 m={m3} n={n3}"] = {
+            "hbm_bytes_per_device": traffic.sharded_fused_hbm_bytes_per_device(m3, n3, world),
+            "exchange_bytes_per_device": traffic.sharded_exchange_bytes_per_device(m3, world),
+            "single_device_fused_bytes": traffic.fused_stream_bytes(m3, n3)}
+    rec["peak_bytes_s3"] = torch.cuda.max_memory_allocated(dev)
+    rec["rank_seconds"] = time.perf_counter() - t_rank
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def sharded_phase(smi):
+    """Phase 16: the sharded path on ``SHARD_RANKS`` ranks of one gloo group,
+    every rank on ``cuda:0`` (``sharded_rank``). Prints rank 0's seconds,
+    info dicts, decisions, the modeled bytes, its profile and every
+    rank's peak memory; returns the launches summed over the ranks (counts,
+    shapes) and the kernels line's rows at the ranks' local shapes."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.ranks import spawn_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as td:
+        t = time.perf_counter()
+        try:
+            spawn_ranks(sharded_rank, SHARD_RANKS, store_dir=td, timeout=SHARD_TIMEOUT,
+                        args=(td, "cuda:0"))
+        except Exception as e:  # a rank failed or hung: the run fails
+            fail(f"phase16: {type(e).__name__}: {e}")
+        wall = time.perf_counter() - t
+        recs = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(td, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    r0 = recs[0]
+    label = f"{SHARD_RANKS} ranks on one card, gloo through host memory"
+    say("phase16 seconds of each call, rank 0 after a barrier "
+        f"({label}; not an interconnect's time)", json.dumps(r0["seconds"]))
+    say("phase16 info (capacity, K, packed, fallback)", json.dumps(r0["info"]))
+    say("phase16 decided", json.dumps(r0["decided"]))
+    say("phase16 checks (rank 0)", json.dumps(r0["checks"]))
+    say("phase16 planted faults in float32 add results, rank 0 (add_ratio, each above 1)",
+        json.dumps(r0["faults"]))
+    say("phase16 modeled bytes per device (traffic.sharded_*)", json.dumps(r0["modeled"]))
+    say("phase16 profile of rank 0's S2 shard_reduce_stream (add, float32)",
+        json.dumps(dict(r0["profile"], card=smi)))
+    say("phase16 ranks", json.dumps({
+        "ranks": SHARD_RANKS, "spawn_to_join_s": wall, "parent_bytes_held": held,
+        "rank_seconds": [r["rank_seconds"] for r in recs],
+        "rows_bytes": [r["rows_bytes"] for r in recs],
+        "peak_bytes_s2": [r["peak_bytes_s2"] for r in recs],
+        "peak_bytes_s3": [r["peak_bytes_s3"] for r in recs],
+        "cc_iters": r0["cc_iters"], "bfs_levels": r0["bfs_levels"],
+        "preprocess_stages_s": r0["preprocess_stages_s"], "card": smi}))
+    counts, shapes = {}, {}
+    for r in recs:
+        for c, s in zip(r["counts"], r["shapes"]):
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+            for k, by in s.items():
+                for shp, v in by.items():
+                    shapes.setdefault(k, {})[shp] = shapes.get(k, {}).get(shp, 0) + v
+    say("phase16 launches (summed over the ranks):", json.dumps(counts))
+    rows = r0["kernel_rows"]
+    for row in rows:
+        row["launches"] = counts[row["name"].split(":")[0]]
+    return counts, shapes, rows
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         fail("src/repro_torch is not beside chip_smoke.py: run it from a checkout of the repo")
@@ -2158,7 +2640,7 @@ def main() -> None:
                 err = float((got.double() - want.double()).abs().max())
                 if dt == torch.float32 and op == "add":
                     scale = ref.scatter_reduce_ref(idx, val.abs(), nn, "add")
-                    ok = bool(((got - want).abs() <= ADD_TOL * scale + 1e-6).all())
+                    ok = add_close(got, want, scale)
                 else:
                     ok = torch.equal(got, want)
                 worst["cobra_bin_accumulate"] = max(worst["cobra_bin_accumulate"], err)
@@ -2365,7 +2847,7 @@ def main() -> None:
         err = float((got.double() - want.double()).abs().max())
         if dt == torch.float32 and op == "add":
             scale = ref.scatter_reduce_ref(idx, val.abs(), n, "add")
-            ok = bool(((got - want).abs() <= ADD_TOL * scale + 1e-6).all())
+            ok = add_close(got, want, scale)
         else:
             ok = torch.equal(got, want)
         worst["cobra_bin_accumulate_rows"] = max(worst["cobra_bin_accumulate_rows"], err)
@@ -2463,7 +2945,7 @@ def main() -> None:
             err = float((b_got.double() - b_want.double()).abs().max())
             if dt == torch.float32:  # the float32 add rule
                 scale = ref.binread_scatter_add_ref(idx_p, val_p.abs(), EMB_BIN_RANGE)
-                ok = bool(((b_got - b_want).abs() <= ADD_TOL * scale + 1e-6).all())
+                ok = add_close(b_got, b_want, scale)
             else:  # bfloat16: atol 1e-1, as tests/test_kernels.py:139 allows
                 ok = err <= 1e-1
             worst["binread_scatter_add"] = max(worst["binread_scatter_add"], err)
@@ -2723,6 +3205,11 @@ def main() -> None:
     moe_counts, moe_shapes, moe_rows = moe_phase(dev, K, smi)
     say(f"phase15 seconds: {time.perf_counter() - t15:.1f}")
 
+    # -- phase 16: sharded PB on four ranks (before phase 11's kernels line) --------
+    t16 = time.perf_counter()
+    shard_counts, shard_shapes, shard_rows = sharded_phase(smi)
+    say(f"phase16 seconds: {time.perf_counter() - t16:.1f}")
+
     # -- phase 11: the kernels line at the paths' shapes -------------------------
     t11 = time.perf_counter()
     n2, br2 = s2.num_nodes, min(max(64, T.compromise_bin_range(s2.num_nodes, hw)), s2.num_nodes)
@@ -2743,9 +3230,12 @@ def main() -> None:
     got = K.cobra_bin_accumulate(s2.dst, contrib, n2, br2, nb2)
     want = ref.scatter_reduce_ref(s2.dst, contrib, n2)
     fused_err = float((got - want).abs().max())
-    fused_ok = bool(((got - want).abs() <= ADD_TOL * want.abs() + 1e-6).all())  # contrib > 0
+    fused_ok = add_close(got, want, want)  # contrib > 0: the sum of |v| is the sum
     require(hist_err == 0 and pos_err == 0 and fused_ok,
             f"S2 shapes: kernel vs plain: histogram {hist_err}, positions {pos_err}, fused {fused_err}")
+    say("phase11 fused at S2: add_ratio of the kernel and of planted faults (each fault above 1)",
+        json.dumps({"kernel": add_ratio(got, want, want),
+                    **add_faults(s2.dst, contrib, n2, want, want)}))
 
     # rows: the GNN forward's stream at S2 (dst-sorted, F = 64)
     rows_v = torch.randn(m2, GNN_D, device=dev, generator=gen)
@@ -2753,7 +3243,7 @@ def main() -> None:
     want = ref.scatter_reduce_ref(s2_sorted, rows_v, n2)
     scale = ref.scatter_reduce_ref(s2_sorted, rows_v.abs(), n2)
     rows_err = float((got - want).abs().max())
-    require(bool(((got - want).abs() <= ADD_TOL * scale + 1e-6).all()),
+    require(add_close(got, want, scale),
             f"rows at S2 F={GNN_D} differs from plain ({rows_err})")
     del got, want, scale
     # COBRA pass: S3's first pass
@@ -2786,7 +3276,7 @@ def main() -> None:
     got = K.binread_scatter_add(idx_p, val_p, EMB_BIN_RANGE)
     want = ref.binread_scatter_add_ref(idx_p, val_p, EMB_BIN_RANGE)
     scale = ref.binread_scatter_add_ref(idx_p, val_p.abs(), EMB_BIN_RANGE)
-    require(bool(((got - want).abs() <= ADD_TOL * scale + 1e-6).all()),
+    require(add_close(got, want, scale),
             "binread at the embedding shapes differs from plain")
     del got, want, scale
     T_ = ids.shape[0]
@@ -2825,10 +3315,11 @@ def main() -> None:
          4 * T_ + 8 * T_ * d_),
     ]
     path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
-            + trav_counts[k] + serving_counts[k] + train_counts[k] + moe_counts[k] for k in after}
+            + trav_counts[k] + serving_counts[k] + train_counts[k] + moe_counts[k]
+            + shard_counts[k] for k in after}
     path_shapes = {}
     for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes,
-                 serving_shapes, train_shapes, moe_shapes):
+                 serving_shapes, train_shapes, moe_shapes, shard_shapes):
         for k, by in part.items():
             for shp, c in by.items():
                 path_shapes.setdefault(k, {})[shp] = path_shapes.get(k, {}).get(shp, 0) + c
@@ -2870,7 +3361,8 @@ def main() -> None:
         reps = 5 if name in ("cobra_binning_pass", "binread_scatter_add") else 20
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path[name], "checked_against_plain": True, "max_abs_err": err,
+            "launches": path[name], "launches_16": shard_counts[name],
+            "checked_against_plain": True, "max_abs_err": err,
             "ms": cuda_ms(kfn, reps=reps), "plain_ms": cuda_ms(pfn, reps=reps),
             "bound_ms": bound_ms(nbytes), "bound_bytes": nbytes, "bound_by": "bytes",
             "library_ms": cuda_ms(lfn, reps=reps) if lfn is not None else None,
@@ -2898,6 +3390,7 @@ def main() -> None:
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flashattn.cu",
         "replaces": "src/repro/kernels/flashattn.py:61", "launches": path["flash_attention"],
+        "launches_16": shard_counts["flash_attention"],
         "checked_against_plain": True, "max_abs_err": max(worst["flash_attention"], ferr),
         "ms": cuda_ms(lambda: K.flash_attention(fq, fk, fv), reps=20),
         "plain_ms": cuda_ms(lambda: flash_attention_ref(fq, fk, fv), reps=5),
@@ -2909,6 +3402,7 @@ def main() -> None:
             fq, fk, fv, is_causal=True, enable_gqa=True), reps=20),
     })
     kernels += moe_rows  # rows 2b, 5c, 7b and 8b: phase 15's shapes and launches
+    kernels += shard_rows  # rows 4c and 5d: a rank's local reduce in phase 16, its launches
     require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on a path: {path}")
     say(f"phase11 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}; rows F={GNN_D}; "
         f"COBRA pass S3 m={m3} bins={nb3}; embedding T={T_} d={d_} B={B_} L={L}; "

@@ -14,8 +14,10 @@ reference's (``labels != prev``, at most ``max_iters`` rounds), so
 ``iters`` equals the reference's. int32 ``min`` is exact in every method
 and in both fused kernel designs, so labels are equal bit for bit.
 
-``connected_components_sharded`` over a mesh is not ported yet
-(ROADMAP.md, Queue 1, "Sharded PB").
+``connected_components_sharded`` runs the rounds over the ranks of a
+mesh: each owner-routes both edge directions' min labels
+(``distributed_pb.pipelined_owner_reduce``) and gathers the owned label
+slices back; labels and ``iters`` equal the single-device run's.
 """
 from __future__ import annotations
 
@@ -25,9 +27,6 @@ import torch
 
 from repro_torch.core.executor import execute_reduce, get_default_executor
 from repro_torch.core.graph import COO
-
-_NOT_PORTED_MESH = "not ported yet (ROADMAP.md, Queue 1, \"Sharded PB\")"
-
 
 class CCResult(NamedTuple):
     labels: torch.Tensor
@@ -136,12 +135,72 @@ def connected_components_sharded(
     capacity: Optional[int] = None,
     pipeline_chunks: Optional[int] = None,
 ) -> CCResult:
-    """Without a mesh, ``connected_components_fused`` (as in the
-    reference); the mesh-sharded rounds are not ported yet."""
-    del axis_name, capacity, pipeline_chunks
-    if mesh is not None:
-        raise NotImplementedError(f"connected_components_sharded over a mesh: {_NOT_PORTED_MESH}")
-    return connected_components_fused(coo, max_iters=max_iters, method=method)
+    """Label propagation with the mesh-sharded PB reduction. Rank ``r``
+    holds the ``r``-th block of the edges; each round owner-routes the min
+    labels of both edge directions between the ranks (each in
+    ``pipeline_chunks`` double-buffered pieces), reduces them into the
+    owned label slice, and ``all_gather`` gives every rank the whole
+    vector. int32 min is exact and order-free, so labels and ``iters``
+    equal the single-device run's at any K, and every rank sees the same
+    labels, so all leave the loop together. ``mesh=None`` or one rank is
+    ``connected_components_fused``. ``method=None`` asks ``decide`` at
+    the per-rank shape under the topology key; ``capacity=None``
+    estimates from the owner skew of both directions, and an overflow on
+    any rank reruns the rounds once at the always-safe chunk length."""
+    from repro_torch.core import distributed_pb as dpb
+
+    n_dev = dpb.mesh_size(mesh, axis_name)
+    if n_dev == 1:
+        return connected_components_fused(coo, max_iters=max_iters, method=method)
+    ex = get_default_executor()
+    n, m = coo.num_nodes, coo.num_edges
+    dev = coo.src.device
+    r = dpb.shard_range_for(n, n_dev)
+    m_local = -(-max(m, 1) // n_dev)
+    cap_total = int(capacity) if capacity is not None else max(
+        dpb.estimate_capacity(coo.dst, out_size=n, n_dev=n_dev),
+        dpb.estimate_capacity(coo.src, out_size=n, n_dev=n_dev),
+    )
+    d = ex.decide_or_forced(
+        method, r, n_dev * cap_total, torch.int32, kind="reduce", op="min", device=dev,
+        mesh=mesh,
+    )
+    entry = ex._last_entry if method in (None, "auto") else None
+    k = pipeline_chunks if pipeline_chunks is not None else d.pipeline_chunks
+    k, chunk_len = dpb._chunk_layout(m_local, k)
+    cap = max(1, min(chunk_len, -(-cap_total // k)))
+    # padded edges carry the sentinel n at both ends: gathers are clamped
+    # and the exchange drops them in either direction
+    src_l = dpb._rank_block(coo.src, mesh.rank, m_local, n)
+    dst_l = dpb._rank_block(coo.dst, mesh.rank, m_local, n)
+    safe_src, safe_dst = src_l.clamp(max=n - 1).long(), dst_l.clamp(max=n - 1).long()
+
+    def run(c):
+        overflow = [torch.zeros((), dtype=torch.bool, device=dev)]
+
+        def reduce_owned(key, val):
+            owned, of = dpb.pipelined_owner_reduce(
+                key, val, out_size=n, shard_range=r, mesh=mesh, capacity=c, chunks=k,
+                op="min", method=d.method, bin_range=d.bin_range, plan=d.plan,
+            )
+            overflow[0] = overflow[0] | of
+            return owned
+
+        def step(labels):
+            owned = torch.minimum(reduce_owned(dst_l, labels[safe_src]),
+                                  reduce_owned(src_l, labels[safe_dst]))
+            return torch.minimum(labels, dpb.all_gather_cat(owned, mesh)[:n])
+
+        labels0 = torch.arange(n, dtype=torch.int32, device=dev)
+        labels, it = _propagate(step, labels0, max_iters)
+        return labels, it, overflow[0]
+
+    labels, it, overflow = run(cap)
+    if cap < chunk_len and bool(overflow):
+        labels, it, _ = run(chunk_len)
+        if entry is not None:
+            entry.update(overflow=True, capacity=chunk_len, capacity_source="overflow-fallback")
+    return CCResult(labels, it)
 
 
 def connected_components_pb(

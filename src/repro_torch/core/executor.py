@@ -37,8 +37,15 @@ decision records; a forced update method still logs (source "caller").
 ``dispatch_permutation`` routes MoE assignments to expert slots (the
 histogram and positions kernels under ``counting``).
 
-Not ported yet: the sharded path (``mesh``, ``shard_reduce_stream``: Queue
-1, "Sharded PB") and the stream-contract check (Queue 1, "Analysis").
+``shard_reduce_stream`` is the mesh-sharded reduce over a
+``torch.distributed`` group (``core/distributed_pb.py``): the local method
+is decided at the per-rank shape under a cache key that carries the
+topology, and the decision carries the exchange's pipeline depth. Every
+choice that changes which collectives run (the measured K, the autotuner's
+timings) is taken from values reduced across the ranks, and only rank 0
+writes the decision cache.
+
+Not ported yet: the stream-contract check (Queue 1, "Analysis").
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import pb
 from repro_torch.core.cobra import hierarchical_binning
@@ -343,6 +351,9 @@ class BinningDecision:
     num_bins: int
     plan: Optional[CobraPlan]
     source: str  # analytic | fallback-table | autotuned | cache | caller
+    # the sharded exchange's pipeline depth K: 1 except for mesh-sharded
+    # reduce decisions (roofline overlap model or a measured sweep)
+    pipeline_chunks: int = 1
     f_tile: int = 0
 
     def describe(self) -> str:
@@ -488,8 +499,22 @@ class _DecisionCache:
         return self.mem.get(key)
 
     def put(self, key: str, entry: dict) -> None:
+        """Keep ``entry``; only rank 0 of a process group writes the file
+        (the ranks hold the same entries: their decisions are agreed)."""
         self.mem[key] = entry
-        self._save()
+        if _rank() == 0:
+            self._save()
+
+
+def _rank() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _rank_count() -> int:
+    """Ranks in the default process group (1 without one): the port's
+    counterpart of the reference's process device count in a cache key."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def _device_tag(device: torch.device) -> str:
@@ -544,6 +569,7 @@ class PBExecutor:
         self.decision_log: list = []
         # caller-owned, uncapped side channels (add_decision_sink)
         self._decision_sinks: list = []
+        self._last_entry: Optional[dict] = None
 
     # -- decision ----------------------------------------------------------
 
@@ -557,10 +583,17 @@ class PBExecutor:
         op: str,
         feature_dim: int,
         device: torch.device,
+        mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None,
     ) -> str:
+        # the topology is always part of the key: a decision measured on
+        # one rank is no evidence about a sharded run, whose per-rank
+        # stream and domain shrink with the mesh
+        topo = f"d{_rank_count()}"
+        if mesh_shape:
+            topo += "/" + "x".join(f"{a}{s}" for a, s in mesh_shape)
         sl = f"b{_bucket(stream_len)}" if kind != "bin" else str(stream_len)
         dt = str(dtype).replace("torch.", "")
-        base = f"{num_indices}:{sl}:{dt}:{_device_tag(device)}:d1"
+        base = f"{num_indices}:{sl}:{dt}:{_device_tag(device)}:{topo}"
         if kind != "bin":
             base = f"{base}:{kind}:{op}"
             if feature_dim > 1:
@@ -673,24 +706,41 @@ class PBExecutor:
         op: str = "add",
         feature_dim: int = 0,
         device: Optional[torch.device] = None,
+        mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None,
+        mesh=None,
     ) -> BinningDecision:
         """Pick (method, bin_range, plan) for a stream shape. Priority:
         cache -> autotuner (if on) -> fallback table -> analytic model.
         ``kind`` is "bin", "reduce" or "update" (a reduction under its own
-        cache key); ``dtype`` is the value dtype for reductions. ``device`` is where the stream lives (default: the
-        card): it names the cache key's device, the fallback table and
-        where the autotuner measures."""
+        cache key); ``dtype`` is the value dtype for reductions. ``device``
+        is where the stream lives (default: the card): it names the cache
+        key's device, the fallback table and where the autotuner measures.
+        ``mesh_shape`` (``(axis, size)`` pairs) keys a sharded decision by
+        its topology and gives a reduce decision its pipeline depth;
+        ``mesh`` (a ``StreamMesh``, whose shape is the default
+        ``mesh_shape``) makes the autotuner's timings the largest over its
+        ranks, so that every rank decides alike."""
         if kind not in DECISION_KINDS:
             raise ValueError(f"decision kind must be one of {DECISION_KINDS}, got {kind!r}")
+        if mesh is not None and mesh_shape is None:
+            mesh_shape = tuple(sorted(mesh.shape.items()))
         dev = torch.device("cuda") if device is None else torch.device(device)
-        key = self._key(num_indices, stream_len, dtype, bin_range, kind, op, feature_dim, dev)
+        key = self._key(num_indices, stream_len, dtype, bin_range, kind, op, feature_dim, dev,
+                        mesh_shape)
         d = self._decide_uncached(
             key, num_indices, stream_len, dtype, bin_range, flat_values, kind, op,
-            feature_dim, dev,
+            feature_dim, dev, mesh,
         )
         if kind == "reduce" and feature_dim:
             d = _dc_replace(
                 d, f_tile=self.choose_f_tile(feature_dim, num_indices, dtype.itemsize)
+            )
+        if mesh_shape and kind == "reduce":
+            # the sharded decision's pipeline depth: a measured entry under
+            # the topology key when one exists, else the overlap model
+            d = _dc_replace(
+                d, pipeline_chunks=self._pipeline_chunks_for(
+                    key, num_indices, stream_len, mesh_shape)
             )
         entry = {
             "kind": kind,
@@ -705,12 +755,20 @@ class PBExecutor:
         if feature_dim:
             entry["feature_dim"] = feature_dim
             entry["f_tile"] = d.f_tile
+        if mesh_shape:
+            entry["mesh"] = {a: s for a, s in mesh_shape}
+            if kind == "reduce":
+                entry["pipeline_chunks"] = d.pipeline_chunks
         self._log_decision(entry)
         return d
 
     def _log_decision(self, entry: dict) -> None:
         """Append one decision record to the capped shared log and to every
-        registered (uncapped) sink; the same dict goes everywhere."""
+        registered (uncapped) sink; the same dict goes everywhere. The
+        entry is also kept as ``_last_entry``, so that
+        ``shard_reduce_stream`` can add the exchange's facts to its own
+        record in place."""
+        self._last_entry = entry
         if len(self.decision_log) < _DECISION_LOG_CAP:
             self.decision_log.append(entry)
         for sink in self._decision_sinks:
@@ -743,6 +801,8 @@ class PBExecutor:
         op: str = "add",
         feature_dim: int = 0,
         device: Optional[torch.device] = None,
+        mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None,
+        mesh=None,
     ) -> BinningDecision:
         """``decide`` for ``None``/"auto", else the caller's method
         finalized at this shape."""
@@ -750,7 +810,7 @@ class PBExecutor:
             return self.decide(
                 num_indices, stream_len, dtype, bin_range=bin_range,
                 flat_values=flat_values, kind=kind, op=op, feature_dim=feature_dim,
-                device=device,
+                device=device, mesh_shape=mesh_shape, mesh=mesh,
             )
         d = self._finalize(method, num_indices, bin_range, "caller")
         if kind == "reduce" and feature_dim:
@@ -761,7 +821,7 @@ class PBExecutor:
 
     def _decide_uncached(
         self, key, num_indices, stream_len, dtype, bin_range, flat_values, kind, op,
-        feature_dim: int, device: torch.device,
+        feature_dim: int, device: torch.device, mesh=None,
     ) -> BinningDecision:
         hit = self.cache.get(key)
         if hit is not None and hit.get("method") in self._candidates(flat_values, kind):
@@ -769,9 +829,13 @@ class PBExecutor:
         if self.autotune and stream_len > 0:
             entry = self.measure_methods(
                 num_indices, stream_len, dtype, bin_range, flat_values, kind=kind, op=op,
-                feature_dim=feature_dim, device=device,
+                feature_dim=feature_dim, device=device, mesh=mesh,
             )
             self.cache.put(key, entry)
+            if mesh is not None:
+                from repro_torch.core.distributed_pb import barrier
+
+                barrier(mesh)  # rank 0 has written the entry before any rank reads it
             return self._finalize(entry["method"], num_indices, bin_range, "autotuned")
         # the tables are bucketed on the default (compromise) range and hold
         # binning decisions only
@@ -790,6 +854,81 @@ class PBExecutor:
             analytic = self.analytic_method(num_indices, stream_len, bin_range)
         return self._finalize(analytic, num_indices, bin_range, "analytic")
 
+    # -- pipeline depth of the sharded exchange ----------------------------
+
+    def _pipeline_chunks_for(
+        self,
+        key: str,
+        num_indices: int,
+        stream_len: int,
+        mesh_shape: Tuple[Tuple[str, int], ...],
+    ) -> int:
+        """K for a sharded reduce decision: the measured ``:pipeline`` entry
+        under the same topology key when one exists, else the roofline
+        overlap model at the global stream shape."""
+        n_dev = 1
+        for _, s in mesh_shape:
+            n_dev *= int(s)
+        if n_dev <= 1 or stream_len <= 0:
+            return 1
+        hit = self.cache.get(f"{key}:pipeline")
+        if hit is not None and "pipeline_chunks" in hit:
+            return max(1, int(hit["pipeline_chunks"]))
+        from repro_torch.roofline import ShardedPBStreamRoofline
+
+        rl = ShardedPBStreamRoofline(
+            num_tuples=max(1, stream_len), num_indices=max(1, num_indices * n_dev), n_dev=n_dev
+        )
+        return rl.best_pipeline_chunks()
+
+    def _tune_pipeline_chunks(
+        self,
+        key: str,
+        indices: torch.Tensor,
+        values: torch.Tensor,
+        *,
+        out_size: int,
+        mesh,
+        op: str,
+        axis_name: Optional[str],
+        d: BinningDecision,
+        capacity: int,
+        reps: int = 3,
+    ) -> int:
+        """Measure K in {1, 2, 4} on the real stream and mesh and keep the
+        winner under ``key:pipeline``. Each K's time is the largest over
+        the ranks (every rank then picks the same K, so the next calls
+        run the same collectives); a warm-up call, then the best of
+        ``reps`` calls between device synchronisations."""
+        hit = self.cache.get(f"{key}:pipeline")
+        if hit is not None and "pipeline_chunks" in hit:
+            return max(1, int(hit["pipeline_chunks"]))
+        from repro_torch.core import distributed_pb as dpb
+
+        timings = {}
+        for k in (1, 2, 4):
+            def run(k=k):
+                return dpb.shard_reduce_stream(
+                    indices, values, out_size=out_size, mesh=mesh, op=op,
+                    axis_name=axis_name, method=d.method, bin_range=d.bin_range,
+                    plan=d.plan, capacity=capacity, pipeline_chunks=k,
+                )
+
+            run()
+            _sync(indices.device)
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                run()
+                _sync(indices.device)
+                ts.append(time.perf_counter() - t0)
+            timings[str(k)] = min(ts) * 1e6
+        timings = dict(zip(timings, dpb.agree_max(timings.values(), mesh)))
+        best = int(min(timings, key=timings.get))
+        self.cache.put(f"{key}:pipeline", {"pipeline_chunks": best, "timings_us": timings})
+        dpb.barrier(mesh)  # rank 0 has written the entry before any rank reads the file again
+        return best
+
     # -- autotune measurement ---------------------------------------------
 
     def measure_methods(
@@ -804,6 +943,7 @@ class PBExecutor:
         op: str = "add",
         feature_dim: int = 0,
         device: Optional[torch.device] = None,
+        mesh=None,
     ) -> dict:
         """Time every candidate method on a synthetic stream of this shape
         on ``device`` (default: the card); returns ``{"method": fastest,
@@ -812,7 +952,9 @@ class PBExecutor:
         rows when ``feature_dim``). Each method runs once to warm up, then
         ``reps`` times, each call between two device synchronisations;
         the best time counts. A method that fails raises: every candidate
-        has a kernel or a plain version, so a failure is a fault."""
+        has a kernel or a plain version, so a failure is a fault. Under a
+        ``mesh`` each method's time is the largest over its ranks, so
+        every rank picks the same method."""
         dev = torch.device("cuda") if device is None else torch.device(device)
         rng = np.random.default_rng(num_indices * 1_000_003 + stream_len)
         idx = torch.from_numpy(
@@ -849,6 +991,10 @@ class PBExecutor:
                 _sync(dev)
                 ts.append(time.perf_counter() - t0)
             timings[method] = min(ts) * 1e6
+        if mesh is not None:
+            from repro_torch.core.distributed_pb import agree_max
+
+            timings = dict(zip(timings, agree_max(timings.values(), mesh)))
         return {"method": min(timings, key=timings.get), "timings_us": timings}
 
     # -- execution ---------------------------------------------------------
@@ -1034,6 +1180,110 @@ class PBExecutor:
                 )
             d = self._finalize(method, out_size, bin_range, "caller")
         return _reduce_lanes(indices, values, out_size, op, d)
+
+    def shard_reduce_stream(
+        self,
+        indices: torch.Tensor,
+        values: torch.Tensor,
+        *,
+        out_size: int,
+        mesh=None,
+        op: str = "add",
+        axis_name: Optional[str] = None,
+        bin_range: Optional[int] = None,
+        method: Optional[str] = None,
+        capacity: Optional[int] = None,
+        pipeline_chunks: Optional[int] = None,
+        packed: bool = True,
+    ) -> torch.Tensor:
+        """Mesh-sharded commutative reduction (``core/distributed_pb.py``):
+        the owner rank is the coarsest C-Buffer level, the collective its
+        eviction path. ``decide`` picks the rank-local method at the
+        per-rank shape (owned index range, received stream length) under a
+        topology key, so a single-device decision is never replayed for a
+        sharded run; the decision carries the pipeline depth K
+        (``pipeline_chunks=None``: a measured ``:pipeline`` entry, tuned
+        live under ``autotune``, else the overlap model). ``capacity=None``
+        estimates the segment size from owner skew, guarded by the
+        overflow rerun; capacity, K and overflow land on this call's
+        decision record. ``mesh=None`` or one rank is ``reduce_stream``."""
+        from repro_torch.core import distributed_pb as dpb
+
+        if op not in REDUCE_OPS:
+            raise ValueError(
+                f"shard_reduce_stream only serves commutative reductions {REDUCE_OPS}; "
+                f"got op={op!r}. Non-commutative consumers need the stable exchange "
+                "and an order-aware Bin-Read (see distributed_pb.shard_build_csr)."
+            )
+        n_dev = dpb.mesh_size(mesh, axis_name)
+        if n_dev == 1:
+            return self.reduce_stream(
+                indices, values, out_size=out_size, op=op, bin_range=bin_range, method=method
+            )
+        m = int(indices.shape[0])
+        r = dpb.shard_range_for(out_size, n_dev)
+        cap_src = "caller" if capacity is not None else "estimated"
+        cap = (int(capacity) if capacity is not None
+               else dpb.estimate_capacity(indices, out_size=out_size, n_dev=n_dev)) if m > 0 else 1
+        vshape = pb.value_block_shape(values)
+        flat = vshape == ()
+        feat = vshape[0] if vshape else 0
+        mshape = dpb.mesh_shape(mesh)
+        entry: Optional[dict] = None
+        if method in (None, "auto"):
+            d = self.decide(
+                r,  # per-rank domain: the owned index range
+                n_dev * cap,  # per-rank stream: the padded received exchange
+                values.dtype, bin_range=bin_range, flat_values=flat, kind="reduce", op=op,
+                feature_dim=feat, device=indices.device, mesh_shape=mshape, mesh=mesh,
+            )
+            entry = self._last_entry  # gains the exchange's facts below
+        else:
+            d = self._finalize(method, r, bin_range, "caller")
+        if not flat and d.method == "pallas":  # pallas binning is 1-D only
+            d = self._finalize("sort", r, bin_range, d.source)
+        k = pipeline_chunks
+        if k is None:
+            key = self._key(r, n_dev * cap, values.dtype, bin_range, "reduce", op, feat,
+                            indices.device, mshape)
+            if self.autotune and m > 0:
+                k = self._tune_pipeline_chunks(
+                    key, indices, values, out_size=out_size, mesh=mesh, op=op,
+                    axis_name=axis_name, d=d, capacity=cap,
+                )
+            elif method in (None, "auto"):
+                k = d.pipeline_chunks
+            else:
+                k = self._pipeline_chunks_for(key, r, n_dev * cap, mshape)
+        out, xinfo = dpb.shard_reduce_stream_info(
+            indices, values, out_size=out_size, mesh=mesh, op=op, axis_name=axis_name,
+            method=d.method, bin_range=d.bin_range,
+            capacity=cap,  # the capacity the decision was keyed on
+            plan=d.plan, pipeline_chunks=k, packed=packed,
+        )
+        xfields = {
+            "capacity": xinfo["capacity"],
+            "capacity_source": "overflow-fallback" if xinfo["fallback"] else cap_src,
+            "pipeline_chunks": xinfo["pipeline_chunks"],
+            "overflow": xinfo["overflow"],
+            "packed": xinfo["packed"],
+        }
+        if entry is not None:
+            # the same dict the log and every sink hold
+            entry.update(xfields)
+        else:  # a forced method has no decide() record: add one
+            self._log_decision({
+                "kind": "shard_exchange",
+                "num_indices": out_size,
+                "stream_len": m,
+                "method": "exchange",
+                "bin_range": 0,
+                "source": xfields["capacity_source"],
+                "op": op,
+                "mesh": {a: s for a, s in mshape},
+                **xfields,
+            })
+        return out
 
     def scatter_add(
         self,

@@ -6,11 +6,13 @@
   * ``build_csr_pb``        — PB: coarse Binning at ``bin_range`` through the
                               executor, then a stable fine grouping.
   * ``build_csr_cobra``     — hierarchical (knob-free) COBRA execution.
+  * ``build_csr_sharded``   — distributed over the ranks of a mesh
+                              (``distributed_pb.shard_build_csr``).
 
 Every build is stable, so the CSRs are identical to the reference's and
 to each other. Degree counting is a commutative reduction and goes
 through ``PBExecutor.reduce_stream``, which picks the fused kernel when
-its accumulator fits. The ``sharded`` build is not ported yet.
+its accumulator fits.
 """
 from __future__ import annotations
 
@@ -106,6 +108,17 @@ def build_csr_cobra(
     return CSR(offsets, neighs, coo.num_nodes)
 
 
+def build_csr_sharded(coo: COO, mesh=None, axis_name: str | None = None,
+                      capacity: int | None = None) -> CSR:
+    """Distributed Neighbor-Populate: edges owner-routed by source vertex
+    between the mesh's ranks, each rank grouping its owned range stably
+    (``distributed_pb.shard_build_csr``). Equals ``build_csr_oracle``;
+    without a mesh it is the executor-decided PB build."""
+    from repro_torch.core.distributed_pb import shard_build_csr
+
+    return shard_build_csr(coo, mesh, axis_name=axis_name, capacity=capacity)
+
+
 BUILD_METHODS = ("baseline", "pb", "cobra", "sharded", "auto")
 
 
@@ -114,8 +127,12 @@ def build_csr(
     method: str = "auto",
     bin_range: int | None = None,
     degrees: torch.Tensor | None = None,
+    mesh=None,
+    axis_name: str | None = None,
 ) -> CSR:
-    """EL->CSR through one named build variant; ``sharded`` is not ported."""
+    """EL->CSR through one named build variant. ``sharded`` distributes over
+    ``mesh`` (the single-device auto build without one) and counts its own
+    degrees; the PB builds reuse ``degrees`` when given."""
     if method in ("auto", "pb"):
         m = "auto" if method == "auto" else "sort"
         return build_csr_pb(coo, bin_range=bin_range, method=m, degrees=degrees)
@@ -125,10 +142,7 @@ def build_csr(
         plan = CobraPlan.from_hardware(coo.num_nodes, final_bin_range=bin_range)
         return build_csr_cobra(coo, plan, degrees=degrees)
     if method == "sharded":
-        raise NotImplementedError(
-            "build_csr(method='sharded'): the sharded path is not ported yet "
-            "(ROADMAP.md, Queue 1, \"Sharded PB\", item 3)"
-        )
+        return build_csr_sharded(coo, mesh=mesh, axis_name=axis_name)
     raise ValueError(f"unknown build method: {method!r} (want one of {BUILD_METHODS})")
 
 
@@ -146,17 +160,18 @@ def build_slack_csr(
     return SlackCSR.from_csr(csr, headroom=headroom, min_slack=min_slack)
 
 
-def build_csc(coo: COO, method: str = "auto", bin_range: int | None = None) -> CSR:
+def build_csc(coo: COO, method: str = "auto", bin_range: int | None = None, mesh=None,
+              axis_name: str | None = None) -> CSR:
     """EL->CSC: the CSR of the transposed graph (in-neighbor lists)."""
-    return build_csr(transpose_coo(coo), method=method, bin_range=bin_range)
+    return build_csr(transpose_coo(coo), method=method, bin_range=bin_range, mesh=mesh,
+                     axis_name=axis_name)
 
 
-def build_csr_csc(coo: COO, method: str = "auto", bin_range: int | None = None):
+def build_csr_csc(coo: COO, method: str = "auto", bin_range: int | None = None, mesh=None,
+                  axis_name: str | None = None):
     """Dual-layout build: ``(CSR, CSC)`` of one graph."""
-    return (
-        build_csr(coo, method=method, bin_range=bin_range),
-        build_csc(coo, method=method, bin_range=bin_range),
-    )
+    kw = dict(method=method, bin_range=bin_range, mesh=mesh, axis_name=axis_name)
+    return build_csr(coo, **kw), build_csc(coo, **kw)
 
 
 def csr_equal_as_sets(a: CSR, b: CSR) -> bool:

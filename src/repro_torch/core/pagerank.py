@@ -9,11 +9,14 @@
     (arms C and D).
   * ``pagerank_fused``        — each iteration is one fused
     bin-and-accumulate through ``execute_reduce`` (arm E).
+  * ``pagerank_sharded``      — arm E over the ranks of a mesh: each
+    iteration owner-routes the contributions (``distributed_pb``) and
+    gathers the owned rank slices back.
 
 ``fori_loop`` is a Python loop and ``segment_sum`` a sorted
 ``index_add_``. Float sums run in another order than the reference's (and,
 with atomics on the card, in a different order each run), so ranks agree
-to a tolerance, not bit for bit. ``pagerank_sharded`` is not ported yet.
+to a tolerance, not bit for bit.
 """
 from __future__ import annotations
 
@@ -162,3 +165,74 @@ def pagerank_incremental(
         if delta < tol:
             break
     return PRResult(ranks, it)
+
+
+def pagerank_sharded(
+    coo: COO,
+    mesh=None,
+    iters: int = 10,
+    axis_name: str | None = None,
+    method: str | None = None,
+    capacity: int | None = None,
+    pipeline_chunks: int | None = None,
+) -> PRResult:
+    """PageRank with the mesh-sharded PB reduction. Rank ``r`` holds the
+    ``r``-th block of the edges; each iteration owner-routes its
+    contributions between the ranks in ``pipeline_chunks`` double-buffered
+    pieces (``pipelined_owner_reduce``), reduces them into the owned slice
+    of the ranks, and ``all_gather`` gives every rank the whole vector for
+    the next iteration's gather. ``mesh=None`` or one rank is
+    ``pagerank_fused``.
+
+    ``method=None``/"auto" asks ``decide`` at the per-rank shape (owned
+    range, received stream) under the topology key; the decision carries
+    the pipeline depth. ``capacity=None`` estimates the segment size from
+    owner skew; an overflow on any rank reruns the whole run once, on
+    every rank, at the always-safe chunk length. Float sums run in
+    per-rank and per-chunk trees: equal to ``pagerank_fused`` to a
+    tolerance."""
+    from repro_torch.core import distributed_pb as dpb
+
+    n_dev = dpb.mesh_size(mesh, axis_name)
+    if n_dev == 1:
+        return pagerank_fused(coo, iters=iters, method=method)
+    ex = get_default_executor()
+    n, m = coo.num_nodes, coo.num_edges
+    dev = coo.src.device
+    r = dpb.shard_range_for(n, n_dev)
+    m_local = -(-max(m, 1) // n_dev)
+    cap_total = (int(capacity) if capacity is not None
+                 else dpb.estimate_capacity(coo.dst, out_size=n, n_dev=n_dev))
+    d = ex.decide_or_forced(
+        method, r, n_dev * cap_total, torch.float32, kind="reduce", op="add", device=dev,
+        mesh=mesh,
+    )
+    entry = ex._last_entry if method in (None, "auto") else None
+    k = pipeline_chunks if pipeline_chunks is not None else d.pipeline_chunks
+    k, chunk_len = dpb._chunk_layout(m_local, k)
+    cap = max(1, min(chunk_len, -(-cap_total // k)))
+    outdeg = _outdeg(coo.src, n)
+    # padded edges: src 0 (a safe gather), dst n (dropped by the exchange)
+    src_l = dpb._rank_block(coo.src, mesh.rank, m_local, 0).long()
+    dst_l = dpb._rank_block(coo.dst, mesh.rank, m_local, n)
+
+    def run(c):
+        ranks = _initial(n, dev)
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        for _ in range(iters):
+            owned, of = dpb.pipelined_owner_reduce(
+                dst_l, (ranks / outdeg)[src_l], out_size=n, shard_range=r, mesh=mesh,
+                capacity=c, chunks=k, op="add", method=d.method, bin_range=d.bin_range,
+                plan=d.plan,
+            )
+            # the owned slices cross between the ranks once an iteration
+            ranks = _push(dpb.all_gather_cat(owned, mesh)[:n], n)
+            overflow = overflow | of
+        return ranks, overflow
+
+    ranks, overflow = run(cap)
+    if cap < chunk_len and bool(overflow):
+        ranks, _ = run(chunk_len)
+        if entry is not None:
+            entry.update(overflow=True, capacity=chunk_len, capacity_source="overflow-fallback")
+    return PRResult(ranks, iters)

@@ -22,8 +22,10 @@ measurable stage by stage:
 Each stage is timed between CUDA synchronisations when its output lies on
 the card (the reference waits with ``jax.block_until_ready``), and the
 report puts the modeled bytes (``traffic.preproc_stage_bytes``) and the
-executor decisions the stage took beside it. ``mesh=`` (the sharded
-stages) is not ported yet (ROADMAP.md, Queue 1, "Sharded PB").
+executor decisions the stage took beside it. With ``mesh=`` (a
+``distributed_pb.StreamMesh``) the degree count and both builds run
+through the sharded paths over the mesh's ranks (``build_method`` becomes
+``sharded``, and the report says ``sharded=True``).
 """
 from __future__ import annotations
 
@@ -38,8 +40,6 @@ from repro_torch.core import traffic
 from repro_torch.core.executor import PBExecutor, get_default_executor
 from repro_torch.core.graph import COO, CSR, SlackCSR
 from repro_torch.core.reorder import REORDER_VARIANTS, relabel_coo, reorder_mapping
-
-_NOT_PORTED_MESH = "not ported yet (ROADMAP.md, Queue 1, \"Sharded PB\")"
 
 
 @dataclass(frozen=True)
@@ -162,7 +162,9 @@ class PreprocessPipeline:
 
     ``variant``: a ``REORDER_VARIANTS`` key (``identity`` makes it a pure
     build). ``build_method``: a ``neighbor_populate.BUILD_METHODS`` entry
-    (``auto`` lets the executor decide). ``executor``: the PBExecutor the
+    (``auto`` lets the executor decide; ``sharded`` is implied by
+    ``mesh``). ``mesh``: a 1-D ``StreamMesh``; the degree count and both
+    builds run over its ranks. ``executor``: the PBExecutor the
     degree stage routes through and whose decisions the report records
     (the process default when None). ``warmup``: run each stage once
     untimed first, so ``seconds`` is steady-state and the first run lands
@@ -177,14 +179,13 @@ class PreprocessPipeline:
         with_csc: bool = True,
         bin_range: Optional[int] = None,
         mesh=None,
+        axis_name: Optional[str] = None,
         executor: Optional[PBExecutor] = None,
         seed: int = 0,
         warmup: bool = True,
         slack_headroom: Optional[float] = None,
         slack_min_slack: int = 4,
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"PreprocessPipeline over a mesh: {_NOT_PORTED_MESH}")
         if variant not in REORDER_VARIANTS:
             raise ValueError(
                 f"unknown reorder variant: {variant!r} (want one of {tuple(REORDER_VARIANTS)})"
@@ -196,7 +197,9 @@ class PreprocessPipeline:
         if slack_headroom is not None and slack_headroom < 0:
             raise ValueError(f"slack_headroom must be >= 0, got {slack_headroom}")
         self.variant = variant
-        self.build_method = build_method
+        self.build_method = "sharded" if mesh is not None else build_method
+        self.mesh = mesh
+        self.axis_name = axis_name
         self.with_csc = with_csc
         self.bin_range = bin_range
         self.executor = executor
@@ -241,10 +244,17 @@ class PreprocessPipeline:
 
         # 1. degrees: one reduce shared by the mapping and the CSR build
         ones = torch.ones(m, dtype=torch.int32, device=coo.src.device)
-        degrees = self._run_stage(
-            stages, ex, "degrees", stage_bytes("degrees"),
-            lambda: ex.reduce_stream(coo.src, ones, out_size=n, op="add"),
-        )
+        if self.mesh is not None:
+            degrees = self._run_stage(
+                stages, ex, "degrees", stage_bytes("degrees"),
+                lambda: ex.shard_reduce_stream(coo.src, ones, out_size=n, mesh=self.mesh,
+                                               op="add", axis_name=self.axis_name),
+            )
+        else:
+            degrees = self._run_stage(
+                stages, ex, "degrees", stage_bytes("degrees"),
+                lambda: ex.reduce_stream(coo.src, ones, out_size=n, op="add"),
+            )
 
         # 2. mapping: the registered variant over the shared histogram
         new_ids = self._run_stage(
@@ -260,7 +270,8 @@ class PreprocessPipeline:
 
         # 4/5. the builds; the CSR reuses stage 1's histogram permuted
         # under the new ids, the CSC needs the dst histogram and counts it
-        build_kw = dict(method=self.build_method, bin_range=self.bin_range)
+        build_kw = dict(method=self.build_method, bin_range=self.bin_range, mesh=self.mesh,
+                        axis_name=self.axis_name)
         deg_relabeled = torch.zeros_like(degrees)
         deg_relabeled[new_ids.long()] = degrees
         csr = self._run_stage(
@@ -289,7 +300,7 @@ class PreprocessPipeline:
             build_method=self.build_method,
             num_nodes=n,
             num_edges=m,
-            sharded=False,
+            sharded=self.mesh is not None,
             stages=tuple(stages),
         )
         return PreprocessResult(

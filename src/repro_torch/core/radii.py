@@ -12,8 +12,8 @@ The reference draws its sources with ``jax.random.choice(PRNGKey(seed))``,
 a stream the port cannot reproduce; the port draws them with a seeded
 ``torch.Generator`` (``torch.randperm`` on the CPU, so every device gets
 the same sources). Everything after the draw is ``_radii_from_sources``,
-which the parity tests feed the reference's sources. Over a mesh: not
-ported yet (ROADMAP.md, Queue 1, "Sharded PB").
+which the parity tests feed the reference's sources. ``mesh=`` routes
+every BFS level as ``traversal.bfs`` does.
 """
 from __future__ import annotations
 
@@ -49,13 +49,13 @@ def radii(
     """Eccentricities of ``k`` sources drawn without replacement from a
     ``torch.Generator`` seeded with ``seed``; check ``converged`` before
     trusting them. ``method`` routes every level as ``traversal.bfs``
-    does."""
-    del axis_name
-    _resolve(method, mesh)
+    does (``mesh``: through ``shard_reduce_stream``)."""
+    _resolve(method)
     k = max(1, min(k, csr.num_nodes))
     gen = torch.Generator().manual_seed(seed)
     sources = torch.randperm(csr.num_nodes, generator=gen)[:k].numpy()
-    return _radii_from_sources(csr, sources, max_iters, executor=executor, method=method)
+    return _radii_from_sources(csr, sources, max_iters, executor=executor, method=method,
+                               mesh=mesh, axis_name=axis_name)
 
 
 def _radii_from_sources(
@@ -65,6 +65,8 @@ def _radii_from_sources(
     *,
     executor=None,
     method: str = "auto",
+    mesh=None,
+    axis_name: Optional[str] = None,
 ) -> RadiiResult:
     """The reference's loop after its draw: one BFS (no parents) per
     source, the largest finite level of each, the deepest run's levels,
@@ -72,8 +74,8 @@ def _radii_from_sources(
     eccs = np.zeros(len(sources), np.int32)
     iters, converged, decisions = 0, True, []
     for i, s in enumerate(sources):
-        r = bfs(csr, int(s), executor=executor, method=method, max_iters=max_iters,
-                with_parents=False)
+        r = bfs(csr, int(s), executor=executor, method=method, mesh=mesh, axis_name=axis_name,
+                max_iters=max_iters, with_parents=False)
         finite = r.dist[r.dist != _INT_MAX]
         eccs[i] = int(finite.max()) if finite.numel() else 0
         iters = max(iters, r.levels)

@@ -24,8 +24,11 @@ and agrees to a tolerance. ``method="unbinned"`` is fig8's baseline, one
 dense scatter (``kernels/ref.py::scatter_reduce_ref``) with no executor.
 
 ``bfs_incremental`` re-relaxes BFS levels after an edge batch
-(``core/updates.py``) from the batch's touched vertices. Every ``mesh=``
-argument waits for the sharded path (ROADMAP.md, Queue 1, "Sharded PB").
+(``core/updates.py``) from the batch's touched vertices. ``mesh=`` on
+``bfs``, ``sssp``, ``k_core`` (and ``radii``) routes every level's reduce
+through ``PBExecutor.shard_reduce_stream``: every rank expands the same
+frontier, each reduces its block of the level's stream, and every rank
+gets the whole result, so every rank takes the next level alike.
 """
 from __future__ import annotations
 
@@ -40,7 +43,6 @@ from repro_torch.core.graph import CSR, segment_ids_from_offsets
 _INT_MAX = int(np.iinfo(np.int32).max)
 _INT_MIN = int(np.iinfo(np.int32).min)
 _F32_MAX = float(np.finfo(np.float32).max)
-_NOT_PORTED_MESH = "not ported yet (ROADMAP.md, Queue 1, \"Sharded PB\")"
 
 # Methods the per-level reduction accepts: the executor's reduce set plus
 # the unbinned dense-scatter baseline.
@@ -120,9 +122,11 @@ class _LevelReducer:
     """Routes one level's (idx, val) stream to the chosen reduction path
     and collects the executor's decisions, tagged with the level."""
 
-    def __init__(self, ex: PBExecutor, method):
+    def __init__(self, ex: PBExecutor, method, mesh=None, axis_name: Optional[str] = None):
         self.ex = ex
         self.method = None if method in (None, "auto") else method
+        self.mesh = mesh
+        self.axis_name = axis_name
         self.decisions: list = []
         self._level = 0
 
@@ -144,6 +148,10 @@ class _LevelReducer:
             from repro_torch.kernels.ref import scatter_reduce_ref
 
             return scatter_reduce_ref(idx, val, out_size, op=op)
+        if self.mesh is not None:
+            return self._run(lambda: self.ex.shard_reduce_stream(
+                idx, val, out_size=out_size, mesh=self.mesh, op=op,
+                axis_name=self.axis_name, method=self.method))
         return self._run(lambda: self.ex.reduce_stream(
             idx, val, out_size=out_size, op=op, method=self.method))
 
@@ -161,11 +169,9 @@ class _LevelReducer:
             idx, val, out_size=out_size, op=op, method=self.method))
 
 
-def _resolve(method: str, mesh=None) -> None:
+def _resolve(method: str) -> None:
     if method not in TRAVERSAL_METHODS:
         raise ValueError(f"unknown traversal method: {method!r} (want one of {TRAVERSAL_METHODS})")
-    if mesh is not None:
-        raise NotImplementedError(f"traversal over a mesh: {_NOT_PORTED_MESH}")
 
 
 def _resolve_batched(method: str) -> None:
@@ -207,8 +213,7 @@ def bfs(
     ``with_parents`` one ``op="max"`` reduce of (neighbor, frontier
     vertex) tuples that picks the largest-id predecessor as the parent.
     ``dist[v]`` is the level (INT32_MAX when unreached)."""
-    del axis_name
-    _resolve(method, mesh)
+    _resolve(method)
     ex = executor or get_default_executor()
     n = csr.num_nodes
     if not 0 <= source < n:
@@ -216,7 +221,7 @@ def bfs(
     max_iters = n if max_iters is None else max_iters
     dev = csr.offsets.device
     offs_host = csr.offsets.cpu().numpy()
-    red = _LevelReducer(ex, method)
+    red = _LevelReducer(ex, method, mesh, axis_name)
 
     dist = torch.full((n,), _INT_MAX, dtype=torch.int32, device=dev)
     dist[source] = 0
@@ -281,8 +286,7 @@ def sssp(
     non-negative weights at most n rounds. ``weights`` is aligned with
     ``csr.neighs``; ``dist`` is float32 with float32 max at unreached
     vertices (the min identity)."""
-    del axis_name
-    _resolve(method, mesh)
+    _resolve(method)
     ex = executor or get_default_executor()
     n = csr.num_nodes
     if not 0 <= source < n:
@@ -292,7 +296,7 @@ def sssp(
     max_iters = n if max_iters is None else max_iters
     dev = csr.offsets.device
     offs_host = csr.offsets.cpu().numpy()
-    red = _LevelReducer(ex, method)
+    red = _LevelReducer(ex, method, mesh, axis_name)
 
     dist = torch.full((n,), _F32_MAX, dtype=torch.float32, device=dev)
     dist[source] = 0.0
@@ -338,8 +342,7 @@ def k_core(
     each round streams the removed vertices' out-edges through one
     ``op="add"`` reduce of (neighbor, 1) tuples, the degree decrement.
     On a symmetrized graph this is the textbook k-core."""
-    del axis_name
-    _resolve(method, mesh)
+    _resolve(method)
     if k < 0:
         raise ValueError(f"k must be >= 0, got {k}")
     ex = executor or get_default_executor()
@@ -347,7 +350,7 @@ def k_core(
     max_iters = n if max_iters is None else max_iters
     dev = csr.offsets.device
     offs_host = csr.offsets.cpu().numpy()
-    red = _LevelReducer(ex, method)
+    red = _LevelReducer(ex, method, mesh, axis_name)
 
     deg = (csr.offsets[1:] - csr.offsets[:-1]).to(torch.int32)
     alive = torch.ones(n, dtype=torch.bool, device=dev)

@@ -128,10 +128,13 @@ def test_incremental_takes_labels_as_numpy(graphs):
 
 
 def test_sharded_without_a_mesh_is_fused_and_a_mesh_raises(graphs):
+    """Without a mesh and on a one-rank mesh the sharded entry point is the
+    fused one, as in the reference; a mesh no longer raises (more ranks:
+    ``test_torch_sharded.py``)."""
     g, tg = graphs["KRON"]
     _same(T.connected_components_sharded(tg), R.connected_components_sharded(g))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.connected_components_sharded(tg, mesh=object())
+    _same(T.connected_components_sharded(tg, mesh=T.make_stream_mesh(1, device="cpu")),
+          R.connected_components_sharded(g, mesh=R.make_stream_mesh(1)))
 
 
 @pytest.mark.parametrize("n,edges", [(1, []), (4, []), (5, [(0, 0), (3, 3)]),

@@ -77,8 +77,13 @@ def test_csr_csc_pair_and_set_equality(suites, name):
     _csr_eq(tc, rc)
     _csr_eq(tt, rt)
     assert T.csr_equal_as_sets(tc, T.build_csr_baseline(t))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.build_csr(t, method="sharded")
+    # the sharded build: the auto PB build without a mesh and on one rank
+    # (more ranks: test_torch_sharded.py)
+    _csr_eq(T.build_csr(t, method="sharded"), R.build_csr(r, method="sharded"))
+    (sc, st) = T.build_csr_csc(t, method="sharded", mesh=T.make_stream_mesh(1, device="cpu"))
+    (rsc, rst) = R.build_csr_csc(r, method="sharded", mesh=R.make_stream_mesh(1))
+    _csr_eq(sc, rsc)
+    _csr_eq(st, rst)
 
 
 def _arms(mod, g, br, plan):

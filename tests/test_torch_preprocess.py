@@ -20,6 +20,7 @@ from repro.core import reorder as rre
 from repro.core import traffic as rtraffic
 from repro.core.plan import HardwareModel as RHW
 from repro_torch.convert import coo_from_numpy, csr_from_numpy, hardware_from_fields, to_numpy
+from repro_torch.core import distributed_pb as tmesh
 from repro_torch.core import executor as tex
 from repro_torch.core import graph as tgraph
 from repro_torch.core import preprocess as tpre
@@ -358,9 +359,17 @@ def test_report_views(tmp_path):
         t.stage("nope")
 
 
-def test_pipeline_rejects_bad_arguments():
-    with pytest.raises(NotImplementedError, match="Sharded PB"):
-        tpre.PreprocessPipeline(mesh=object())
+def test_pipeline_rejects_bad_arguments(tmp_path):
+    # a mesh is taken now: on one rank the sharded stages are the
+    # single-device ones, as in the reference (more ranks:
+    # test_torch_sharded.py)
+    g, tc = _coo("KRON")
+    rx, tx = _executors(tmp_path)
+    t = tpre.PreprocessPipeline(executor=tx, warmup=False,
+                                mesh=tmesh.make_stream_mesh(1, device="cpu")).run(tc)
+    r = R.PreprocessPipeline(executor=rx, warmup=False, mesh=R.make_stream_mesh(1)).run(g)
+    _same_run(t, r)
+    assert t.report.sharded and t.report.build_method == "sharded"
     with pytest.raises(ValueError, match="unknown reorder variant"):
         tpre.PreprocessPipeline("nope")
     with pytest.raises(ValueError, match="unknown build method"):

@@ -21,6 +21,7 @@ import repro.core as R
 from repro.core import traversal as rtrav
 from repro.core.plan import HardwareModel as RHW
 from repro_torch.convert import csr_from_numpy, hardware_from_fields, to_numpy
+from repro_torch.core import distributed_pb as tmesh
 from repro_torch.core import executor as tex
 from repro_torch.core import traversal as ttrav
 from repro_torch.core.plan import HardwareModel as THW
@@ -284,7 +285,7 @@ def test_radii_draws_seeded_distinct_sources(tmp_path):
     assert got.iters == int(want.iters) == 6 and got.converged and bool(want.converged)
 
 
-def test_traversal_errors(graphs):
+def test_traversal_errors(graphs, tmp_path):
     _, tc, w = graphs["URND"]
     n = tc.num_nodes
     wt = torch.from_numpy(w)
@@ -309,9 +310,19 @@ def test_traversal_errors(graphs):
         ttrav.personalized_pagerank(tc, 0, iters=0)
     with pytest.raises(ValueError, match="at least one source"):
         ttrav.bfs_batched(tc, [])
-    for fn in (lambda: ttrav.bfs(tc, 0, mesh=object()),
-               lambda: ttrav.sssp(tc, wt, 0, mesh=object()),
-               lambda: ttrav.k_core(tc, 2, mesh=object()),
-               lambda: tradii.radii(tc, mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    # a mesh is taken now: on one rank every level is the single-device
+    # reduce, as in the reference (more ranks: test_torch_sharded.py)
+    rc, _, _ = graphs["URND"]
+    rx, tx = _executors(tmp_path)
+    tm, rm = tmesh.make_stream_mesh(1, device="cpu"), R.make_stream_mesh(1)
+    got, want = ttrav.bfs(tc, 0, executor=tx, mesh=tm), rtrav.bfs(rc, 0, executor=rx, mesh=rm)
+    np.testing.assert_array_equal(to_numpy(got.dist), np.asarray(want.dist))
+    np.testing.assert_array_equal(to_numpy(got.parent), np.asarray(want.parent))
+    got = ttrav.sssp(tc, wt, 0, executor=tx, mesh=tm)
+    want = rtrav.sssp(rc, jnp.asarray(w), 0, executor=rx, mesh=rm)
+    np.testing.assert_array_equal(to_numpy(got.dist), np.asarray(want.dist))
+    got, want = ttrav.k_core(tc, 2, executor=tx, mesh=tm), rtrav.k_core(rc, 2, executor=rx, mesh=rm)
+    np.testing.assert_array_equal(to_numpy(got.in_core), np.asarray(want.in_core))
+    got = tradii._radii_from_sources(tc, [3, 17], executor=tx, mesh=tm)
+    assert torch.equal(got.ecc, tradii._radii_from_sources(tc, [3, 17], executor=tx).ecc)
+    assert tradii.radii(tc, k=2, executor=tx, mesh=tm).converged
