@@ -11,7 +11,8 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
 1. Device: ``nvidia-smi`` name and power limit, the device properties
    beside ``HardwareModel.h100()``, then the kernels' build (nvcc, sm_90a),
    and the HMMA (tensor-core) instructions that ``cuobjdump -sass`` finds
-   in each flash kernel: every bfloat16 one must have them.
+   in each flash kernel: every bfloat16 one (head dims 16, 32, 64, 80 and
+   128) must have them.
 2. The first slice's kernels against their plain versions on the card:
    histogram and positions at m in {1, 17, 5000, 2^25} x B in
    {2, 257, 908, 65536} (random and all-one-key streams), and positions
@@ -199,10 +200,30 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    reduce, each rank's peak memory and the launches summed over the
    ranks. Rank 0 also holds the fused and rows kernels against their
    plain versions at its local reduce's shapes (rows 4c and 5d).
+17. (Runs before phase 11.) The recurrent families: (a) flash at head_dim
+   80 against its plain version, float32 and bfloat16, causal and not, at
+   zamba2's heads (1, 32, 32, S, 80) for S in {1000, 1024} and at
+   (1, 8, 2, 333, 80), then where outputs nearly cancel; (b) Mamba2 at
+   zamba2's width and mLSTM and sLSTM at xlstm's, float32, each on the
+   card against its CPU copy (a ragged 300-token prefill, then a decode
+   step) and, on the card, the prefill + decode against 301 decode steps
+   from zero; (c) one full-width float32 cycle of each model (zamba2: 6
+   Mamba2 blocks and the shared block; xlstm: mLSTM + sLSTM) on the card
+   against the CPU, a 300-token prefill and 8 greedy decode steps; then
+   ``zamba2-2.7b`` (54 Mamba2 layers, 9 applications of the shared
+   attention block) and ``xlstm-350m`` (24 layers) at full width and depth
+   in bfloat16 from a seeded generator: (e) served by ``Engine`` (4 slots,
+   8 requests of 256-1024 prompt tokens, 32 new each, 2048 positions;
+   flash launches exactly 9 times a zamba2 prefill and never for xlstm),
+   with prefill tokens/s, decode ms a tick, peak memory, a profile of one
+   prefill and one decode tick, xlstm's mLSTM and sLSTM timed apart at the
+   longest prompt, and (d) the engine with one slot against a manual
+   prefill + decode loop (tokens and every cache leaf). The serves'
+   launches go into phase 11's counts.
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
-   phases 3-4, 6, 7, 9, 12, 13, 14, 15 and 16 (counts set to 0 before each
-   path, read after it; the checks of phases 2, 5, 8, 10, 11, 14a-c and
-   15a-e do not count; ``launches_16`` is phase 16's share, summed over
+   phases 3-4, 6, 7, 9, 12, 13, 14, 15, 16 and 17 (counts set to 0 before each
+   path, read after it; the checks of phases 2, 5, 8, 10, 11, 14a-c,
+   15a-e and 17a-d do not count; ``launches_16`` is phase 16's share, summed over
    its ranks), its largest error against its plain version, and
    times at a path's shapes (Bin-Read's row also ``compact_index_add_ms``,
    the rows kernel's an ``embedding_backward`` record at phase 14's
@@ -210,7 +231,10 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    the bfloat16 rows kernel, the row scatter and flash at phase 15's
    shapes with phase 15's launches, and rows 4c and 5d
    (``<kernel>:sharded_s2_local``): the fused and rows kernels at phase
-   16's local shapes with its launches; then the result line. Before it: the
+   16's local shapes with its launches, and row 8c
+   (``flash_attention:hybrid_prefill``): flash at the longest zamba2
+   prefill's shape with phase 17's launches (each flash row also carries
+   ``kernel_device_ms`` from ``torch.profiler``); then the result line. Before it: the
    same launches split by shape, the fused accumulate and ``index_add_``
    timed at the S1 KRON and DBP streams (fig5's S1 PageRank shapes), and a
    ``torch.profiler`` listing of one call of positions and of the fused
@@ -278,6 +302,12 @@ distance is a float32 sum along a path of k hops, each add rounding by
 at most 2^-24 of its partial sum, so it is within about k * 2^-24 of the
 exact distance, relatively; k is at most the number of rounds or d /
 0.1 (the lightest weight), and the check allows k * 2^-23 * d.
+Recurrent families (phase 17): flash at head_dim 80 by phase 8's rule;
+each recurrent layer within 1e-3 of max(1, max |want|), card against CPU
+and chunked against step by step (mLSTM's normalizer |q . n| nearly
+cancels at some positions, and there its two float32 forms differ by up
+to 6.3e-5 of max |out| on the CPU; REC_LAYER_TOL); the one-cycle float32
+models as phase 10; the engine equal to the manual loop bit for bit.
 Sharded PB (phase 16): min, max, integer add, CSRs, labels, levels and
 parents equal the single-device results exactly (order-free ops, stable
 exchanges); a float32 add sums per rank and per chunk, and is held to
@@ -345,6 +375,19 @@ MOE_ORACLE_T = 256  # check (b): capacity_factor 16 gives C = T, so nothing drop
 MOE_BF16_TOL = 2.0**-8  # check (b): times the sum of |terms| (moe_oracle_check)
 MOE_FLASH_SHAPES = [(1, 64, 4, S, S, 128) for S in (256, 1000, 2048)]  # qwen3-moe's heads
 MOE_CPU_EXPERTS = 16  # check (e): 2 float32 layers at full width, 16 experts, on both devices
+REC_ARCHS = ("zamba2-2.7b", "xlstm-350m")  # phase 17: the hybrid and the ssm family
+REC_SEED = 17
+REC_SLOTS, REC_MAX_LEN, REC_REQUESTS, REC_MAX_NEW = 4, 2048, 8, 32
+REC_PROMPT_LENS = (256, 1024)
+REC_FLASH_SHAPES = [(1, 32, 32, 1024, 1024, 80), (1, 32, 32, 1000, 1000, 80),  # zamba2's heads
+                    (1, 8, 2, 333, 333, 80)]  # head_dim 80 under GQA, ragged
+REC_FLASH_CANCEL_SHAPES = [(1, 32, 32, 1024, 1024, 80)]
+REC_LAYER_S = 300  # phase 17 (b): ragged against both chunks (64: zamba2, 256: xlstm)
+# (b): card vs CPU and chunked vs token by token, times max(1, max |want|). mLSTM's
+# output divides by |q . n| + 1e-6, which nearly cancels at some positions: its two
+# float32 forms (chunked, step by step) differ there by 2.9e-5 to 6.3e-5 of max |out|
+# at full width on the CPU (four seeds); Mamba2 and sLSTM by 5e-6 or less
+REC_LAYER_TOL = 1e-3
 TRAIN_B, TRAIN_S = 4, 4096  # train_4k's sequence; its global batch of 256 cut to 4 for one card
 TRAIN_STEPS = 3  # then one more from the checkpoint
 TRAIN_CPU_S = 256  # phase 14's card-vs-CPU step: 2 float32 layers, B 1
@@ -534,11 +577,13 @@ def lm_prompts(cfg, n, lo, hi, seed):
 def serve_lm(cfg, model, prompts, slots, max_len, max_new):
     """Phase 9: serve ``prompts`` through ``Engine``; flash launches are
     counted over the run alone (the main path), which must prefill each
-    prompt once through every layer's kernel. Returns the launch counts
-    and the record printed."""
+    prompt once through every attention layer's kernel (every layer of a
+    dense model, the shared block once a cycle in the hybrid family, none
+    in the ssm family). Returns the launch counts and the record printed."""
     import torch
 
     import repro_torch.kernels as K
+    from repro_torch.models.transformer import attention_layers
     from repro_torch.serving.server import Engine, Request
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -596,8 +641,9 @@ def serve_lm(cfg, model, prompts, slots, max_len, max_new):
     }
     require(len(done) == len(prompts) and all(len(r.out) == max_new for r in done),
             f"serving finished {len(done)} of {len(prompts)} requests")
-    require(counts["flash_attention"] == cfg.num_layers * len(prompts),
-            f"flash launches {counts['flash_attention']} != {cfg.num_layers} layers x "
+    attn = attention_layers(cfg)
+    require(counts["flash_attention"] == attn * len(prompts),
+            f"flash launches {counts['flash_attention']} != {attn} attention layers x "
             f"{len(prompts)} prefills")
     return counts, rec
 
@@ -769,10 +815,12 @@ def kernel_profile(fn, agree=None):
 def engine_equals_manual_loop(cfg, model, prompt, max_len, max_new):
     """One request served alone (one slot) gives the tokens of a prefill +
     greedy decode loop, token for token (tests/test_serving.py:33-54), and
-    leaves the same cache, bit for bit: a random model's greedy tokens
-    often repeat, the cache holds every step's keys and values."""
+    leaves the same cache, bit for bit, leaf by leaf: a random model's
+    greedy tokens often repeat, the cache holds every step's keys and
+    values and recurrent states."""
     import torch
 
+    from repro_torch.models.transformer import cache_leaves
     from repro_torch.serving.server import Engine, Request
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -788,7 +836,8 @@ def engine_equals_manual_loop(cfg, model, prompt, max_len, max_new):
     eng = Engine(cfg, model, slots=1, max_len=max_len)
     eng.submit(Request(rid=0, prompt=prompt, max_new=max_new))
     (r,) = eng.run_until_drained()
-    same_cache = all(torch.equal(a, b) for a, b in zip(eng.state.caches, st.caches))
+    same_cache = all(torch.equal(a, b) for a, b in zip(cache_leaves(eng.state.caches),
+                                                       cache_leaves(st.caches)))
     return r.out, want, same_cache
 
 
@@ -799,11 +848,11 @@ def lm_vs_cpu(cfg, model, prompt, max_len, steps):
     share of max |logit| and whether every greedy token agreed."""
     import torch
 
-    from repro_torch.models.transformer import DenseLM
+    from repro_torch.models.transformer import LM
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
     dev = model.embed.table.device
-    cpu = DenseLM(cfg, device="cpu")
+    cpu = LM(cfg, device="cpu")
     cpu.load_state_dict(model.state_dict())
     prefill, decode = make_prefill_step(cfg, max_len), make_decode_step(cfg)
     toks = torch.from_numpy(prompt[None])
@@ -920,13 +969,13 @@ def train_step_vs_cpu(dev, cfg):
     import torch
 
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.models.transformer import DenseLM, init_params
+    from repro_torch.models.transformer import LM, init_params
     from repro_torch.train.optimizer import apply_updates, init_opt_state
     from repro_torch.train.steps import default_opt_config, make_loss_fn
 
     cfg32 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32", compute_dtype="float32")
     model = init_params(cfg32, seed=LM_SEED + 2, device=dev)
-    cpu = DenseLM(cfg32, device="cpu")
+    cpu = LM(cfg32, device="cpu")
     cpu.load_state_dict(model.state_dict())
     batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_CPU_S,
                                    global_batch=1)).batch_at(0)
@@ -1315,9 +1364,7 @@ def moe_phase(dev, K, smi):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flashattn import flash_attention_ref, flash_flops
     from repro_torch.models.transformer import init_cache, init_params
-    from repro_torch.timing import cuda_ms
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
     t = time.perf_counter()
@@ -1388,31 +1435,8 @@ def moe_phase(dev, K, smi):
             "prefill": moe_layer_stage_ms(cfg, moe0, dev, gen, T_long),
             "decode": moe_layer_stage_ms(cfg, moe0, dev, gen, MOE_SLOTS), "card": smi}))
         rows = moe_kernel_rows(cfg, moe0, dev, gen, T_long, counts, K)
-        fB, fH, fKH, fhd = 1, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        fq = torch.randn(fB, fH, T_long, fhd, device=dev, generator=gen).to(torch.bfloat16)
-        fk = torch.randn(fB, fKH, T_long, fhd, device=dev, generator=gen).to(torch.bfloat16)
-        fv = torch.randn(fB, fKH, T_long, fhd, device=dev, generator=gen).to(torch.bfloat16)
-        ferr, _, fok = flash_close(K.flash_attention(fq, fk, fv), flash_attention_ref(fq, fk, fv),
-                                   torch.bfloat16)
-        require(fok, f"flash at the MoE prefill shape differs from plain ({ferr})")
-        fflop = flash_flops(fB, fH, T_long, T_long, fhd, causal=True)
-        fbytes = 2 * (2 * fB * fH * T_long * fhd + 2 * fB * fKH * T_long * fhd)
-        rows.append({
-            "name": "flash_attention:moe_prefill", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flashattn.cu",
-            "replaces": "src/repro/kernels/flashattn.py:61", "launches": counts["flash_attention"],
-            "checked_against_plain": True,
-            "max_abs_err": max([ferr] + [e for e, _ in flash_worst.values()]),
-            "shape": {"B": fB, "H": fH, "KH": fKH, "S": T_long, "hd": fhd},
-            "ms": cuda_ms(lambda: K.flash_attention(fq, fk, fv), reps=20),
-            "plain_ms": cuda_ms(lambda: flash_attention_ref(fq, fk, fv), reps=5),
-            "bound_ms": max(fflop / BF16_FLOP_PER_S, fbytes / HBM_BYTES_PER_S) * 1e3,
-            "bound_flop": fflop, "bound_bytes": fbytes,
-            "bound_by": "operations" if fflop / BF16_FLOP_PER_S > fbytes / HBM_BYTES_PER_S
-            else "bytes",
-            "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                fq, fk, fv, is_causal=True, enable_gqa=True), reps=20)})
-        del fq, fk, fv
+        rows.append(flash_row("flash_attention:moe_prefill", cfg, dev, gen, T_long,
+                              counts["flash_attention"], max(e for e, _ in flash_worst.values())))
     del st
     got, want, same_cache = engine_equals_manual_loop(cfg, model, prompts[0], MOE_MAX_LEN,
                                                       MOE_MAX_NEW)
@@ -1440,6 +1464,252 @@ def moe_phase(dev, K, smi):
     del model32
     torch.cuda.empty_cache()
     return counts, shapes, rows
+
+
+# -- the recurrent families (phase 17) -------------------------------------------------
+
+
+def _state_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), on the CPU in float32."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def recurrent_layer_checks(dev, layers, gen):
+    """Phase 17 (b): each recurrent layer at full width in float32 on the
+    card against its copy on the CPU. ``layers``: {name: (apply function,
+    layer on the card, config)}; the layer's per-head scalars and biases
+    are redrawn at random on a copy (the init rule sets them to 0 or 1).
+    On REC_LAYER_S tokens (ragged against the chunk) from the zero state,
+    then one decode step from that state: outputs and states, card against
+    CPU. On the card, the chunked prefill followed by the decode step
+    against REC_LAYER_S + 1 decode steps from the zero state. Every error
+    (``_state_err``) must stay within REC_LAYER_TOL. Returns the errors."""
+    import copy
+
+    import torch
+
+    out = {}
+    for name, (apply, layer, cfg) in layers.items():
+        layer = copy.deepcopy(layer)
+        with torch.no_grad():
+            for leaf in ("A_log", "D", "dt_bias", "b"):
+                if hasattr(layer, leaf):
+                    getattr(layer, leaf).copy_(
+                        0.5 * torch.randn(getattr(layer, leaf).shape, device=dev, generator=gen))
+        cpu = copy.deepcopy(layer).to("cpu")
+        S = REC_LAYER_S
+        x = torch.randn(1, S + 1, cfg.d_model, device=dev, generator=gen)
+        xc = x.cpu()
+        errs = {}
+        with torch.inference_mode():
+            o_d, st_d = apply(layer, x[:, :S], cfg)
+            o_c, st_c = apply(cpu, xc[:, :S], cfg)
+            errs["prefill_out"] = _state_err(o_d, o_c)
+            errs["prefill_state"] = max(_state_err(a, b) for a, b in zip(st_d, st_c))
+            d_d, sd_d = apply(layer, x[:, S:], cfg, state=st_d, decode=True)
+            d_c, sd_c = apply(cpu, xc[:, S:], cfg, state=st_c, decode=True)
+            errs["decode_out"] = _state_err(d_d, d_c)
+            errs["decode_state"] = max(_state_err(a, b) for a, b in zip(sd_d, sd_c))
+            st, steps = None, []
+            for t in range(S + 1):
+                o, st = apply(layer, x[:, t:t + 1], cfg, state=st, decode=True)
+                steps.append(o)
+            steps = torch.cat(steps, 1)
+            errs["token_by_token_out"] = max(_state_err(steps[:, :S], o_d),
+                                             _state_err(steps[:, S:], d_d))
+            errs["token_by_token_state"] = max(_state_err(a, b) for a, b in zip(st, sd_d))
+        out[name] = errs
+        require(max(errs.values()) <= REC_LAYER_TOL,
+                f"phase17 (b) {name}: {errs} above {REC_LAYER_TOL}")
+        del layer, cpu
+    return out
+
+
+def recurrent_phase(dev, K, smi):
+    """Phase 17: the recurrent families. (a) flash at head_dim 80 against
+    its plain version (REC_FLASH_SHAPES, then outputs that nearly cancel);
+    (b) each recurrent layer at full width in float32, card against CPU
+    (``recurrent_layer_checks``); (c) a full-width float32 copy of each
+    model with one cycle, card against CPU (``lm_vs_cpu``); then for each
+    of REC_ARCHS at full width and depth in bfloat16: (e) the serve
+    (``Engine``: REC_REQUESTS requests of REC_PROMPT_LENS tokens,
+    REC_MAX_NEW new each, REC_SLOTS slots, REC_MAX_LEN positions; flash
+    once per cycle per prefill in the hybrid family, never in the ssm
+    family), a profile of one prefill and one decode tick, xLSTM's layers
+    timed apart at the longest prefill, and (d) the engine with one slot
+    against a manual prefill + decode loop. Returns (the serves' launches,
+    by shape, and the kernels line's row 8c)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TM
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(REC_SEED)
+    with torch.inference_mode():
+        flash_worst = {"random": flash_checks(dev, REC_FLASH_SHAPES),
+                       "cancel": flash_checks(dev, REC_FLASH_CANCEL_SHAPES, cancel=True)}
+    say("phase17 (a) flash at head_dim 80, largest |diff| and share:", json.dumps(flash_worst))
+    torch.cuda.empty_cache()
+
+    # (c) one cycle of each model at full width in float32; (b) runs on its layers
+    models32 = {}
+    for arch in REC_ARCHS:
+        base = get_config(arch)
+        layers = base.attn_every if base.family == "hybrid" else 2
+        cfg32 = dataclasses.replace(base, num_layers=layers, param_dtype="float32",
+                                    compute_dtype="float32")
+        models32[arch] = (cfg32, TM.init_params(cfg32, seed=REC_SEED, device=dev))
+    hyb_cfg, hyb = models32["zamba2-2.7b"]
+    ssm_cfg, ssm = models32["xlstm-350m"]
+    layer_errs = recurrent_layer_checks(dev, {
+        "mamba2": (SSM.mamba2_apply, hyb.blocks[0].mamba[0].mamba, hyb_cfg),
+        "mlstm": (SSM.mlstm_apply, ssm.blocks[0].mlstm, ssm_cfg),
+        "slstm": (SSM.slstm_apply, ssm.blocks[0].slstm, ssm_cfg)}, gen)
+    say("phase17 (b) layers at full width, float32, card vs CPU and chunked vs token by token "
+        "(error over max(1, max |want|)):", json.dumps(dict(layer_errs, tokens=REC_LAYER_S,
+                                                            tolerance=REC_LAYER_TOL)))
+    for arch, (cfg32, model32) in models32.items():
+        prompt = lm_prompts(cfg32, 1, LM_CPU_PROMPT, LM_CPU_PROMPT, seed=REC_SEED)[0]
+        share, same_tokens, toks = lm_vs_cpu(cfg32, model32, prompt, 512, LM_CPU_STEPS)
+        say("phase17 (c) card vs CPU", json.dumps({
+            "arch": arch, "layers": cfg32.num_layers, "d_model": cfg32.d_model,
+            "dtype": "float32", "prompt": LM_CPU_PROMPT, "decode_steps": LM_CPU_STEPS,
+            "max_logit_err_share": share, "tolerance": LM_TOL, "tokens": toks,
+            "tokens_equal": same_tokens, "reduced": f"one cycle, {cfg32.num_layers} of "
+            f"{get_config(arch).num_layers} layers (the CPU copy)", "card": smi}))
+        require(share <= LM_TOL and same_tokens,
+                f"phase17 (c) {arch}: the float32 model on the card differs from the CPU "
+                f"(share {share}, tokens equal {same_tokens})")
+    del models32, hyb, ssm
+    torch.cuda.empty_cache()
+    say(f"phase17 checks seconds: {time.perf_counter() - t:.1f}")
+
+    counts_all, shapes_all, rows = {}, {}, []
+    kinds = {"flash kernel": ("flash_fwd",), "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
+             "elementwise": ("elementwise",), "reductions": ("reduce",),
+             "copies and fills": ("Memcpy", "Memset", "fill", "copy")}
+    for arch in REC_ARCHS:
+        ta = time.perf_counter()
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+        model = TM.init_params(cfg, seed=REC_SEED, device=dev)
+        torch.cuda.synchronize()
+        say("phase17 model", json.dumps({
+            "arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+            "cycles": TM._num_cycles(cfg), "attention_layers": TM.attention_layers(cfg),
+            "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+            "parameters": sum(p.numel() for p in model.parameters()),
+            "parameter_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "earlier_phases_bytes": mem0, "seconds_to_draw": time.perf_counter() - ta}))
+        prompts = lm_prompts(cfg, REC_REQUESTS, *REC_PROMPT_LENS, seed=REC_SEED)
+        counts, rec = serve_lm(cfg, model, prompts, REC_SLOTS, REC_MAX_LEN, REC_MAX_NEW)
+        shapes = rec.pop("launch_shapes")
+        for k, c in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + c
+        for k, by in shapes.items():
+            for shp, c in by.items():
+                shapes_all.setdefault(k, {})[shp] = shapes_all.get(k, {}).get(shp, 0) + c
+        prompt_tokens = sum(len(p) for p in prompts)
+        rec.update({"arch": arch, "prefill_tokens_per_s": prompt_tokens / (sum(rec["prefill_ms"]) / 1e3),
+                    "serving_peak_bytes": (rec["max_memory_allocated"] - mem0
+                                           if dev.type == "cuda" else None),
+                    "earlier_phases_bytes": mem0, "launches": counts, "card": smi})
+        say("phase17 serve", json.dumps(rec))  # serve_lm checked flash's launches
+        # one prefill (the longest prompt's; xLSTM's shortest, whose sLSTM loop
+        # is already some 40,000 launches) and one decode tick under the profiler
+        pick = min if cfg.family == "ssm" else max
+        prompt = torch.from_numpy(pick(prompts, key=len)[None]).to(dev)
+        prefill, decode = make_prefill_step(cfg, REC_MAX_LEN), make_decode_step(cfg)
+        st = TM.init_cache(cfg, REC_SLOTS, REC_MAX_LEN, device=dev)._replace(index=rec["final_index"])
+        tok4 = torch.zeros(REC_SLOTS, 1, dtype=torch.int32, device=dev)
+        prof = {"prefill": {"tokens": prompt.shape[1], **device_profile(
+                    lambda: prefill(model, {"tokens": prompt}), dev, kinds)},
+                "decode_tick": {"slots": REC_SLOTS, "index": st.index, **device_profile(
+                    lambda: decode(model, st, tok4), dev, kinds)}}
+        say("phase17 profile", json.dumps(dict(prof, arch=arch, card=smi)))
+        del st
+        longest = max(prompts, key=len)
+        T_long = len(longest)
+        if cfg.family == "ssm":
+            # where an xLSTM prefill goes: one cycle's two layers at the longest prompt
+            x = torch.randn(1, T_long, cfg.d_model, device=dev, generator=gen).to(cfg.cdtype)
+            blk = model.blocks[0]
+            layer_ms = {}
+            with torch.inference_mode():
+                for name, fn in (("mlstm", lambda: SSM.mlstm_apply(blk.mlstm, x, cfg)),
+                                 ("slstm", lambda: SSM.slstm_apply(blk.slstm, x, cfg))):
+                    fn()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    layer_ms[name] = (time.perf_counter() - t0) * 1e3
+            say("phase17 xlstm layers at the longest prefill (host clock, synchronised)",
+                json.dumps({"tokens": T_long, "ms": layer_ms, "cycles": TM._num_cycles(cfg),
+                            "card": smi}))
+            del x
+        else:
+            with torch.inference_mode():
+                rows.append(flash_row(
+                    "flash_attention:hybrid_prefill", cfg, dev, gen, T_long,
+                    counts["flash_attention"],
+                    max(e for w in flash_worst.values() for e, _ in w.values())))
+        got, want, same_cache = engine_equals_manual_loop(cfg, model, prompts[0], REC_MAX_LEN,
+                                                          REC_MAX_NEW)
+        say("phase17 (d) engine vs manual loop:", json.dumps(
+            {"arch": arch, "engine": got, "manual": want, "same_cache": same_cache}))
+        require(got == want and same_cache,
+                f"phase17 {arch}: the engine differs from a manual prefill + decode loop")
+        del model
+        torch.cuda.empty_cache()
+        say(f"phase17 {arch} seconds: {time.perf_counter() - ta:.1f}")
+    return counts_all, shapes_all, rows
+
+
+def flash_row(name, cfg, dev, gen, S, launches, worst):
+    """A ``kernels`` line row for flash at a prefill of ``S`` tokens with
+    ``cfg``'s heads, (1, H, KH, S, hd), bfloat16, causal: random q, k, v
+    from ``gen``, held to the plain version (``flash_close``), then its ms,
+    the plain version's, its bound (q, k, v, o moved once; FLOP at the
+    bf16 rate) and SDPA's at the same inputs, and the kernel's device ms
+    from ``torch.profiler`` (``kernel_profile``): at a few hundredths of a
+    ms the event-timed loop can measure the host's wrapper calls instead.
+    ``launches``: the path's flash launches; ``worst``: the largest error
+    of the path's checks."""
+    import torch
+
+    import repro_torch.kernels as K
+    from repro_torch.kernels.flashattn import flash_attention_ref, flash_flops
+    from repro_torch.timing import cuda_ms
+
+    B, H, KH, hd = 1, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.randn(B, H, S, hd, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, KH, S, hd, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(B, KH, S, hd, device=dev, generator=gen).to(torch.bfloat16)
+    err, _, ok = flash_close(K.flash_attention(q, k, v), flash_attention_ref(q, k, v),
+                             torch.bfloat16)
+    require(ok, f"flash at {name}'s shape {(B, H, KH, S, hd)} differs from plain (max |diff| "
+                f"{err}; see flash_close)")
+    flop = flash_flops(B, H, S, S, hd, causal=True)
+    nbytes = 2 * (2 * B * H * S * hd + 2 * B * KH * S * hd)  # q, o, k, v once each
+    return {
+        "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/flashattn.cu",
+        "replaces": "src/repro/kernels/flashattn.py:61", "launches": launches,
+        "checked_against_plain": True, "max_abs_err": max(worst, err),
+        "shape": {"B": B, "H": H, "KH": KH, "S": S, "hd": hd},
+        "ms": cuda_ms(lambda: K.flash_attention(q, k, v), reps=20),
+        "kernel_device_ms": kernel_profile(lambda: K.flash_attention(q, k, v))["device_ms"],
+        "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v), reps=5),
+        "bound_ms": max(flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_flop": flop, "bound_bytes": nbytes,
+        "bound_by": "operations" if flop / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
+        "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=20)}
 
 
 # -- the traversal path (phase 12) -------------------------------------------------
@@ -2532,7 +2802,7 @@ def main() -> None:
     hmma = {name: body.count("HMMA") for name, body in _lib.kernel_sass("flash_fwd_").items()}
     say("phase1 flash SASS HMMA count:", json.dumps(hmma))
     bf16_hmma = [n for name, n in hmma.items() if "flash_fwd_bf16_kernel" in name]
-    require(len(bf16_hmma) == 4 and min(bf16_hmma) > 0,
+    require(len(bf16_hmma) == 5 and min(bf16_hmma) > 0,
             f"the bf16 flash kernels do not all run on the tensor cores: {hmma}")
 
     # -- phase 2: kernels against their plain versions -------------------------
@@ -3113,7 +3383,7 @@ def main() -> None:
 
     # -- phases 8-10: the LM serving path -----------------------------------------
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flashattn import flash_attention_ref, flash_flops, flash_hbm_bytes
+    from repro_torch.kernels.flashattn import flash_hbm_bytes
     from repro_torch.models.transformer import init_cache, init_params
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -3209,6 +3479,11 @@ def main() -> None:
     t16 = time.perf_counter()
     shard_counts, shard_shapes, shard_rows = sharded_phase(smi)
     say(f"phase16 seconds: {time.perf_counter() - t16:.1f}")
+
+    # -- phase 17: the recurrent families (before phase 11's kernels line) ----------
+    t17 = time.perf_counter()
+    rec_counts, rec_shapes, rec_rows = recurrent_phase(dev, K, smi)
+    say(f"phase17 seconds: {time.perf_counter() - t17:.1f}")
 
     # -- phase 11: the kernels line at the paths' shapes -------------------------
     t11 = time.perf_counter()
@@ -3316,10 +3591,10 @@ def main() -> None:
     ]
     path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
             + trav_counts[k] + serving_counts[k] + train_counts[k] + moe_counts[k]
-            + shard_counts[k] for k in after}
+            + shard_counts[k] + rec_counts[k] for k in after}
     path_shapes = {}
     for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes,
-                 serving_shapes, train_shapes, moe_shapes, shard_shapes):
+                 serving_shapes, train_shapes, moe_shapes, shard_shapes, rec_shapes):
         for k, by in part.items():
             for shp, c in by.items():
                 path_shapes.setdefault(k, {})[shp] = path_shapes.get(k, {}).get(shp, 0) + c
@@ -3379,30 +3654,14 @@ def main() -> None:
                                 "bound_ms", "bound_bytes")}
     # flash: the longest prefill's attention, qwen2-1.5b's heads at S = 4096, bf16, causal
     fB, fH, fKH, fS, fhd = 1, lm_cfg.num_heads, lm_cfg.num_kv_heads, LM_MAX_LEN, lm_cfg.head_dim
-    fq = torch.randn(fB, fH, fS, fhd, device=dev, generator=gen).to(torch.bfloat16)
-    fk = torch.randn(fB, fKH, fS, fhd, device=dev, generator=gen).to(torch.bfloat16)
-    fv = torch.randn(fB, fKH, fS, fhd, device=dev, generator=gen).to(torch.bfloat16)
-    ferr, _, fok = flash_close(K.flash_attention(fq, fk, fv), flash_attention_ref(fq, fk, fv),
-                               torch.bfloat16)
-    require(fok, f"flash at the timing shape differs from plain (max |diff| {ferr}; see flash_close)")
-    fflop = flash_flops(fB, fH, fS, fS, fhd, causal=True)
-    fbytes = 2 * (2 * fB * fH * fS * fhd + 2 * fB * fKH * fS * fhd)  # q, o, k, v once each
-    kernels.append({
-        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flashattn.cu",
-        "replaces": "src/repro/kernels/flashattn.py:61", "launches": path["flash_attention"],
-        "launches_16": shard_counts["flash_attention"],
-        "checked_against_plain": True, "max_abs_err": max(worst["flash_attention"], ferr),
-        "ms": cuda_ms(lambda: K.flash_attention(fq, fk, fv), reps=20),
-        "plain_ms": cuda_ms(lambda: flash_attention_ref(fq, fk, fv), reps=5),
-        "bound_ms": max(fflop / BF16_FLOP_PER_S, fbytes / HBM_BYTES_PER_S) * 1e3,
-        "bound_flop": fflop, "bound_bytes": fbytes,
-        "bound_by": "operations" if fflop / BF16_FLOP_PER_S > fbytes / HBM_BYTES_PER_S else "bytes",
-        "flash_hbm_bytes": flash_hbm_bytes(fB, fH, fKH, fS, fS, fhd),
-        "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            fq, fk, fv, is_causal=True, enable_gqa=True), reps=20),
-    })
+    kernels.append(dict(
+        flash_row("flash_attention", lm_cfg, dev, gen, fS, path["flash_attention"],
+                  worst["flash_attention"]),
+        launches_16=shard_counts["flash_attention"],
+        flash_hbm_bytes=flash_hbm_bytes(fB, fH, fKH, fS, fS, fhd)))
     kernels += moe_rows  # rows 2b, 5c, 7b and 8b: phase 15's shapes and launches
     kernels += shard_rows  # rows 4c and 5d: a rank's local reduce in phase 16, its launches
+    kernels += rec_rows  # row 8c: flash at the longest zamba2 prefill, phase 17's launches
     require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on a path: {path}")
     say(f"phase11 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}; rows F={GNN_D}; "
         f"COBRA pass S3 m={m3} bins={nb3}; embedding T={T_} d={d_} B={B_} L={L}; "

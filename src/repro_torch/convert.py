@@ -125,28 +125,25 @@ def train_state_from_numpy(params, opt, cfg, device=None):
     return TrainState(model, OptState(step, None, v))
 
 
-def lm_params_from_numpy(params, cfg, device=None):
-    """A ``DenseLM`` holding the reference's unboxed ``init_params`` tree:
-    nested dicts of arrays, every ``blocks`` leaf with a leading layer axis.
-    Each of the model's parameters takes the leaf of the same path
-    (``blocks.i.attn.wq`` is ``params["blocks"]["attn"]["wq"][i]``; in the
-    moe family ``blocks.i.moe.w1`` is ``params["blocks"]["moe"]["w1"][i]``,
-    (E, d, f)), with its dtype; every leaf of the tree must be used."""
-    from repro_torch.models.transformer import DenseLM
-
-    model = DenseLM(cfg, device=device)
+def load_from_numpy(module: torch.nn.Module, tree) -> torch.nn.Module:
+    """Copy the reference's unboxed parameter tree (nested dicts of arrays)
+    into ``module``, in place. Each parameter takes the leaf of its path
+    with the numeric parts left out, indexed by those numbers in order: the
+    reference stacks a layer's leaves along leading axes, so
+    ``blocks.i.attn.wq`` is ``tree["blocks"]["attn"]["wq"][i]`` and the
+    hybrid family's ``blocks.i.mamba.j.mamba.in_proj`` is
+    ``tree["blocks"]["mamba"]["mamba"]["in_proj"][i, j]``. Shapes and dtypes
+    must agree, and every leaf of the tree must be used."""
     used = set()
     with torch.no_grad():
-        for name, p in model.named_parameters():
+        for name, p in module.named_parameters():
             parts = name.split(".")
-            if parts[0] == "blocks":
-                layer, path = int(parts[1]), ("blocks",) + tuple(parts[2:])
-            else:
-                layer, path = None, tuple(parts)
-            node = params
+            path = tuple(k for k in parts if not k.isdigit())
+            index = tuple(int(k) for k in parts if k.isdigit())
+            node = tree
             for key in path:
                 node = node[key]
-            t = _torch_from_numpy(node if layer is None else np.asarray(node)[layer])
+            t = _torch_from_numpy(np.asarray(node)[index])
             if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
                 raise ValueError(
                     f"{name}: the tree holds {tuple(t.shape)} {t.dtype}, the model wants "
@@ -162,7 +159,18 @@ def lm_params_from_numpy(params, cfg, device=None):
         else:
             yield path
 
-    unused = sorted(set(leaves(params)) - used)
+    unused = sorted(set(leaves(tree)) - used)
     if unused:
-        raise ValueError(f"leaves of the tree the dense model has no place for: {unused}")
-    return model
+        raise ValueError(f"leaves of the tree the model has no place for: {unused}")
+    return module
+
+
+def lm_params_from_numpy(params, cfg, device=None):
+    """An ``LM`` holding the reference's unboxed ``init_params`` tree, every
+    ``blocks`` leaf with a leading cycle axis (two in the hybrid family's
+    Mamba2 blocks), ``shared_attn`` with none (``load_from_numpy``; in the
+    moe family ``blocks.i.moe.w1`` is ``params["blocks"]["moe"]["w1"][i]``,
+    (E, d, f))."""
+    from repro_torch.models.transformer import LM
+
+    return load_from_numpy(LM(cfg, device=device), params)

@@ -69,7 +69,12 @@
 // 80 KB, so two blocks (eight warps) share an SM. Registers allow the same:
 // ptxas gives the hd-128 instantiation 255 registers and no spills (the
 // swizzled ldmatrix addresses are one per-lane offset XORed with
-// constants, see swizzle()).
+// constants, see swizzle()). hd 80 (zamba2's heads; 80 = 5 x 16, so the
+// k-steps of Q K^T and the dim pairs of P V stay whole) keeps its rows at a
+// pitch of 128 elements (row_pitch): ten data chunks of 16 bytes in a row
+// of sixteen, the same 80 KB a block. An 80-wide row would need 51,200 B,
+// but the XOR of chunks 8 and 9 with the row would then run into the next
+// row, and the row term would carry bits into the chunk field.
 //
 // Masked scores are -1e30 and the running max starts at -1e30, as in the
 // Pallas kernel; key 0 is visible to every query, so the exp of a masked
@@ -259,25 +264,42 @@ constexpr int kKTile = 64;           // keys per stage of the ring
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Elements between the starts of two rows of a tile in shared memory: HD
+// rounded up to a power of two, so 128 at HD 80 (ten 16-byte chunks of data
+// in a row of sixteen). Every row term below is then a multiple of a power
+// of two at least as large as the row's chunk field.
+template <int HD>
+__host__ __device__ constexpr int row_pitch() {
+  int p = 8;
+  while (p < HD) p *= 2;
+  return p;
+}
+
 template <int HD>
 constexpr int smem_bytes() {
-  return (kQTile + 2 * kStages * kKTile) * HD * (int)sizeof(T);
+  return (kQTile + 2 * kStages * kKTile) * row_pitch<HD>() * (int)sizeof(T);
 }
 
 // Element offset of 16-byte chunk ``chunk`` of row ``row`` in a tile of
-// HD-wide rows. The chunk index is XORed with the row's position among the
-// rows that share a 128-byte bank line, so that the eight rows an ldmatrix
-// phase reads at one logical chunk land on eight different bank groups.
-// The XOR term depends on the row's low three bits only, and the row term
-// has no bits in the chunk field, so for rows 16 i + r and chunks 2 j ^ c
-// (c < 2) the offset is 16 i HD + (swizzle(r, c) ^ (2 j << 3)): one
-// per-lane offset, XORed with a constant, serves every fragment.
+// row_pitch<HD>()-wide rows. The chunk index is XORed with the row's
+// position among the rows that share a 128-byte bank line, so that the
+// eight rows an ldmatrix phase reads at one logical chunk land on eight
+// different bank groups. At a pitch of 64 or more the XOR term is row & 7
+// and the pitch holds 8 or 16 chunks: chunk ^ (row & 7) stays inside the
+// row's own pitch (at HD 80 chunks 8 and 9 go to 8..15, past the data but
+// inside the row), and, a row being a whole number of bank lines, its bank
+// group is (chunk & 7) ^ (row & 7): eight rows, eight groups. The XOR term
+// depends on the row's low three bits only, and the row term has no bits
+// in the chunk field, so for rows 16 i + r and chunks 2 j ^ c (c < 2) the
+// offset is 16 i pitch + (swizzle(r, c) ^ (2 j << 3)): one per-lane offset,
+// XORed with a constant, serves every fragment (2 j < HD / 8 <= pitch / 8).
 template <int HD>
 __device__ __forceinline__ int swizzle(int row, int chunk) {
-  constexpr int kChunks = HD / 8;                             // per row
+  constexpr int kPitch = row_pitch<HD>();
+  constexpr int kChunks = kPitch / 8;                           // per row
   constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;  // rows per 128 bytes
   constexpr int kSpread = kChunks >= 8 ? 8 : kChunks;
-  return row * HD + ((chunk ^ ((row / kRowsPerLine) & (kSpread - 1))) << 3);
+  return row * kPitch + ((chunk ^ ((row / kRowsPerLine) & (kSpread - 1))) << 3);
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -366,10 +388,11 @@ flash_fwd_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   constexpr int kK = HD / 16;      // k-steps of Q K^T, and pairs of 8-wide dim tiles of P V
   constexpr int kD = HD / 8;       // 8-wide dim tiles of the accumulator
   constexpr int kN = kKTile / 8;   // 8-key tiles of S
+  constexpr int kPitch = row_pitch<HD>();  // elements a shared-memory row
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + kQTile * HD;
-  T* Vs = Ks + kStages * kKTile * HD;
+  T* Ks = Qs + kQTile * kPitch;
+  T* Vs = Ks + kStages * kKTile * kPitch;
 
   const int h = blockIdx.x % H;
   const int tile = num_q_tiles - 1 - (int)(blockIdx.x / H);  // longest first
@@ -413,7 +436,7 @@ flash_fwd_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   unsigned qf[kK][4];  // this warp's 16 query rows as A-fragments
 #pragma unroll
   for (int kk = 0; kk < kK; ++kk)
-    ldmatrix_x4(qf[kk], smem_u32(Qs + 16 * warp * HD + (q_lane ^ (2 * kk << 3))));
+    ldmatrix_x4(qf[kk], smem_u32(Qs + 16 * warp * kPitch + (q_lane ^ (2 * kk << 3))));
 
   float acc[kD][4];
 #pragma unroll
@@ -424,14 +447,14 @@ flash_fwd_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   for (int j = 0; j < n_tiles; ++j) {
     const int stage = j & 1;
     if (j + 1 < n_tiles) {  // the stage consumed in iteration j - 1
-      load_tile<HD>(Ks + (stage ^ 1) * kKTile * HD, kp, ks.s, (long long)(j + 1) * kKTile, Skv);
-      load_tile<HD>(Vs + (stage ^ 1) * kKTile * HD, vp, vs.s, (long long)(j + 1) * kKTile, Skv);
+      load_tile<HD>(Ks + (stage ^ 1) * kKTile * kPitch, kp, ks.s, (long long)(j + 1) * kKTile, Skv);
+      load_tile<HD>(Vs + (stage ^ 1) * kKTile * kPitch, vp, vs.s, (long long)(j + 1) * kKTile, Skv);
     }
     cp_async_commit();  // possibly empty: keeps one group per iteration
     cp_async_wait<1>();  // tile j is in
     __syncthreads();
-    const unsigned Kt = smem_u32(Ks + stage * kKTile * HD);
-    const unsigned Vt = smem_u32(Vs + stage * kKTile * HD);
+    const unsigned Kt = smem_u32(Ks + stage * kKTile * kPitch);
+    const unsigned Vt = smem_u32(Vs + stage * kKTile * kPitch);
 
     // S = Q K^T for this warp's 16 rows and the tile's 64 keys
     float s[kN][4];
@@ -442,7 +465,7 @@ flash_fwd_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
       for (int np = 0; np < kN / 2; ++np) {
         unsigned kb[4];
-        ldmatrix_x4(kb, Kt + 2 * (16 * np * HD + (k_lane ^ (2 * kk << 3))));
+        ldmatrix_x4(kb, Kt + 2 * (16 * np * kPitch + (k_lane ^ (2 * kk << 3))));
         mma(s[2 * np], qf[kk], kb[0], kb[1]);
         mma(s[2 * np + 1], qf[kk], kb[2], kb[3]);
       }
@@ -500,7 +523,7 @@ flash_fwd_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
       for (int dp = 0; dp < kK; ++dp) {
         unsigned vb[4];
-        ldmatrix_x4_trans(vb, Vt + 2 * (16 * kk * HD + (v_lane ^ (2 * dp << 3))));
+        ldmatrix_x4_trans(vb, Vt + 2 * (16 * kk * kPitch + (v_lane ^ (2 * dp << 3))));
         mma(acc[2 * dp], ph, vb[0], vb[1]);
         mma(acc[2 * dp + 1], ph, vb[2], vb[3]);
         mma(acc[2 * dp], pl, vb[0], vb[1]);
@@ -573,7 +596,7 @@ int launch_hd(int dtype, const void* q, const void* k, const void* v, void* o, i
 
 // q (B, H, Sq, hd), k and v (B, KH, Skv, hd), o like q, each given by its
 // (batch, head, position) strides in elements with hd contiguous.
-// dtype: 0 float32, 1 bfloat16 (all four tensors). hd in {16, 32, 64, 128}.
+// dtype: 0 float32, 1 bfloat16 (all four tensors). hd in {16, 32, 64, 80, 128}.
 // k and v: 16-byte aligned base pointers and strides.
 extern "C" int pb_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   int B, int H, int KH, long long Sq, long long Skv,
@@ -593,6 +616,7 @@ extern "C" int pb_flash_attention(const void* q, const void* k, const void* v, v
     case 16: return launch_hd<16>(dtype, q, k, v, o, B, H, G, Sq, Skv, c, scale, qs, ks, vs, os, s);
     case 32: return launch_hd<32>(dtype, q, k, v, o, B, H, G, Sq, Skv, c, scale, qs, ks, vs, os, s);
     case 64: return launch_hd<64>(dtype, q, k, v, o, B, H, G, Sq, Skv, c, scale, qs, ks, vs, os, s);
+    case 80: return launch_hd<80>(dtype, q, k, v, o, B, H, G, Sq, Skv, c, scale, qs, ks, vs, os, s);
     case 128: return launch_hd<128>(dtype, q, k, v, o, B, H, G, Sq, Skv, c, scale, qs, ks, vs, os, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -6,9 +6,9 @@ shared by groups of ``H // KH`` query heads, with an optional causal mask
 on absolute positions counted from 0 for both q and k. Scores, softmax and
 the accumulator are float32; the output has q's shape and dtype.
 
-On CUDA tensors it runs ``csrc/flashattn.cu`` (head dims 16, 32, 64 and
-128; anything else raises); on CPU tensors its plain version
-``flash_attention_ref``. bfloat16 takes the tensor-core kernel
+On CUDA tensors it runs ``csrc/flashattn.cu`` (head dims 16, 32, 64, 80
+and 128; anything else raises, and never reaches the plain version); on
+CPU tensors its plain version ``flash_attention_ref``. bfloat16 takes the tensor-core kernel
 (``mma.sync`` m16n8k16 with f32 accumulators; tiles of 64 queries, four
 warps of 16 rows, and a two-stage ``cp.async`` ring of 64-key K/V tiles);
 float32 takes a CUDA-core kernel in f32 (64 queries, 64-key tiles), since
@@ -48,7 +48,7 @@ import torch
 
 from repro_torch.kernels import _lib
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MASKED = -1e30  # the score of a masked key, as in the Pallas kernel
 _GRID_MAX = 65535  # CUDA's limit on a grid's y (heads) and z (batch) extents

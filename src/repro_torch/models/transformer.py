@@ -1,32 +1,46 @@
-"""Decoder-only LM (port of the dense and moe families of
-``repro/models/transformer.py``): parameters, the KV cache, the backbone
-and the logits.
+"""Decoder-only LM (port of the dense, moe, ssm and hybrid families of
+``repro/models/transformer.py``): parameters, the caches, the backbone and
+the logits.
 
-``DenseLM`` holds the parameters as modules named after the reference's
-keys: ``embed.table``, ``final_ln.w`` and, per layer ``i``,
-``blocks.i.ln1.w``, ``blocks.i.attn.wq`` / ``bq`` / ..., ``blocks.i.ln2.w``,
-``blocks.i.mlp.w1`` / ``w3`` / ``w2`` (the reference stacks each of these
-along a leading layer axis and scans it; the port loops over an
-``nn.ModuleList``). In the moe family a block carries
-``blocks.i.moe.wr`` / ``w1`` / ``w3`` / ``w2`` in place of ``mlp``
-(``layers.moe_apply``; serving only). The other families (vlm, ssm,
-hybrid, encdec) raise ``NotImplementedError``: they wait for ROADMAP
-Queue 1 item 2.
+``LM`` holds the parameters as modules named after the reference's keys:
+``embed.table``, ``final_ln.w`` and, per cycle ``i`` (the reference stacks
+each leaf along a leading cycle axis and scans it; the port loops over an
+``nn.ModuleList``):
 
-The cache is one pair of tensors ``(L, B, S_max, KH, hd)``, layer i's
-``(B, S_max, KH, hd)`` view being the reference's per-layer cache, and
-``StepState.index`` is a Python int, so that a decode step never waits
-for the card to learn its position. Attention writes the cache in place.
+- dense: ``blocks.i.ln1.w``, ``blocks.i.attn.wq`` / ``bq`` / ...,
+  ``blocks.i.ln2.w``, ``blocks.i.mlp.w1`` / ``w3`` / ``w2``; in the moe
+  family ``blocks.i.moe.wr`` / ``w1`` / ``w3`` / ``w2`` in place of ``mlp``
+  (``layers.moe_apply``; serving only);
+- ssm (xLSTM): ``blocks.i.ln_m``, ``blocks.i.mlstm``, ``blocks.i.ln_s``,
+  ``blocks.i.slstm`` (``models/ssm.py``), a cycle being two layers;
+- hybrid (Zamba2): ``blocks.i.mamba.j.ln`` and ``blocks.i.mamba.j.mamba``
+  for ``j < attn_every`` (the reference stacks these twice, (cycles,
+  attn_every, ...)), ``blocks.i.attn_ln``, and one ``shared_attn.attn`` /
+  ``ln2`` / ``mlp`` that every cycle applies after its Mamba2 blocks.
+
+The vlm and encdec families raise ``NotImplementedError``: they wait for
+ROADMAP Queue 1 item 2, as does training of the ssm and hybrid families
+(``train/steps.py::make_train_step``).
+
+``StepState.caches`` holds the reference's cache tree with the same
+leading axes: dense and moe one pair of tensors ``(L, B, S_max, KH, hd)``;
+ssm ``{"mlstm": (S, n), "slstm": (c, n, h)}`` with a leading cycle axis;
+hybrid ``{"mamba": (ssm, conv), "kv": (k, v)}``, the Mamba2 states with
+leading (cycles, attn_every) axes. Recurrent states are float32 and KV
+caches the compute dtype. ``StepState.index`` is a Python int, so that a
+decode step never waits for the card to learn its position. Attention
+writes its cache in place, and every layer copies its new recurrent state
+into its slice of the cache.
 
 Training: ``hidden_forward`` under autograd with ``cfg.remat`` recomputes
-each layer in the backward (``torch.utils.checkpoint``, the reference's
+each cycle in the backward (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` scan body), and ``chunked_lm_loss`` recomputes each
 sequence chunk's logits, so neither the layers' activations nor the
 (B, S, V) logits are held whole.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,27 +49,47 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import winit_
 
 
 class StepState(NamedTuple):
-    """Decode-time state: the stacked (k, v) cache and the next write
-    position."""
+    """Decode-time state: the cache tree (see the module docstring) and
+    the next write position."""
 
-    caches: Tuple[torch.Tensor, torch.Tensor]  # each (L, B, S_max, KH, hd)
+    caches: Any  # a tuple or dict of tuples of stacked tensors
     index: int
 
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+RECURRENT_FAMILIES = ("ssm", "hybrid")  # served, not trained (Queue 1 item 2)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
+def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port runs "
-            "the dense and moe families (ROADMAP Queue 1 item 2)"
+            f"the {', '.join(PORTED_FAMILIES)} families (ROADMAP Queue 1 item 2)"
         )
+
+
+def _num_cycles(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid":
+        if cfg.num_layers % cfg.attn_every:
+            raise ValueError(f"{cfg.num_layers} layers do not split into cycles of {cfg.attn_every}")
+        return cfg.num_layers // cfg.attn_every
+    if cfg.family == "ssm":
+        if cfg.num_layers % 2:
+            raise ValueError(f"xLSTM cycles are (mLSTM, sLSTM) pairs, got {cfg.num_layers} layers")
+        return cfg.num_layers // 2
+    return cfg.num_layers
+
+
+def attention_layers(cfg: ModelConfig) -> int:
+    """Self-attention applications in one forward pass: every layer (dense,
+    moe), none (ssm), the shared block once per cycle (hybrid)."""
+    return {"ssm": 0, "hybrid": _num_cycles(cfg)}.get(cfg.family, cfg.num_layers)
 
 
 class DenseBlock(nn.Module):
@@ -70,39 +104,88 @@ class DenseBlock(nn.Module):
             self.mlp = L.MLP(cfg, device)
 
 
-class DenseLM(nn.Module):
-    """Parameters of a dense LM, allocated on ``device`` (default: the CUDA
-    card) and not yet set: ``init_params`` draws them,
+class SSMCycle(nn.Module):
+    """An xLSTM cycle: mLSTM then sLSTM, each behind its own norm."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.ln_m = L.Norm(cfg, device)
+        self.mlstm = SSM.MLSTM(cfg, device)
+        self.ln_s = L.Norm(cfg, device)
+        self.slstm = SSM.SLSTM(cfg, device)
+
+
+class MambaBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.ln = L.Norm(cfg, device)
+        self.mamba = SSM.Mamba2(cfg, device)
+
+
+class HybridCycle(nn.Module):
+    """A Zamba2 cycle: ``attn_every`` Mamba2 blocks, then the shared
+    attention block behind this cycle's own (unshared) norm."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.mamba = nn.ModuleList(MambaBlock(cfg, device) for _ in range(cfg.attn_every))
+        self.attn_ln = L.Norm(cfg, device)
+
+
+class SharedAttn(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.attn = L.Attention(cfg, device)
+        self.ln2 = L.Norm(cfg, device)
+        self.mlp = L.MLP(cfg, device)
+
+
+_CYCLES = {"dense": DenseBlock, "moe": DenseBlock, "ssm": SSMCycle, "hybrid": HybridCycle}
+
+
+class LM(nn.Module):
+    """Parameters of an LM of a ported family, allocated on ``device``
+    (default: the CUDA card) and not yet set: ``init_params`` draws them,
     ``repro_torch.convert.lm_params_from_numpy`` copies the reference's."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _require_dense(cfg)
+        _require_ported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = L.Embedding(cfg, dev)
         self.final_ln = L.Norm(cfg, dev)
-        self.blocks = nn.ModuleList(DenseBlock(cfg, dev) for _ in range(cfg.num_layers))
+        cycle = _CYCLES[cfg.family]
+        self.blocks = nn.ModuleList(cycle(cfg, dev) for _ in range(_num_cycles(cfg)))
+        self.shared_attn = SharedAttn(cfg, dev) if cfg.family == "hybrid" else None
+
+
+_INIT_ONES = ("w", "D", "norm_w")  # norm weights and Mamba2's skip D
+_INIT_ZEROS = ("A_log", "dt_bias")  # and every leaf whose name starts with "b": biases
 
 
 @torch.no_grad()
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> DenseLM:
-    """A ``DenseLM`` with the reference's init rule (``layers.py`` init_*):
-    truncated-normal projections scaled by fan-in, the leading axis (so
-    an expert's ``w1`` / ``w3`` (E, d, f) by E^-0.5, as in the reference;
-    ``wo`` by (H hd)^-0.5, ``w2`` by d_ff^-0.5, the embedding by 1.0),
-    norm weights one, biases zero; drawn from a generator seeded with
-    ``seed`` on the device."""
-    model = DenseLM(cfg, device)
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
+    """An ``LM`` with the reference's init rule, leaf by leaf (``layers.py``
+    and ``ssm.py`` init_*): truncated-normal projections scaled by fan-in,
+    the leading axis (so an expert's ``w1`` / ``w3`` (E, d, f) by E^-0.5,
+    and a Mamba2 ``conv_w`` (K, d_inner) by K^-0.5, as in the reference;
+    ``wo`` by (H hd)^-0.5, ``w2`` by d_ff^-0.5, the sLSTM's ``r`` by
+    hd^-0.5, the embedding by 1.0), norm weights and Mamba2's ``D`` one,
+    biases, ``A_log`` and ``dt_bias`` zero; drawn from a generator seeded
+    with ``seed`` on the device."""
+    model = LM(cfg, device)
     dev = model.embed.table.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     H, hd, f = cfg.num_heads, cfg.head_dim, cfg.d_ff
-    scale = {"wo": (H * hd) ** -0.5, "w2": f**-0.5, "table": 1.0}
+    scale = {"wo": (H * hd) ** -0.5, "table": 1.0, "r": hd**-0.5}
+    if f:  # xLSTM has no MLP (d_ff 0)
+        scale["w2"] = f**-0.5
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "w":  # a norm's weight
+        if leaf in _INIT_ONES:
             p.fill_(1.0)
-        elif leaf.startswith("b"):
+        elif leaf in _INIT_ZEROS or leaf.startswith("b"):
             p.zero_()
         else:
             winit_(p, gen, scale.get(leaf))
@@ -110,13 +193,56 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> DenseLM:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> StepState:
-    """A zero cache of ``batch`` sequences of ``max_len`` positions in the
-    compute dtype, index 0."""
-    _require_dense(cfg)
+    """A zero cache of ``batch`` sequences of ``max_len`` positions, index
+    0: the KV caches in the compute dtype, the recurrent states in float32
+    (the reference's ``init_cache``)."""
+    _require_ported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    k = torch.zeros(shape, dtype=cfg.cdtype, device=dev)
-    return StepState(caches=(k, torch.zeros_like(k)), index=0)
+    nc = _num_cycles(cfg)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def kv(lead):
+        k = zeros(*lead, batch, max_len, cfg.num_kv_heads, cfg.head_dim, dtype=cfg.cdtype)
+        return (k, torch.zeros_like(k))
+
+    if cfg.family == "ssm":
+        H, hd = cfg.num_heads, cfg.head_dim
+        caches = {"mlstm": (zeros(nc, batch, H, hd, hd), zeros(nc, batch, H, hd)),
+                  "slstm": tuple(zeros(nc, batch, H, hd) for _ in range(3))}
+    elif cfg.family == "hybrid":
+        d_inner, H, P, N = SSM.mamba2_dims(cfg)
+        ae = cfg.attn_every
+        caches = {"mamba": (zeros(nc, ae, batch, H, N, P),
+                            zeros(nc, ae, batch, cfg.ssm_conv - 1, d_inner)),
+                  "kv": kv((nc,))}
+    else:
+        caches = kv((nc,))
+    return StepState(caches=caches, index=0)
+
+
+def map_cache(fn, caches):
+    """``caches`` with ``fn`` applied to each tensor, in the same tuple and
+    dict structure."""
+    if isinstance(caches, dict):
+        return {k: map_cache(fn, v) for k, v in caches.items()}
+    if isinstance(caches, (tuple, list)):
+        return tuple(map_cache(fn, v) for v in caches)
+    return fn(caches)
+
+
+def cache_leaves(caches) -> list:
+    """The tensors of a cache tree, in its order."""
+    out = []
+    map_cache(out.append, caches)
+    return out
+
+
+def _store(dst, src) -> None:
+    """Copy a new recurrent state tuple into its slice of the cache."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
 
 
 def _apply_dense_layer(pl: DenseBlock, x, cfg, positions, cache, cache_index):
@@ -131,8 +257,52 @@ def _apply_dense_layer(pl: DenseBlock, x, cfg, positions, cache, cache_index):
     return x + L.mlp_apply(pl.mlp, h, cfg)
 
 
+def _apply_ssm_cycle(pc: SSMCycle, x, cfg, cache, decode):
+    h = L.apply_norm(pc.ln_m, x, cfg)
+    st = cache["mlstm"] if cache is not None else None
+    out, new_m = SSM.mlstm_apply(pc.mlstm, h, cfg, state=st, decode=decode)
+    x = x + out
+    h = L.apply_norm(pc.ln_s, x, cfg)
+    st = cache["slstm"] if cache is not None else None
+    out, new_s = SSM.slstm_apply(pc.slstm, h, cfg, state=st, decode=decode)
+    if cache is not None:
+        _store(cache["mlstm"], new_m)
+        _store(cache["slstm"], new_s)
+    return x + out
+
+
+def _apply_hybrid_cycle(pc: HybridCycle, shared: SharedAttn, x, cfg, positions, cache, index,
+                        decode):
+    for j, blk in enumerate(pc.mamba):
+        st = None if cache is None else tuple(a[j] for a in cache["mamba"])
+        h = L.apply_norm(blk.ln, x, cfg)
+        out, new_st = SSM.mamba2_apply(blk.mamba, h, cfg, state=st, decode=decode)
+        x = x + out
+        if cache is not None:
+            _store(st, new_st)
+    # the shared attention block (weights shared; the cycle's own norm)
+    h = L.apply_norm(pc.attn_ln, x, cfg)
+    kv = cache["kv"] if cache is not None else None
+    attn_out, _ = L.attention_apply(
+        shared.attn, h, cfg, positions=positions, cache=kv, cache_index=index, causal=True
+    )
+    x = x + attn_out
+    h = L.apply_norm(shared.ln2, x, cfg)
+    return x + L.mlp_apply(shared.mlp, h, cfg)
+
+
+def _apply_cycle(pc, shared, x, cfg, positions, cache, index, decode):
+    """One cycle of ``cfg.family``; ``cache`` is this cycle's slice of the
+    cache tree (or None), updated in place."""
+    if cfg.family == "ssm":
+        return _apply_ssm_cycle(pc, x, cfg, cache, decode)
+    if cfg.family == "hybrid":
+        return _apply_hybrid_cycle(pc, shared, x, cfg, positions, cache, index, decode)
+    return _apply_dense_layer(pc, x, cfg, positions, cache, index)
+
+
 def hidden_forward(
-    params: DenseLM,
+    params: LM,
     tokens: torch.Tensor,
     cfg: ModelConfig,
     *,
@@ -141,11 +311,12 @@ def hidden_forward(
     positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[StepState]]:
     """Backbone only: (final-norm hidden (B, S, d), new state). With a
-    state, each layer writes its cache in place and the new state's index
-    is the old one plus S. Under autograd, without a state and with
-    ``cfg.remat``, each layer keeps only its input and is recomputed in the
+    state, each cycle writes its caches in place and the new state's index
+    is the old one plus S. ``decode`` takes the recurrent layers' one-token
+    step (S must be 1 there). Under autograd, without a state and with
+    ``cfg.remat``, each cycle keeps only its input and is recomputed in the
     backward."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     B, S = tokens.shape
     if positions is None:
         base = state.index if (state is not None and decode) else 0
@@ -153,24 +324,25 @@ def hidden_forward(
     x = L.embed_apply(params.embed, tokens, cfg, positions=positions)
     index = state.index if state is not None else None
     remat = cfg.remat and state is None and torch.is_grad_enabled()
+    shared = params.shared_attn
     for i, blk in enumerate(params.blocks):
         if remat:
-            x = checkpoint(_apply_dense_layer, blk, x, cfg, positions, None, None,
+            x = checkpoint(_apply_cycle, blk, shared, x, cfg, positions, None, None, decode,
                            use_reentrant=False)
         else:
-            cache = None if state is None else (state.caches[0][i], state.caches[1][i])
-            x = _apply_dense_layer(blk, x, cfg, positions, cache, index)
+            cache = None if state is None else map_cache(lambda a: a[i], state.caches)
+            x = _apply_cycle(blk, shared, x, cfg, positions, cache, index, decode)
     new_state = None if state is None else StepState(state.caches, state.index + S)
     return L.apply_norm(params.final_ln, x, cfg), new_state
 
 
-def forward(params: DenseLM, tokens, cfg: ModelConfig, **kw):
+def forward(params: LM, tokens, cfg: ModelConfig, **kw):
     """Full logits (B, S, V_pad) and the new state."""
     hidden, new_state = hidden_forward(params, tokens, cfg, **kw)
     return L.logits_apply(params.embed, hidden, cfg), new_state
 
 
-def last_logits(params: DenseLM, hidden, cfg: ModelConfig):
+def last_logits(params: LM, hidden, cfg: ModelConfig):
     """Logits of the final position only (prefill)."""
     return L.logits_apply(params.embed, hidden[:, -1:], cfg)[:, 0]
 
@@ -193,7 +365,7 @@ def _chunk_nll_sum(embed: L.Embedding, h, labels, cfg: ModelConfig) -> torch.Ten
 
 
 def chunked_lm_loss(
-    params: DenseLM, hidden: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+    params: LM, hidden: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
     chunk: int = 512,
 ) -> torch.Tensor:
     """Mean next-token cross entropy without materialising (B, S, V): a

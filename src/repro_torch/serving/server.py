@@ -14,6 +14,9 @@ Like the reference, every slot decodes at one shared position,
 a slot whose prompt is shorter than another active slot's gets that
 position for its RoPE and its cache write. The port keeps this so that it
 gives the reference's tokens; the fault is recorded in ROADMAP Queue 3.
+So is the splice of the hybrid family's Mamba2 states, which the reference
+writes into batch row 0 whatever the slot (``_splice_slot``), and so does
+the port.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ class Engine:
     def __init__(
         self,
         cfg: ModelConfig,
-        params: T.DenseLM,
+        params: T.LM,
         slots: int = 4,
         max_len: int = 256,
         clock: Optional[Clock] = None,
@@ -124,11 +127,27 @@ class Engine:
 
 def _splice_slot(state: T.StepState, single: T.StepState, slot: int) -> T.StepState:
     """Copy a one-sequence prefill state into batch position ``slot`` of
-    ``state``, in place, and keep the larger index. The cache tensors carry
-    the batch at axis 1 (axis 0 is the layer); the whole ``S_max`` row is
-    copied, so nothing of the slot's previous request survives."""
-    for dst, src in zip(state.caches, single.caches):
-        dst[:, slot] = src[:, 0]
+    ``state``, in place, leaf by leaf as the reference does: each cache
+    leaf's batch is taken to be its axis 1 (``_update_axis1``). That holds
+    for the KV caches and the ssm family's states, whose axis 0 is the
+    cycle, so the whole ``S_max`` row or state goes to the slot and nothing
+    of the slot's previous request survives. The hybrid family's Mamba2
+    states are stacked twice, (cycles, attn_every, B, ...): there axis 1 is
+    the block, and the reference (``src/repro/serving/server.py:119-133``)
+    writes every admitted request's Mamba2 states into batch row 0 of every
+    block. The port keeps that fault, so that it gives the reference's
+    tokens (ROADMAP Queue 3)."""
+    for dst, src in zip(T.cache_leaves(state.caches), T.cache_leaves(single.caches)):
+        _update_axis1(dst, src, slot)
     # decode positions are per-slot in intent; the reference keeps the
     # max index and decodes every slot there (ROADMAP Queue 3)
     return T.StepState(caches=state.caches, index=max(state.index, single.index))
+
+
+def _update_axis1(dst: torch.Tensor, src: torch.Tensor, start: int) -> None:
+    """``jax.lax.dynamic_update_slice_in_dim(dst, src, start, axis=1)`` in
+    place: ``src`` goes to ``dst`` at ``start`` on axis 1 and 0 on every
+    other axis, the start clamped so that ``src`` fits, as XLA clamps it."""
+    start = min(max(start, 0), dst.shape[1] - src.shape[1])
+    at = (slice(None), slice(start, start + src.shape[1])) + tuple(slice(0, n) for n in src.shape[2:])
+    dst[at] = src

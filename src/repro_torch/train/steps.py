@@ -1,7 +1,8 @@
 """Step builders (port of ``repro/train/steps.py:18-170``): the train step
 with its optimizer state, batches, and the prefill and decode steps.
 
-The train step runs under autograd: the dense model's forward
+The train step runs under autograd (the dense and moe families; the ssm
+and hybrid families serve only): the model's forward
 (``hidden_forward``, each layer recomputed in the backward under
 ``cfg.remat``), the chunked loss, one ``torch.autograd.grad`` for every
 parameter, then ``apply_updates``. Its two kernels: attention's forward
@@ -22,7 +23,7 @@ from repro_torch.train.optimizer import OptConfig, OptState, apply_updates, init
 
 
 class TrainState(NamedTuple):
-    params: T.DenseLM
+    params: T.LM
     opt: OptState
 
 
@@ -39,7 +40,7 @@ def make_batch(cfg: ModelConfig, shape: ShapeSpec, generator: torch.Generator) -
     tokens; decode: one token a sequence), drawn from ``generator`` on its
     device. The draws are torch's, not ``jax.random``'s: tests that hold
     the port to the reference feed both the same numpy batch."""
-    T._require_dense(cfg)
+    T._require_ported(cfg)
     B, S = shape.global_batch, shape.seq_len
     names = ("tokens", "labels") if shape.kind == "train" else ("tokens",)
     size = (B, 1) if shape.kind == "decode" else (B, S)
@@ -66,7 +67,13 @@ def make_train_step(cfg: ModelConfig, oc: Optional[OptConfig] = None, accum_step
     (``apply_updates``) and returns the state with the new step.
     ``accum_steps > 1`` splits the batch into that many microbatches of
     consecutive rows, run one after another: losses and float32 gradients
-    are summed, then divided by ``accum_steps``."""
+    are summed, then divided by ``accum_steps``. The ssm and hybrid
+    families serve but do not train yet: they raise."""
+    if cfg.family in T.RECURRENT_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: training of the {cfg.family!r} family is not ported yet; it serves "
+            "only (ROADMAP Queue 1 item 2)"
+        )
     oc = oc or default_opt_config(cfg)
     loss_fn = make_loss_fn(cfg)
 

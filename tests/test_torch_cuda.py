@@ -647,6 +647,26 @@ def test_cuda_flash_bf16_where_outputs_cancel(cuda, B, H, KH, Sq, Skv, hd, causa
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Skv", [
+    (1, 32, 32, 1024, 1024), (1, 32, 32, 1000, 1000), (1, 8, 2, 333, 333), (2, 4, 4, 65, 130),
+    (1, 4, 1, 129, 63),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_at_head_dim_80(cuda, B, H, KH, Sq, Skv, causal, dtype):
+    """zamba2's heads (32 of 80, a KV head each) and ragged, grouped and
+    Sq != Skv cases at head_dim 80: rows padded to a pitch of 128 in
+    shared memory (csrc/flashattn.cu, row_pitch)."""
+    _flash_vs_plain(cuda, B, H, KH, Sq, Skv, 80, causal, dtype, seed=Sq + Skv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_bf16_at_head_dim_80_where_outputs_cancel(cuda, causal):
+    _flash_vs_plain(cuda, 1, 32, 32, 1024, 1024, 80, causal, torch.bfloat16, seed=80, cancel=True)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_bf16_reads_unaligned_q(cuda):
     """q one element off a 16-byte boundary takes the element loads of the
     Q tile; the result equals the aligned call's."""
@@ -669,7 +689,7 @@ def test_cuda_flash_kernels_route_by_dtype(cuda):
     sass = _lib.kernel_sass("flash_fwd_")
     bf16 = {n: body for n, body in sass.items() if "flash_fwd_bf16_kernel" in n}
     f32 = {n: body for n, body in sass.items() if "flash_fwd_f32_kernel" in n}
-    assert len(bf16) == 4 and len(f32) == 4
+    assert len(bf16) == 5 and len(f32) == 5  # head dims 16, 32, 64, 80, 128
     assert all("HMMA" in body for body in bf16.values())
     assert not any("HMMA" in body for body in f32.values())
 

@@ -62,6 +62,40 @@ def test_plain_flash_matches_pallas_interpret(B, H, KH, S, hd, causal, dtype):
     )
 
 
+@pytest.mark.parametrize("B,H,KH,S", [(1, 4, 4, 128), (2, 8, 2, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_flash_at_head_dim_80_matches_pallas_interpret(B, H, KH, S, causal, dtype):
+    """zamba2's head_dim (80), with one KV head a query head as in zamba2
+    and with groups of four (GQA), at the reference test's tolerances."""
+    q, k, v = _inputs((B, H, S, 80), (B, KH, S, 80), seed=80 + H)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, q_block=64, kv_block=64)
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), atol=ATOL[dtype], rtol=0
+    )
+
+
+@pytest.mark.parametrize("S", [33, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_model_attention_at_head_dim_80_matches_reference(S, causal):
+    """The hybrid family's attention route (zamba2's head_dim 80, a KV head
+    a query head) against the reference's online-softmax loop and its
+    direct attention, float32 atol 1e-4."""
+    B, H, KH, hd = 2, 8, 8, 80
+    q, k, v = _inputs((B, S, H, hd), (B, S, KH, hd), seed=S + hd)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    got = L.blockwise_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal
+    ).numpy()
+    blockwise = RL.blockwise_attention(jq, jk, jv, causal=causal, q_block=32, kv_block=32)
+    direct = RL._direct_attention(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(got, np.asarray(blockwise), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(direct), atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("S", [33, 100])
 @pytest.mark.parametrize("causal", [True, False])
 def test_model_attention_matches_reference_on_ragged_lengths(S, causal):
@@ -192,6 +226,7 @@ def _bf16_qkv(B, H, KH, Sq, Skv, hd, seed, cancel=False):
 @pytest.mark.parametrize("B,H,KH,S,hd", [
     (1, 2, 2, 128, 16), (1, 2, 2, 512, 128), (1, 2, 2, 2048, 128),  # the design's shapes
     (1, 12, 2, 200, 32), (2, 12, 2, 130, 64), (1, 12, 2, 300, 128),  # qwen-like grouping
+    (1, 32, 32, 130, 80), (1, 8, 2, 300, 80),  # zamba2's heads, and head_dim 80 under GQA
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_split_p_arithmetic_holds_the_bf16_check(B, H, KH, S, hd, causal):
@@ -218,3 +253,87 @@ def test_split_p_is_needed_where_outputs_cancel(S, hd):
     want = flash_attention_ref(q, k, v, causal=True)
     assert _bf16_misses(_emulate_bf16_kernel(q, k, v, True), want) == 0
     assert _bf16_misses(_emulate_bf16_kernel(q, k, v, True, split_p=False), want) > 0
+
+
+# -- the bfloat16 kernel's shared-memory layout, emulated -------------------------
+# csrc/flashattn.cu keeps the Q tile and the K/V ring as rows of
+# row_pitch<HD>() elements (HD rounded up to a power of two: 128 at HD 80)
+# whose 16-byte chunks are XOR-swizzled by the row (swizzle<HD>). These
+# are the two functions in Python, and the properties the kernel relies on.
+
+TILE_ROWS = 64  # kQTile = kKTile
+SMEM_PER_BLOCK = 232_448  # the H100's opt-in limit
+
+
+def _row_pitch(hd):
+    p = 8
+    while p < hd:
+        p *= 2
+    return p
+
+
+def _swizzle(hd, row, chunk, pitch=None):
+    """Element offset of 16-byte chunk ``chunk`` of ``row`` (swizzle<HD>);
+    ``pitch`` overrides the row pitch (to show what an unpadded row does)."""
+    pitch = pitch or _row_pitch(hd)
+    chunks = pitch // 8
+    per_line = 1 if chunks >= 8 else 8 // chunks
+    spread = 8 if chunks >= 8 else chunks
+    return row * pitch + ((chunk ^ ((row // per_line) & (spread - 1))) << 3)
+
+
+def _layout(hd, pitch=None):
+    """(TILE_ROWS, hd / 8) offsets of every (row, chunk) of a tile."""
+    rows = np.arange(TILE_ROWS)[:, None]
+    chunks = np.arange(hd // 8)[None, :]
+    return np.vectorize(lambda r, c: _swizzle(hd, r, c, pitch))(rows, chunks)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+def test_smem_layout_keeps_every_chunk_in_its_own_row(hd):
+    """Every (row, chunk) of a tile maps to a distinct 16-byte-aligned
+    offset inside its own row's pitch, and the block's tiles (Q and two
+    stages of K and V) fit the card's shared memory: 80 KB at hd 80."""
+    pitch = _row_pitch(hd)
+    off = _layout(hd)
+    assert len(np.unique(off)) == off.size
+    assert (off % 8 == 0).all()
+    row_start = np.arange(TILE_ROWS)[:, None] * pitch
+    assert ((off >= row_start) & (off + 8 <= row_start + pitch)).all()
+    smem = (TILE_ROWS + 2 * 2 * TILE_ROWS) * pitch * 2
+    assert smem <= SMEM_PER_BLOCK and (hd != 80 or smem == 81_920)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+def test_smem_layout_gives_ldmatrix_eight_bank_groups(hd):
+    """An ldmatrix phase reads one logical chunk of eight consecutive rows:
+    their 16-byte bank groups (byte offset / 16 mod 8) are all different."""
+    groups = (_layout(hd) * 2 // 16) % 8
+    for r0 in range(0, TILE_ROWS, 8):
+        for c in range(hd // 8):
+            assert len(set(groups[r0:r0 + 8, c])) == 8, (r0, c)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+def test_smem_layout_serves_every_fragment_from_one_lane_offset(hd):
+    """The kernel computes one offset per lane (rows r < 16, chunks c < 2)
+    and reaches rows 16 i + r, chunk 2 j ^ c of every fragment as
+    16 i pitch + (offset ^ (2 j << 3))."""
+    pitch = _row_pitch(hd)
+    for i in range(TILE_ROWS // 16):
+        for r in range(16):
+            for c in range(2):
+                lane = _swizzle(hd, r, c)
+                for j in range(hd // 16):
+                    assert _swizzle(hd, 16 * i + r, (2 * j) ^ c) == 16 * i * pitch + (lane ^ (2 * j << 3))
+
+
+def test_an_unpadded_80_wide_row_would_break_the_layout():
+    """What the padding repairs: with rows 80 elements apart, the XOR of
+    chunks 8 and 9 with the row runs past the row's end (and the per-lane
+    offset no longer reaches every fragment)."""
+    off = _layout(80, pitch=80)
+    row_start = np.arange(TILE_ROWS)[:, None] * 80
+    assert not ((off >= row_start) & (off + 8 <= row_start + 80)).all()
+    lane = _swizzle(80, 1, 0, pitch=80)
+    assert _swizzle(80, 1, 2, pitch=80) != lane ^ (2 << 3)

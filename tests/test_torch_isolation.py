@@ -82,6 +82,33 @@ def test_the_moe_path_and_the_cost_models_run_without_jax_or_repro():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_the_recurrent_families_run_without_jax_or_repro():
+    """A reduced xLSTM and a reduced Zamba2 (``models/ssm.py`` on both
+    paths: the chunked prefill and the one-token decode) in one process
+    that never loads ``jax`` or ``repro``."""
+    mods = _modules()
+    assert "repro_torch.models.ssm" in mods
+    code = (
+        "import json, sys, torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import transformer as T\n"
+        "from repro_torch.train.steps import make_decode_step, make_prefill_step\n"
+        "for arch in ('xlstm-350m', 'zamba2-2.7b'):\n"
+        "    cfg = get_config(arch).reduced()\n"
+        "    model = T.init_params(cfg, seed=0, device='cpu')\n"
+        "    logits, st = make_prefill_step(cfg, 32)(model, {'tokens': torch.ones(1, 20, dtype=torch.int32)})\n"
+        "    make_decode_step(cfg)(model, st, torch.ones(1, 1, dtype=torch.int32))\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("path", sorted(
     [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")] + [SMOKE]
 ))

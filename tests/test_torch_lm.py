@@ -76,14 +76,27 @@ def test_config_fields_equal_the_reference(arch):
     assert cfg.cdtype == getattr(torch, ref.compute_dtype)
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "xlstm-350m", "zamba2-2.7b",
-                                  "whisper-base"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-base"])
 def test_other_families_return_a_config_and_the_model_raises(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        T.DenseLM(cfg, device="cpu")
+        T.LM(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         T.init_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b"])
+def test_recurrent_families_build_the_model_and_its_cache(arch):
+    """The ssm and hybrid families (ported since the test above had them
+    raise): the model and its cache build on the CPU, and a prefill runs."""
+    cfg = get_config(arch).reduced()
+    model = T.init_params(cfg, seed=0, device="cpu")
+    st = T.init_cache(cfg, 2, 8, device="cpu")
+    assert len(model.blocks) == T._num_cycles(cfg) and st.index == 0
+    assert all(not t.any() for t in T.cache_leaves(st.caches))
+    logits, st1 = make_prefill_step(cfg, 8)(model, {"tokens": torch.ones(1, 5, dtype=torch.int32)})
+    assert logits.shape == (1, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+    assert st1.index == 5
 
 
 # ---------------------------------------------------------------------------

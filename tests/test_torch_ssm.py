@@ -1,0 +1,160 @@
+"""The port's recurrent blocks on the CPU against the JAX package.
+
+``mamba2_apply`` (zamba2's block), ``mlstm_apply`` and ``slstm_apply``
+(xlstm's) on reduced configs, the reference's weights (``init_mamba2``,
+``init_mlstm``, ``init_slstm`` from ``PRNGKey(0)``, with ``A_log``,
+``D``, ``dt_bias``, ``b`` and ``norm_w`` redrawn at random so that no
+term is trivially zero or one) carried across by ``load_from_numpy``,
+and numpy inputs from a seed; everything float32. Outputs and states
+agree within atol 1e-5 * max(1, max |ref|): the same float32 arithmetic
+summed in another order. Cases: the chunked path with S not a multiple
+of the chunk (16), one decode step from a random state, a prefill that
+carries a state in, and the chunked path equal to token-by-token decode,
+in the port and in the reference alike.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models import ssm as RS
+from repro.models.params import unbox
+from repro_torch.configs import get_config
+from repro_torch.convert import load_from_numpy
+from repro_torch.models import ssm as S
+
+KINDS = {  # kind: (arch, reference init, reference apply, port module, port apply, init state)
+    "mamba2": ("zamba2-2.7b", RS.init_mamba2, RS.mamba2_apply, S.Mamba2, S.mamba2_apply,
+               RS.mamba2_init_state),
+    "mlstm": ("xlstm-350m", RS.init_mlstm, RS.mlstm_apply, S.MLSTM, S.mlstm_apply,
+              RS.mlstm_init_state),
+    "slstm": ("xlstm-350m", RS.init_slstm, RS.slstm_apply, S.SLSTM, S.slstm_apply,
+              RS.slstm_init_state),
+}
+CHUNK = 16  # the reduced configs' mlstm_chunk
+
+
+def _close(got, want):
+    want = np.asarray(want, dtype=np.float32)
+    tol = 1e-5 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.detach().float().numpy(), want, atol=tol, rtol=0)
+
+
+@pytest.fixture(scope="module", params=sorted(KINDS))
+def block(request):
+    kind = request.param
+    arch, rinit, rapply, Mod, apply, rstate = KINDS[kind]
+    ref_cfg, cfg = ref_get_config(arch).reduced(), get_config(arch).reduced()
+    assert cfg.mlstm_chunk == CHUNK
+    p = jax.tree.map(np.asarray, unbox(rinit(jax.random.PRNGKey(0), ref_cfg))[0])
+    rng = np.random.default_rng(7)
+    for name in ("A_log", "D", "dt_bias", "b", "norm_w"):
+        if name in p:
+            p[name] = (0.5 * rng.normal(size=p[name].shape)).astype(np.float32)
+    mod = load_from_numpy(Mod(cfg, "cpu"), p)
+    return kind, ref_cfg, cfg, p, mod, rapply, apply, rstate
+
+
+def _x(cfg, B, S_len, seed):
+    return np.random.default_rng(seed).normal(size=(B, S_len, cfg.d_model)).astype(np.float32)
+
+
+def _random_state(rstate, ref_cfg, B, seed):
+    """A random state of the reference's shapes: numpy arrays."""
+    rng = np.random.default_rng(seed)
+    return tuple((0.5 * rng.normal(size=a.shape)).astype(np.float32)
+                 for a in rstate(ref_cfg, B))
+
+
+def _run(block, x, state=None, decode=False):
+    """(port out, port state, reference out, reference state)."""
+    _, ref_cfg, cfg, p, mod, rapply, apply, _ = block
+    rst = None if state is None else tuple(jnp.asarray(a) for a in state)
+    tst = None if state is None else tuple(torch.tensor(a) for a in state)
+    want, wst = rapply(p, jnp.asarray(x), ref_cfg, state=rst, decode=decode)
+    with torch.no_grad():
+        got, gst = apply(mod, torch.from_numpy(x), cfg, state=tst, decode=decode)
+    return got, gst, want, wst
+
+
+@pytest.mark.parametrize("S_len", [1, 16, 37])
+def test_chunked_path_matches_the_reference(block, S_len):
+    """S below, at and past the chunk (37 = 2 chunks + a ragged 5), from
+    the zero state."""
+    got, gst, want, wst = _run(block, _x(block[2], 2, S_len, seed=S_len))
+    assert got.shape == want.shape and len(gst) == len(wst)
+    _close(got, want)
+    for g, w in zip(gst, wst):
+        assert tuple(g.shape) == tuple(w.shape)
+        _close(g, w)
+
+
+def test_decode_step_matches_the_reference(block):
+    _, ref_cfg, cfg, _, _, _, _, rstate = block
+    state = _random_state(rstate, ref_cfg, 3, seed=11)
+    got, gst, want, wst = _run(block, _x(cfg, 3, 1, seed=12), state, decode=True)
+    _close(got, want)
+    for g, w in zip(gst, wst):
+        _close(g, w)
+
+
+def test_prefill_with_a_carried_state_matches_the_reference(block):
+    """A second chunked call that starts from the first one's state (the
+    reference's state, fed to both), ragged in its last chunk."""
+    _, ref_cfg, cfg, _, _, _, _, rstate = block
+    _, _, _, wst = _run(block, _x(cfg, 2, 21, seed=3))
+    state = tuple(np.asarray(a, dtype=np.float32) for a in wst)
+    got, gst, want, wst2 = _run(block, _x(cfg, 2, 19, seed=4), state)
+    _close(got, want)
+    for g, w in zip(gst, wst2):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("side", ["port", "reference"])
+def test_chunked_path_equals_token_by_token_decode(block, side):
+    """The chunked path over 37 tokens equals 37 decode steps from the zero
+    state, output by output and in the final state."""
+    _, ref_cfg, cfg, p, mod, rapply, apply, rstate = block
+    x = _x(cfg, 2, 37, seed=5)
+    if side == "port":
+        with torch.no_grad():
+            xt = torch.from_numpy(x)
+            full, fst = apply(mod, xt, cfg)
+            st, outs = None, []
+            for t in range(x.shape[1]):
+                o, st = apply(mod, xt[:, t:t + 1], cfg, state=st, decode=True)
+                outs.append(o)
+        steps = torch.cat(outs, 1)
+        want_full = full.numpy()
+        _close(steps, want_full)
+        for g, w in zip(st, fst):
+            _close(g, w.numpy())
+    else:
+        xj = jnp.asarray(x)
+        full, fst = rapply(p, xj, ref_cfg)
+        st, outs = None, []
+        for t in range(x.shape[1]):
+            o, st = rapply(p, xj[:, t:t + 1], ref_cfg, state=st, decode=True)
+            outs.append(o)
+        _close(torch.from_numpy(np.asarray(jnp.concatenate(outs, 1))), full)
+        for g, w in zip(st, fst):
+            _close(torch.from_numpy(np.asarray(g, dtype=np.float32)), w)
+
+
+def test_mamba2_at_zamba2s_state_width_matches_the_reference():
+    """Mamba2 at zamba2's state width (N = 64) over a ragged 70 tokens, the
+    shape where the pairwise contractions of the chunk summaries and the
+    inter-chunk term differ most from the reference's three-operand
+    einsums."""
+    ref_cfg = ref_get_config("zamba2-2.7b").reduced(ssm_state=64)
+    cfg = get_config("zamba2-2.7b").reduced(ssm_state=64)
+    p = jax.tree.map(np.asarray, unbox(RS.init_mamba2(jax.random.PRNGKey(1), ref_cfg))[0])
+    mod = load_from_numpy(S.Mamba2(cfg, "cpu"), p)
+    x = _x(cfg, 1, 70, seed=9)
+    want, wst = RS.mamba2_apply(p, jnp.asarray(x), ref_cfg)
+    with torch.no_grad():
+        got, gst = S.mamba2_apply(mod, torch.from_numpy(x), cfg)
+    _close(got, want)
+    _close(gst[0], wst[0])
