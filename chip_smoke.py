@@ -99,12 +99,19 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    is the vertex of largest out-degree, the batch the 8 largest), under
    the default executor, BFS and CC-PB also under ``use_pallas=True``,
    on the five S1 graphs and S2, and BFS and CC at S3. At S1 each result
-   must equal the port's run on the CPU; at every size BFS levels and
+   on DBP, KRON and URND must equal the port's run on the CPU
+   (``TRAV_CPU_GRAPHS``: the road and bubble graphs' CPU runs took most
+   of the phase, and were cut to make room for phase 18); at every size
+   BFS levels and
    parents must equal a dense plain-torch BFS (parent: the largest-id
    predecessor on the previous level), CC labels scipy's weak components
    (labelled by their smallest vertex), k-core ``k_core_oracle``; at S2
    each batched lane must equal its single-source run and SSSP scipy's
-   Dijkstra in float64. S2 and S3 print ``timing.time_fn`` times beside
+   Dijkstra in float64; on EURO and HBUBL (no CPU run) SSSP and every
+   ``sssp_batched`` lane scipy's Dijkstra, every ``bfs_batched`` lane the
+   dense BFS, PPR ``personalized_pagerank_oracle`` (float64) by the
+   PageRank tolerance, and radii the dense BFS's eccentricities from its
+   own seeded draw (capped at its ``max_iters``). S2 and S3 print ``timing.time_fn`` times beside
    ``method="unbinned"`` (for CC: ``connected_components``, the
    random-order baseline), levels, the per-level decision trace
    (``L<level>:<method>@2^<bucketed length>``) and the peak device
@@ -143,9 +150,11 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    CPU from one state (S = 256). d) ``launch/train.py`` at full width,
    28 layers in bfloat16 with remat and AdamW, B 4, S 4096 (train_4k's
    sequence; its global batch of 256 cut to 4 for one card): 3 steps
-   with a checkpoint every 2 and at the end, the checkpoint restored and
-   compared bit for bit with the state, then a resume to step 4, and one
-   more step under ``torch.profiler``. Losses and grad norms must be
+   with a checkpoint at the end, the checkpoint restored and compared
+   bit for bit with the state, then a resume to step 4, and one more
+   step under ``torch.profiler`` (the async save at step 2, a 15.5 GB
+   host copy that stalled a step, was cut to make room for phase 18).
+   Losses and grad norms must be
    finite, every moment must have moved (attention's key bias aside: its
    gradient is rounding, see ``_scale_name``), and each step must launch
    the rows kernel and the flash kernel for every layer. Printed: ms per
@@ -220,11 +229,41 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    longest prompt, and (d) the engine with one slot against a manual
    prefill + decode loop (tokens and every cache leaf). The serves'
    launches go into phase 11's counts.
+18. (Runs before phase 11.) Training of the moe, ssm and hybrid families.
+   (a) The MoE backward's two PB calls at phase 15's 972-token prefill
+   (d 4096, 128 experts, top-8, bfloat16): the dispatch's backward (kept
+   cotangent rows gathered in token order, k a token summed by the rows
+   kernel) against a float64 ``index_add_`` under phase 15's rule, the
+   combine's backward (weighted cotangent rows written to their slots by
+   ``scatter_rows``) equal to ``index_copy_``; each timed beside its
+   library call and its bound (rows 5e, 7c). (b) One full-width float32
+   MoE layer (capacity factor 1.25, counting dispatch) on 256 tokens: the
+   gradients of the input and of every weight, card against CPU, within
+   1e-4 of max |g|, routed alike, the forward launching the row scatter
+   and the rows kernel once each and the backward once more each; then
+   one AdamW step of a one-cycle full-width float32 copy of zamba2-2.7b
+   (6 Mamba2 blocks and the shared block) and of xlstm-350m, card against
+   CPU, as 14c (zamba2's gradients and moments within 2e-4, ``FAM_TOL``). (c) ``launch/train.py`` at full width, 3 steps
+   each, bfloat16 with remat: zamba2-2.7b (54 Mamba2 blocks, AdamW, B 2 x
+   S 2048), qwen3-moe-235b-a22b (2 of 94 layers, Adafactor as for the full
+   model, counting dispatch, B 2 x S 1024: 16,384 assignments, C = 160)
+   and xlstm-350m (12 cycles, AdamW, B 4 x S 512), the config and the
+   optimizer set on the launcher's ``get_config`` and
+   ``default_opt_config``. Losses and grad norms finite, every moment
+   moved, and the launches exact: per step the embedding backward's rows
+   kernel, per MoE layer the row scatter, histogram, positions and rows
+   kernel in the forward and the remat recompute, then the rows kernel
+   (dispatch backward) and the row scatter (combine backward), and flash
+   twice per attention use. Printed: ms a step, tokens/s, model FLOP/s
+   (``flops_per_token``) beside 989 TFLOP/s, peak memory, and a profile of
+   one more step (xlstm's at S 32: its full step is some 400,000
+   launches). Its launches go into phase 11's counts.
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
-   phases 3-4, 6, 7, 9, 12, 13, 14, 15, 16 and 17 (counts set to 0 before each
-   path, read after it; the checks of phases 2, 5, 8, 10, 11, 14a-c,
-   15a-e and 17a-d do not count; ``launches_16`` is phase 16's share, summed over
-   its ranks), its largest error against its plain version, and
+   phases 3-4, 6, 7, 9, 12, 13, 14, 15, 16, 17 and 18 (counts set to 0
+   before each path, read after it; the checks of phases 2, 5, 8, 10,
+   11, 14a-c, 15a-e, 17a-d and 18a-b do not count; ``launches_16`` is
+   phase 16's share, summed over its ranks, ``launches_18`` phase 18's),
+   its largest error against its plain version, and
    times at a path's shapes (Bin-Read's row also ``compact_index_add_ms``,
    the rows kernel's an ``embedding_backward`` record at phase 14's
    shape), then rows 2b, 5c, 7b and 8b (``<kernel>:moe_...``): positions,
@@ -234,7 +273,10 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    16's local shapes with its launches, and row 8c
    (``flash_attention:hybrid_prefill``): flash at the longest zamba2
    prefill's shape with phase 17's launches (each flash row also carries
-   ``kernel_device_ms`` from ``torch.profiler``); then the result line. Before it: the
+   ``kernel_device_ms`` from ``torch.profiler``), and rows 5e
+   (``cobra_bin_accumulate_rows:moe_dispatch_backward``) and 7c
+   (``scatter_rows:moe_combine_backward``) at phase 18a's shapes with
+   phase 18's launches; then the result line. Before it: the
    same launches split by shape, the fused accumulate and ``index_add_``
    timed at the S1 KRON and DBP streams (fig5's S1 PageRank shapes), and a
    ``torch.profiler`` listing of one call of positions and of the fused
@@ -313,6 +355,17 @@ parents equal the single-device results exactly (order-free ops, stable
 exchanges); a float32 add sums per rank and per chunk, and is held to
 the float32 add rule above against ``execute_reduce``; PageRank to the
 PageRank tolerance.
+Training of the families (phase 18): the dispatch backward's bfloat16
+rows reduce by phase 15's rule for the combine, the combine backward's
+row scatter exactly; the float32 MoE layer's gradients within TRAIN_TOL
+of max |g| (sums of k rows and of the experts' products in another
+order; the two sides must route alike); the one-cycle float32 steps as
+14c, zamba2's gradients and moments within ``FAM_TOL``: the
+reference's own float32 conditioning, which the CPU tests measure
+(Mamba2's decays and gated norm; mLSTM's normalizer |q . n|, which
+crosses zero at some positions, amplifies more, yet xlstm's one cycle
+holds TRAIN_TOL here), and AdamW's v (g squared) doubles a gradient's
+relative error.
 """
 from __future__ import annotations
 
@@ -392,6 +445,23 @@ TRAIN_B, TRAIN_S = 4, 4096  # train_4k's sequence; its global batch of 256 cut t
 TRAIN_STEPS = 3  # then one more from the checkpoint
 TRAIN_CPU_S = 256  # phase 14's card-vs-CPU step: 2 float32 layers, B 1
 TRAIN_TOL = 1e-4  # card vs CPU gradients and moments: times the tensor's max
+FAM_ARCHS = ("zamba2-2.7b", "qwen3-moe-235b-a22b", "xlstm-350m")  # phase 18's launcher runs
+FAM_SEED = 18
+FAM_STEPS = 3
+FAM_MOE_LAYERS = 2  # of qwen3-moe's 94: 2.49 B parameters a layer, 1.25 B in the embeddings
+# (B, S) a step: zamba2 4,096 tokens (about 37 GB reckoned: 29 GB of bf16 parameters and
+# gradients and float32 moments, one recomputed cycle); qwen3-moe 2,048 (16,384
+# assignments, C = 160); xlstm 2,048 (its sLSTM loop: about 14 launches a token a layer
+# in each forward, so some 400,000 launches a step with remat and the backward)
+FAM_SHAPES = {"zamba2-2.7b": (2, 2048), "qwen3-moe-235b-a22b": (2, 1024), "xlstm-350m": (4, 512)}
+FAM_PROFILE_S = {"xlstm-350m": 32}  # the profiled step's S where the full step is too many launches
+FAM_MOE_T = 972  # check (a): phase 15's longest prefill (its prompts from MOE_SEED)
+FAM_CPU_T = 256  # check (b): the MoE layer's tokens
+# check (b): zamba2's one-cycle card-vs-CPU step. Its Mamba2 chain amplifies float32
+# order (tests/test_torch_train_families.py holds its CPU gradients to 6e-5), and AdamW's
+# v, a squared gradient, doubles a gradient's relative error: measured 9.7e-5 (gradients),
+# 9.4e-5 (m) and 1.13e-4 (v) of max in two runs on the card
+FAM_TOL = {"zamba2-2.7b": 2e-4}
 FLASH_GRAD_SHAPE = (1, 12, 2, 1024, 128)  # (B, H, KH, S, hd): qwen2-1.5b's heads
 S3_ARM_E_HIERARCHICAL_S = 0.348960  # S3 arm E on the hierarchical path (PERF.md, section 5)
 INT32_MAX = 2**31 - 1
@@ -399,6 +469,10 @@ F32_MAX = 3.4028234663852886e38  # float32's largest value: SSSP's unreached dis
 KCORE_K = 3  # benchmarks/fig8_traversal.py
 RADII_K, RADII_ITERS = 4, 300  # benchmarks/fig2_preproc_cost.py
 TRAV_BATCH = 8  # sources of the batched BFS/SSSP and of PPR
+# the S1 graphs whose run on the card phase 12 holds to the port's run on the
+# CPU; the road and bubble graphs' CPU runs took 40-115 s each, so EURO and
+# HBUBL keep only the checks that need no CPU run
+TRAV_CPU_GRAPHS = ("DBP", "KRON", "URND")
 TRAV_REPS = 3  # time_fn repetitions of the traversal phase
 SERVE_REQUESTS = 64  # phase 13's trace: make_query_mix, Poisson arrivals
 SERVE_RATE = 200.0  # queries per second (launch/serve_graphs.py's default)
@@ -961,11 +1035,12 @@ def flash_grad_checks(dev, q_block):
     return worst
 
 
-def train_step_vs_cpu(dev, cfg):
-    """Phase 14c: one AdamW step of a 2-layer full-width float32 copy on
-    the card and on the CPU from the same state: the loss to rtol 1e-5,
-    each gradient and moment within TRAIN_TOL of its max, parameters
-    within 2 lr_1 plus two float32 roundings."""
+def train_step_vs_cpu(dev, cfg32, seed=LM_SEED + 2, tol=TRAIN_TOL):
+    """Phases 14c and 18b: one AdamW step of a full-width float32 copy
+    ``cfg32`` (few layers) on the card and on the CPU from the same state,
+    weights from ``seed``: the loss to rtol 1e-5, each gradient and moment
+    within ``tol`` of its max, parameters within 2 lr_1 plus two float32
+    roundings."""
     import torch
 
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -973,11 +1048,10 @@ def train_step_vs_cpu(dev, cfg):
     from repro_torch.train.optimizer import apply_updates, init_opt_state
     from repro_torch.train.steps import default_opt_config, make_loss_fn
 
-    cfg32 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32", compute_dtype="float32")
-    model = init_params(cfg32, seed=LM_SEED + 2, device=dev)
+    model = init_params(cfg32, seed=seed, device=dev)
     cpu = LM(cfg32, device="cpu")
     cpu.load_state_dict(model.state_dict())
-    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_CPU_S,
+    batch = SyntheticLM(DataConfig(vocab_size=cfg32.vocab_size, seq_len=TRAIN_CPU_S,
                                    global_batch=1)).batch_at(0)
     oc = default_opt_config(cfg32)
     loss_fn = make_loss_fn(cfg32)
@@ -999,18 +1073,20 @@ def train_step_vs_cpu(dev, cfg):
     lr = met["lr"]
     shares["param_vs_2lr"] = max(float(((pa[n] - pb[n]).abs() - 2.0**-22 * pb[n].abs()).max())
                                  for n in pb) / (2 * lr)
-    ok = (shares["loss_rel"] <= 1e-5 and max(shares["grad"], shares["m"], shares["v"]) <= TRAIN_TOL
+    ok = (shares["loss_rel"] <= 1e-5 and max(shares["grad"], shares["m"], shares["v"]) <= tol
           and shares["param_vs_2lr"] <= 1.0)
-    require(ok, f"the 2-layer float32 train step on the card differs from the CPU: {shares}")
-    return {"loss": [la, lb], "lr": lr, **shares}
+    require(ok, f"the {cfg32.num_layers}-layer float32 {cfg32.name} train step on the card differs "
+                f"from the CPU: {shares}")
+    return {"arch": cfg32.name, "layers": cfg32.num_layers, "tokens": TRAIN_CPU_S, "loss": [la, lb],
+            "lr": lr, "tolerance": tol, **shares}
 
 
 def train_phase(dev, K, smi):
     """Phase 14: the LM training path. The backward kernels against their
     plain versions (14a, 14b), a float32 step against the CPU (14c), then
-    ``launch/train.py`` at full width: 3 steps with checkpoints, the
-    checkpoint restored bit for bit, one more step from it, and one step
-    under the profiler (14d). Returns (launches, launches by shape, the
+    ``launch/train.py`` at full width: 3 steps with a checkpoint at the
+    end, the checkpoint restored bit for bit, one more step from it, and
+    one step under the profiler (14d). Returns (launches, launches by shape, the
     embedding-backward record)."""
     import tempfile
 
@@ -1030,7 +1106,8 @@ def train_phase(dev, K, smi):
     torch.cuda.empty_cache()
     say("phase14 flash gradients card vs CPU (max |diff|, share of tolerance):",
         json.dumps({k: list(v) for k, v in flash_grad_checks(dev, cfg.attn_q_block).items()}))
-    say("phase14 float32 step card vs CPU", json.dumps(train_step_vs_cpu(dev, cfg)))
+    cfg32 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32", compute_dtype="float32")
+    say("phase14 float32 step card vs CPU", json.dumps(train_step_vs_cpu(dev, cfg32)))
     torch.cuda.empty_cache()
     say(f"phase14 checks seconds: {time.perf_counter() - t:.1f}")
 
@@ -1049,7 +1126,7 @@ def train_phase(dev, K, smi):
         mem0 = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         args = train_mod.parse_args(flags + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", ck,
-                                             "--ckpt-every", "2"])
+                                             "--ckpt-every", "100"])  # saved at the end only
         K.reset_launch_counts()  # the training path starts here
         run = train_mod.train(args)
         torch.cuda.synchronize()
@@ -1421,8 +1498,10 @@ def moe_phase(dev, K, smi):
     say("phase15 routing per layer (dropped assignments, top-k ties)", json.dumps(dict({
         k: {"dropped": sum(r["dropped"] for r in v), "topk_ties": sum(r["topk_ties"] for r in v),
             "layers": v} for k, v in routing.items()}, card=smi)))
-    kinds = {"flash kernel": ("flash_fwd",), "rows kernel": ("rows_kernel", "f32_to_bf16"),
-             "row scatter": ("scatter_rows",), "histogram+positions": ("histogram", "positions"),
+    # "row scatter" first: ``scatter_rows_kernel`` holds "rows_kernel" too
+    kinds = {"flash kernel": ("flash_fwd",), "row scatter": ("scatter_rows",),
+             "rows kernel": ("rows_kernel", "f32_to_bf16"),
+             "histogram+positions": ("histogram", "positions"),
              "GEMM": ("gemm", "nvjet", "cutlass", "xmma"), "elementwise": ("elementwise",),
              "copies and fills": ("Memcpy", "Memset", "fill")}
     prof = {"prefill": {"tokens": T_long, **device_profile(
@@ -1712,6 +1791,326 @@ def flash_row(name, cfg, dev, gen, S, launches, worst):
             q, k, v, is_causal=True, enable_gqa=True), reps=20)}
 
 
+# -- training of the moe, ssm and hybrid families (phase 18) ---------------------------
+
+
+def moe_backward_checks(dev, K):
+    """Phase 18 (a): the MoE backward's two PB calls at phase 15's longest
+    prefill (FAM_MOE_T tokens, full width, bfloat16, counting dispatch)
+    against their plain versions. The dispatch's backward: each kept
+    assignment's cotangent row gathered from its slot in token order and
+    the k rows of each token summed by the rows kernel
+    (``layers._sum_token_rows``), held to a float64 ``index_add_`` as
+    phase 15 holds the combine (one bfloat16 rounding plus the float32 add
+    limit); the combine's backward: each kept assignment's weighted
+    cotangent row written to its slot by ``scatter_rows``, equal to
+    ``index_copy_`` and to the plain version. Returns the kernels line's
+    rows 5e and 7c without their launches (timed: ms by events, the
+    kernel's device ms from the profiler, plain ms, the library call's
+    ms, bound; 5e also ``_sum_token_rows``' whole call, token stream
+    included)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import winit_
+    from repro_torch.timing import cuda_ms
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=1, moe_dispatch_method="counting")
+    E, k, d, T_ = cfg.num_experts, cfg.top_k, cfg.d_model, FAM_MOE_T
+    gen = torch.Generator(device=dev).manual_seed(FAM_SEED)
+    wr = torch.empty(d, E, device=dev)
+    winit_(wr, gen, None)
+    x = torch.randn(T_, d, device=dev, generator=gen).to(cfg.cdtype)
+    with torch.no_grad():
+        disp = L.moe_dispatch(x, wr, cfg, 0, E)
+    soa, n_slots, m = disp.slot_of_assign, E * disp.capacity, T_ * k
+    g_xbuf = torch.randn(n_slots, d, device=dev, generator=gen).to(cfg.cdtype)
+    g_out = torch.randn(T_, d, device=dev, generator=gen).to(cfg.cdtype)
+    tokens = torch.arange(T_, dtype=torch.int32, device=dev).repeat_interleave(k)
+    rows = L._kept_rows(g_xbuf, soa)
+    before = K.cobra_bin_accumulate_rows.launches
+    got = L._sum_token_rows(rows, T_)
+    require(K.cobra_bin_accumulate_rows.launches == before + 1,
+            "the dispatch backward's sum did not launch the rows kernel")
+    want = torch.zeros(T_, d, dtype=torch.float64, device=dev).index_add_(0, tokens, rows.double())
+    scale = torch.zeros_like(want).index_add_(0, tokens, rows.abs().double())
+    diff = (got.double() - want).abs()
+    rows_err = float(diff.max())
+    require(got.dtype == torch.bfloat16
+            and bool((diff <= _add_limit(scale) + 2.0**-7 * want.abs()).all()),
+            f"the dispatch backward's rows reduce differs from index_add_ in float64 ({rows_err})")
+    w = disp.gate_w.reshape(-1).to(cfg.cdtype)
+    vals = (g_out.repeat_interleave(k, dim=0) * w[:, None]).contiguous()
+    kept = soa >= 0
+    lib_pos, lib_x = soa[kept].long(), vals[kept]
+    before = K.scatter_rows.launches
+    got_s = K.scatter_rows(vals, soa, n_slots)
+    require(K.scatter_rows.launches == before + 1, "the combine backward did not launch scatter_rows")
+    require(torch.equal(got_s, torch.zeros_like(got_s).index_copy_(0, lib_pos, lib_x))
+            and torch.equal(got_s, ref.scatter_rows_ref(vals, soa, n_slots)),
+            "the combine backward's row scatter differs from index_copy_ / its plain version")
+    say("phase18 (a) MoE backward kernels vs plain", json.dumps({
+        "tokens": T_, "assignments": m, "capacity": disp.capacity, "slots": n_slots,
+        "kept": int(kept.sum()), "rows_max_abs_err": rows_err, "scatter_equal": True}))
+    xw = vals.element_size()
+    # the kernel as ``_sum_token_rows`` calls it (execute_reduce's bins), timed
+    # without the token stream's construction; the wrapper's whole call beside it
+    br = min(512, T_)
+
+    def rows_kernel():
+        return K.cobra_bin_accumulate_rows(tokens, rows, T_, br, -(-T_ // br))
+
+    def scatter_kernel():
+        return K.scatter_rows(vals, soa, n_slots)
+
+    return [
+        {"name": "cobra_bin_accumulate_rows:moe_dispatch_backward", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_rows.cu",
+         "replaces": "src/repro/kernels/fused.py:263", "checked_against_plain": True,
+         "max_abs_err": rows_err, "shape": {"m": m, "F": d, "n": T_}, "dtype": "bfloat16",
+         "ms": cuda_ms(rows_kernel, reps=20),
+         "kernel_device_ms": kernel_profile(rows_kernel)["device_ms"],
+         "sum_token_rows_ms": cuda_ms(lambda: L._sum_token_rows(rows, T_), reps=20),
+         "plain_ms": cuda_ms(lambda: ref.scatter_reduce_ref(tokens, rows, T_), reps=20),
+         "bound_ms": bound_ms(xw * m * d + 4 * m + xw * T_ * d),
+         "bound_bytes": xw * m * d + 4 * m + xw * T_ * d, "bound_by": "bytes",
+         "library_ms": cuda_ms(lambda: torch.zeros(T_, d, dtype=rows.dtype, device=dev)
+                               .index_add_(0, tokens, rows), reps=20)},
+        {"name": "scatter_rows:moe_combine_backward", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/scatter_rows.cu",
+         "replaces": "src/repro/kernels/scatter_rows.py:37", "checked_against_plain": True,
+         "max_abs_err": 0, "shape": {"m": m, "d": d, "out_rows": n_slots}, "dtype": "bfloat16",
+         "ms": cuda_ms(scatter_kernel, reps=20),
+         "kernel_device_ms": kernel_profile(scatter_kernel)["device_ms"],
+         "plain_ms": cuda_ms(lambda: ref.scatter_rows_ref(vals, soa, n_slots), reps=20),
+         "bound_ms": bound_ms(4 * m + xw * (m + n_slots) * d),
+         "bound_bytes": 4 * m + xw * (m + n_slots) * d, "bound_by": "bytes",
+         "library_ms": cuda_ms(lambda: torch.zeros(n_slots, d, dtype=vals.dtype, device=dev)
+                               .index_copy_(0, lib_pos, lib_x), reps=20)},
+    ]
+
+
+def moe_layer_grads_vs_cpu(dev, K):
+    """Phase 18 (b): one MoE layer of ``qwen3-moe-235b-a22b`` at full
+    width (d 4096, 128 experts of d_ff 1536, top-8, capacity factor 1.25)
+    in float32 on FAM_CPU_T tokens, counting dispatch: the gradients of
+    the input and of every weight on the card (the MoE backward's rows
+    and scatter kernels; each launch counted) against the CPU's (plain
+    versions), each within TRAIN_TOL of its max; the two sides must
+    route alike. Host memory: the CPU's copy holds 9.7 GB of float32
+    experts and as much again of their gradients."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import winit_
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=1, param_dtype="float32",
+                              compute_dtype="float32", moe_dispatch_method="counting")
+    moe = L.MoE(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(FAM_SEED + 1)
+    with torch.no_grad():
+        for name, p in moe.named_parameters():
+            winit_(p, gen, cfg.d_ff ** -0.5 if name == "w2" else None)
+    x = torch.randn(1, FAM_CPU_T, cfg.d_model, device=dev, generator=gen)
+    g = torch.randn(1, FAM_CPU_T, cfg.d_model, device=dev, generator=gen)
+    cpu = copy.deepcopy(moe).to("cpu")
+    ids = {}
+    grads = {}
+    for side, layer in (("card", moe), ("cpu", cpu)):
+        d = layer.wr.device
+        xs = x.to(d).requires_grad_()
+        ids[side] = L.moe_route(xs.detach()[0], layer.wr.detach(), cfg)[1].cpu()
+        K.reset_launch_counts()
+        out = L.moe_apply(layer, xs, cfg)
+        fwd = K.launch_counts()
+        grads[side] = torch.autograd.grad(out, [xs, layer.wr, layer.w1, layer.w3, layer.w2],
+                                          g.to(d))
+        bwd = K.launch_counts()
+        del out
+        if side == "card":
+            counts = {"forward": {k: fwd[k] for k in ("scatter_rows", "cobra_bin_accumulate_rows",
+                                                       "histogram", "counting_positions")},
+                      "forward_and_backward": {k: bwd[k] for k in ("scatter_rows",
+                                                                   "cobra_bin_accumulate_rows")}}
+    require(torch.equal(ids["card"], ids["cpu"]), "the card and the CPU route the tokens apart")
+    require(counts["forward"] == {"scatter_rows": 1, "cobra_bin_accumulate_rows": 1,
+                                  "histogram": 1, "counting_positions": 1}
+            and counts["forward_and_backward"] == {"scatter_rows": 2,
+                                                   "cobra_bin_accumulate_rows": 2},
+            f"the MoE layer's forward and backward launched {counts}")
+    shares = {}
+    for name, a, b in zip(("x", "wr", "w1", "w3", "w2"), grads["card"], grads["cpu"]):
+        shares[name] = float((a.cpu() - b).abs().max() / b.abs().max())
+    rec = {"tokens": FAM_CPU_T, "capacity": L.moe_capacity(FAM_CPU_T, cfg),
+           "dropped": int((torch.bincount(ids["cpu"].reshape(-1), minlength=cfg.num_experts)
+                           - L.moe_capacity(FAM_CPU_T, cfg)).clamp(min=0).sum()),
+           "topk_ties": L.moe_topk_ties(x[0], moe.wr.detach(), cfg), "launches": counts,
+           "grad_err_share_of_max": shares, "tolerance": TRAIN_TOL}
+    require(max(shares.values()) <= TRAIN_TOL,
+            f"the float32 MoE layer's gradients on the card differ from the CPU: {rec}")
+    del grads, cpu, moe
+    return rec
+
+
+def family_train_run(dev, K, smi, arch):
+    """Phase 18 (c): ``launch/train.py`` at full width for ``arch``
+    (FAM_SHAPES, FAM_STEPS steps, bfloat16, remat, the optimizer
+    ``default_opt_config`` picks for the full model; qwen3-moe with
+    FAM_MOE_LAYERS of its 94 layers and counting dispatch, set on the
+    config the launcher reads), with the launch counts set to 0 before and
+    read after; then one more step under the profiler (xlstm at
+    FAM_PROFILE_S positions: its full step is some 400,000 launches),
+    whose seconds, the profiler's processing included, are printed.
+    Returns (launches, launches by shape, the record)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as TM
+    from repro_torch.models.config import flops_per_token
+    from repro_torch.train import steps as steps_mod
+
+    full = get_config(arch)
+    cfg = full
+    if full.family == "moe":
+        cfg = dataclasses.replace(full, num_layers=FAM_MOE_LAYERS, moe_dispatch_method="counting")
+    oc = steps_mod.default_opt_config(full, total_steps=FAM_STEPS)
+    B, S = FAM_SHAPES[arch]
+    saved = train_mod.get_config, train_mod.default_opt_config
+    train_mod.get_config = lambda name: cfg
+    train_mod.default_opt_config = lambda c, total_steps=10_000: steps_mod.default_opt_config(
+        full, total_steps)
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        args = train_mod.parse_args(["--arch", arch, "--preset", "full", "--seq-len", str(S),
+                                     "--batch", str(B), "--steps", str(FAM_STEPS),
+                                     "--log-every", "1"])
+        K.reset_launch_counts()  # this family's training path starts here
+        run = train_mod.train(args)
+        torch.cuda.synchronize()
+        counts, shapes = K.launch_counts(), K.launch_shapes()  # and ends here
+    finally:
+        train_mod.get_config, train_mod.default_opt_config = saved
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    model, opt = run.state.params, run.state.opt
+    require(len(run.losses) == FAM_STEPS
+            and all(math.isfinite(x) for x in run.losses + run.grad_norms),
+            f"{arch}: training diverged: {run.losses} {run.grad_norms}")
+    if opt.m is not None:
+        stale = [n for n in opt.m if not n.endswith("attn.bk")
+                 and not (float(opt.m[n].abs().max()) > 0 and float(opt.v[n].abs().max()) > 0)]
+    else:  # Adafactor's moments: above the 1e-30 floor that g * g + 1e-30 adds
+        stale = [n for n, v in opt.v.items()
+                 if not all(float(t.max()) > 1e-20 for t in (v if isinstance(v, tuple) else (v,)))]
+    require(opt.step == FAM_STEPS and not stale, f"{arch}: moments that did not move: {stale}")
+    # each step: the embedding backward; per MoE layer the dispatch (row scatter,
+    # counting's histogram and positions) and the combine (rows) in the forward
+    # and again in the remat recompute, and the backward's rows reduce (dispatch)
+    # and row scatter (combine); flash at every attention use, twice (remat)
+    L_moe = cfg.num_layers if cfg.family == "moe" else 0
+    passes = 2 if cfg.remat else 1
+    want = {"cobra_bin_accumulate_rows": 1 + L_moe * (passes + 1),
+            "scatter_rows": L_moe * (passes + 1), "histogram": L_moe * passes,
+            "counting_positions": L_moe * passes,
+            "flash_attention": TM.attention_layers(cfg) * passes}
+    want = {k: v * FAM_STEPS for k, v in want.items()}
+    got = {k: counts[k] for k in want}
+    require(got == want, f"{arch}: {FAM_STEPS} steps launched {got}, expected {want}")
+    tokens = B * S
+    ms = min(1e3 * x for x in run.step_seconds[1:])
+    nparams = sum(p.numel() for p in model.parameters())
+    rec = {"arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+           "of_layers": full.num_layers, "parameters": nparams,
+           "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+           "optimizer": oc.kind, "dispatch": cfg.moe_dispatch_method if L_moe else None,
+           "batch": B, "seq_len": S, "tokens_per_step": tokens,
+           "losses": run.losses, "grad_norms": run.grad_norms,
+           "step_ms": [1e3 * x for x in run.step_seconds], "steady_step_ms": ms,
+           "tokens_per_s": tokens / ms * 1e3,
+           "model_flop_per_s": flops_per_token(cfg) * tokens / ms * 1e3,
+           "model_flop_share_of_989T": flops_per_token(cfg) * tokens / ms * 1e3 / BF16_FLOP_PER_S,
+           "peak_bytes_above_earlier_phases": peak, "earlier_phases_bytes": mem0,
+           "launches": got, "seconds": seconds, "card": smi}
+    # one more step under the profiler, from the trained state
+    pS = FAM_PROFILE_S.get(arch, S)
+    step = steps_mod.make_train_step(cfg, oc)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=pS, global_batch=B))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(FAM_STEPS).items()}
+    state = run.state
+    # "row scatter" first: ``scatter_rows_kernel`` holds "rows_kernel" too
+    kinds = {"flash kernel": ("flash_fwd",), "row scatter": ("scatter_rows",),
+             "rows kernel": ("rows_kernel", "f32_to_bf16"),
+             "histogram+positions": ("histogram", "positions"), "float32 GEMM": ("f32f32_f32",), "other GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
+             "elementwise": ("elementwise",), "reductions": ("reduce",),
+             "copies and fills": ("Memcpy", "Memset", "fill", "copy")}
+    tp = time.perf_counter()
+    rec["profile"] = {"batch": B, "seq_len": pS, **device_profile(lambda: step(state, batch), dev,
+                                                                  kinds)}
+    rec["profile_seconds"] = time.perf_counter() - tp
+    say("phase18 train", json.dumps(rec))
+    del run, state, model, opt, batch, step
+    torch.cuda.empty_cache()
+    return counts, shapes, rec
+
+
+def family_train_phase(dev, K, smi):
+    """Phase 18: training of the moe, ssm and hybrid families. (a) the MoE
+    backward's rows reduce and row scatter against their plain versions
+    at phase 15's prefill shape (``moe_backward_checks``); (b) one
+    full-width float32 MoE layer's gradients, card against CPU
+    (``moe_layer_grads_vs_cpu``), and one AdamW step of a one-cycle
+    full-width float32 copy of zamba2-2.7b and of xlstm-350m, card against
+    CPU (``train_step_vs_cpu``); (c) ``launch/train.py`` for each of
+    FAM_ARCHS (``family_train_run``). Returns (the launches of (c), by
+    shape, the kernels line's rows 5e and 7c)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t = time.perf_counter()
+    rows = moe_backward_checks(dev, K)
+    torch.cuda.empty_cache()
+    tb = time.perf_counter()
+    say("phase18 (b) MoE layer gradients card vs CPU",
+        json.dumps(dict(moe_layer_grads_vs_cpu(dev, K), card=smi,
+                        seconds=time.perf_counter() - tb)))
+    torch.cuda.empty_cache()
+    for arch in REC_ARCHS:
+        tb = time.perf_counter()
+        base = get_config(arch)
+        layers = base.attn_every if base.family == "hybrid" else 2
+        cfg32 = dataclasses.replace(base, num_layers=layers, param_dtype="float32",
+                                    compute_dtype="float32")
+        say("phase18 (b) one-cycle float32 step card vs CPU", json.dumps(dict(
+            train_step_vs_cpu(dev, cfg32, seed=FAM_SEED, tol=FAM_TOL.get(arch, TRAIN_TOL)),
+            card=smi, seconds=time.perf_counter() - tb)))
+        torch.cuda.empty_cache()
+    say(f"phase18 checks seconds: {time.perf_counter() - t:.1f}")
+    counts, shapes = {}, {}
+    for arch in FAM_ARCHS:
+        ta = time.perf_counter()
+        c, sh, _ = family_train_run(dev, K, smi, arch)
+        say(f"phase18 {arch} seconds: {time.perf_counter() - ta:.1f}")
+        for k, x in c.items():
+            counts[k] = counts.get(k, 0) + x
+        for k, by in sh.items():
+            for key, x in by.items():
+                shapes.setdefault(k, {})[key] = shapes.get(k, {}).get(key, 0) + x
+    for r in rows:
+        r["launches"] = counts[r["name"].split(":")[0]]
+    return counts, shapes, rows
+
+
 # -- the traversal path (phase 12) -------------------------------------------------
 
 
@@ -1868,8 +2267,28 @@ def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
         bad = [k for k, ok in checks.items() if not ok]
         require(not bad, f"{tag}: card differs from the CPU run in {bad}")
 
-    def independent_checks(tag, g, csr, source, w, srcs, res, dijkstra=False, lanes=False):
-        """Results against code that does not use the executor."""
+    def sssp_vs_dijkstra(tag, csr, w, source, dist, rounds):
+        """An SSSP distance vector against scipy's float64 Dijkstra, within
+        SSSP_EPS a hop (the docstring's rule); its record."""
+        d64 = torch.from_numpy(scipy_sssp(csr, w, source))
+        d32 = dist.cpu()
+        reached = torch.isfinite(d64)
+        require(torch.equal(reached, d32 < F32_MAX),
+                f"{tag}: SSSP reaches other vertices than Dijkstra")
+        dr = d64[reached]
+        hops = torch.clamp(dr / SSSP_W_MIN, min=rounds)  # see the docstring
+        tol = hops * SSSP_EPS * dr
+        err = (d32[reached].double() - dr).abs()
+        rec = {"max_abs_err": float(err.max()),
+               "worst_share_of_tol": float((err / tol.clamp(min=1e-30)).max())}
+        require(bool((err <= tol).all()), f"{tag}: SSSP differs from Dijkstra ({rec})")
+        return rec
+
+    def independent_checks(tag, g, csr, source, w, srcs, res, dijkstra=False, lanes=False,
+                           oracles=False):
+        """Results against code that does not use the executor. ``oracles``
+        (the S1 graphs without a CPU run): every batched lane, radii and
+        PPR against executor-free oracles too."""
         rec = {}
         dd, dp = dense_bfs(T, csr, source)
         b = res["bfs"]
@@ -1895,18 +2314,35 @@ def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
                 ok, rel = pr_close(res["ppr"].ranks[q], pq)
                 require(ok, f"{tag}: PPR lane {q} differs from the single-source run ({rel})")
         if dijkstra:
-            d64 = torch.from_numpy(scipy_sssp(csr, w, source))
-            d32 = res["sssp"].dist.cpu()
-            reached = torch.isfinite(d64)
-            require(torch.equal(reached, d32 < F32_MAX),
-                    f"{tag}: SSSP reaches other vertices than Dijkstra")
-            dr = d64[reached]
-            hops = torch.clamp(dr / SSSP_W_MIN, min=res["sssp"].levels)  # see the docstring
-            tol = hops * SSSP_EPS * dr
-            err = (d32[reached].double() - dr).abs()
-            rec["sssp_vs_dijkstra"] = {"max_abs_err": float(err.max()),
-                                       "worst_share_of_tol": float((err / tol.clamp(min=1e-30)).max())}
-            require(bool((err <= tol).all()), f"{tag}: SSSP differs from Dijkstra ({rec})")
+            rec["sssp_vs_dijkstra"] = sssp_vs_dijkstra(tag, csr, w, source, res["sssp"].dist,
+                                                       res["sssp"].levels)
+        if oracles:
+            worst = 0.0
+            for q, s in enumerate(srcs):
+                dd, dp = dense_bfs(T, csr, s)
+                require(same(res["bfs_batched"].dist[q], dd)
+                        and same(res["bfs_batched"].parent[q], dp),
+                        f"{tag}: bfs_batched lane {q} differs from the dense BFS")
+                worst = max(worst, sssp_vs_dijkstra(
+                    f"{tag} sssp_batched lane {q}", csr, w, s, res["sssp_batched"].dist[q],
+                    res["sssp_batched"].levels)["worst_share_of_tol"])
+            rec["sssp_batched_vs_dijkstra_worst_share_of_tol"] = worst
+            want = np.stack([T.personalized_pagerank_oracle(csr, s) for s in srcs])
+            ok, errs = pr_close(res["ppr"].ranks, torch.from_numpy(want))
+            require(ok, f"{tag}: PPR differs from the float64 power iteration ({errs})")
+            rec["ppr_vs_float64"] = errs
+            # radii: radii's own draw of sources, each eccentricity by the dense BFS
+            draw = torch.randperm(csr.num_nodes, generator=torch.Generator().manual_seed(0))
+            ecc = []
+            for s in draw[:RADII_K].tolist():
+                dd, _ = dense_bfs(T, csr, s)
+                ecc.append(int(dd[dd != INT32_MAX].max()))
+            want_ecc = [min(e, RADII_ITERS) for e in ecc]
+            require(res["radii"].ecc.tolist() == want_ecc
+                    and res["radii"].converged == all(e < RADII_ITERS for e in ecc),
+                    f"{tag}: radii {res['radii'].ecc.tolist()} (converged "
+                    f"{res['radii'].converged}), the dense BFS {ecc}")
+            rec["radii_dense_bfs_ecc"] = ecc
         return rec
 
     def summary(res):
@@ -2005,11 +2441,15 @@ def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
         csr, source, w, srcs = prepare(g)
         res = run_all(g, csr, source, w, srcs, ex)
         t_card = time.perf_counter() - t0
-        g_cpu = suite_cpu[name]
-        want = run_all(g_cpu, *prepare(g_cpu), T.PBExecutor(cache_dir=cache))
-        t_cpu = time.perf_counter() - t0 - t_card
-        compare(f"phase12 S1 {name}", res, want)
-        rec = independent_checks(f"phase12 S1 {name}", g, csr, source, w, srcs, res)
+        t_cpu = None
+        if name in TRAV_CPU_GRAPHS:
+            g_cpu = suite_cpu[name]
+            want = run_all(g_cpu, *prepare(g_cpu), T.PBExecutor(cache_dir=cache))
+            t_cpu = time.perf_counter() - t0 - t_card
+            compare(f"phase12 S1 {name}", res, want)
+        alone = name not in TRAV_CPU_GRAPHS  # held to oracles in place of the CPU run
+        rec = independent_checks(f"phase12 S1 {name}", g, csr, source, w, srcs, res,
+                                 dijkstra=alone, oracles=alone)
         # BFS and CC-PB under the kernel-backed binning method
         T.set_default_executor(ex_pallas)
         bp = T.bfs(csr, source, executor=ex_pallas)
@@ -3485,6 +3925,11 @@ def main() -> None:
     rec_counts, rec_shapes, rec_rows = recurrent_phase(dev, K, smi)
     say(f"phase17 seconds: {time.perf_counter() - t17:.1f}")
 
+    # -- phase 18: training of the moe, ssm and hybrid families (before phase 11) ----
+    t18 = time.perf_counter()
+    fam_counts, fam_shapes, fam_rows = family_train_phase(dev, K, smi)
+    say(f"phase18 seconds: {time.perf_counter() - t18:.1f}")
+
     # -- phase 11: the kernels line at the paths' shapes -------------------------
     t11 = time.perf_counter()
     n2, br2 = s2.num_nodes, min(max(64, T.compromise_bin_range(s2.num_nodes, hw)), s2.num_nodes)
@@ -3591,10 +4036,10 @@ def main() -> None:
     ]
     path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
             + trav_counts[k] + serving_counts[k] + train_counts[k] + moe_counts[k]
-            + shard_counts[k] + rec_counts[k] for k in after}
+            + shard_counts[k] + rec_counts[k] + fam_counts[k] for k in after}
     path_shapes = {}
     for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes,
-                 serving_shapes, train_shapes, moe_shapes, shard_shapes, rec_shapes):
+                 serving_shapes, train_shapes, moe_shapes, shard_shapes, rec_shapes, fam_shapes):
         for k, by in part.items():
             for shp, c in by.items():
                 path_shapes.setdefault(k, {})[shp] = path_shapes.get(k, {}).get(shp, 0) + c
@@ -3637,6 +4082,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path[name], "launches_16": shard_counts[name],
+            "launches_18": fam_counts[name],
             "checked_against_plain": True, "max_abs_err": err,
             "ms": cuda_ms(kfn, reps=reps), "plain_ms": cuda_ms(pfn, reps=reps),
             "bound_ms": bound_ms(nbytes), "bound_bytes": nbytes, "bound_by": "bytes",
@@ -3657,11 +4103,12 @@ def main() -> None:
     kernels.append(dict(
         flash_row("flash_attention", lm_cfg, dev, gen, fS, path["flash_attention"],
                   worst["flash_attention"]),
-        launches_16=shard_counts["flash_attention"],
+        launches_16=shard_counts["flash_attention"], launches_18=fam_counts["flash_attention"],
         flash_hbm_bytes=flash_hbm_bytes(fB, fH, fKH, fS, fS, fhd)))
     kernels += moe_rows  # rows 2b, 5c, 7b and 8b: phase 15's shapes and launches
     kernels += shard_rows  # rows 4c and 5d: a rank's local reduce in phase 16, its launches
     kernels += rec_rows  # row 8c: flash at the longest zamba2 prefill, phase 17's launches
+    kernels += fam_rows  # rows 5e and 7c: the MoE backward at phase 15's shape, phase 18's launches
     require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on a path: {path}")
     say(f"phase11 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}; rows F={GNN_D}; "
         f"COBRA pass S3 m={m3} bins={nb3}; embedding T={T_} d={d_} B={B_} L={L}; "

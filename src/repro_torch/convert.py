@@ -88,12 +88,13 @@ def _tree_node(tree, dotted: str):
 
 def _leaf_tensor(tree, name: str, device) -> torch.Tensor:
     """The leaf of the reference's tree for the port's parameter ``name``:
-    layer i of the stacked leaf for ``blocks.<i>.<rest>``."""
+    layer i of the stacked leaf for ``blocks.<i>.<rest>`` (block (c, j)
+    for the hybrid's ``blocks.<c>.mamba.<j>.<rest>``)."""
     from repro_torch.train.optimizer import reference_leaf
 
-    key, layer = reference_leaf(name)
+    key, index = reference_leaf(name)
     node = _tree_node(tree, key)
-    return _torch_from_numpy(node if layer is None else np.asarray(node)[layer]).to(device)
+    return _torch_from_numpy(node if index is None else np.asarray(node)[index]).to(device)
 
 
 def train_state_from_numpy(params, opt, cfg, device=None):
@@ -103,7 +104,8 @@ def train_state_from_numpy(params, opt, cfg, device=None):
     parameters; Adafactor's ``m`` None and ``v`` a tree whose factored
     leaves are (rows, cols) pairs). AdamW's moments are split by layer
     like the parameters; Adafactor's stay the reference's stacked leaves,
-    keyed ``blocks.<rest>`` (``train/optimizer.py``)."""
+    keyed ``blocks.<rest>`` (two stacking axes for the hybrid family's
+    Mamba2 blocks; ``train/optimizer.py``)."""
     from repro_torch.train.optimizer import OptState, reference_leaf
     from repro_torch.train.steps import TrainState
 

@@ -5,7 +5,10 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --preset smoke --steps 20 --device cpu
 
-It runs on the CUDA card unless ``--device`` names another. Wired in, as
+``--arch`` takes the dense, moe (``qwen3-moe-235b-a22b``), ssm
+(``xlstm-350m``) and hybrid (``zamba2-2.7b``) families; vlm and encdec
+raise (ROADMAP Queue 1 item 2). It runs on the CUDA card unless
+``--device`` names another. Wired in, as
 in the reference: the deterministic restartable data pipeline
 (``data/pipeline.py``), async checkpoints with auto-resume
 (``checkpoint/manager.py``), the straggler detector and the heartbeat

@@ -3,8 +3,7 @@ norms, RoPE, GQA attention with a KV cache, MLPs, the MoE layer with its
 PB dispatch and row-block combine, the embedding and the logits, with the
 PB embedding backward (``_pb_take``). The GNN half lives in
 ``models/gnn.py``. Not ported: the sharded MoE (``moe_combine_sharded``,
-``_moe_weight_stationary``; ROADMAP Queue 1 item 3) and MoE training
-(the backward of dispatch and combine; Queue 1 item 2).
+``_moe_weight_stationary``; ROADMAP Queue 1 item 3).
 
 Parameters live in small ``nn.Module``s whose attribute names are the
 reference's keys (``w``/``b`` of a norm; ``wq``, ``wk``, ``wv``, ``wo`` and
@@ -314,6 +313,46 @@ class MoEDispatch(NamedTuple):
     capacity: int  # C, rows of each expert's bin
 
 
+def _kept_rows(buf, slot_of_assign) -> torch.Tensor:
+    """(T * k, d): row ``slot_of_assign[a]`` of ``buf`` for every
+    assignment, in token order; zero where the assignment was dropped."""
+    kept = slot_of_assign >= 0
+    return buf[slot_of_assign.clamp(min=0).long()].masked_fill_(~kept[:, None], 0)
+
+
+def _sum_token_rows(rows, T: int) -> torch.Tensor:
+    """The k consecutive rows of each token summed: the row-block PB
+    reduce over the token-ordered stream, ``execute_reduce(method="fused")``
+    (the rows kernel on the card, its plain version on the CPU)."""
+    tokens = torch.arange(T, dtype=torch.int32, device=rows.device)  # assignment t * k + j: t
+    return execute_reduce(
+        tokens.repeat_interleave(rows.shape[0] // T), rows, out_size=T, op="add",
+        method="fused", sorted_within=1, in_bounds=True,
+    )
+
+
+class _MoEScatter(torch.autograd.Function):
+    """Binning's write, ``xbuf[slot[i]] = x2d[token_of[i]]``, as a PB pair:
+    the forward is the row-scatter kernel; the backward gathers the
+    cotangent at each kept assignment's slot in token order and sums the
+    k rows of each token with the rows kernel (the combine's forward
+    stream). The reference's ``xbuf.at[slot].set(x2d[token_of])``
+    differentiates to that same sum."""
+
+    @staticmethod
+    def forward(ctx, x2d, token_of, slot, slot_of_assign, n_slots: int, dtype):
+        ctx.save_for_backward(slot_of_assign)
+        ctx.num_tokens, ctx.x_dtype = x2d.shape[0], x2d.dtype
+        return scatter_rows(x2d[token_of].to(dtype), slot, n_slots)
+
+    @staticmethod
+    def backward(ctx, g_xbuf):
+        (slot_of_assign,) = ctx.saved_tensors
+        rows = _kept_rows(g_xbuf, slot_of_assign)
+        gx = _sum_token_rows(rows, ctx.num_tokens)
+        return gx.to(ctx.x_dtype), None, None, None, None, None
+
+
 def moe_dispatch(x2d, wr, cfg: ModelConfig, e_start: int, E_local: int) -> MoEDispatch:
     """Binning: route all T tokens and write each kept (token, expert)
     assignment's row to its slot ``expert * C + rank``. The assignments,
@@ -321,7 +360,8 @@ def moe_dispatch(x2d, wr, cfg: ModelConfig, e_start: int, E_local: int) -> MoEDi
     through ``dispatch_permutation`` (``cfg.moe_dispatch_method``); one of
     rank ``>= C`` in its bin is dropped. The rows are written by the
     row-scatter kernel (``scatter_rows``, ``pos = -1`` for a dropped one),
-    which is the reference's ``xbuf.at[slot].set(..., mode="drop")``."""
+    which is the reference's ``xbuf.at[slot].set(..., mode="drop")``;
+    under autograd its backward is the rows kernel (``_MoEScatter``)."""
     T, d = x2d.shape
     k = cfg.top_k
     dev = x2d.device
@@ -335,9 +375,9 @@ def moe_dispatch(x2d, wr, cfg: ModelConfig, e_start: int, E_local: int) -> MoEDi
     keep = (key_s < E_local) & (rank < C)
     slot = torch.where(keep, key_s * C + rank, -1)  # -1: dropped
     token_of = torch.div(order, k, rounding_mode="floor")  # assignment a is token a // k's
-    xbuf = scatter_rows(x2d[token_of].to(cfg.cdtype), slot, E_local * C)
     slot_of_assign = torch.empty(T * k, dtype=torch.int32, device=dev)
     slot_of_assign[order] = slot
+    xbuf = _MoEScatter.apply(x2d, token_of, slot, slot_of_assign, E_local * C, cfg.cdtype)
     return MoEDispatch(xbuf, slot_of_assign, gate_w, C)
 
 
@@ -351,27 +391,58 @@ def moe_experts(xbuf, w1, w3, w2, cfg: ModelConfig, capacity: int) -> torch.Tens
     return torch.bmm(h, w2.to(dt)).reshape(E_local * capacity, d)
 
 
+class _MoECombine(torch.autograd.Function):
+    """The combine, ``out[t] = sum_j w[t, j] * yb[slot(t, j)]``, as a PB
+    pair: the forward sums the weighted rows with the rows kernel; the
+    backward writes each kept assignment's cotangent row ``w * g_out[t]``
+    to its slot with the row-scatter kernel (the dispatch's forward
+    stream; slots are distinct, unfilled ones zero) and gives the router
+    weights the row dot products ``<g_out[t], yb[slot]>`` (plain torch).
+    The slots get no gradient."""
+
+    @staticmethod
+    def forward(ctx, yb, gate_w, slot_of_assign, dtype):
+        T, k = gate_w.shape
+        rows = _kept_rows(yb, slot_of_assign)
+        w = gate_w.reshape(-1).to(dtype)
+        ctx.save_for_backward(yb, gate_w, slot_of_assign)
+        ctx.dtype = dtype
+        return _sum_token_rows(rows * w[:, None], T)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        yb, gate_w, slot_of_assign = ctx.saved_tensors
+        k = gate_w.shape[1]
+        g_tok = g_out.to(ctx.dtype).repeat_interleave(k, dim=0)  # (T * k, d): g_out[token]
+        g_yb = None
+        if ctx.needs_input_grad[0]:
+            w = gate_w.reshape(-1).to(ctx.dtype)
+            g_yb = scatter_rows((g_tok * w[:, None]).to(yb.dtype).contiguous(), slot_of_assign,
+                                yb.shape[0])
+        g_w = None
+        if ctx.needs_input_grad[1]:
+            rows = _kept_rows(yb, slot_of_assign)
+            g_w = (g_tok.float() * rows.float()).sum(-1).reshape(gate_w.shape).to(gate_w.dtype)
+        return g_yb, g_w, None, None
+
+
 def moe_combine(yb, slot_of_assign, gate_w, cfg: ModelConfig) -> torch.Tensor:
     """Each kept assignment's expert row times its router weight, summed
     into its token: ``execute_reduce(method="fused")`` over the
-    token-ordered stream of k rows a token, the rows kernel on the card."""
-    T, k = gate_w.shape
-    dt = cfg.cdtype
-    kept = slot_of_assign >= 0
-    rows = yb[slot_of_assign.clamp(min=0).long()].masked_fill_(~kept[:, None], 0)
-    w = gate_w.reshape(-1).to(dt)
-    tokens = torch.arange(T, dtype=torch.int32, device=yb.device).repeat_interleave(k)
-    return execute_reduce(
-        tokens, rows * w[:, None], out_size=T, op="add", method="fused",
-        sorted_within=1, in_bounds=True,
-    )
+    token-ordered stream of k rows a token, the rows kernel on the card;
+    under autograd its backward is the row-scatter kernel
+    (``_MoECombine``)."""
+    return _MoECombine.apply(yb, gate_w, slot_of_assign, cfg.cdtype)
 
 
 def _moe_expert_shard(x2d, wr, w1, w3, w2, cfg: ModelConfig, e_start: int, E_local: int):
     """Route all T tokens; run experts ``[e_start, e_start + E_local)``
     (reference ``_moe_expert_shard``). Propagation Blocking written out:
     Binning (``moe_dispatch``), Bin-Read (``moe_experts``) and the
-    row-block combine (``moe_combine``)."""
+    row-block combine (``moe_combine``). Differentiable in x2d, wr and the
+    experts' weights: the router's softmax and top-k and the expert
+    products are autograd's own, as they are jnp in the reference; the
+    integer routing gets no gradient."""
     disp = moe_dispatch(x2d, wr, cfg, e_start, E_local)
     yb = moe_experts(disp.xbuf, w1, w3, w2, cfg, disp.capacity)
     return moe_combine(yb, disp.slot_of_assign, disp.gate_w, cfg)
@@ -396,14 +467,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     ``moe_apply`` without a mesh: all experts, ``e_start = 0``); the dense
     oracle under ``cfg.moe_dispatch == "dense"``. MoE over a mesh (expert
     shards, ``moe_combine_sharded``, the weight-stationary decode) is not
-    ported (ROADMAP.md, Queue 1, "Sharded PB", item 3). Serving only:
-    under autograd it raises, since dispatch and combine have no backward
-    yet."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, p.wr, p.w1, p.w3, p.w2)):
-        raise NotImplementedError(
-            "MoE training (the backward of dispatch and combine) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 2); run the MoE layer under torch.no_grad()"
-        )
+    ported (ROADMAP.md, Queue 1, "Sharded PB", item 3)."""
     B, S, d = x.shape
     x2d = x.reshape(-1, d)
     if cfg.moe_dispatch == "dense":

@@ -24,9 +24,12 @@ The inter-chunk scans are short Python loops over chunks (the reference
 scans them with ``lax.scan``). Every contraction of three operands in the
 reference is written as two products, so that no (b, k, l, h, n, p)
 intermediate is built (at zamba2's prefill it would be gigabytes). The
-intra-chunk decays ``exp(lf_t - lf_s)`` overflow above the diagonal, where
-the exponent is positive; ``torch.where`` drops them, as in the reference
-(a float mask multiplied in would turn ``inf * 0`` into NaN).
+intra-chunk decays ``exp(lf_t - lf_s)`` are taken with the exponent set
+to -inf above the diagonal (``_masked_decay``), where it is positive and
+past float32's range over xlstm-350m's 256-position chunk: the
+reference's ``exp`` overflows there and ``where`` drops the inf, which
+leaves its forward right and its gradient NaN; the port's decays are 0
+there, its forward the same and its gradient finite.
 
 sLSTM is sequential: the reference scans every position, and so does the
 port, one Python step a position (the input projection of all positions
@@ -52,6 +55,17 @@ def _causal_mask(c: int, device) -> torch.Tensor:
     """(c, c, 1): key s visible to query t when s <= t (the decays' last
     axis is the head)."""
     return torch.ones(c, c, dtype=torch.bool, device=device).tril()[:, :, None]
+
+
+def _masked_decay(lf: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``exp(lf_t - lf_s)`` (B, nc, t, s, H) from the inclusive log-decay
+    sums ``lf`` (B, nc, c, H), 0 where ``mask`` hides the entry (s > t):
+    the exponent is set to -inf there, where it is positive and, over a
+    long chunk, past float32's range. The reference takes ``exp`` of it
+    and drops the inf with ``where``, which keeps the forward but makes
+    exp's gradient 0 * inf = NaN (ROADMAP Queue 3); here the hidden
+    entries' gradient is 0. Every visible entry is the same."""
+    return torch.exp((lf[:, :, :, None, :] - lf[:, :, None, :, :]).masked_fill(~mask, float("-inf")))
 
 
 def _pad_seq(x: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
@@ -126,8 +140,7 @@ def _ssd_chunked(xdt, a_log, Bm, Cm, h0, chunk: int):
     lf = a_log.reshape(B, nc, c, H).cumsum(2)  # inclusive within a chunk
     # intra-chunk (attention-like), all chunks batched
     scores = C_c @ B_c.transpose(-1, -2)  # (B, nc, t, s)
-    decay = torch.exp(lf[:, :, :, None, :] - lf[:, :, None, :, :])  # (B, nc, t, s, H)
-    w_ts = torch.where(_causal_mask(c, xdt.device), scores[..., None] * decay, 0.0)
+    w_ts = scores[..., None] * _masked_decay(lf, _causal_mask(c, xdt.device))  # (B, nc, t, s, H)
     y_intra = w_ts.permute(0, 1, 4, 2, 3) @ xdt_c.transpose(2, 3)  # (B, nc, H, t, P)
     # chunk summaries: sum_l B[l, n] end_decay[l, h] xdt[l, h, p]
     end_decay = torch.exp(lf[:, :, -1:, :] - lf)  # (B, nc, c, H)
@@ -246,8 +259,7 @@ def _mlstm_chunked(q, k, v, ig, fg, St, nt, chunk: int):
     ic = ig.reshape(B, nc, c, H)
     lf = torch.log(fg.reshape(B, nc, c, H) + 1e-30).cumsum(2)
     # intra-chunk
-    decay = torch.exp(lf[:, :, :, None, :] - lf[:, :, None, :, :])  # (B, nc, t, s, H)
-    w_ts = torch.where(_causal_mask(c, q.device), decay * ic[:, :, None, :, :], 0.0)
+    w_ts = _masked_decay(lf, _causal_mask(c, q.device)) * ic[:, :, None, :, :]  # (B, nc, t, s, H)
     sw = (qc @ kc.transpose(-1, -2)) * w_ts.permute(0, 1, 4, 2, 3)  # (B, nc, H, t, s)
     num_intra = sw @ vc  # (B, nc, H, t, hd)
     den_intra = sw.sum(-1)  # (B, nc, H, t)
@@ -364,14 +376,16 @@ def slstm_apply(
     pre = pre.reshape(B, S_len, H, hd, 4)
     c, n, h = state if state is not None else slstm_init_state(cfg, B, device=x.device)
     r = p.r.float()
-    ys = torch.empty(B, S_len, H, hd, dtype=torch.float32, device=x.device)
+    ys = []
     for t in range(S_len):
         # "bhd,hdk->bhk" as one batched product over the heads
         rec = torch.bmm(h.transpose(0, 1), r).transpose(0, 1).view(B, H, hd, 4)
         c, n, h = _slstm_cell(pre[:, t] + rec, c, n)
-        ys[:, t] = h
+        ys.append(h)
 
-    y = ys.reshape(B, S_len, H * hd)
+    # stacked once: a write of each step into one buffer would make autograd
+    # copy the whole buffer's gradient at every step
+    y = torch.stack(ys, 1).reshape(B, S_len, H * hd)
     var = (y * y).mean(-1, keepdim=True)
     y = y * torch.rsqrt(var + cfg.norm_eps) * p.norm_w
     out = y.to(dt) @ p.out_proj.to(dt)

@@ -10,7 +10,7 @@ each leaf along a leading cycle axis and scans it; the port loops over an
 - dense: ``blocks.i.ln1.w``, ``blocks.i.attn.wq`` / ``bq`` / ...,
   ``blocks.i.ln2.w``, ``blocks.i.mlp.w1`` / ``w3`` / ``w2``; in the moe
   family ``blocks.i.moe.wr`` / ``w1`` / ``w3`` / ``w2`` in place of ``mlp``
-  (``layers.moe_apply``; serving only);
+  (``layers.moe_apply``);
 - ssm (xLSTM): ``blocks.i.ln_m``, ``blocks.i.mlstm``, ``blocks.i.ln_s``,
   ``blocks.i.slstm`` (``models/ssm.py``), a cycle being two layers;
 - hybrid (Zamba2): ``blocks.i.mamba.j.ln`` and ``blocks.i.mamba.j.mamba``
@@ -19,8 +19,7 @@ each leaf along a leading cycle axis and scans it; the port loops over an
   ``ln2`` / ``mlp`` that every cycle applies after its Mamba2 blocks.
 
 The vlm and encdec families raise ``NotImplementedError``: they wait for
-ROADMAP Queue 1 item 2, as does training of the ssm and hybrid families
-(``train/steps.py::make_train_step``).
+ROADMAP Queue 1 item 2. The four ported families serve and train.
 
 ``StepState.caches`` holds the reference's cache tree with the same
 leading axes: dense and moe one pair of tensors ``(L, B, S_max, KH, hd)``;
@@ -34,7 +33,9 @@ into its slice of the cache.
 
 Training: ``hidden_forward`` under autograd with ``cfg.remat`` recomputes
 each cycle in the backward (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint`` scan body), and ``chunked_lm_loss`` recomputes each
+``jax.checkpoint`` scan body: a dense or moe layer, an xLSTM cycle's
+mLSTM and sLSTM, a Zamba2 cycle's ``attn_every`` Mamba2 blocks with the
+shared block), and ``chunked_lm_loss`` recomputes each
 sequence chunk's logits, so neither the layers' activations nor the
 (B, S, V) logits are held whole.
 """
@@ -63,7 +64,6 @@ class StepState(NamedTuple):
 
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-RECURRENT_FAMILIES = ("ssm", "hybrid")  # served, not trained (Queue 1 item 2)
 
 
 def _require_ported(cfg: ModelConfig) -> None:

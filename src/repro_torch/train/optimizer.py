@@ -13,8 +13,13 @@ and the reference's leaves are the layer-stacked ones: its ``blocks``
 norm weight is one (L, d) leaf, factored into L rows and d columns across
 the layers. So Adafactor's second moments are keyed by the reference's
 leaf: ``blocks.ln1.w`` for the ``blocks.<i>.ln1.w`` of every layer i, its
-factors over the stacked (L, ...) shape; other names keep their own key
-(``reference_leaf``).
+factors over the stacked (L, ...) shape; the hybrid family's Mamba2
+leaves are stacked twice, (cycles, attn_every, ...), as
+``blocks.<c>.mamba.<j>.<rest>``; other names keep their own key
+(``reference_leaf``), ``shared_attn.*`` among them. A stack of matrices
+(the MoE's (L, E, d, f) experts too) factors each tensor's own last two
+axes, so its tensors update one at a time with their slices of the
+moments; a stack of vectors is stacked whole.
 
 ``apply_updates`` writes the new parameters and moments into the tensors
 it is given (the reference's launcher donates its state to the step, so
@@ -24,6 +29,7 @@ computed in float32 on the host as the reference computes them.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -70,29 +76,52 @@ def _factored_shape(shape):
     return None
 
 
-def reference_leaf(name: str) -> Tuple[str, Optional[int]]:
-    """(the reference's leaf, layer): ``blocks.3.attn.wq`` is layer 3 of
-    ``blocks.attn.wq``; any other name is its own leaf (layer None)."""
+def reference_leaf(name: str) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """(the reference's leaf, the index of ``name`` in it): the numeric
+    parts of a ``blocks`` name index the reference's stacked leaf, so
+    ``blocks.3.attn.wq`` is ``blocks.attn.wq[3]`` and the hybrid family's
+    ``blocks.2.mamba.1.ln.w`` is ``blocks.mamba.ln.w[2, 1]`` (stacked by
+    cycle, then by block); any other name, ``shared_attn.*`` among them, is
+    its own leaf (index None)."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        return ".".join(["blocks"] + parts[2:]), int(parts[1])
-    return name, None
+    if parts[0] != "blocks":
+        return name, None
+    return (".".join(k for k in parts if not k.isdigit()),
+            tuple(int(k) for k in parts if k.isdigit()))
 
 
 def _leaf_groups(names) -> Dict[str, List[str]]:
-    """The reference's leaves, each with its names in layer order."""
+    """The reference's leaves, each with its names in stacking order."""
     groups: Dict[str, List[str]] = {}
     for n in names:
         groups.setdefault(reference_leaf(n)[0], []).append(n)
     return groups
 
 
-def _stacked(tensors: Dict[str, torch.Tensor], key: str, names: List[str]) -> torch.Tensor:
-    """The reference's float32 leaf: the layers stacked for a ``blocks``
-    leaf, the tensor itself otherwise."""
+def _leaf_shape(tensors: Dict[str, torch.Tensor], names: List[str]) -> Tuple[int, ...]:
+    """The reference leaf's shape: the stacking axes, then the tensor's."""
+    index = [reference_leaf(n)[1] for n in names]
+    shape = tuple(tensors[names[0]].shape)
+    if index[0] is None:
+        return shape
+    lead = tuple(max(i[a] for i in index) + 1 for a in range(len(index[0])))
+    if math.prod(lead) != len(names):
+        raise ValueError(f"{names[0]}: {len(names)} tensors do not fill a stack of {lead}")
+    return lead + shape
+
+
+def _stacked(tensors: Dict[str, torch.Tensor], names: List[str]) -> torch.Tensor:
+    """The reference's float32 leaf: the tensors stacked for a ``blocks``
+    leaf (in named order, which is the stack's row-major order), the
+    tensor itself otherwise."""
     if reference_leaf(names[0])[1] is None:
         return tensors[names[0]].float()
-    return torch.stack([tensors[n].float() for n in names])
+    t0 = tensors[names[0]]
+    out = torch.empty(_leaf_shape(tensors, names), dtype=torch.float32, device=t0.device)
+    flat = out.view((len(names),) + tuple(t0.shape))
+    for i, n in enumerate(names):
+        flat[i].copy_(tensors[n])
+    return out
 
 
 def init_opt_state(params: Dict[str, torch.Tensor], oc: OptConfig) -> OptState:
@@ -106,7 +135,7 @@ def init_opt_state(params: Dict[str, torch.Tensor], oc: OptConfig) -> OptState:
         v = {}
         for key, names in _leaf_groups(params).items():
             p = params[names[0]]
-            shape = tuple(p.shape) if key == names[0] else (len(names),) + tuple(p.shape)
+            shape = _leaf_shape(params, names)
             fs = _factored_shape(shape)
             if fs is None:
                 v[key] = torch.zeros(shape, dtype=mdt, device=p.device)
@@ -150,30 +179,46 @@ def apply_updates(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor
         return params, OptState(step, state.m, state.v), {"lr": lr, "grad_norm": gnorm}
 
     if oc.kind == "adafactor":
-        d = 1e-30
-        new_v = {}
         for key, names in _leaf_groups(params).items():
-            g = _stacked(grads, key, names) * scale
-            p = _stacked(params, key, names)
             v = state.v[key]
-            g2 = g * g + d
-            if isinstance(v, tuple):
-                vr, vc = v
-                vr2 = oc.b2 * vr + (1 - oc.b2) * g2.mean(-1)
-                vc2 = oc.b2 * vc + (1 - oc.b2) * g2.mean(-2)
-                rfac = vr2 / torch.clamp(vr2.mean(-1, keepdim=True), min=d)
-                precond = g / (torch.sqrt(rfac[..., None] * vc2[..., None, :]) + oc.eps)
-                new_v[key] = (vr.copy_(vr2), vc.copy_(vc2))
+            if reference_leaf(names[0])[1] is None or params[names[0]].ndim >= 2:
+                # one leaf, or a stack whose factored (or elementwise) axes are
+                # each tensor's own: the stacking axes are batch axes, so each
+                # tensor updates alone with its slice of the moments
+                for n in names:
+                    i = reference_leaf(n)[1]
+                    vi = v if i is None else (tuple(t[i] for t in v) if isinstance(v, tuple)
+                                              else v[i])
+                    params[n].copy_(_adafactor_leaf(params[n].float(), grads[n].float() * scale,
+                                                    vi, lr, oc))
             else:
-                v2 = oc.b2 * v + (1 - oc.b2) * g2
-                precond = g / (torch.sqrt(v2) + oc.eps)
-                new_v[key] = v.copy_(v2)
-            p2 = p - lr * (precond + oc.weight_decay * p)
-            if reference_leaf(names[0])[1] is None:
-                params[names[0]].copy_(p2)
-            else:
-                for i, n in enumerate(names):
-                    params[n].copy_(p2[i])
-        return params, OptState(step, None, new_v), {"lr": lr, "grad_norm": gnorm}
+                # a stack of vectors: its factors mix the stacked tensors
+                p2 = _adafactor_leaf(_stacked(params, names), _stacked(grads, names) * scale,
+                                     v, lr, oc)
+                for n, row in zip(names, p2.view((len(names),) + tuple(params[names[0]].shape))):
+                    params[n].copy_(row)
+        return params, OptState(step, None, state.v), {"lr": lr, "grad_norm": gnorm}
 
     raise ValueError(oc.kind)
+
+
+def _adafactor_leaf(p, g, v, lr: float, oc: OptConfig) -> torch.Tensor:
+    """The reference's Adafactor update of one float32 leaf ``p`` from its
+    clipped gradient ``g``: the second moment ``v`` (a tensor, or the
+    factored (rows, cols) pair) is updated in place; returns the new
+    parameters in float32."""
+    d = 1e-30
+    g2 = g * g + d
+    if isinstance(v, tuple):
+        vr, vc = v
+        vr.copy_(oc.b2 * vr + (1 - oc.b2) * g2.mean(-1))
+        vc.copy_(oc.b2 * vc + (1 - oc.b2) * g2.mean(-2))
+        del g2
+        rfac = vr / torch.clamp(vr.mean(-1, keepdim=True), min=d)
+        precond = g / (torch.sqrt(rfac[..., None] * vc[..., None, :]) + oc.eps)
+    else:
+        v.copy_(oc.b2 * v + (1 - oc.b2) * g2)
+        del g2
+        precond = g / (torch.sqrt(v) + oc.eps)
+    del g
+    return p - lr * (precond + oc.weight_decay * p)

@@ -1,13 +1,16 @@
 """Step builders (port of ``repro/train/steps.py:18-170``): the train step
 with its optimizer state, batches, and the prefill and decode steps.
 
-The train step runs under autograd (the dense and moe families; the ssm
-and hybrid families serve only): the model's forward
-(``hidden_forward``, each layer recomputed in the backward under
+The train step runs under autograd for the dense, moe, ssm and hybrid
+families (vlm and encdec raise, ROADMAP Queue 1 item 2): the model's
+forward (``hidden_forward``, each cycle recomputed in the backward under
 ``cfg.remat``), the chunked loss, one ``torch.autograd.grad`` for every
-parameter, then ``apply_updates``. Its two kernels: attention's forward
-(and its remat recompute) is the flash kernel, the embedding's backward
-the PB rows reduce (``models/layers.py``). Prefill and decode run under
+parameter, then ``apply_updates``. Its kernels: attention's forward (and
+its remat recompute) is the flash kernel, the embedding's backward the PB
+rows reduce; in the moe family the dispatch runs the row scatter forward
+and the rows reduce backward, the combine the rows reduce forward and the
+row scatter backward, and counting dispatch the histogram and positions
+kernels (``models/layers.py``). Prefill and decode run under
 ``torch.inference_mode()``: serving builds no autograd graph.
 """
 from __future__ import annotations
@@ -67,13 +70,9 @@ def make_train_step(cfg: ModelConfig, oc: Optional[OptConfig] = None, accum_step
     (``apply_updates``) and returns the state with the new step.
     ``accum_steps > 1`` splits the batch into that many microbatches of
     consecutive rows, run one after another: losses and float32 gradients
-    are summed, then divided by ``accum_steps``. The ssm and hybrid
-    families serve but do not train yet: they raise."""
-    if cfg.family in T.RECURRENT_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training of the {cfg.family!r} family is not ported yet; it serves "
-            "only (ROADMAP Queue 1 item 2)"
-        )
+    are summed, then divided by ``accum_steps``. The vlm and encdec
+    families raise (``_require_ported``)."""
+    T._require_ported(cfg)
     oc = oc or default_opt_config(cfg)
     loss_fn = make_loss_fn(cfg)
 

@@ -1130,3 +1130,48 @@ def test_cuda_moe_layer_dispatch_methods_agree_and_launch_the_kernels(cuda, T):
             want = 1 if method == "counting" else 0
             assert counts["histogram"] == want and counts["counting_positions"] == want
     assert torch.equal(out["sort"], out["counting"]) and out["sort"].dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [8.0, 1.0])
+@pytest.mark.parametrize("method", ["sort", "counting"])
+def test_cuda_moe_backward_launches_the_kernels_and_equals_the_cpu(cuda, method, cf):
+    """The MoE layer's backward on the card: the dispatch's backward
+    launches the rows kernel and the combine's the row scatter, once each
+    beside the forward's one of each; float32 gradients in x and every
+    weight equal the CPU's (plain versions) within 1e-4 of max |g| (sums of
+    k rows in another order)."""
+    import copy
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import winit_
+
+    cfg = dataclasses.replace(
+        get_config("qwen3-moe-235b-a22b"), num_layers=1, d_model=256, d_ff=128, num_experts=16,
+        top_k=4, capacity_factor=cf, moe_dispatch_method=method, param_dtype="float32",
+        compute_dtype="float32")
+    moe = L.MoE(cfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    with torch.no_grad():
+        for name, p in moe.named_parameters():
+            winit_(p, gen, cfg.d_ff ** -0.5 if name == "w2" else None)
+    x = torch.randn(2, 96, cfg.d_model, device=cuda, generator=gen)
+    g = torch.randn(2, 96, cfg.d_model, device=cuda, generator=gen)
+    grads = {}
+    for side, layer in (("card", moe), ("cpu", copy.deepcopy(moe).to("cpu"))):
+        d = layer.wr.device
+        xs = x.to(d).requires_grad_()
+        K.reset_launch_counts()
+        out = L.moe_apply(layer, xs, cfg)
+        fwd = K.launch_counts()
+        grads[side] = torch.autograd.grad(out, [xs, layer.wr, layer.w1, layer.w3, layer.w2],
+                                          g.to(d))
+        bwd = K.launch_counts()
+        if side == "card":
+            assert fwd["scatter_rows"] == 1 and fwd["cobra_bin_accumulate_rows"] == 1
+            assert bwd["scatter_rows"] == 2 and bwd["cobra_bin_accumulate_rows"] == 2
+    for a, b in zip(grads["card"], grads["cpu"]):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -1,4 +1,5 @@
-"""The port's MoE serving path on the CPU against the JAX package.
+"""The port's MoE layer, serving and its backward on the CPU against the
+JAX package.
 
 - ``dispatch_permutation``: ``sort`` and ``counting`` give the reference's
   ``(order, key_sorted, starts, rank)`` bit for bit (int32), overflow keys
@@ -8,6 +9,12 @@
   and 1.0 (drops), with either dispatch method: float32 outputs within
   atol 1e-5 (sums of d_ff = 128 float32 products and k weighted rows, in
   another order than XLA's).
+- The layer's gradients (dispatch backward on the rows reduce, combine
+  backward on the row scatter) in x, wr, w1, w3 and w2 against
+  ``jax.vjp`` of ``_moe_expert_shard`` at both capacity factors and
+  dispatch methods, the dense oracle's against the dispatch's without
+  drops, and ``moe_apply`` under ``jax.grad``: each within 1e-5 of the
+  reference tensor's max |g|.
 - A 2-layer MoE model (``qwen3-moe-235b-a22b`` reduced, float32) on the
   reference's weights: prefill and decode logits within 1e-4 of max
   |logit|, and the serving engine's greedy tokens equal the reference
@@ -44,6 +51,7 @@ from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 ARCH = "qwen3-moe-235b-a22b"
 LAYER_ATOL = 1e-5
+GRAD_TOL = 1e-5  # times the reference gradient's max |g| (tests/test_torch_train_step.py)
 
 
 def _np(a):
@@ -202,13 +210,83 @@ def test_topk_ties_are_counted():
     assert L.moe_topk_ties(x.abs() + 1, wr, cfg) == 0
 
 
-def test_moe_training_and_meshes_raise():
-    _, cfg = _configs()
-    p = L.MoE(cfg, "cpu")
-    torch.nn.init.normal_(p.wr)
-    x = torch.zeros(1, 3, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        L.moe_apply(p, x, cfg)  # parameters require grad, autograd on
+def _grad_close(got, want, what):
+    """Within GRAD_TOL of the reference tensor's max |g|."""
+    want = _np(want)
+    scale = float(np.abs(want).max()) or 1.0
+    np.testing.assert_allclose(got.detach().float().numpy(), want, rtol=0,
+                               atol=GRAD_TOL * scale, err_msg=what)
+
+
+def _port_vjp(fn, p, x, g):
+    xt = torch.from_numpy(x).requires_grad_()
+    params = [p.wr, p.w1, p.w3, p.w2]
+    out = fn(xt, *params)
+    return out, torch.autograd.grad(out, [xt] + params, torch.from_numpy(g))
+
+
+@pytest.mark.parametrize("method", ["sort", "counting"])
+@pytest.mark.parametrize("cf", [8.0, 1.0])
+@pytest.mark.parametrize("overrides,T", LAYER_CASES, ids=["e8k2", "e16k8"])
+def test_expert_shard_vjp_matches_the_reference(overrides, T, cf, method):
+    """The layer's gradients in x, wr, w1, w3 and w2 (the dispatch's
+    backward on the rows reduce, the combine's on the row scatter, the
+    router and the expert products autograd's) against ``jax.vjp`` of the
+    reference's ``_moe_expert_shard``, with and without capacity drops."""
+    ref_cfg, cfg = _configs(capacity_factor=cf, moe_dispatch_method=method, **overrides)
+    ref_p, p = _layer(ref_cfg, cfg, seed=6)
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(T, cfg.d_model)).astype(np.float32)
+    g = rng.normal(size=(T, cfg.d_model)).astype(np.float32)
+    E = cfg.num_experts
+    assert L.moe_topk_ties(torch.from_numpy(x), p.wr.detach(), cfg) == 0
+
+    def ref_fn(x, wr, w1, w3, w2):
+        return RL._moe_expert_shard(x, wr, w1, w3, w2, ref_cfg, 0, E)
+
+    want, vjp = jax.vjp(ref_fn, jnp.asarray(x), *(ref_p[k] for k in ("wr", "w1", "w3", "w2")))
+    want_g = vjp(jnp.asarray(g))
+    got, got_g = _port_vjp(
+        lambda *a: L._moe_expert_shard(*a, cfg, 0, E), p, x, g)
+    np.testing.assert_allclose(got.detach().numpy(), _np(want), atol=LAYER_ATOL, rtol=0)
+    for name, a, b in zip(("x", "wr", "w1", "w3", "w2"), got_g, want_g):
+        _grad_close(a, b, f"d{name}")
+    drops = _drops(x, p, cfg)
+    assert (drops > 0) == (cf == 1.0), drops
+
+
+@pytest.mark.parametrize("overrides,T", LAYER_CASES, ids=["e8k2", "e16k8"])
+def test_dense_oracle_gradient_equals_the_dispatch_without_drops(overrides, T):
+    ref_cfg, cfg = _configs(**overrides)  # reduced: capacity_factor 8.0, no drops
+    ref_p, p = _layer(ref_cfg, cfg, seed=7)
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(T, cfg.d_model)).astype(np.float32)
+    g = rng.normal(size=(T, cfg.d_model)).astype(np.float32)
+    assert _drops(x, p, cfg) == 0
+    _, dense = _port_vjp(lambda *a: L._moe_dense_oracle(*a, cfg), p, x, g)
+    _, pb = _port_vjp(lambda *a: L._moe_expert_shard(*a, cfg, 0, cfg.num_experts), p, x, g)
+    for name, a, b in zip(("x", "wr", "w1", "w3", "w2"), pb, dense):
+        _grad_close(a, b.numpy(), f"d{name}")
+
+
+def test_moe_apply_trains():
+    """Under autograd the layer runs and every parameter and the input get
+    a finite, nonzero gradient (the reference's ``moe_apply`` by jax.grad)."""
+    ref_cfg, cfg = _configs()
+    ref_p, p = _layer(ref_cfg, cfg, seed=8)
+    x = np.random.default_rng(14).normal(size=(2, 12, cfg.d_model)).astype(np.float32)
+
+    def ref_loss(p, x):
+        return jnp.sum(jnp.sin(RL.moe_apply(p, x, ref_cfg)))
+
+    want_p, want_x = jax.grad(ref_loss, argnums=(0, 1))(ref_p, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    torch.sin(L.moe_apply(p, xt, cfg)).sum().backward()
+    _grad_close(xt.grad, want_x, "dx")
+    for k in ("wr", "w1", "w3", "w2"):
+        grad = getattr(p, k).grad
+        assert grad is not None and bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+        _grad_close(grad, want_p[k], f"d{k}")
 
 
 # ---------------------------------------------------------------------------
