@@ -256,13 +256,56 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    (dispatch backward) and the row scatter (combine backward), and flash
    twice per attention use. Printed: ms a step, tokens/s, model FLOP/s
    (``flops_per_token``) beside 989 TFLOP/s, peak memory, and a profile of
-   one more step (xlstm's at S 32: its full step is some 400,000
-   launches). Its launches go into phase 11's counts.
+   one more step (xlstm's at S 16: its full step is some 400,000
+   launches; zamba2's at S 256: the profiler's processing of its full
+   step took 44-45 s, cut for phase 19). Its launches go into phase 11's
+   counts.
+19. (Runs before phase 11.) The vlm and encdec families. (a) Flash
+   against its plain version, float32 and bfloat16, non-causal, at the
+   vlm's cross-attention (1, 32, 8, Sq, 1601, 128) for Sq in {1, 300,
+   1024, 2048}, Whisper's encoder (1, 8, 8, 1500, 1500, 64) and decoder
+   cross-attention (4, 8, 8, 448, 1500, 64), then where outputs nearly
+   cancel. (b) Float32 at full width, card against CPU: one vlm cycle (4
+   self layers and the cross layer, d 4096) with a 1,601-row image and
+   without one (the ``Engine``'s path: cross keys from the prompt), and
+   whisper-base whole with 1,500 frames, each a 300-token prefill's last
+   logits and 8 greedy decode steps; one vlm cross layer's gradients
+   (input, source, every weight) with the image; one AdamW step of
+   whisper-base whole with its frames (14c's rule). Then
+   ``llama-3.2-vision-11b`` (40 layers, 9.8 B parameters) and
+   ``whisper-base`` at full width and depth in bfloat16 from a seeded
+   generator: (c) served by ``Engine`` (prompts only, as in the
+   reference; 4 slots, 8 requests of 256-1,024 prompt tokens from numpy
+   seed 0, 32 new each, 2,048 positions): every request done, flash
+   exactly once per attention layer per prefill (32 self + 8 cross; 6 + 6)
+   and never at decode, with prefill tokens/s, decode ms a tick, peak
+   memory and a profile of the longest prefill and a decode tick; (d) the
+   engine with one slot against a manual prefill + decode loop (tokens
+   and every cache leaf); (e) a manual prefill with the frontend input
+   (the vlm: a 1,024-token prompt and a 1,601-row image; Whisper: 1,500
+   frames and 448 tokens), then 32 greedy decode steps that read the
+   cross caches: flash 40 (vlm) and 6 + 6 + 6 (encoder, self, cross)
+   times at the prefill, never at decode; prefill ms and ms a step. (f)
+   Training: three steps of ``make_train_step`` on ``make_batch``'s
+   inputs, bfloat16 with remat, AdamW: whisper-base whole (B 4 x S 4096,
+   1,500 frames) and the vlm at full width with 2 of its 8 cycles (10 of
+   40 layers, B 2 x S 2048, 1,601-row images): losses and grad norms
+   finite, every moment moved, per step the rows kernel once (the
+   embedding backward) and flash once per attention use and again in the
+   remat recompute of each vlm cycle and Whisper decoder layer (the
+   encoder is not recomputed): 30 a Whisper step, 20 a vlm step. Then
+   ``launch/train.py`` for whisper-base (3 steps, B 4 x S 4096), whose
+   batches hold no frames, as the reference's: the cross layers' and the
+   encoder's moments stay exactly zero (their gradients are 0), every
+   other moment moves, flash 12 a step. Printed: ms a step, tokens/s,
+   model FLOP/s beside 989 TFLOP/s, peak memory. Its launches go into
+   phase 11's counts.
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
-   phases 3-4, 6, 7, 9, 12, 13, 14, 15, 16, 17 and 18 (counts set to 0
+   phases 3-4, 6, 7, 9, 12, 13, 14, 15, 16, 17, 18 and 19 (counts set to 0
    before each path, read after it; the checks of phases 2, 5, 8, 10,
-   11, 14a-c, 15a-e, 17a-d and 18a-b do not count; ``launches_16`` is
-   phase 16's share, summed over its ranks, ``launches_18`` phase 18's),
+   11, 14a-c, 15a-e, 17a-d, 18a-b and 19a-b, d do not count;
+   ``launches_16`` is phase 16's share, summed over its ranks,
+   ``launches_18`` phase 18's, ``launches_19`` phase 19's),
    its largest error against its plain version, and
    times at a path's shapes (Bin-Read's row also ``compact_index_add_ms``,
    the rows kernel's an ``embedding_backward`` record at phase 14's
@@ -276,7 +319,13 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    ``kernel_device_ms`` from ``torch.profiler``), and rows 5e
    (``cobra_bin_accumulate_rows:moe_dispatch_backward``) and 7c
    (``scatter_rows:moe_combine_backward``) at phase 18a's shapes with
-   phase 18's launches; then the result line. Before it: the
+   phase 18's launches, and rows 8d (``flash_attention:vlm_cross_prefill``,
+   (1, 32, 8, 1024, 1601, 128) non-causal), 8e
+   (``flash_attention:whisper_encoder``, (1, 8, 8, 1500, 1500, 64)
+   non-causal) and 5f (``cobra_bin_accumulate_rows:vlm_embedding_backward``:
+   4,096 token rows of 4,096 into the vlm's 128,256-row vocabulary) with
+   phase 19's launches (``launches_19`` on every row is phase 19's share);
+   then the result line. Before it: the
    same launches split by shape, the fused accumulate and ``index_add_``
    timed at the S1 KRON and DBP streams (fig5's S1 PageRank shapes), and a
    ``torch.profiler`` listing of one call of positions and of the fused
@@ -366,6 +415,11 @@ reference's own float32 conditioning, which the CPU tests measure
 crosses zero at some positions, amplifies more, yet xlstm's one cycle
 holds TRAIN_TOL here), and AdamW's v (g squared) doubles a gradient's
 relative error.
+The vlm and encdec families (phase 19): flash by phase 8's rule; the
+float32 copies as phase 10 (logits within 1e-4 of max |logit|, tokens
+equal); the cross layer's gradients within TRAIN_TOL of each tensor's max
+|g|; Whisper's float32 step as 14c; the engine equal to the manual loop
+bit for bit; the launcher's unreached leaves' moments exactly zero.
 """
 from __future__ import annotations
 
@@ -454,7 +508,10 @@ FAM_MOE_LAYERS = 2  # of qwen3-moe's 94: 2.49 B parameters a layer, 1.25 B in th
 # assignments, C = 160); xlstm 2,048 (its sLSTM loop: about 14 launches a token a layer
 # in each forward, so some 400,000 launches a step with remat and the backward)
 FAM_SHAPES = {"zamba2-2.7b": (2, 2048), "qwen3-moe-235b-a22b": (2, 1024), "xlstm-350m": (4, 512)}
-FAM_PROFILE_S = {"xlstm-350m": 32}  # the profiled step's S where the full step is too many launches
+# the profiled step's S: xlstm's full step is some 400,000 launches, and the profiler's
+# processing of zamba2's full step (44-45 s) and xlstm's at S 32 (20-21 s) took a third of
+# phase 18 (PR 24); cut to make room for phase 19
+FAM_PROFILE_S = {"xlstm-350m": 16, "zamba2-2.7b": 256}
 FAM_MOE_T = 972  # check (a): phase 15's longest prefill (its prompts from MOE_SEED)
 FAM_CPU_T = 256  # check (b): the MoE layer's tokens
 # check (b): zamba2's one-cycle card-vs-CPU step. Its Mamba2 chain amplifies float32
@@ -463,6 +520,24 @@ FAM_CPU_T = 256  # check (b): the MoE layer's tokens
 # 9.4e-5 (m) and 1.13e-4 (v) of max in two runs on the card
 FAM_TOL = {"zamba2-2.7b": 2e-4}
 FLASH_GRAD_SHAPE = (1, 12, 2, 1024, 128)  # (B, H, KH, S, hd): qwen2-1.5b's heads
+X_ARCHS = ("llama-3.2-vision-11b", "whisper-base")  # phase 19: the vlm and encdec families
+X_SEED = 19
+X_SLOTS, X_MAX_LEN, X_REQUESTS, X_MAX_NEW = 4, 2048, 8, 32
+X_PROMPT_LENS = (256, 1024)  # within the cross caches: 1,601 image rows, 1,500 frames
+# check (a): flash at the cross-attention shapes (B, H, KH, Sq, Skv, hd), non-causal: the vlm's
+# 32 query heads over 8 KV heads of 128 against its 1,601 image rows (not a multiple of the
+# 64-key tile), Whisper's encoder over 1,500 frames and its decoder's cross-attention
+X_FLASH_SHAPES = [(1, 32, 8, Sq, 1601, 128) for Sq in (1, 300, 1024, 2048)] + [
+    (1, 8, 8, 1500, 1500, 64), (4, 8, 8, 448, 1500, 64)]
+X_FLASH_CANCEL_SHAPES = [(1, 32, 8, 1024, 1601, 128), (1, 8, 8, 1500, 1500, 64)]
+# check (e): (prompt tokens, frontend rows) of a manual prefill with the frontend input
+X_FRONTEND_PREFILL = {"llama-3.2-vision-11b": (1024, 1601), "whisper-base": (448, 1500)}
+X_DECODE_STEPS = 32
+# check (f): (B, S, cycles) of the train steps; the vlm at full width with 2 of its 8
+# cycles (10 of 40 layers: 3.25 B parameters, about 45 GB reckoned with AdamW's float32
+# moments, bf16 gradients and the embedding backward's 2.1 GB float32 accumulator)
+X_TRAIN = {"whisper-base": (4, 4096, None), "llama-3.2-vision-11b": (2, 2048, 2)}
+X_STEPS = 3
 S3_ARM_E_HIERARCHICAL_S = 0.348960  # S3 arm E on the hierarchical path (PERF.md, section 5)
 INT32_MAX = 2**31 - 1
 F32_MAX = 3.4028234663852886e38  # float32's largest value: SSSP's unreached distance
@@ -600,12 +675,13 @@ def add_faults(idx, val, n, want, scale, chunk=1 << 22) -> dict:
 # -- the LM serving path (phases 8-10) -------------------------------------------
 
 
-def flash_checks(dev, shapes, cancel=False):
+def flash_checks(dev, shapes, cancel=False, causal_modes=(True, False)):
     """Phase 8: the flash kernel against its plain version at ``shapes``
-    (B, H, KH, Sq, Skv, hd) for float32 and bfloat16, causal and not. With
-    ``cancel``, v = +-1 alternating by key, so that every output nearly
-    cancels: a kernel that rounded P to bfloat16 once would fail there.
-    Returns {dtype: (largest |diff|, largest share of the tolerance)}."""
+    (B, H, KH, Sq, Skv, hd) for float32 and bfloat16, causal and not (or
+    ``causal_modes``). With ``cancel``, v = +-1 alternating by key, so that
+    every output nearly cancels: a kernel that rounded P to bfloat16 once
+    would fail there. Returns {dtype: (largest |diff|, largest share of
+    the tolerance)}."""
     import torch
 
     from repro_torch.kernels.flashattn import flash_attention, flash_attention_ref
@@ -621,7 +697,7 @@ def flash_checks(dev, shapes, cancel=False):
                 v = sign[None, None, :, None].expand(B, KH, Skv, hd).to(dt).contiguous()
             else:
                 v = torch.randn(B, KH, Skv, hd, device=dev, generator=gen).to(dt)
-            for causal in (True, False):
+            for causal in causal_modes:
                 got = flash_attention(q, k, v, causal=causal)
                 want = flash_attention_ref(q, k, v, causal=causal)
                 err, share, close = flash_close(got, want, dt)
@@ -915,11 +991,13 @@ def engine_equals_manual_loop(cfg, model, prompt, max_len, max_new):
     return r.out, want, same_cache
 
 
-def lm_vs_cpu(cfg, model, prompt, max_len, steps):
+def lm_vs_cpu(cfg, model, prompt, max_len, steps, frontend=None):
     """Phase 10: the model on its device against a copy on the CPU (plain
     versions): the prefill's last logits and ``steps`` greedy decode steps,
-    each side feeding its own tokens. Returns the largest logit error as a
-    share of max |logit| and whether every greedy token agreed."""
+    each side feeding its own tokens; ``frontend`` ({"img_embed" or
+    "enc_embed": tensor}) joins the prefill's batch. Returns the largest
+    logit error as a share of max |logit|, whether every greedy token
+    agreed, and the tokens."""
     import torch
 
     from repro_torch.models.transformer import LM
@@ -932,7 +1010,8 @@ def lm_vs_cpu(cfg, model, prompt, max_len, steps):
     toks = torch.from_numpy(prompt[None])
     out = {}
     for name, m, d in (("device", model, dev), ("cpu", cpu, torch.device("cpu"))):
-        logits, st = prefill(m, {"tokens": toks.to(d)})
+        logits, st = prefill(m, {"tokens": toks.to(d),
+                                 **{k: v.to(d) for k, v in (frontend or {}).items()}})
         seq = [logits[0].float().cpu()]
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         toks_out = [int(tok[0, 0])]
@@ -957,11 +1036,12 @@ def _scale_name(name):
     return name[:-2] + "wk" if name.endswith("attn.bk") else name
 
 
-def embedding_backward_check(dev, K, cfg):
-    """Phase 14a: ``_pb_take``'s backward at the training shape (B*S token
-    rows of d_model float32 from a bfloat16 cotangent into the padded
-    vocabulary; Markov-synthetic ids) against index_add_ in float64, then
-    timed beside index_add_ and its bound. Returns the record."""
+def embedding_backward_check(dev, K, cfg, B=TRAIN_B, S=TRAIN_S):
+    """Phase 14a (and row 5f): ``_pb_take``'s backward at the training
+    shape (B*S token rows of d_model float32 from a bfloat16 cotangent
+    into the padded vocabulary; Markov-synthetic ids) against index_add_
+    in float64, then timed beside index_add_ and its bound. Returns the
+    record."""
     import torch
 
     from repro_torch.core.executor import execute_reduce
@@ -971,10 +1051,10 @@ def embedding_backward_check(dev, K, cfg):
     from repro_torch.timing import cuda_ms
 
     ids = torch.from_numpy(SyntheticLM(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_B)).batch_at(0)["tokens"]).to(dev)
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)).batch_at(0)["tokens"]).to(dev)
     n, F = cfg.padded_vocab, cfg.d_model
     gen = torch.Generator(device=dev).manual_seed(14)
-    g = torch.randn(TRAIN_B, TRAIN_S, F, device=dev, generator=gen).to(torch.bfloat16)
+    g = torch.randn(B, S, F, device=dev, generator=gen).to(torch.bfloat16)
     table = torch.zeros(n, F, dtype=torch.bfloat16, device=dev, requires_grad=True)
     before = K.cobra_bin_accumulate_rows.launches
     (dtab,) = torch.autograd.grad(L._pb_take(table, ids), table, g)
@@ -1035,12 +1115,13 @@ def flash_grad_checks(dev, q_block):
     return worst
 
 
-def train_step_vs_cpu(dev, cfg32, seed=LM_SEED + 2, tol=TRAIN_TOL):
-    """Phases 14c and 18b: one AdamW step of a full-width float32 copy
+def train_step_vs_cpu(dev, cfg32, seed=LM_SEED + 2, tol=TRAIN_TOL, frontend=None):
+    """Phases 14c, 18b and 19b: one AdamW step of a full-width float32 copy
     ``cfg32`` (few layers) on the card and on the CPU from the same state,
-    weights from ``seed``: the loss to rtol 1e-5, each gradient and moment
-    within ``tol`` of its max, parameters within 2 lr_1 plus two float32
-    roundings."""
+    weights from ``seed`` (``frontend``: the batch's ``img_embed`` or
+    ``enc_embed``, a CPU tensor): the loss to rtol 1e-5, each gradient and
+    moment within ``tol`` of its max, parameters within 2 lr_1 plus two
+    float32 roundings."""
     import torch
 
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -1059,7 +1140,8 @@ def train_step_vs_cpu(dev, cfg32, seed=LM_SEED + 2, tol=TRAIN_TOL):
     for side, m in (("card", model), ("cpu", cpu)):
         d = m.embed.table.device
         params = dict(m.named_parameters())
-        loss = loss_fn(m, {k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+        loss = loss_fn(m, {**{k: torch.from_numpy(v).to(d) for k, v in batch.items()},
+                           **{k: v.to(d) for k, v in (frontend or {}).items()}})
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         _, opt, met = apply_updates(params, grads, init_opt_state(params, oc), oc)
         out[side] = (float(loss.detach()), {n: g.cpu() for n, g in grads.items()},
@@ -1750,9 +1832,10 @@ def recurrent_phase(dev, K, smi):
     return counts_all, shapes_all, rows
 
 
-def flash_row(name, cfg, dev, gen, S, launches, worst):
+def flash_row(name, cfg, dev, gen, S, launches, worst, Skv=None, causal=True):
     """A ``kernels`` line row for flash at a prefill of ``S`` tokens with
-    ``cfg``'s heads, (1, H, KH, S, hd), bfloat16, causal: random q, k, v
+    ``cfg``'s heads, (1, H, KH, S, hd), bfloat16, causal (or against
+    ``Skv`` keys, with or without the mask): random q, k, v
     from ``gen``, held to the plain version (``flash_close``), then its ms,
     the plain version's, its bound (q, k, v, o moved once; FLOP at the
     bf16 rate) and SDPA's at the same inputs, and the kernel's device ms
@@ -1767,28 +1850,30 @@ def flash_row(name, cfg, dev, gen, S, launches, worst):
     from repro_torch.timing import cuda_ms
 
     B, H, KH, hd = 1, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Skv = Skv or S
     q = torch.randn(B, H, S, hd, device=dev, generator=gen).to(torch.bfloat16)
-    k = torch.randn(B, KH, S, hd, device=dev, generator=gen).to(torch.bfloat16)
-    v = torch.randn(B, KH, S, hd, device=dev, generator=gen).to(torch.bfloat16)
-    err, _, ok = flash_close(K.flash_attention(q, k, v), flash_attention_ref(q, k, v),
-                             torch.bfloat16)
-    require(ok, f"flash at {name}'s shape {(B, H, KH, S, hd)} differs from plain (max |diff| "
-                f"{err}; see flash_close)")
-    flop = flash_flops(B, H, S, S, hd, causal=True)
-    nbytes = 2 * (2 * B * H * S * hd + 2 * B * KH * S * hd)  # q, o, k, v once each
+    k = torch.randn(B, KH, Skv, hd, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(B, KH, Skv, hd, device=dev, generator=gen).to(torch.bfloat16)
+    err, _, ok = flash_close(K.flash_attention(q, k, v, causal=causal),
+                             flash_attention_ref(q, k, v, causal=causal), torch.bfloat16)
+    require(ok, f"flash at {name}'s shape {(B, H, KH, S, Skv, hd)} differs from plain (max "
+                f"|diff| {err}; see flash_close)")
+    flop = flash_flops(B, H, S, Skv, hd, causal=causal)
+    nbytes = 2 * (2 * B * H * S * hd + 2 * B * KH * Skv * hd)  # q, o, k, v once each
     return {
         "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/flashattn.cu",
         "replaces": "src/repro/kernels/flashattn.py:61", "launches": launches,
         "checked_against_plain": True, "max_abs_err": max(worst, err),
-        "shape": {"B": B, "H": H, "KH": KH, "S": S, "hd": hd},
-        "ms": cuda_ms(lambda: K.flash_attention(q, k, v), reps=20),
-        "kernel_device_ms": kernel_profile(lambda: K.flash_attention(q, k, v))["device_ms"],
-        "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v), reps=5),
+        "shape": {"B": B, "H": H, "KH": KH, "S": S, "Skv": Skv, "hd": hd, "causal": causal},
+        "ms": cuda_ms(lambda: K.flash_attention(q, k, v, causal=causal), reps=20),
+        "kernel_device_ms": kernel_profile(
+            lambda: K.flash_attention(q, k, v, causal=causal))["device_ms"],
+        "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal), reps=5),
         "bound_ms": max(flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
         "bound_flop": flop, "bound_bytes": nbytes,
         "bound_by": "operations" if flop / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
         "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), reps=20)}
+            q, k, v, is_causal=causal, enable_gqa=True), reps=20)}
 
 
 # -- training of the moe, ssm and hybrid families (phase 18) ---------------------------
@@ -2109,6 +2194,405 @@ def family_train_phase(dev, K, smi):
     for r in rows:
         r["launches"] = counts[r["name"].split(":")[0]]
     return counts, shapes, rows
+
+
+# -- the vlm and encdec families (phase 19) --------------------------------------------
+
+
+def _x_cfg32(arch):
+    """Phase 19 (b)'s float32 copy at full width: one vlm cycle (4 self
+    layers and the cross layer), or Whisper whole."""
+    from repro_torch.configs import get_config
+
+    base = get_config(arch)
+    layers = base.cross_attn_every if base.family == "vlm" else base.num_layers
+    return dataclasses.replace(base, num_layers=layers, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def _x_frontend(cfg, gen):
+    """One sequence's frontend input from ``make_batch``, on ``gen``'s
+    device: {"img_embed": (1, num_image_tokens, frontend_dim)} or
+    {"enc_embed": (1, encoder_seq, d)}."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.train.steps import make_batch
+
+    batch = make_batch(cfg, ShapeSpec("phase19", 1, 1, "prefill"), gen)
+    return {k: v for k, v in batch.items() if k != "tokens"}
+
+
+def cross_layer_grads_vs_cpu(cfg32, model32, dev, gen):
+    """Phase 19 (b): one full-width float32 vlm cross layer (``lnx``,
+    ``xattn``, ``ln2``, ``mlp``) on LM_CPU_PROMPT tokens against a
+    1,601-row image source (``img_proj`` of a drawn image): the gradients
+    of the input, the source and every weight on the card (flash forward,
+    plain float32 backward) against the CPU's, each within TRAIN_TOL of
+    its max. Returns the shares."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import transformer as TM
+
+    layer = model32.blocks[0].cross
+    cpu = copy.deepcopy(layer).to("cpu")
+    with torch.no_grad():
+        (img,) = _x_frontend(cfg32, gen).values()
+        src = img @ model32.img_proj
+    x = torch.randn(1, LM_CPU_PROMPT, cfg32.d_model, device=dev, generator=gen)
+    g = torch.randn(1, LM_CPU_PROMPT, cfg32.d_model, device=dev, generator=gen)
+    grads, names = {}, ["x", "src"] + [n for n, _ in layer.named_parameters()]
+    for side, m in (("card", layer), ("cpu", cpu)):
+        d = m.ln2.w.device
+        xs, ss = x.to(d).requires_grad_(), src.to(d).requires_grad_()
+        out = TM._apply_dense_layer(m, xs, cfg32, None, None, None, cross_src=ss)
+        grads[side] = torch.autograd.grad(out, [xs, ss, *m.parameters()], g.to(d))
+    shares = {n: float((a.cpu() - b).abs().max() / b.abs().max())
+              for n, a, b in zip(names, grads["card"], grads["cpu"])}
+    require(max(shares.values()) <= TRAIN_TOL,
+            f"phase19 (b) the float32 cross layer's gradients differ card vs CPU: {shares}")
+    del cpu, grads
+    return shares
+
+
+def x_checks(dev, K, smi):
+    """Phase 19 (a) and (b): flash at the cross-attention shapes against its
+    plain version; then, in float32 at full width, card against CPU: one
+    vlm cycle with and without a 1,601-row image, Whisper whole with 1,500
+    frames (a LM_CPU_PROMPT-token prefill and LM_CPU_STEPS greedy decode
+    steps: logits within LM_TOL of max |logit|, tokens equal); one cross
+    layer's gradients; one AdamW step of Whisper whole with its frames
+    (14c's rule). Returns flash's worst error."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TM
+
+    gen = torch.Generator(device=dev).manual_seed(X_SEED)
+    with torch.inference_mode():
+        worst = {"random": flash_checks(dev, X_FLASH_SHAPES, causal_modes=(False,)),
+                 "cancel": flash_checks(dev, X_FLASH_CANCEL_SHAPES, cancel=True,
+                                        causal_modes=(False,))}
+    say("phase19 (a) flash at the cross-attention shapes, largest |diff| and share:",
+        json.dumps(worst))
+    torch.cuda.empty_cache()
+    for arch in X_ARCHS:
+        cfg32 = _x_cfg32(arch)
+        model32 = TM.init_params(cfg32, seed=X_SEED, device=dev)
+        prompt = lm_prompts(cfg32, 1, LM_CPU_PROMPT, LM_CPU_PROMPT, seed=X_SEED)[0]
+        fe = {k: v.cpu() for k, v in _x_frontend(cfg32, gen).items()}
+        for with_fe in ((True, False) if cfg32.family == "vlm" else (True,)):
+            tb = time.perf_counter()
+            share, same_tokens, toks = lm_vs_cpu(cfg32, model32, prompt, 512, LM_CPU_STEPS,
+                                                 frontend=fe if with_fe else None)
+            say("phase19 (b) card vs CPU", json.dumps({
+                "arch": arch, "layers": cfg32.num_layers, "d_model": cfg32.d_model,
+                "dtype": "float32", "prompt": LM_CPU_PROMPT, "decode_steps": LM_CPU_STEPS,
+                "frontend": {k: list(v.shape) for k, v in fe.items()} if with_fe else None,
+                "max_logit_err_share": share, "tolerance": LM_TOL, "tokens": toks,
+                "tokens_equal": same_tokens, "seconds": time.perf_counter() - tb,
+                "reduced": (f"one cycle, {cfg32.num_layers} of {get_config(arch).num_layers} "
+                            "layers" if cfg32.family == "vlm" else "whole"),
+                "card": smi}))
+            require(share <= LM_TOL and same_tokens,
+                    f"phase19 (b) {arch} (frontend {with_fe}): the float32 model on the card "
+                    f"differs from the CPU (share {share}, tokens equal {same_tokens})")
+        if cfg32.family == "vlm":
+            tb = time.perf_counter()
+            say("phase19 (b) float32 cross layer gradients card vs CPU (share of max |g|):",
+                json.dumps({"tokens": LM_CPU_PROMPT, "image_rows": cfg32.num_image_tokens,
+                            "shares": cross_layer_grads_vs_cpu(cfg32, model32, dev, gen),
+                            "tolerance": TRAIN_TOL, "seconds": time.perf_counter() - tb}))
+        del model32
+        torch.cuda.empty_cache()
+    cfg32 = _x_cfg32("whisper-base")
+    tb = time.perf_counter()
+    fe = {k: v.cpu() for k, v in _x_frontend(cfg32, gen).items()}
+    say("phase19 (b) whisper-base float32 AdamW step card vs CPU", json.dumps(dict(
+        train_step_vs_cpu(dev, cfg32, seed=X_SEED, frontend=fe), frames=cfg32.encoder_seq,
+        card=smi, seconds=time.perf_counter() - tb)))
+    torch.cuda.empty_cache()
+    return max(e for w in worst.values() for e, _ in w.values())
+
+
+def x_serve(dev, K, smi, arch, cfg, model, gen):
+    """Phase 19 (c)-(e) for one model at full width and depth in bfloat16:
+    (c) the serve (``Engine``: X_REQUESTS prompts of X_PROMPT_LENS tokens,
+    X_MAX_NEW new each, X_SLOTS slots, X_MAX_LEN positions; flash exactly
+    once per attention layer per prefill and never at decode), with a
+    profile of the longest prefill and a decode tick; (d) the engine with
+    one slot against a manual loop; (e) a manual prefill with the frontend
+    input (X_FRONTEND_PREFILL) and X_DECODE_STEPS greedy decode steps:
+    flash once per attention layer of the prefill (the encoder's too),
+    never at decode. Returns (the launches of (c) and (e), by shape)."""
+    import torch
+
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.models import transformer as TM
+    from repro_torch.train.steps import make_batch, make_decode_step, make_prefill_step
+
+    mem0 = torch.cuda.memory_allocated() - sum(p.numel() * p.element_size()
+                                               for p in model.parameters())
+    prompts = lm_prompts(cfg, X_REQUESTS, *X_PROMPT_LENS, seed=0)
+    counts, rec = serve_lm(cfg, model, prompts, X_SLOTS, X_MAX_LEN, X_MAX_NEW)
+    shapes = rec.pop("launch_shapes")
+    prompt_tokens = sum(len(p) for p in prompts)
+    rec.update({"arch": arch, "prefill_tokens_per_s": prompt_tokens / (sum(rec["prefill_ms"]) / 1e3),
+                "attention_layers": TM.attention_layers(cfg),
+                "peak_bytes_above_earlier_phases": (rec["max_memory_allocated"] - mem0
+                                                    if dev.type == "cuda" else None),
+                "launches": counts, "card": smi})
+    say("phase19 (c) serve", json.dumps(rec))  # serve_lm checked flash's launches
+    longest = torch.from_numpy(max(prompts, key=len)[None]).to(dev)
+    prefill, decode = make_prefill_step(cfg, X_MAX_LEN), make_decode_step(cfg)
+    st = TM.init_cache(cfg, X_SLOTS, X_MAX_LEN, device=dev)._replace(index=rec["final_index"])
+    tok4 = torch.zeros(X_SLOTS, 1, dtype=torch.int32, device=dev)
+    kinds = {"flash kernel": ("flash_fwd",), "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
+             "elementwise": ("elementwise",), "reductions": ("reduce",),
+             "copies and fills": ("Memcpy", "Memset", "fill", "copy")}
+    prof = {"prefill": {"tokens": longest.shape[1], **device_profile(
+                lambda: prefill(model, {"tokens": longest}), dev, kinds)},
+            "decode_tick": {"slots": X_SLOTS, "index": st.index, **device_profile(
+                lambda: decode(model, st, tok4), dev, kinds)}}
+    say("phase19 (c) profile", json.dumps(dict(prof, arch=arch, card=smi)))
+    del st
+    got, want, same_cache = engine_equals_manual_loop(cfg, model, prompts[0], X_MAX_LEN,
+                                                      X_MAX_NEW)
+    say("phase19 (d) engine vs manual loop:", json.dumps(
+        {"arch": arch, "engine": got, "manual": want, "same_cache": same_cache}))
+    require(got == want and same_cache,
+            f"phase19 {arch}: the engine differs from a manual prefill + decode loop")
+    # (e) the frontend input at prefill; decode reads the cross caches
+    S, rows = X_FRONTEND_PREFILL[arch]
+    batch = make_batch(cfg, ShapeSpec("phase19", S, 1, "prefill"), gen)
+    (name, fe), = ((k, v) for k, v in batch.items() if k != "tokens")
+    require(fe.shape[1] == rows, f"{arch}: make_batch gave {name} {tuple(fe.shape)}")
+    attn = TM.attention_layers(cfg) + (cfg.encoder_layers if cfg.family == "encdec" else 0)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()  # the frontend prefill and its decode start here
+    t0 = time.perf_counter()
+    logits, st = prefill(model, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    at_prefill = K.launch_counts()["flash_attention"]
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    step_ms, toks, finite = [], [int(tok[0, 0])], bool(torch.isfinite(logits).all())
+    for _ in range(X_DECODE_STEPS):
+        t0 = time.perf_counter()
+        lg, nxt, st = decode(model, st, tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite &= bool(torch.isfinite(lg).all())
+        tok = nxt[:, None]
+        toks.append(int(nxt[0]))
+    e_counts, e_shapes = K.launch_counts(), K.launch_shapes()  # and end here
+    say("phase19 (e) prefill with the frontend input, then decode", json.dumps({
+        "arch": arch, "prompt": S, name: list(fe.shape), "prefill_ms": prefill_ms,
+        "decode_ms_per_step": [min(step_ms), sum(step_ms) / len(step_ms)],
+        "decode_steps": X_DECODE_STEPS, "flash_launches": [at_prefill, e_counts["flash_attention"]],
+        "tokens": toks, "card": smi}))
+    require(finite and at_prefill == attn and e_counts["flash_attention"] == attn,
+            f"phase19 (e) {arch}: flash launched {at_prefill} at prefill and "
+            f"{e_counts['flash_attention'] - at_prefill} at decode (want {attn} and 0); "
+            f"finite {finite}")
+    del st, logits, batch
+    for k, c in e_counts.items():
+        counts[k] = counts.get(k, 0) + c
+    for k, by in e_shapes.items():
+        for shp, c in by.items():
+            shapes.setdefault(k, {})[shp] = shapes.get(k, {}).get(shp, 0) + c
+    return counts, shapes
+
+
+def x_train(dev, K, smi, arch, gen):
+    """Phase 19 (f): X_STEPS steps of ``make_train_step`` on ``make_batch``'s
+    inputs (the frontend's included), bfloat16 with remat, AdamW
+    (``default_opt_config``), at X_TRAIN's shape. Per step the rows kernel
+    runs once (the embedding backward) and flash once per attention use in
+    the forward and once more in the remat recompute of a vlm cycle or a
+    Whisper decoder layer; Whisper's encoder layers are not recomputed, so
+    their flash runs once: 30 a Whisper step (6 + 2 x (6 + 6)), 20 a step
+    of 2 vlm cycles (2 x 2 x (4 + 1)). Returns (launches, by shape, the
+    record)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.models.config import flops_per_token
+    from repro_torch.train.steps import default_opt_config, make_batch, make_init_fn, make_train_step
+
+    full = get_config(arch)
+    B, S, cycles = X_TRAIN[arch]
+    cfg = full if cycles is None else dataclasses.replace(
+        full, num_layers=cycles * full.cross_attn_every)
+    oc = default_opt_config(full, total_steps=X_STEPS)
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_init_fn(cfg, oc)(X_SEED, device=dev)
+    step = make_train_step(cfg, oc)
+    batches = [make_batch(cfg, ShapeSpec("phase19", S, B, "train"), gen) for _ in range(X_STEPS)]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()  # this family's train steps start here
+    losses, norms, secs = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))  # waits for the step
+        norms.append(float(met["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    counts, shapes = K.launch_counts(), K.launch_shapes()  # and end here
+    peak = torch.cuda.max_memory_allocated() - mem0
+    opt = state.opt
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"{arch}: training diverged: {losses} {norms}")
+    stale = [n for n in opt.m
+             if not (float(opt.m[n].abs().max()) > 0 and float(opt.v[n].abs().max()) > 0)]
+    require(opt.step == X_STEPS and not stale, f"{arch}: moments that did not move: {stale}")
+    if cfg.family == "vlm":
+        per_step = 2 * cycles * cfg.cross_attn_every
+    else:
+        per_step = cfg.encoder_layers + 2 * 2 * cfg.num_layers
+    want = {"cobra_bin_accumulate_rows": X_STEPS, "flash_attention": per_step * X_STEPS}
+    got = {k: counts[k] for k in want}
+    require(got == want, f"{arch}: {X_STEPS} steps launched {got}, expected {want}")
+    tokens = B * S
+    ms = min(1e3 * x for x in secs[1:])
+    rec = {"arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+           "of_layers": full.num_layers, "parameters": sum(p.numel() for p in
+                                                          state.params.parameters()),
+           "remat": cfg.remat, "optimizer": oc.kind, "batch": B, "seq_len": S,
+           "frontend": {k: list(v.shape) for k, v in batches[0].items()
+                        if k not in ("tokens", "labels")},
+           "losses": losses, "grad_norms": norms, "step_ms": [1e3 * x for x in secs],
+           "steady_step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
+           "model_flop_per_s": flops_per_token(cfg) * tokens / ms * 1e3,
+           "model_flop_share_of_989T": flops_per_token(cfg) * tokens / ms * 1e3 / BF16_FLOP_PER_S,
+           "peak_bytes_above_earlier_phases": peak, "earlier_phases_bytes": mem0,
+           "launches": got, "card": smi}
+    say("phase19 (f) train", json.dumps(rec))
+    del state, batches, opt, step
+    torch.cuda.empty_cache()
+    return counts, shapes, rec
+
+
+def x_launcher_train(dev, K, smi):
+    """Phase 19 (f): ``launch/train.py`` for whisper-base, X_STEPS steps at
+    X_TRAIN's shape. Its batches hold tokens and labels only, as the
+    reference's do, so the cross layers and the encoder are skipped: their
+    moments must stay exactly zero (their gradients are exactly zero) and
+    every other moment must move; flash runs for the decoder's
+    self-attention only, twice a layer a step (remat)."""
+    import torch
+
+    from repro_torch.launch import train as train_mod
+
+    arch = "whisper-base"
+    B, S, _ = X_TRAIN[arch]
+    torch.cuda.empty_cache()
+    args = train_mod.parse_args(["--arch", arch, "--preset", "full", "--seq-len", str(S),
+                                 "--batch", str(B), "--steps", str(X_STEPS), "--log-every", "1"])
+    K.reset_launch_counts()  # the launcher's path starts here
+    run = train_mod.train(args)
+    torch.cuda.synchronize()
+    counts, shapes = K.launch_counts(), K.launch_shapes()  # and ends here
+    opt = run.state.opt
+    unreached = [n for n in opt.m if ".xattn." in n or ".lnx." in n or n.startswith("enc_")]
+    moved = [n for n in opt.m if float(opt.m[n].abs().max()) > 0
+             and float(opt.v[n].abs().max()) > 0]
+    nonzero = [n for n in unreached if opt.m[n].any() or opt.v[n].any()]
+    require(len(run.losses) == X_STEPS and all(math.isfinite(x) for x in run.losses + run.grad_norms),
+            f"{arch} launcher: {run.losses} {run.grad_norms}")
+    require(unreached and not nonzero and sorted(moved) == sorted(set(opt.m) - set(unreached)),
+            f"{arch} launcher: unreached leaves with moments {nonzero}; moved "
+            f"{len(moved)} of {len(opt.m) - len(unreached)} reached")
+    layers = run.state.params.cfg.num_layers
+    want = {"cobra_bin_accumulate_rows": X_STEPS, "flash_attention": 2 * layers * X_STEPS}
+    got = {k: counts[k] for k in want}
+    require(got == want, f"{arch} launcher: {X_STEPS} steps launched {got}, expected {want}")
+    say("phase19 (f) launch/train.py", json.dumps({
+        "arch": arch, "batch": B, "seq_len": S, "losses": run.losses,
+        "grad_norms": run.grad_norms, "step_ms": [1e3 * x for x in run.step_seconds],
+        "unreached_leaves_zero": len(unreached), "moved": len(moved), "launches": got,
+        "card": smi}))
+    del run, opt
+    torch.cuda.empty_cache()
+    return counts, shapes
+
+
+def cross_phase(dev, K, smi):
+    """Phase 19: the vlm and encdec families. (a), (b): ``x_checks``; then
+    for each of X_ARCHS at full width and depth in bfloat16 from a seeded
+    generator: (c)-(e) ``x_serve``, (f) ``x_train``; then (f) the launcher
+    for whisper-base (``x_launcher_train``); then the kernels line's rows
+    8d (flash at the vlm's cross-attention prefill), 8e (flash at
+    Whisper's encoder) and 5f (the rows kernel at the vlm's embedding
+    backward). Returns (launches of (c), (e) and (f), by shape, the
+    rows)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TM
+
+    t = time.perf_counter()
+    worst = x_checks(dev, K, smi)
+    say(f"phase19 checks seconds: {time.perf_counter() - t:.1f}")
+    counts_all, shapes_all = {}, {}
+
+    def add(c, sh):
+        for k, x in c.items():
+            counts_all[k] = counts_all.get(k, 0) + x
+        for k, by in sh.items():
+            for key, x in by.items():
+                shapes_all.setdefault(k, {})[key] = shapes_all.get(k, {}).get(key, 0) + x
+
+    gen = torch.Generator(device=dev).manual_seed(X_SEED)
+    for arch in X_ARCHS:
+        ta = time.perf_counter()
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+        model = TM.init_params(cfg, seed=X_SEED, device=dev)
+        torch.cuda.synchronize()
+        say("phase19 model", json.dumps({
+            "arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+            "encoder_layers": cfg.encoder_layers, "attention_layers": TM.attention_layers(cfg),
+            "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+            "parameters": sum(p.numel() for p in model.parameters()),
+            "parameter_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "earlier_phases_bytes": mem0, "seconds_to_draw": time.perf_counter() - ta}))
+        add(*x_serve(dev, K, smi, arch, cfg, model, gen))
+        del model
+        torch.cuda.empty_cache()
+        c, sh, _ = x_train(dev, K, smi, arch, gen)
+        add(c, sh)
+        say(f"phase19 {arch} seconds: {time.perf_counter() - ta:.1f}")
+    ta = time.perf_counter()
+    add(*x_launcher_train(dev, K, smi))
+    say(f"phase19 launcher seconds: {time.perf_counter() - ta:.1f}")
+    vlm, whisper = get_config("llama-3.2-vision-11b"), get_config("whisper-base")
+    with torch.inference_mode():
+        rows = [flash_row("flash_attention:vlm_cross_prefill", vlm, dev, gen, 1024,
+                          counts_all["flash_attention"], worst, Skv=vlm.num_image_tokens,
+                          causal=False),
+                flash_row("flash_attention:whisper_encoder", whisper, dev, gen,
+                          whisper.encoder_seq, counts_all["flash_attention"], worst,
+                          causal=False)]
+    B, S, _ = X_TRAIN["llama-3.2-vision-11b"]
+    emb = embedding_backward_check(dev, K, vlm, B=B, S=S)
+    rows.append({
+        "name": "cobra_bin_accumulate_rows:vlm_embedding_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_rows.cu",
+        "replaces": "src/repro/kernels/fused.py:263",
+        "launches": counts_all["cobra_bin_accumulate_rows"], "checked_against_plain": True,
+        "shape": {k: emb[k] for k in ("m", "F", "n")}, "dtype": "bfloat16 cotangent, float32 rows",
+        "max_abs_err": emb["max_abs_err"], "ms": emb["ms"],
+        "kernel_device_ms": emb["profile"]["device_ms"], "plain_ms": emb["plain_ms"],
+        "bound_ms": emb["bound_ms"], "bound_bytes": emb["bound_bytes"], "bound_by": "bytes",
+        "library_ms": emb["library_ms"]})
+    say("phase19 rows 8d, 8e, 5f", json.dumps(rows))
+    torch.cuda.empty_cache()
+    return counts_all, shapes_all, rows
 
 
 # -- the traversal path (phase 12) -------------------------------------------------
@@ -3930,6 +4414,11 @@ def main() -> None:
     fam_counts, fam_shapes, fam_rows = family_train_phase(dev, K, smi)
     say(f"phase18 seconds: {time.perf_counter() - t18:.1f}")
 
+    # -- phase 19: the vlm and encdec families (before phase 11) ----------------------
+    t19 = time.perf_counter()
+    x_counts, x_shapes, x_rows = cross_phase(dev, K, smi)
+    say(f"phase19 seconds: {time.perf_counter() - t19:.1f}")
+
     # -- phase 11: the kernels line at the paths' shapes -------------------------
     t11 = time.perf_counter()
     n2, br2 = s2.num_nodes, min(max(64, T.compromise_bin_range(s2.num_nodes, hw)), s2.num_nodes)
@@ -4036,10 +4525,11 @@ def main() -> None:
     ]
     path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
             + trav_counts[k] + serving_counts[k] + train_counts[k] + moe_counts[k]
-            + shard_counts[k] + rec_counts[k] + fam_counts[k] for k in after}
+            + shard_counts[k] + rec_counts[k] + fam_counts[k] + x_counts[k] for k in after}
     path_shapes = {}
     for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes,
-                 serving_shapes, train_shapes, moe_shapes, shard_shapes, rec_shapes, fam_shapes):
+                 serving_shapes, train_shapes, moe_shapes, shard_shapes, rec_shapes, fam_shapes,
+                 x_shapes):
         for k, by in part.items():
             for shp, c in by.items():
                 path_shapes.setdefault(k, {})[shp] = path_shapes.get(k, {}).get(shp, 0) + c
@@ -4082,7 +4572,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path[name], "launches_16": shard_counts[name],
-            "launches_18": fam_counts[name],
+            "launches_18": fam_counts[name], "launches_19": x_counts[name],
             "checked_against_plain": True, "max_abs_err": err,
             "ms": cuda_ms(kfn, reps=reps), "plain_ms": cuda_ms(pfn, reps=reps),
             "bound_ms": bound_ms(nbytes), "bound_bytes": nbytes, "bound_by": "bytes",
@@ -4104,11 +4594,12 @@ def main() -> None:
         flash_row("flash_attention", lm_cfg, dev, gen, fS, path["flash_attention"],
                   worst["flash_attention"]),
         launches_16=shard_counts["flash_attention"], launches_18=fam_counts["flash_attention"],
-        flash_hbm_bytes=flash_hbm_bytes(fB, fH, fKH, fS, fS, fhd)))
+        launches_19=x_counts["flash_attention"], flash_hbm_bytes=flash_hbm_bytes(fB, fH, fKH, fS, fS, fhd)))
     kernels += moe_rows  # rows 2b, 5c, 7b and 8b: phase 15's shapes and launches
     kernels += shard_rows  # rows 4c and 5d: a rank's local reduce in phase 16, its launches
     kernels += rec_rows  # row 8c: flash at the longest zamba2 prefill, phase 17's launches
     kernels += fam_rows  # rows 5e and 7c: the MoE backward at phase 15's shape, phase 18's launches
+    kernels += x_rows  # rows 8d, 8e and 5f: the vlm's and Whisper's shapes, phase 19's launches
     require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on a path: {path}")
     say(f"phase11 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}; rows F={GNN_D}; "
         f"COBRA pass S3 m={m3} bins={nb3}; embedding T={T_} d={d_} B={B_} L={L}; "

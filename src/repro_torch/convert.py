@@ -88,8 +88,10 @@ def _tree_node(tree, dotted: str):
 
 def _leaf_tensor(tree, name: str, device) -> torch.Tensor:
     """The leaf of the reference's tree for the port's parameter ``name``:
-    layer i of the stacked leaf for ``blocks.<i>.<rest>`` (block (c, j)
-    for the hybrid's ``blocks.<c>.mamba.<j>.<rest>``)."""
+    layer i of the stacked leaf for ``blocks.<i>.<rest>``,
+    ``enc_blocks.<i>.<rest>`` or ``dec_blocks.<i>.<rest>`` (block (c, j)
+    for the hybrid's ``blocks.<c>.mamba.<j>.<rest>`` and the vlm's
+    ``blocks.<c>.self.<j>.<rest>``; ``reference_leaf``)."""
     from repro_torch.train.optimizer import reference_leaf
 
     key, index = reference_leaf(name)
@@ -104,8 +106,9 @@ def train_state_from_numpy(params, opt, cfg, device=None):
     parameters; Adafactor's ``m`` None and ``v`` a tree whose factored
     leaves are (rows, cols) pairs). AdamW's moments are split by layer
     like the parameters; Adafactor's stay the reference's stacked leaves,
-    keyed ``blocks.<rest>`` (two stacking axes for the hybrid family's
-    Mamba2 blocks; ``train/optimizer.py``)."""
+    keyed ``blocks.<rest>``, ``enc_blocks.<rest>`` or ``dec_blocks.<rest>``
+    (two stacking axes for the hybrid family's Mamba2 blocks and the vlm's
+    self layers; ``train/optimizer.py``)."""
     from repro_torch.train.optimizer import OptState, reference_leaf
     from repro_torch.train.steps import TrainState
 
@@ -132,9 +135,10 @@ def load_from_numpy(module: torch.nn.Module, tree) -> torch.nn.Module:
     into ``module``, in place. Each parameter takes the leaf of its path
     with the numeric parts left out, indexed by those numbers in order: the
     reference stacks a layer's leaves along leading axes, so
-    ``blocks.i.attn.wq`` is ``tree["blocks"]["attn"]["wq"][i]`` and the
+    ``blocks.i.attn.wq`` is ``tree["blocks"]["attn"]["wq"][i]``, the
     hybrid family's ``blocks.i.mamba.j.mamba.in_proj`` is
-    ``tree["blocks"]["mamba"]["mamba"]["in_proj"][i, j]``. Shapes and dtypes
+    ``tree["blocks"]["mamba"]["mamba"]["in_proj"][i, j]`` and the vlm's
+    ``blocks.i.self.j.attn.wq`` is ``tree["blocks"]["self"]["attn"]["wq"][i, j]``. Shapes and dtypes
     must agree, and every leaf of the tree must be used."""
     used = set()
     with torch.no_grad():
@@ -170,7 +174,9 @@ def load_from_numpy(module: torch.nn.Module, tree) -> torch.nn.Module:
 def lm_params_from_numpy(params, cfg, device=None):
     """An ``LM`` holding the reference's unboxed ``init_params`` tree, every
     ``blocks`` leaf with a leading cycle axis (two in the hybrid family's
-    Mamba2 blocks), ``shared_attn`` with none (``load_from_numpy``; in the
+    Mamba2 blocks and the vlm's self layers), every ``enc_blocks`` and
+    ``dec_blocks`` leaf with a leading layer axis, ``shared_attn``,
+    ``img_proj``, ``enc_ln`` and ``enc_pos`` with none (``load_from_numpy``; in the
     moe family ``blocks.i.moe.w1`` is ``params["blocks"]["moe"]["w1"][i]``,
     (E, d, f))."""
     from repro_torch.models.transformer import LM

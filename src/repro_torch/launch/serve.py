@@ -8,9 +8,14 @@ It runs on the CUDA card unless ``--device`` names another; the weights
 are random (``init_params`` with seed 0) and the prompts are drawn from
 ``numpy.random.default_rng(0)`` as in the reference.
 
-Every ported family serves: dense, moe, ssm (``--arch xlstm-350m``) and
-hybrid (``--arch zamba2-2.7b``), each with ``--preset full`` on the card
-and ``--preset smoke`` on the card or with ``--device cpu``. The
+Every family serves: dense, moe, ssm (``--arch xlstm-350m``), hybrid
+(``--arch zamba2-2.7b``), vlm (``--arch llama-3.2-vision-11b``) and encdec
+(``--arch whisper-base``), each with ``--preset full`` on the card and
+``--preset smoke`` on the card or with ``--device cpu``. As in the
+reference, requests are prompts only: the vlm and Whisper prefill their
+cross caches from the prompt, which must fit them (1,601 rows for the
+vlm, 1,500 for Whisper; 16 and 32 at ``--preset smoke``, so ``--max-len
+64`` there, whose prompts are at most 15 tokens). The
 recurrent families keep their states in the cache beside (hybrid) or in
 place of (ssm) the KV cache; the hybrid family's prefill runs the flash
 kernel at head_dim 80. ``--preset full`` of the moe family does not fit

@@ -5,9 +5,12 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --preset smoke --steps 20 --device cpu
 
-``--arch`` takes the dense, moe (``qwen3-moe-235b-a22b``), ssm
-(``xlstm-350m``) and hybrid (``zamba2-2.7b``) families; vlm and encdec
-raise (ROADMAP Queue 1 item 2). It runs on the CUDA card unless
+``--arch`` takes every family: dense, moe (``qwen3-moe-235b-a22b``), ssm
+(``xlstm-350m``), hybrid (``zamba2-2.7b``), vlm (``llama-3.2-vision-11b``)
+and encdec (``whisper-base``). As in the reference, the data pipeline
+yields tokens and labels only, so the vlm and encdec families train with
+their cross layers (and Whisper's encoder) skipped and their gradients
+zero (ROADMAP Queue 3). It runs on the CUDA card unless
 ``--device`` names another. Wired in, as
 in the reference: the deterministic restartable data pipeline
 (``data/pipeline.py``), async checkpoints with auto-resume

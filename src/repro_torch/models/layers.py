@@ -1,5 +1,5 @@
 """LM layers (port of the dense and MoE parts of ``repro/models/layers.py``):
-norms, RoPE, GQA attention with a KV cache, MLPs, the MoE layer with its
+norms, RoPE, GQA self- and cross-attention with a KV cache, MLPs, the MoE layer with its
 PB dispatch and row-block combine, the embedding and the logits, with the
 PB embedding backward (``_pb_take``). The GNN half lives in
 ``models/gnn.py``. Not ported: the sharded MoE (``moe_combine_sharded``,
@@ -21,7 +21,11 @@ over those tokens' own keys and values (the reference's
 ``q_offset == 0`` and ``Sq > 1``, with or without a cache) runs
 ``kernels.flash_attention``: the CUDA kernel on the card, its plain
 version on the CPU, so the CPU tests cover the routing the card runs.
-Decode (one token at ``cache_index`` against the whole cache) stays plain
+Cross-attention (``kv_src``: keys and values projected from another
+sequence, no causal mask, ``Sq != Skv``) runs the kernel with
+``causal=False`` in training, and at prefill over the whole cross cache.
+Decode (one token at ``cache_index`` against the whole cache, or a
+cross-attention query against its cache as it stands) stays plain
 torch, as ``_direct_attention`` is plain jnp in the reference.
 ``cfg.attn_kv_block`` / ``use_blockwise_attn`` chose between two
 renderings of one function there; the port ignores them (the kernel's
@@ -116,19 +120,22 @@ class Attention(nn.Module):
         self.bv = _param((KH * hd,), dt, device) if bias else None
 
 
-def _qkv(p: Attention, x, cfg: ModelConfig, positions):
+def _qkv(p: Attention, x, cfg: ModelConfig, positions, kv_x=None):
+    """q from ``x``; k and v from ``kv_x`` (cross-attention) or ``x``."""
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = cfg.cdtype
     xx = x.to(dt)
+    kx = xx if kv_x is None else kv_x.to(dt)
     q = xx @ p.wq.to(dt)
-    k = xx @ p.wk.to(dt)
-    v = xx @ p.wv.to(dt)
+    k = kx @ p.wk.to(dt)
+    v = kx @ p.wv.to(dt)
     if p.bq is not None:
         q, k, v = q + p.bq.to(dt), k + p.bk.to(dt), v + p.bv.to(dt)
     B, S = x.shape[:2]
+    Skv = kx.shape[1]
     q = q.view(B, S, H, hd)
-    k = k.view(B, S, KH, hd)
-    v = v.view(B, S, KH, hd)
+    k = k.view(B, Skv, KH, hd)
+    v = v.view(B, Skv, KH, hd)
     if cfg.use_rope and positions is not None:
         # queries only: the reference turns keys by ``kv_positions``, which
         # its self-attention never passes (ROADMAP Queue 3)
@@ -177,25 +184,36 @@ def attention_apply(
     cfg: ModelConfig,
     *,
     positions: Optional[torch.Tensor] = None,
+    kv_src: Optional[torch.Tensor] = None,
     cache: Optional[Cache] = None,
     cache_index: Optional[int] = None,
     causal: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Self-attention. ``cache``: (k_cache, v_cache) of shape
-    (B, S_max, KH, hd), written in place (the reference returns updated
-    copies; the port saves the copy) and returned. One token is written at
-    ``cache_index`` and attends over the whole cache under the causal mask
-    (decode); a multi-token step is written at 0 (prefill). RoPE turns
-    the queries by ``positions`` and leaves the keys as they are, which is
-    the reference's function (ROADMAP Queue 3)."""
+    """Self-attention, or cross-attention over ``kv_src`` (B, Skv, d),
+    whose keys and values are projected from it. ``cache``: (k_cache,
+    v_cache) of shape (B, S_max, KH, hd), written in place (the reference
+    returns updated copies; the port saves the copy) and returned. With a
+    ``cache_index``, one new key is written there and the query attends
+    over the whole cache on absolute positions (decode); several are
+    written at 0 (prefill), and under ``causal=False`` the queries attend
+    over the whole cache, unmasked, its rows past the new keys included,
+    as the reference does at a cross-attention prefill. Without a
+    ``cache_index`` the cache is read as it stands and nothing is written
+    (cross-attention's decode). RoPE turns the queries by ``positions``
+    and leaves the keys as they are, which is the reference's function
+    (ROADMAP Queue 3)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _qkv(p, x, cfg, positions, kv_src)
+    Skv = k.shape[1]
     new_cache = None
     if cache is not None:
-        if cache_index is None:
-            raise ValueError("a cache needs a cache_index: cross-attention is not in the dense port")
         kc, vc = cache
-        if S == 1:
+        if cache_index is None:
+            # the reference projects k and v here too, and drops them
+            out = _direct_attention(
+                q, kc.to(q.dtype), vc.to(q.dtype), causal=causal, tile_f32=cfg.attn_tile_f32,
+            )
+        elif Skv == 1:
             # decode. The reference's one-hot write drops a write at or past
             # S_max; so does this one, so that the tokens stay the reference's.
             if cache_index < kc.shape[1]:
@@ -206,19 +224,23 @@ def attention_apply(
                 q_offset=cache_index, tile_f32=cfg.attn_tile_f32,
             )
         else:
-            if cache_index != 0 or S > kc.shape[1]:
+            if cache_index != 0 or Skv > kc.shape[1]:
                 raise ValueError(
                     f"a multi-token step is a prefill: it starts at index 0 and fits the "
-                    f"cache; got index {cache_index}, {S} tokens, S_max {kc.shape[1]}"
+                    f"cache; got index {cache_index}, {Skv} tokens, S_max {kc.shape[1]}"
                 )
-            kc[:, :S] = k
-            vc[:, :S] = v
-            # The reference attends over the whole S_max cache here, under the
-            # causal mask. Every cache row at or past S is masked for every
-            # query (its score is -1e30 and exp(-1e30 - m) is exactly 0 in
-            # float32), so attending over the prompt's own k and v gives the
-            # same result: that is what the kernel computes.
-            out = blockwise_attention(q, k, v, causal=causal, q_block=cfg.attn_q_block)
+            kc[:, :Skv] = k
+            vc[:, :Skv] = v
+            if causal:
+                # The reference attends over the whole S_max cache here, under
+                # the causal mask. Every cache row at or past S is masked for
+                # every query (its score is -1e30 and exp(-1e30 - m) is exactly
+                # 0 in float32), so attending over the prompt's own k and v
+                # gives the same result: that is what the kernel computes.
+                out = blockwise_attention(q, k, v, causal=True, q_block=cfg.attn_q_block)
+            else:
+                # unmasked: every cache row counts, the zero rows past Skv too
+                out = blockwise_attention(q, kc, vc, causal=False, q_block=cfg.attn_q_block)
         new_cache = (kc, vc)
     elif S > 1:
         out = blockwise_attention(q, k, v, causal=causal, q_block=cfg.attn_q_block)

@@ -1,6 +1,6 @@
-"""Decoder-only LM (port of the dense, moe, ssm and hybrid families of
-``repro/models/transformer.py``): parameters, the caches, the backbone and
-the logits.
+"""The LM (port of ``repro/models/transformer.py``, all six families:
+dense, moe, ssm, hybrid, vlm and encdec): parameters, the caches, the
+backbone and the logits.
 
 ``LM`` holds the parameters as modules named after the reference's keys:
 ``embed.table``, ``final_ln.w`` and, per cycle ``i`` (the reference stacks
@@ -16,16 +16,34 @@ each leaf along a leading cycle axis and scans it; the port loops over an
 - hybrid (Zamba2): ``blocks.i.mamba.j.ln`` and ``blocks.i.mamba.j.mamba``
   for ``j < attn_every`` (the reference stacks these twice, (cycles,
   attn_every, ...)), ``blocks.i.attn_ln``, and one ``shared_attn.attn`` /
-  ``ln2`` / ``mlp`` that every cycle applies after its Mamba2 blocks.
+  ``ln2`` / ``mlp`` that every cycle applies after its Mamba2 blocks;
+- vlm (Llama-3.2-Vision): ``blocks.i.self.j`` dense layers for ``j <
+  cross_attn_every - 1`` (stacked twice in the reference, (cycles,
+  n_self, ...)), then ``blocks.i.cross``, a layer whose cross-attention
+  (``lnx``, ``xattn``) takes the place of self-attention (``ln2``,
+  ``mlp``; no ``ln1`` or ``attn``); ``img_proj`` (frontend_dim, d) turns
+  the image embeddings into the cross layers' source;
+- encdec (Whisper): ``enc_blocks.i`` non-causal dense layers, ``enc_ln``
+  and ``enc_pos`` (encoder_seq, d) over the frame embeddings, and
+  ``dec_blocks.i`` decoder layers, each with self-attention, then
+  cross-attention over the encoder's output (``lnx``, ``xattn``), then
+  its MLP; LayerNorm, GELU with biases and learned positions
+  (``embed.pos``), no RoPE.
 
-The vlm and encdec families raise ``NotImplementedError``: they wait for
-ROADMAP Queue 1 item 2. The four ported families serve and train.
+A cross layer runs only where it has a source (``img_embed`` or
+``enc_embed``) or a cache, as in the reference: training without the
+frontend input skips it (and the encoder), and the serving ``Engine``,
+which passes prompts only, prefills the cross cache with keys and values
+projected from the prompt itself (ROADMAP Queue 3).
 
 ``StepState.caches`` holds the reference's cache tree with the same
 leading axes: dense and moe one pair of tensors ``(L, B, S_max, KH, hd)``;
 ssm ``{"mlstm": (S, n), "slstm": (c, n, h)}`` with a leading cycle axis;
 hybrid ``{"mamba": (ssm, conv), "kv": (k, v)}``, the Mamba2 states with
-leading (cycles, attn_every) axes. Recurrent states are float32 and KV
+leading (cycles, attn_every) axes; vlm ``{"self": (k, v), "cross": (k,
+v)}``, self ``(cycles, n_self, B, S_max, KH, hd)`` and cross ``(cycles,
+B, img_tokens, KH, hd)``; encdec ``{"self": (k, v), "cross": (k, v)}``
+with a leading layer axis, the cross rows ``encoder_seq``. Recurrent states are float32 and KV
 caches the compute dtype. ``StepState.index`` is a Python int, so that a
 decode step never waits for the card to learn its position. Attention
 writes its cache in place, and every layer copies its new recurrent state
@@ -35,7 +53,9 @@ Training: ``hidden_forward`` under autograd with ``cfg.remat`` recomputes
 each cycle in the backward (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` scan body: a dense or moe layer, an xLSTM cycle's
 mLSTM and sLSTM, a Zamba2 cycle's ``attn_every`` Mamba2 blocks with the
-shared block), and ``chunked_lm_loss`` recomputes each
+shared block, a vlm cycle's self layers and cross layer, a Whisper
+decoder layer; Whisper's encoder layers are not recomputed, as the
+reference's encoder loop is not checkpointed), and ``chunked_lm_loss`` recomputes each
 sequence chunk's logits, so neither the layers' activations nor the
 (B, S, V) logits are held whole.
 """
@@ -63,18 +83,16 @@ class StepState(NamedTuple):
     index: int
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port runs "
-            f"the {', '.join(PORTED_FAMILIES)} families (ROADMAP Queue 1 item 2)"
-        )
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 def _num_cycles(cfg: ModelConfig) -> int:
+    """Cycles of the stack (decoder layers in the encdec family)."""
+    if cfg.family == "vlm":
+        if cfg.num_layers % cfg.cross_attn_every:
+            raise ValueError(
+                f"{cfg.num_layers} layers do not split into cycles of {cfg.cross_attn_every}")
+        return cfg.num_layers // cfg.cross_attn_every
     if cfg.family == "hybrid":
         if cfg.num_layers % cfg.attn_every:
             raise ValueError(f"{cfg.num_layers} layers do not split into cycles of {cfg.attn_every}")
@@ -87,21 +105,32 @@ def _num_cycles(cfg: ModelConfig) -> int:
 
 
 def attention_layers(cfg: ModelConfig) -> int:
-    """Self-attention applications in one forward pass: every layer (dense,
-    moe), none (ssm), the shared block once per cycle (hybrid)."""
-    return {"ssm": 0, "hybrid": _num_cycles(cfg)}.get(cfg.family, cfg.num_layers)
+    """Attention applications in one prefill without a frontend input (the
+    serving ``Engine``'s): every layer (dense, moe, vlm: its self and its
+    cross layers), none (ssm), the shared block once per cycle (hybrid),
+    each decoder layer's self- and cross-attention (encdec; the encoder
+    runs only on frame embeddings)."""
+    return {"ssm": 0, "hybrid": _num_cycles(cfg),
+            "encdec": 2 * cfg.num_layers}.get(cfg.family, cfg.num_layers)
 
 
 class DenseBlock(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    """A transformer layer: ``ln1`` and ``attn`` (self-attention; absent in
+    a vlm cross layer), ``lnx`` and ``xattn`` (cross-attention; vlm cross
+    and encdec decoder layers), ``ln2`` and ``mlp`` (``moe`` in the moe
+    family)."""
+
+    def __init__(self, cfg: ModelConfig, device, cross: bool = False, self_attn: bool = True):
         super().__init__()
-        self.ln1 = L.Norm(cfg, device)
-        self.attn = L.Attention(cfg, device)
+        self.ln1 = L.Norm(cfg, device) if self_attn else None
+        self.attn = L.Attention(cfg, device) if self_attn else None
         self.ln2 = L.Norm(cfg, device)
         if cfg.family == "moe":
             self.moe = L.MoE(cfg, device)
         else:
             self.mlp = L.MLP(cfg, device)
+        self.lnx = L.Norm(cfg, device) if cross else None
+        self.xattn = L.Attention(cfg, device) if cross else None
 
 
 class SSMCycle(nn.Module):
@@ -132,6 +161,17 @@ class HybridCycle(nn.Module):
         self.attn_ln = L.Norm(cfg, device)
 
 
+class VLMCycle(nn.Module):
+    """A Llama-3.2-Vision cycle: ``cross_attn_every - 1`` dense layers
+    (``self.<j>``), then the cross layer (``cross``)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.add_module("self", nn.ModuleList(
+            DenseBlock(cfg, device) for _ in range(cfg.cross_attn_every - 1)))
+        self.cross = DenseBlock(cfg, device, cross=True, self_attn=False)
+
+
 class SharedAttn(nn.Module):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -140,24 +180,39 @@ class SharedAttn(nn.Module):
         self.mlp = L.MLP(cfg, device)
 
 
-_CYCLES = {"dense": DenseBlock, "moe": DenseBlock, "ssm": SSMCycle, "hybrid": HybridCycle}
+_CYCLES = {"dense": DenseBlock, "moe": DenseBlock, "ssm": SSMCycle, "hybrid": HybridCycle,
+           "vlm": VLMCycle}
 
 
 class LM(nn.Module):
-    """Parameters of an LM of a ported family, allocated on ``device``
-    (default: the CUDA card) and not yet set: ``init_params`` draws them,
-    ``repro_torch.convert.lm_params_from_numpy`` copies the reference's."""
+    """Parameters of an LM, allocated on ``device`` (default: the CUDA
+    card) and not yet set: ``init_params`` draws them,
+    ``repro_torch.convert.lm_params_from_numpy`` copies the reference's.
+    The encdec family has ``enc_blocks`` and ``dec_blocks`` and no
+    ``blocks``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _require_ported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = L.Embedding(cfg, dev)
         self.final_ln = L.Norm(cfg, dev)
+        self.blocks = self.shared_attn = self.img_proj = None
+        if cfg.family == "encdec":
+            self.enc_blocks = nn.ModuleList(
+                DenseBlock(cfg, dev) for _ in range(cfg.encoder_layers))
+            self.dec_blocks = nn.ModuleList(
+                DenseBlock(cfg, dev, cross=True) for _ in range(cfg.num_layers))
+            self.enc_ln = L.Norm(cfg, dev)
+            self.enc_pos = L._param((cfg.encoder_seq or 1500, cfg.d_model), cfg.pdtype, dev)
+            return
         cycle = _CYCLES[cfg.family]
         self.blocks = nn.ModuleList(cycle(cfg, dev) for _ in range(_num_cycles(cfg)))
-        self.shared_attn = SharedAttn(cfg, dev) if cfg.family == "hybrid" else None
+        if cfg.family == "hybrid":
+            self.shared_attn = SharedAttn(cfg, dev)
+        if cfg.family == "vlm":
+            self.img_proj = L._param((cfg.frontend_dim or cfg.d_model, cfg.d_model), cfg.pdtype,
+                                     dev)
 
 
 _INIT_ONES = ("w", "D", "norm_w")  # norm weights and Mamba2's skip D
@@ -171,7 +226,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     the leading axis (so an expert's ``w1`` / ``w3`` (E, d, f) by E^-0.5,
     and a Mamba2 ``conv_w`` (K, d_inner) by K^-0.5, as in the reference;
     ``wo`` by (H hd)^-0.5, ``w2`` by d_ff^-0.5, the sLSTM's ``r`` by
-    hd^-0.5, the embedding by 1.0), norm weights and Mamba2's ``D`` one,
+    hd^-0.5, the embedding by 1.0; the vlm's ``img_proj`` by
+    frontend_dim^-0.5, Whisper's ``enc_pos`` by encoder_seq^-0.5 and
+    ``embed.pos`` by learned_pos^-0.5), norm weights and Mamba2's ``D`` one,
     biases, ``A_log`` and ``dt_bias`` zero; drawn from a generator seeded
     with ``seed`` on the device."""
     model = LM(cfg, device)
@@ -192,11 +249,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     return model
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> StepState:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               img_tokens: int = 0) -> StepState:
     """A zero cache of ``batch`` sequences of ``max_len`` positions, index
     0: the KV caches in the compute dtype, the recurrent states in float32
-    (the reference's ``init_cache``)."""
-    _require_ported(cfg)
+    (the reference's ``init_cache``). The vlm's cross caches hold
+    ``img_tokens`` rows (default ``num_image_tokens``), Whisper's
+    ``encoder_seq``."""
     dev = resolve_device(device)
     nc = _num_cycles(cfg)
 
@@ -217,6 +276,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> StepS
         caches = {"mamba": (zeros(nc, ae, batch, H, N, P),
                             zeros(nc, ae, batch, cfg.ssm_conv - 1, d_inner)),
                   "kv": kv((nc,))}
+    elif cfg.family in ("vlm", "encdec"):
+        if cfg.family == "vlm":
+            self_kv, rows = kv((nc, cfg.cross_attn_every - 1)), img_tokens or cfg.num_image_tokens
+        else:
+            self_kv, rows = kv((nc,)), cfg.encoder_seq or 1500
+        k = zeros(nc, batch, rows, cfg.num_kv_heads, cfg.head_dim, dtype=cfg.cdtype)
+        caches = {"self": self_kv, "cross": (k, torch.zeros_like(k))}
     else:
         caches = kv((nc,))
     return StepState(caches=caches, index=0)
@@ -245,12 +311,28 @@ def _store(dst, src) -> None:
         d.copy_(s)
 
 
-def _apply_dense_layer(pl: DenseBlock, x, cfg, positions, cache, cache_index):
-    h = L.apply_norm(pl.ln1, x, cfg)
-    attn_out, _ = L.attention_apply(
-        pl.attn, h, cfg, positions=positions, cache=cache, cache_index=cache_index, causal=True
-    )
-    x = x + attn_out
+def _apply_dense_layer(pl: DenseBlock, x, cfg, positions, cache, cache_index, causal=True,
+                       cross_src=None, cross_cache=None, decode=False):
+    """One layer (reference ``_apply_dense_layer``). ``cross_src``: the
+    source to project the cross keys and values from (train, prefill);
+    ``cross_cache``: the cross cache, written at 0 (prefill) or read as it
+    stands (``decode``). Without either, a cross layer skips its
+    cross-attention."""
+    if pl.attn is not None:
+        h = L.apply_norm(pl.ln1, x, cfg)
+        attn_out, _ = L.attention_apply(
+            pl.attn, h, cfg, positions=positions, cache=cache, cache_index=cache_index,
+            causal=causal,
+        )
+        x = x + attn_out
+    if pl.xattn is not None and (cross_src is not None or cross_cache is not None):
+        h = L.apply_norm(pl.lnx, x, cfg)
+        read_only = decode and cross_cache is not None  # k and v were projected at prefill
+        xo, _ = L.attention_apply(
+            pl.xattn, h, cfg, kv_src=None if read_only else cross_src, cache=cross_cache,
+            cache_index=None if read_only or cross_cache is None else 0, causal=False,
+        )
+        x = x + xo
     h = L.apply_norm(pl.ln2, x, cfg)
     if cfg.family == "moe":
         return x + L.moe_apply(pl.moe, h, cfg)
@@ -291,14 +373,44 @@ def _apply_hybrid_cycle(pc: HybridCycle, shared: SharedAttn, x, cfg, positions, 
     return x + L.mlp_apply(shared.mlp, h, cfg)
 
 
-def _apply_cycle(pc, shared, x, cfg, positions, cache, index, decode):
-    """One cycle of ``cfg.family``; ``cache`` is this cycle's slice of the
-    cache tree (or None), updated in place."""
+def _apply_vlm_cycle(pc: VLMCycle, x, cfg, positions, cache, index, kv_src, decode):
+    for j, blk in enumerate(pc.self):
+        kv = None if cache is None else tuple(a[j] for a in cache["self"])
+        x = _apply_dense_layer(blk, x, cfg, positions, kv, index)
+    return _apply_dense_layer(pc.cross, x, cfg, positions, None, None, cross_src=kv_src,
+                              cross_cache=None if cache is None else cache["cross"],
+                              decode=decode)
+
+
+def _apply_cycle(pc, shared, x, cfg, positions, cache, index, decode, kv_src=None):
+    """One cycle of ``cfg.family`` (a decoder layer in the encdec family);
+    ``cache`` is this cycle's slice of the cache tree (or None), updated
+    in place; ``kv_src`` the cross layers' source."""
     if cfg.family == "ssm":
         return _apply_ssm_cycle(pc, x, cfg, cache, decode)
     if cfg.family == "hybrid":
         return _apply_hybrid_cycle(pc, shared, x, cfg, positions, cache, index, decode)
+    if cfg.family == "vlm":
+        return _apply_vlm_cycle(pc, x, cfg, positions, cache, index, kv_src, decode)
+    if cfg.family == "encdec":
+        return _apply_dense_layer(pc, x, cfg, positions,
+                                  None if cache is None else cache["self"], index,
+                                  cross_src=kv_src,
+                                  cross_cache=None if cache is None else cache["cross"],
+                                  decode=decode)
     return _apply_dense_layer(pc, x, cfg, positions, cache, index)
+
+
+def _encode(params: LM, enc_embed, cfg: ModelConfig):
+    """Whisper's encoder over frame embeddings (B, T, d): learned positions,
+    ``encoder_layers`` non-causal dense layers (not recomputed under
+    remat, as in the reference), then ``enc_ln``."""
+    dt = cfg.cdtype
+    enc = enc_embed.to(dt)
+    enc = enc + params.enc_pos[:enc.shape[1]].to(dt)[None]
+    for blk in params.enc_blocks:
+        enc = _apply_dense_layer(blk, enc, cfg, None, None, None, causal=False)
+    return L.apply_norm(params.enc_ln, enc, cfg)
 
 
 def hidden_forward(
@@ -306,6 +418,8 @@ def hidden_forward(
     tokens: torch.Tensor,
     cfg: ModelConfig,
     *,
+    img_embed: Optional[torch.Tensor] = None,
+    enc_embed: Optional[torch.Tensor] = None,
     state: Optional[StepState] = None,
     decode: bool = False,
     positions: Optional[torch.Tensor] = None,
@@ -313,10 +427,12 @@ def hidden_forward(
     """Backbone only: (final-norm hidden (B, S, d), new state). With a
     state, each cycle writes its caches in place and the new state's index
     is the old one plus S. ``decode`` takes the recurrent layers' one-token
-    step (S must be 1 there). Under autograd, without a state and with
-    ``cfg.remat``, each cycle keeps only its input and is recomputed in the
-    backward."""
-    _require_ported(cfg)
+    step (S must be 1 there) and reads the cross caches as they stand.
+    ``img_embed`` (B, img_tokens, frontend_dim; vlm) and ``enc_embed`` (B,
+    frames, d; encdec) are the frontends' outputs, the cross layers'
+    sources. Under autograd, without a state and with ``cfg.remat``, each
+    cycle keeps only its input (and the cross source) and is recomputed in
+    the backward."""
     B, S = tokens.shape
     if positions is None:
         base = state.index if (state is not None and decode) else 0
@@ -325,13 +441,21 @@ def hidden_forward(
     index = state.index if state is not None else None
     remat = cfg.remat and state is None and torch.is_grad_enabled()
     shared = params.shared_attn
-    for i, blk in enumerate(params.blocks):
+    kv_src = None
+    if cfg.family == "vlm" and img_embed is not None:
+        kv_src = img_embed.to(cfg.cdtype) @ params.img_proj.to(cfg.cdtype)
+    blocks = params.blocks
+    if cfg.family == "encdec":
+        if enc_embed is not None:
+            kv_src = _encode(params, enc_embed, cfg)
+        blocks = params.dec_blocks
+    for i, blk in enumerate(blocks):
         if remat:
             x = checkpoint(_apply_cycle, blk, shared, x, cfg, positions, None, None, decode,
-                           use_reentrant=False)
+                           kv_src, use_reentrant=False)
         else:
             cache = None if state is None else map_cache(lambda a: a[i], state.caches)
-            x = _apply_cycle(blk, shared, x, cfg, positions, cache, index, decode)
+            x = _apply_cycle(blk, shared, x, cfg, positions, cache, index, decode, kv_src)
     new_state = None if state is None else StepState(state.caches, state.index + S)
     return L.apply_norm(params.final_ln, x, cfg), new_state
 

@@ -14,9 +14,12 @@ Like the reference, every slot decodes at one shared position,
 a slot whose prompt is shorter than another active slot's gets that
 position for its RoPE and its cache write. The port keeps this so that it
 gives the reference's tokens; the fault is recorded in ROADMAP Queue 3.
-So is the splice of the hybrid family's Mamba2 states, which the reference
-writes into batch row 0 whatever the slot (``_splice_slot``), and so does
-the port.
+So is the splice of the hybrid family's Mamba2 states and of the vlm's
+self-attention caches, which the reference writes into batch row 0
+whatever the slot (``_splice_slot``), and so does the port. Requests are
+prompts only, as in the reference: a vlm or Whisper prefill fills its
+cross caches from the prompt itself (``models/transformer.py``), and a
+prompt longer than those caches raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -135,8 +138,10 @@ def _splice_slot(state: T.StepState, single: T.StepState, slot: int) -> T.StepSt
     states are stacked twice, (cycles, attn_every, B, ...): there axis 1 is
     the block, and the reference (``src/repro/serving/server.py:119-133``)
     writes every admitted request's Mamba2 states into batch row 0 of every
-    block. The port keeps that fault, so that it gives the reference's
-    tokens (ROADMAP Queue 3)."""
+    block; so with the vlm's self caches, (cycles, n_self, B, ...), whose
+    axis 1 is the layer. Its cross caches and Whisper's caches are
+    stacked once and land in their slot. The port keeps that fault, so
+    that it gives the reference's tokens (ROADMAP Queue 3)."""
     for dst, src in zip(T.cache_leaves(state.caches), T.cache_leaves(single.caches)):
         _update_axis1(dst, src, slot)
     # decode positions are per-slot in intent; the reference keeps the

@@ -15,8 +15,11 @@ the layers. So Adafactor's second moments are keyed by the reference's
 leaf: ``blocks.ln1.w`` for the ``blocks.<i>.ln1.w`` of every layer i, its
 factors over the stacked (L, ...) shape; the hybrid family's Mamba2
 leaves are stacked twice, (cycles, attn_every, ...), as
-``blocks.<c>.mamba.<j>.<rest>``; other names keep their own key
-(``reference_leaf``), ``shared_attn.*`` among them. A stack of matrices
+``blocks.<c>.mamba.<j>.<rest>``, and so are the vlm's self layers,
+``blocks.<c>.self.<j>.<rest>``; Whisper's ``enc_blocks`` and
+``dec_blocks`` are stacked once like ``blocks``; other names keep their
+own key (``reference_leaf``), ``shared_attn.*`` and ``img_proj`` among
+them. A stack of matrices
 (the MoE's (L, E, d, f) experts too) factors each tensor's own last two
 axes, so its tensors update one at a time with their slices of the
 moments; a stack of vectors is stacked whole.
@@ -76,15 +79,22 @@ def _factored_shape(shape):
     return None
 
 
+_STACKS = ("blocks", "enc_blocks", "dec_blocks")  # the reference's layer-stacked subtrees
+
+
 def reference_leaf(name: str) -> Tuple[str, Optional[Tuple[int, ...]]]:
     """(the reference's leaf, the index of ``name`` in it): the numeric
-    parts of a ``blocks`` name index the reference's stacked leaf, so
-    ``blocks.3.attn.wq`` is ``blocks.attn.wq[3]`` and the hybrid family's
-    ``blocks.2.mamba.1.ln.w`` is ``blocks.mamba.ln.w[2, 1]`` (stacked by
-    cycle, then by block); any other name, ``shared_attn.*`` among them, is
-    its own leaf (index None)."""
+    parts of a ``blocks``, ``enc_blocks`` or ``dec_blocks`` name index the
+    reference's stacked leaf, so ``blocks.3.attn.wq`` is
+    ``blocks.attn.wq[3]``, the hybrid family's ``blocks.2.mamba.1.ln.w``
+    is ``blocks.mamba.ln.w[2, 1]`` (stacked by cycle, then by block), the
+    vlm's ``blocks.2.self.1.attn.wq`` is ``blocks.self.attn.wq[2, 1]`` and
+    ``blocks.2.cross.xattn.wq`` is ``blocks.cross.xattn.wq[2]``, and
+    Whisper's ``dec_blocks.4.xattn.wq`` is ``dec_blocks.xattn.wq[4]``; any
+    other name (``shared_attn.*``, ``img_proj``, ``enc_ln.*``,
+    ``enc_pos``) is its own leaf (index None)."""
     parts = name.split(".")
-    if parts[0] != "blocks":
+    if parts[0] not in _STACKS:
         return name, None
     return (".".join(k for k in parts if not k.isdigit()),
             tuple(int(k) for k in parts if k.isdigit()))

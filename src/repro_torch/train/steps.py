@@ -1,11 +1,13 @@
 """Step builders (port of ``repro/train/steps.py:18-170``): the train step
 with its optimizer state, batches, and the prefill and decode steps.
 
-The train step runs under autograd for the dense, moe, ssm and hybrid
-families (vlm and encdec raise, ROADMAP Queue 1 item 2): the model's
+The train step runs under autograd for every family: the model's
 forward (``hidden_forward``, each cycle recomputed in the backward under
 ``cfg.remat``), the chunked loss, one ``torch.autograd.grad`` for every
-parameter, then ``apply_updates``. Its kernels: attention's forward (and
+parameter (zero for those the batch does not reach: a vlm or Whisper
+batch without its frontend input skips the cross layers and the
+encoder, and the reference's gradient there is 0), then
+``apply_updates``. Its kernels: attention's forward (and
 its remat recompute) is the flash kernel, the embedding's backward the PB
 rows reduce; in the moe family the dispatch runs the row scatter forward
 and the rows reduce backward, the combine the rows reduce forward and the
@@ -39,25 +41,40 @@ def default_opt_config(cfg: ModelConfig, total_steps: int = 10_000) -> OptConfig
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeSpec, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """A random int32 batch of ``shape`` (train: tokens and labels; prefill:
-    tokens; decode: one token a sequence), drawn from ``generator`` on its
-    device. The draws are torch's, not ``jax.random``'s: tests that hold
-    the port to the reference feed both the same numpy batch."""
-    T._require_ported(cfg)
+    """A random batch of ``shape`` with the reference's names, shapes and
+    dtypes (``batch_struct``): int32 ``tokens`` and, to train, ``labels``
+    (B, S) ((B, 1) to decode); for train and prefill, the vlm's
+    ``img_embed`` (B, num_image_tokens, frontend_dim) and Whisper's
+    ``enc_embed`` (B, encoder_seq, d), normal times 0.02 in the compute
+    dtype, the stub frontends' outputs. Drawn from ``generator`` on its
+    device, in that order. The draws are torch's, not ``jax.random``'s:
+    tests that hold the port to the reference feed both the same numpy
+    batch."""
     B, S = shape.global_batch, shape.seq_len
+    dev = generator.device
     names = ("tokens", "labels") if shape.kind == "train" else ("tokens",)
     size = (B, 1) if shape.kind == "decode" else (B, S)
-    return {n: torch.randint(0, cfg.vocab_size, size, generator=generator,
-                             dtype=torch.int32, device=generator.device) for n in names}
+    out = {n: torch.randint(0, cfg.vocab_size, size, generator=generator,
+                            dtype=torch.int32, device=dev) for n in names}
+    frontend = {"vlm": ("img_embed", cfg.num_image_tokens, cfg.frontend_dim or cfg.d_model),
+                "encdec": ("enc_embed", cfg.encoder_seq, cfg.d_model)}.get(cfg.family)
+    if frontend and shape.kind != "decode":
+        name, rows, width = frontend
+        out[name] = (torch.randn(B, rows, width, generator=generator, device=dev)
+                     * 0.02).to(cfg.cdtype)
+    return out
 
 
 def make_loss_fn(cfg: ModelConfig):
     """``loss_fn(model, batch)``: the mean next-token loss of
     ``batch["tokens"]`` against ``batch["labels"]`` (the reference's
-    ``loss_fn``): the backbone, then the chunked loss."""
+    ``loss_fn``): the backbone, with the batch's ``img_embed`` or
+    ``enc_embed`` where it has one, then the chunked loss."""
 
     def loss_fn(model, batch):
-        hidden, _ = T.hidden_forward(model, batch["tokens"], cfg)
+        hidden, _ = T.hidden_forward(model, batch["tokens"], cfg,
+                                     img_embed=batch.get("img_embed"),
+                                     enc_embed=batch.get("enc_embed"))
         return T.chunked_lm_loss(model, hidden, batch["labels"], cfg, chunk=cfg.loss_chunk)
 
     return loss_fn
@@ -70,15 +87,15 @@ def make_train_step(cfg: ModelConfig, oc: Optional[OptConfig] = None, accum_step
     (``apply_updates``) and returns the state with the new step.
     ``accum_steps > 1`` splits the batch into that many microbatches of
     consecutive rows, run one after another: losses and float32 gradients
-    are summed, then divided by ``accum_steps``. The vlm and encdec
-    families raise (``_require_ported``)."""
-    T._require_ported(cfg)
+    are summed, then divided by ``accum_steps``. A parameter the batch
+    does not reach gets a zero gradient, as under ``jax.grad``."""
     oc = oc or default_opt_config(cfg)
     loss_fn = make_loss_fn(cfg)
 
     def value_and_grad(model, params, batch):
         loss = loss_fn(model, batch)
-        return loss.detach(), dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
+        return loss.detach(), dict(zip(params, grads))
 
     def train_step(state: TrainState, batch):
         model = state.params
@@ -125,10 +142,13 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
     @torch.inference_mode()
     def prefill_step(params, batch):
         """Last-position logits (B, V_pad) of a fresh cache of ``max_len``
-        filled with ``batch["tokens"]``, and that state."""
+        filled with ``batch["tokens"]`` (and the cross caches from its
+        ``img_embed`` or ``enc_embed``, where it has one), and that state."""
         tokens = batch["tokens"]
         state = T.init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
-        hidden, new_state = T.hidden_forward(params, tokens, cfg, state=state, decode=False)
+        hidden, new_state = T.hidden_forward(
+            params, tokens, cfg, img_embed=batch.get("img_embed"),
+            enc_embed=batch.get("enc_embed"), state=state, decode=False)
         return T.last_logits(params, hidden, cfg), new_state
 
     return prefill_step

@@ -1175,3 +1175,42 @@ def test_cuda_moe_backward_launches_the_kernels_and_equals_the_cpu(cuda, method,
             assert bwd["scatter_rows"] == 2 and bwd["cobra_bin_accumulate_rows"] == 2
     for a, b in zip(grads["card"], grads["cpu"]):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# -- the vlm and encdec slice: cross-attention and Whisper's encoder ----------
+# Flash with causal=False at Sq != Skv: llama-3.2-vision-11b's cross layers
+# (32 query heads over 8 KV heads of 128) over its 1,601 image rows, not a
+# multiple of the 64-key tile; Whisper's encoder (8 heads of 64, 1,500
+# frames) and its decoder's cross-attention. The backward is the plain
+# function's, non-causal, over every key.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Skv,hd", [
+    (1, 32, 8, 1, 1601, 128), (1, 32, 8, 300, 1601, 128), (1, 32, 8, 1024, 1601, 128),
+    (1, 8, 8, 1500, 1500, 64), (4, 8, 8, 448, 1500, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_at_the_cross_attention_shapes(cuda, B, H, KH, Sq, Skv, hd, dtype):
+    _flash_vs_plain(cuda, B, H, KH, Sq, Skv, hd, False, dtype, seed=Sq + Skv)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_cross_attention_where_outputs_cancel(cuda):
+    _flash_vs_plain(cuda, 1, 32, 8, 300, 1601, 128, False, torch.bfloat16, seed=3, cancel=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_cross_attention_backward_matches_the_cpu(cuda, dtype):
+    from repro_torch.kernels.flashattn import flash_attention
+
+    q, k, v = _qkv(cuda, 1, 8, 2, 300, 1601, 128, torch.float32, seed=9)
+    go = torch.from_numpy(_rng(10).normal(size=q.shape).astype(np.float32))
+    grads = {}
+    for side, d in (("card", cuda), ("cpu", torch.device("cpu"))):
+        args = [x.to(d, dtype).requires_grad_() for x in (q, k, v)]
+        out = flash_attention(*args, causal=False, q_block=128)
+        grads[side] = torch.autograd.grad(out, args, go.to(d, dtype))
+    for a, b in zip(grads["card"], grads["cpu"]):
+        assert a.dtype == dtype and _flash_close(a.cpu(), b, dtype)

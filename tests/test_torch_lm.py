@@ -77,12 +77,19 @@ def test_config_fields_equal_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-base"])
-def test_other_families_return_a_config_and_the_model_raises(arch):
+def test_cross_families_build_the_model_and_its_cache(arch):
+    """The vlm and encdec families (ported since this test had them raise;
+    held to the reference in ``tests/test_torch_cross_lm.py``): the model
+    and its cache build on the CPU, and a prefill runs."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        T.LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        T.init_cache(cfg, 1, 8, device="cpu")
+    assert cfg.family in T.PORTED_FAMILIES
+    model = T.init_params(cfg, seed=0, device="cpu")
+    st = T.init_cache(cfg, 2, 8, device="cpu")
+    assert set(st.caches) == {"self", "cross"} and st.index == 0
+    assert all(not t.any() for t in T.cache_leaves(st.caches))
+    logits, st1 = make_prefill_step(cfg, 8)(model, {"tokens": torch.ones(1, 5, dtype=torch.int32)})
+    assert logits.shape == (1, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+    assert st1.index == 5
 
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b"])

@@ -11,8 +11,9 @@ through every layer below the one that wrote the cache (a single block
 holds 1e-5, ``tests/test_torch_ssm.py``); greedy tokens equal. The reference's ``_splice_slot`` files the hybrid family's Mamba2
 states into batch row 0 whatever the slot (ROADMAP Queue 3); the port
 keeps that, and a test pins it. Their training is held to the reference
-in ``tests/test_torch_train_families.py``; ``make_train_step`` raises for
-the vlm and encdec families.
+in ``tests/test_torch_train_families.py``; a step of the vlm and encdec
+families runs here (``tests/test_torch_train_cross.py`` holds them to the
+reference).
 """
 import jax
 import jax.numpy as jnp
@@ -275,12 +276,19 @@ def test_ssm_splice_files_every_state_in_its_slot():
 
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-base"])
-def test_make_train_step_raises_for_the_unported_families(arch):
-    """The recurrent families train (``tests/test_torch_train_families.py``);
-    the vlm and encdec families wait for their slice."""
+def test_make_train_step_runs_for_the_cross_families(arch):
+    """The recurrent families train (``tests/test_torch_train_families.py``),
+    and so, since this test had them raise, do the vlm and encdec families
+    (``tests/test_torch_train_cross.py``): one step of ``make_batch``'s
+    batch, frontend input included, moves every moment."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.train.steps import make_batch, make_init_fn
+
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        make_train_step(cfg)
+    batch = make_batch(cfg, ShapeSpec("t", 12, 2, "train"), torch.Generator().manual_seed(0))
+    state, met = make_train_step(cfg)(make_init_fn(cfg)(0, device="cpu"), batch)
+    assert np.isfinite(float(met["loss"])) and state.opt.step == 1
+    assert all(float(m.abs().max()) > 0 for m in state.opt.m.values())
 
 
 @pytest.mark.parametrize("arch", ARCHS)
