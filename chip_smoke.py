@@ -59,7 +59,9 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    the fused row-block reduce on the destination-sorted stream, two-phase
    sort binning + Bin-Read, ``index_add_`` in COO order) on the five S1
    graphs at F in {1, 8, 32, 128}, 8 chained reduce -> gather rounds; the
-   arms must agree, and the fused arm with the port on the CPU. Then one
+   arms must agree, and the fused arm with the port on the CPU at F in
+   ``FIG9_CPU_F`` (the CPU runs at F = 32 and 128 were cut to make room
+   for phase 20). Then one
    ``GNNLayer`` (64 -> 64) at S2 for agg in {sum, mean, max}: forward and
    backward to every parameter, held against a float64 version written
    with ``index_add_`` / ``scatter_reduce_``; peak device memory printed.
@@ -98,16 +100,16 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    8 sources and ``personalized_pagerank`` from the same 8 (the source
    is the vertex of largest out-degree, the batch the 8 largest), under
    the default executor, BFS and CC-PB also under ``use_pallas=True``,
-   on the five S1 graphs and S2, and BFS and CC at S3. At S1 each result
-   on DBP, KRON and URND must equal the port's run on the CPU
-   (``TRAV_CPU_GRAPHS``: the road and bubble graphs' CPU runs took most
-   of the phase, and were cut to make room for phase 18); at every size
-   BFS levels and
+   on the five S1 graphs and S2, and BFS and CC at S3, every result
+   held to code that does not use the executor (the S1 graphs' runs on
+   the CPU were cut: the road and bubble graphs' for phase 18, those of
+   DBP, KRON and URND for phase 20): at every size BFS levels and
    parents must equal a dense plain-torch BFS (parent: the largest-id
    predecessor on the previous level), CC labels scipy's weak components
-   (labelled by their smallest vertex), k-core ``k_core_oracle``; at S2
-   each batched lane must equal its single-source run and SSSP scipy's
-   Dijkstra in float64; on EURO and HBUBL (no CPU run) SSSP and every
+   (at S3 a plain-torch min-label propagation on the card: the S3 checks
+   took 46 s with scipy), both labelled by their smallest vertex, k-core
+   ``k_core_oracle``; at S1 and S2 SSSP scipy's Dijkstra in float64; at
+   S2 each batched lane must equal its single-source run; at S1 every
    ``sssp_batched`` lane scipy's Dijkstra, every ``bfs_batched`` lane the
    dense BFS, PPR ``personalized_pagerank_oracle`` (float64) by the
    PageRank tolerance, and radii the dense BFS's eccentricities from its
@@ -153,7 +155,9 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    with a checkpoint at the end, the checkpoint restored and compared
    bit for bit with the state, then a resume to step 4, and one more
    step under ``torch.profiler`` (the async save at step 2, a 15.5 GB
-   host copy that stalled a step, was cut to make room for phase 18).
+   host copy that stalled a step, was cut to make room for phase 18, and
+   the resumed run's save after step 4, another 15.5 GB write, for phase
+   20).
    Losses and grad norms must be
    finite, every moment must have moved (attention's key bias aside: its
    gradient is rounding, see ``_scale_name``), and each step must launch
@@ -300,12 +304,47 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    other moment moves, flash 12 a step. Printed: ms a step, tokens/s,
    model FLOP/s beside 989 TFLOP/s, peak memory. Its launches go into
    phase 11's counts.
+20. (Runs before phase 11.) The dense and MoE LMs over a (data, model)
+   mesh: MESH_RANKS ranks of one gloo group on ``cuda:0``
+   (``mesh_rank``; an emulation with no interconnect: gloo stages every
+   collective through host memory, so its times say nothing about
+   scaling). (a) On 2x2 and 1x4, every leaf of qwen2-1.5b and of
+   qwen3-moe (2 layers) from ``init_params(mesh=)``: its block has
+   ``spec_for``'s shape and equals its block of the one-rank draw bit for
+   bit, and for qwen2 the all-gather of every leaf equals the draw. (b)
+   One float32 AdamW step of qwen2-1.5b at 4 of its 28 layers (full
+   width), B 4 x S 512, on 2x2 and on 1x4 (2 KV heads do not split 4
+   ways: the gathered fallback), against the one-device step of the same
+   weights, which every rank takes. (c) qwen3-moe's layer at full width
+   (d 4,096, 128 experts, top 8), bf16, on 2x2: the expert-sharded
+   ``moe_apply`` on 4 x 256 tokens against the one-device layer on each
+   data rank's rows (the same capacity from the same local T, so the
+   same drops, counted), the weight-stationary decode on 4 tokens against
+   ``_moe_dense_oracle``, ``moe_combine_sharded`` over the data axis on
+   32,768 assignments against ``index_add_``. (d) ``launch/train.py
+   --mesh host:2x2`` inside the group, bf16, remat: qwen2-1.5b whole, B 4
+   x S 4096, AdamW, 4 steps with a checkpoint (in blocks, each rank its
+   file) after step 3; qwen3-moe at full width with 2 of 94 layers, B 2 x
+   S 1024, Adafactor, counting, 3 steps with rank 0 under
+   ``torch.profiler``; losses and grad norms finite and equal on every
+   rank, the launches exact (``mesh_launcher_run``); printed: ms a step,
+   tokens/s, the host seconds inside ``torch.distributed``'s calls on rank
+   0 (and the profiler's gloo milliseconds for qwen3-moe), each rank's
+   peak memory. (e) ``compressed_psum_tree`` of the last qwen2 step's
+   gradients over the data axis, twice; ``gpipe_apply`` over 4 stages of
+   7 full-width qwen2 layers, 8 microbatches of 1 x 1024, against the 28
+   layers in order on rank 0. (f) The step-3 checkpoint restored onto
+   ``ElasticPlan(2, 2, 2)``'s mesh, 1x2 over ranks 0 and 1 with
+   accumulation 2: its fingerprint equal to the saved state's, then one
+   step whose loss equals the 2x2 mesh's step 4. Its launches (of (d))
+   go into phase 11's counts.
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
-   phases 3-4, 6, 7, 9, 12, 13, 14, 15, 16, 17, 18 and 19 (counts set to 0
-   before each path, read after it; the checks of phases 2, 5, 8, 10,
-   11, 14a-c, 15a-e, 17a-d, 18a-b and 19a-b, d do not count;
-   ``launches_16`` is phase 16's share, summed over its ranks,
-   ``launches_18`` phase 18's, ``launches_19`` phase 19's),
+   phases 3-4, 6, 7, 9, 12, 13, 14, 15, 16, 17, 18, 19 and 20 (counts set
+   to 0 before each path, read after it; the checks of phases 2, 5, 8,
+   10, 11, 14a-c, 15a-e, 17a-d, 18a-b, 19a-b, d and 20a-c, e-f do not
+   count; ``launches_16`` is phase 16's share, summed over its ranks,
+   ``launches_18`` phase 18's, ``launches_19`` phase 19's,
+   ``launches_20`` phase 20's, summed over its ranks),
    its largest error against its plain version, and
    times at a path's shapes (Bin-Read's row also ``compact_index_add_ms``,
    the rows kernel's an ``embedding_backward`` record at phase 14's
@@ -324,7 +363,12 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    (``flash_attention:whisper_encoder``, (1, 8, 8, 1500, 1500, 64)
    non-causal) and 5f (``cobra_bin_accumulate_rows:vlm_embedding_backward``:
    4,096 token rows of 4,096 into the vlm's 128,256-row vocabulary) with
-   phase 19's launches (``launches_19`` on every row is phase 19's share);
+   phase 19's launches (``launches_19`` on every row is phase 19's share),
+   and rows 8f (``flash_attention:mesh_local_heads``: a 2x2 rank's (2, 6,
+   1, 4096, 128) causal) and 5g
+   (``cobra_bin_accumulate_rows:mesh_vocab_parallel_embedding_backward``:
+   a rank's 8,192 token rows of 1,536 into its 76,032 rows of the
+   vocabulary, the ids outside them -1) with phase 20's launches;
    then the result line. Before it: the
    same launches split by shape, the fused accumulate and ``index_add_``
    timed at the S1 KRON and DBP streams (fig5's S1 PageRank shapes), and a
@@ -420,6 +464,19 @@ float32 copies as phase 10 (logits within 1e-4 of max |logit|, tokens
 equal); the cross layer's gradients within TRAIN_TOL of each tensor's max
 |g|; Whisper's float32 step as 14c; the engine equal to the manual loop
 bit for bit; the launcher's unreached leaves' moments exactly zero.
+The LMs over a mesh (phase 20): blocks, gathers, the GPipe run and the
+restored state equal bit for bit or within 2^-8 of max |y| (GPipe); the
+float32 step's loss within rtol 1e-5, AdamW's moments within 1e-5 of
+their leaf's max (the key bias's of ``wk``'s), its parameters within 2 lr
++ 1e-6 (an element whose gradient is rounding noise moves by about lr in
+its sign; the leaves beyond 1e-5 of their max are printed); the MoE
+layers by phase 15's rule, times 2 for the expert-sharded layer (the
+model ranks' partial sums and the psum round once more) and times 4 for
+the weight-stationary one (its products round per data rank before
+their sum), each limit also rejecting every planted fault that drops an
+assignment; the sharded combine within one bfloat16 rounding of the
+float64 sum; compression's error within the reference test's 0.05 and
+the two-step error no larger; the re-meshed step's loss within rtol 1e-3.
 """
 from __future__ import annotations
 
@@ -441,6 +498,7 @@ ADD_ATOL = 1e-6  # times the largest such sum, when below 1 (_add_limit)
 POS_TILE = 16384  # csrc/positions.cu kPosTile: the onesweep tile
 F_GRID = (1, 8, 32, 128)  # benchmarks/fig9_spmm.py
 ITERS9 = 8  # fig9's chained reduce -> gather rounds at bench scale
+FIG9_CPU_F = (1, 8)  # phase 6: the widths at which the fused arm is held to the CPU
 SPMM_TOL = 1e-2  # fig9 arms: max |a - b| / max |b|, see the module docstring
 GNN_D = 64  # the GNN layer's d_in = d_out at S2
 FWD_TOL = 1e-5  # GNN output: times the same sum on absolute values
@@ -544,11 +602,7 @@ F32_MAX = 3.4028234663852886e38  # float32's largest value: SSSP's unreached dis
 KCORE_K = 3  # benchmarks/fig8_traversal.py
 RADII_K, RADII_ITERS = 4, 300  # benchmarks/fig2_preproc_cost.py
 TRAV_BATCH = 8  # sources of the batched BFS/SSSP and of PPR
-# the S1 graphs whose run on the card phase 12 holds to the port's run on the
-# CPU; the road and bubble graphs' CPU runs took 40-115 s each, so EURO and
-# HBUBL keep only the checks that need no CPU run
-TRAV_CPU_GRAPHS = ("DBP", "KRON", "URND")
-TRAV_REPS = 3  # time_fn repetitions of the traversal phase
+TRAV_REPS = 2  # time_fn repetitions of the traversal phase (3 until phase 20)
 SERVE_REQUESTS = 64  # phase 13's trace: make_query_mix, Poisson arrivals
 SERVE_RATE = 200.0  # queries per second (launch/serve_graphs.py's default)
 SERVE_BATCH = 8  # max_batch (launch/serve_graphs.py's default)
@@ -565,6 +619,20 @@ SHARD_S3 = (32_000_000, 4)  # and S3, the paper's scale
 # whole stream does not fit: every rank holds the whole 8.6 GB value tensor,
 # and on the H100 a rank ran out at 17.3 GiB allocated (80 GB for four)
 SHARD_ROWS_M = 1 << 24
+MESH_RANKS = 4  # phase 20's ranks, all on cuda:0: the 2x2 and 1x4 meshes
+MESH_TIMEOUT = 900  # s: the deadline of phase 20's ranks (spawn, run, join)
+MESH_SEED = 20
+MESH_F32 = (4, 4, 512)  # (b): qwen2-1.5b float32 at 4 of its 28 layers, B 4 x S 512
+# (b): each leaf's update, |du_mesh - du_one| / |du_one|, as tests/test_torch_mesh_train.py's
+# UPDATE_RTOL (at most 7.2e-5 there on the CPU); a skipped update reads 1, a flipped one 2
+MESH_UPDATE_RTOL = 1e-3
+MESH_MOE_T = (4, 256)  # (c): the expert-sharded layer's B x S
+MESH_WS_T = 4  # (c): decode tokens of the weight-stationary layer
+MESH_COMBINE_M = 32768  # (c): moe_combine_sharded's assignments (4,096 tokens, top 8)
+MESH_MOE_LAYERS = 2  # (a), (d): qwen3-moe at full width, 2 of its 94 layers
+MESH_TRAIN = {LM_ARCH: (4, 4096), "qwen3-moe-235b-a22b": (2, 1024)}  # (d): global B, S
+MESH_STEPS = 3
+MESH_PIPE = (4, 7, 8, 1024)  # (e): stages, qwen2 layers a stage, microbatches, S
 SSSP_EPS = 2.0**-23  # per hop, relative: twice float32's unit roundoff
 SSSP_W_MIN = 0.1  # the lightest weight (fig8: uniform in [0.1, 1.1))
 
@@ -1036,12 +1104,14 @@ def _scale_name(name):
     return name[:-2] + "wk" if name.endswith("attn.bk") else name
 
 
-def embedding_backward_check(dev, K, cfg, B=TRAIN_B, S=TRAIN_S):
-    """Phase 14a (and row 5f): ``_pb_take``'s backward at the training
+def embedding_backward_check(dev, K, cfg, B=TRAIN_B, S=TRAIN_S, vocab_block=None):
+    """Phase 14a (and rows 5f, 5g): ``_pb_take``'s backward at the training
     shape (B*S token rows of d_model float32 from a bfloat16 cotangent
     into the padded vocabulary; Markov-synthetic ids) against index_add_
-    in float64, then timed beside index_add_ and its bound. Returns the
-    record."""
+    in float64, then timed beside index_add_ and its bound. With
+    ``vocab_block`` (i, n): into block i of n of the vocabulary, the ids
+    outside it -1 (a vocab-parallel rank's stream, which the rows kernel
+    drops; index_add_ takes the kept rows). Returns the record."""
     import torch
 
     from repro_torch.core.executor import execute_reduce
@@ -1053,22 +1123,30 @@ def embedding_backward_check(dev, K, cfg, B=TRAIN_B, S=TRAIN_S):
     ids = torch.from_numpy(SyntheticLM(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)).batch_at(0)["tokens"]).to(dev)
     n, F = cfg.padded_vocab, cfg.d_model
+    if vocab_block is not None:
+        i, nb = vocab_block
+        n //= nb
+        local = ids - i * n
+        ids = torch.where((local >= 0) & (local < n), local, -1)
     gen = torch.Generator(device=dev).manual_seed(14)
     g = torch.randn(B, S, F, device=dev, generator=gen).to(torch.bfloat16)
     table = torch.zeros(n, F, dtype=torch.bfloat16, device=dev, requires_grad=True)
     before = K.cobra_bin_accumulate_rows.launches
-    (dtab,) = torch.autograd.grad(L._pb_take(table, ids), table, g)
+    (dtab,) = torch.autograd.grad(L._pb_take(table, ids, vocab_block is not None), table, g)
     require(K.cobra_bin_accumulate_rows.launches == before + 1,
             "the embedding backward did not launch the rows kernel")
     flat, rows = ids.reshape(-1), g.reshape(-1, F).float()
     m = flat.shape[0]
+    keep = flat >= 0
+    kflat, krows = flat[keep], rows[keep]
+    m_kept = int(kflat.shape[0])
 
     def kernel():
         return execute_reduce(flat, rows, out_size=n, op="add", method="fused")
 
     got = kernel()
-    want = torch.zeros(n, F, dtype=torch.float64, device=dev).index_add_(0, flat, rows.double())
-    scale = torch.zeros_like(want).index_add_(0, flat, rows.abs().double())
+    want = torch.zeros(n, F, dtype=torch.float64, device=dev).index_add_(0, kflat, krows.double())
+    scale = torch.zeros_like(want).index_add_(0, kflat, krows.abs().double())
     err = float((got.double() - want).abs().max())
     require(add_close(got.double(), want, scale),
             f"the embedding backward differs from index_add_ in float64 ({err})")
@@ -1077,11 +1155,12 @@ def embedding_backward_check(dev, K, cfg, B=TRAIN_B, S=TRAIN_S):
                   <= 2.0**-8 * want.abs() + _add_limit(scale)).all()),
             "the embedding gradient differs from index_add_ beyond one bfloat16 rounding")
     del want, scale, got, dtab, table
-    nbytes = 4 * m * F + 4 * m + 4 * n * F  # rows, ids, the output once each
-    rec = {"m": m, "F": F, "n": n, "max_abs_err": err,
+    # the kept rows, every id, the output once each (a dropped row need not be read)
+    nbytes = 4 * m_kept * F + 4 * m + 4 * n * F
+    rec = {"m": m, "m_kept": m_kept, "F": F, "n": n, "max_abs_err": err,
            "ms": cuda_ms(kernel, reps=10),
            "plain_ms": cuda_ms(lambda: scatter_reduce_ref(flat, rows, n), reps=10),
-           "library_ms": cuda_ms(lambda: torch.zeros(n, F, device=dev).index_add_(0, flat, rows),
+           "library_ms": cuda_ms(lambda: torch.zeros(n, F, device=dev).index_add_(0, kflat, krows),
                                  reps=10),
            "bound_ms": bound_ms(nbytes), "bound_bytes": nbytes, "bound_by": "bytes",
            "profile": kernel_profile(kernel)}
@@ -1242,7 +1321,8 @@ def train_phase(dev, K, smi):
         torch.cuda.empty_cache()
         K.reset_launch_counts()  # the resumed run starts here
         run = train_mod.train(train_mod.parse_args(
-            flags + ["--steps", str(TRAIN_STEPS + 1), "--ckpt-dir", ck, "--ckpt-every", "100"]))
+            flags + ["--steps", str(TRAIN_STEPS + 1), "--ckpt-dir", ck, "--ckpt-every", "100",
+                     "--no-ckpt-final"]))
         torch.cuda.synchronize()
         c2, s2 = K.launch_counts(), K.launch_shapes()  # and ends here
         add(c2, s2)
@@ -1832,9 +1912,9 @@ def recurrent_phase(dev, K, smi):
     return counts_all, shapes_all, rows
 
 
-def flash_row(name, cfg, dev, gen, S, launches, worst, Skv=None, causal=True):
+def flash_row(name, cfg, dev, gen, S, launches, worst, Skv=None, causal=True, B=1):
     """A ``kernels`` line row for flash at a prefill of ``S`` tokens with
-    ``cfg``'s heads, (1, H, KH, S, hd), bfloat16, causal (or against
+    ``cfg``'s heads, (B, H, KH, S, hd), bfloat16, causal (or against
     ``Skv`` keys, with or without the mask): random q, k, v
     from ``gen``, held to the plain version (``flash_close``), then its ms,
     the plain version's, its bound (q, k, v, o moved once; FLOP at the
@@ -1849,7 +1929,7 @@ def flash_row(name, cfg, dev, gen, S, launches, worst, Skv=None, causal=True):
     from repro_torch.kernels.flashattn import flash_attention_ref, flash_flops
     from repro_torch.timing import cuda_ms
 
-    B, H, KH, hd = 1, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     Skv = Skv or S
     q = torch.randn(B, H, S, hd, device=dev, generator=gen).to(torch.bfloat16)
     k = torch.randn(B, KH, Skv, hd, device=dev, generator=gen).to(torch.bfloat16)
@@ -2652,9 +2732,32 @@ def scipy_cc_labels(g):
     return first[comp].astype(np.int32)
 
 
+def min_label_components(g):
+    """Weakly connected components, each labelled with its smallest vertex
+    id, by plain torch on the graph's device (no executor): every vertex
+    takes the smallest label at either end of its edges, then follows its
+    label's label, until nothing changes."""
+    import torch
+
+    src, dst = g.src.long(), g.dst.long()
+    lab = torch.arange(g.num_nodes, device=src.device)
+    while True:
+        m = torch.minimum(lab[src], lab[dst])
+        new = lab.scatter_reduce(0, src, m, "amin").scatter_reduce_(0, dst, m, "amin")
+        while True:  # pointer jumping
+            hop = new[new]
+            if torch.equal(hop, new):
+                break
+            new = hop
+        if torch.equal(new, lab):
+            return lab.to(torch.int32).cpu()
+        lab = new
+
+
 def scipy_sssp(csr, w, source):
     """Dijkstra in float64 on the same weighted edges (parallel edges
-    reduced to their lightest first); unreached vertices are inf."""
+    reduced to their lightest first); unreached vertices are inf. A list
+    of sources gives one row each, from one build of the matrix."""
     import numpy as np
     import scipy.sparse as sp
     from scipy.sparse.csgraph import dijkstra
@@ -2673,10 +2776,10 @@ def scipy_sssp(csr, w, source):
     return dijkstra(a, directed=True, indices=source)
 
 
-def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
+def traversal_phase(dev, T, K, suite, sizes, cache):
     """Phase 12: BFS (with parents), SSSP, k-core, both CC forms, radii,
     the batched BFS/SSSP and PPR through the port's entry points on
-    ``suite`` (S1, held against ``suite_cpu``'s run on the CPU) and on
+    ``suite`` (S1, held to executor-free oracles) and on
     ``sizes`` ({"S2": coo, "S3": coo}: all of it at S2, BFS and CC at S3).
     Returns the kernel launches of the path (counts, shapes)."""
     import numpy as np
@@ -2727,34 +2830,11 @@ def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
     def same(a, b):
         return torch.equal(a.cpu(), b.cpu())
 
-    def compare(tag, got, want):
-        """Card against CPU: integers, distances, labels, eccentricities
-        and parents equal; PPR to the PageRank tolerance."""
-        checks = {
-            "bfs": same(got["bfs"].dist, want["bfs"].dist)
-            and same(got["bfs"].parent, want["bfs"].parent)
-            and got["bfs"].levels == want["bfs"].levels,
-            "cc_fused": same(got["cc_fused"].labels, want["cc_fused"].labels)
-            and got["cc_fused"].iters == want["cc_fused"].iters,
-            "cc_pb": same(got["cc_pb"].labels, want["cc_pb"].labels),
-        }
-        if "sssp" in want:
-            checks.update(
-                sssp=same(got["sssp"].dist, want["sssp"].dist),
-                k_core=same(got["k_core"].in_core, want["k_core"].in_core),
-                radii=same(got["radii"].ecc, want["radii"].ecc),
-                bfs_batched=same(got["bfs_batched"].dist, want["bfs_batched"].dist)
-                and same(got["bfs_batched"].parent, want["bfs_batched"].parent),
-                sssp_batched=same(got["sssp_batched"].dist, want["sssp_batched"].dist),
-                ppr=pr_close(got["ppr"].ranks, want["ppr"].ranks)[0],
-            )
-        bad = [k for k, ok in checks.items() if not ok]
-        require(not bad, f"{tag}: card differs from the CPU run in {bad}")
-
-    def sssp_vs_dijkstra(tag, csr, w, source, dist, rounds):
-        """An SSSP distance vector against scipy's float64 Dijkstra, within
-        SSSP_EPS a hop (the docstring's rule); its record."""
-        d64 = torch.from_numpy(scipy_sssp(csr, w, source))
+    def sssp_vs_dijkstra(tag, d64, dist, rounds):
+        """An SSSP distance vector against scipy's float64 Dijkstra's
+        (``scipy_sssp``), within SSSP_EPS a hop (the docstring's rule); its
+        record."""
+        d64 = torch.from_numpy(d64)
         d32 = dist.cpu()
         reached = torch.isfinite(d64)
         require(torch.equal(reached, d32 < F32_MAX),
@@ -2769,16 +2849,17 @@ def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
         return rec
 
     def independent_checks(tag, g, csr, source, w, srcs, res, dijkstra=False, lanes=False,
-                           oracles=False):
+                           oracles=False, scipy_cc=True):
         """Results against code that does not use the executor. ``oracles``
-        (the S1 graphs without a CPU run): every batched lane, radii and
-        PPR against executor-free oracles too."""
+        (every S1 graph): every batched lane, radii and PPR against
+        executor-free oracles too. CC labels against scipy's components, or
+        (``scipy_cc=False``, S3) a plain-torch min-label propagation."""
         rec = {}
         dd, dp = dense_bfs(T, csr, source)
         b = res["bfs"]
         require(same(b.dist, dd) and same(b.parent, dp),
                 f"{tag}: BFS levels or parents differ from the dense BFS")
-        want = torch.from_numpy(scipy_cc_labels(g))
+        want = torch.from_numpy(scipy_cc_labels(g)) if scipy_cc else min_label_components(g)
         for k in ("cc_fused", "cc_pb"):
             require(same(res[k].labels, want), f"{tag}: {k} labels differ from scipy's components")
         rec["components"] = int(torch.unique(want).numel())
@@ -2797,8 +2878,10 @@ def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
                 pq = T.personalized_pagerank(csr, s, executor=ex).ranks
                 ok, rel = pr_close(res["ppr"].ranks[q], pq)
                 require(ok, f"{tag}: PPR lane {q} differs from the single-source run ({rel})")
+        if dijkstra or oracles:  # one Dijkstra call: the source, then the lanes
+            d64 = scipy_sssp(csr, w, [source] + (list(srcs) if oracles else []))
         if dijkstra:
-            rec["sssp_vs_dijkstra"] = sssp_vs_dijkstra(tag, csr, w, source, res["sssp"].dist,
+            rec["sssp_vs_dijkstra"] = sssp_vs_dijkstra(tag, d64[0], res["sssp"].dist,
                                                        res["sssp"].levels)
         if oracles:
             worst = 0.0
@@ -2808,7 +2891,7 @@ def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
                         and same(res["bfs_batched"].parent[q], dp),
                         f"{tag}: bfs_batched lane {q} differs from the dense BFS")
                 worst = max(worst, sssp_vs_dijkstra(
-                    f"{tag} sssp_batched lane {q}", csr, w, s, res["sssp_batched"].dist[q],
+                    f"{tag} sssp_batched lane {q}", d64[1 + q], res["sssp_batched"].dist[q],
                     res["sssp_batched"].levels)["worst_share_of_tol"])
             rec["sssp_batched_vs_dijkstra_worst_share_of_tol"] = worst
             want = np.stack([T.personalized_pagerank_oracle(csr, s) for s in srcs])
@@ -2919,21 +3002,15 @@ def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
                          "real_only_ms": cuda_ms(red, nbr[:total], val[:total], reps=10)})
         return rows
 
-    K.reset_launch_counts()  # the traversal path starts here (CPU runs launch nothing)
+    K.reset_launch_counts()  # the traversal path starts here
     for name, g in suite.items():
         t0 = time.perf_counter()
         csr, source, w, srcs = prepare(g)
         res = run_all(g, csr, source, w, srcs, ex)
         t_card = time.perf_counter() - t0
-        t_cpu = None
-        if name in TRAV_CPU_GRAPHS:
-            g_cpu = suite_cpu[name]
-            want = run_all(g_cpu, *prepare(g_cpu), T.PBExecutor(cache_dir=cache))
-            t_cpu = time.perf_counter() - t0 - t_card
-            compare(f"phase12 S1 {name}", res, want)
-        alone = name not in TRAV_CPU_GRAPHS  # held to oracles in place of the CPU run
         rec = independent_checks(f"phase12 S1 {name}", g, csr, source, w, srcs, res,
-                                 dijkstra=alone, oracles=alone)
+                                 dijkstra=True, oracles=True)
+        rec["checks_s"] = time.perf_counter() - t0 - t_card
         # BFS and CC-PB under the kernel-backed binning method
         T.set_default_executor(ex_pallas)
         bp = T.bfs(csr, source, executor=ex_pallas)
@@ -2942,22 +3019,25 @@ def traversal_phase(dev, T, K, suite, suite_cpu, sizes, cache):
                 and same(cp.labels, res["cc_pb"].labels),
                 f"phase12 S1 {name}: use_pallas BFS / CC-PB differ from the default executor")
         say(f"phase12 S1 {name}", json.dumps({"n": g.num_nodes, "m": g.num_edges, "source": source,
-                                             **summary(res), **rec, "card_run_s": t_card,
-                                             "cpu_run_s": t_cpu}))
+                                             **summary(res), **rec, "card_run_s": t_card}))
     for tag, g in sizes.items():
         full = tag == "S2"
         if on_card:
             torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         csr, source, w, srcs = prepare(g)
         res = run_all(g, csr, source, w, srcs, ex, full=full)
         T.set_default_executor(ex_pallas)
         bp = T.bfs(csr, source, executor=ex_pallas)
         require(same(bp.dist, res["bfs"].dist) and same(bp.parent, res["bfs"].parent),
                 f"phase12 {tag}: use_pallas BFS differs from the default executor")
+        t1 = time.perf_counter()
         times = timings(g, csr, source, w, srcs, full=full)
         peak = torch.cuda.max_memory_allocated() if on_card else None
+        t2 = time.perf_counter()
         rec = independent_checks(f"phase12 {tag}", g, csr, source, w, srcs, res, dijkstra=full,
-                                 lanes=full)
+                                 lanes=full, scipy_cc=full)
+        rec["seconds"] = {"run": t1 - t0, "timings": t2 - t1, "checks": time.perf_counter() - t2}
         say(f"phase12 {tag}", json.dumps({"n": g.num_nodes, "m": g.num_edges, "source": source,
                                          **summary(res), **rec, "times": times,
                                          "max_memory_allocated": peak}))
@@ -3566,6 +3646,709 @@ def sharded_phase(smi):
     rows = r0["kernel_rows"]
     for row in rows:
         row["launches"] = counts[row["name"].split(":")[0]]
+    return counts, shapes, rows
+
+
+# -- the dense and MoE LMs over a (data, model) mesh of ranks (phase 20) -----------------
+
+
+def _mesh_fingerprint(state, specs, mesh):
+    """{path: [sum of the bit patterns, sum of their squares]} of every
+    tensor of a ``TrainState``, over its unique blocks (a rank adds its
+    block when it sits at coordinate 0 of every axis the leaf is not
+    sharded on), as int64 sums that wrap the same way in any order: equal
+    on two meshes when the two hold the same values."""
+    import torch
+
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    from repro_torch.distributed import sharding as shd
+
+    out = {}
+    for path, v in _flatten_with_paths(state):
+        if not isinstance(v, torch.Tensor):
+            continue
+        sharded = shd.spec_axes(specs.get(path) or ())
+        mine = all(mesh.coords[a] == 0 for a in mesh.axis_names if a not in sharded)
+        bits = v.detach().contiguous().view({2: torch.int16, 4: torch.int32}[v.element_size()])
+        b = bits.reshape(-1).to(torch.int64)
+        t = torch.stack([b.sum(), (b * b).sum()]) if mine else torch.zeros(2, dtype=torch.int64,
+                                                                           device=v.device)
+        out[path] = shd.all_reduce(t, mesh.axis_names, mesh).tolist()
+    return out
+
+
+class _CollectiveClock:
+    """Host seconds inside ``torch.distributed``'s collectives while on:
+    gloo runs a CUDA tensor's collective synchronously (staging it through
+    host memory), so the wall time of the call is the collective's."""
+
+    NAMES = ("all_reduce", "all_gather", "gather", "broadcast", "batch_isend_irecv", "barrier")
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.seconds, self.calls, self.on = dist, 0.0, 0, False
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(dist, n, self._wrap(fn))
+
+    def _wrap(self, fn):
+        def timed(*a, **kw):
+            if not self.on:
+                return fn(*a, **kw)
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t
+                self.calls += 1
+        return timed
+
+    def close(self):
+        for n, fn in self.saved.items():
+            setattr(self.dist, n, fn)
+
+
+def mesh_specs_check(rec, arch, layers, dev, D, M):
+    """(a) on a D x M mesh: every leaf's block has its spec's shape and
+    equals its block of the one-rank draw bit for bit; for qwen2-1.5b the
+    all-gather of every leaf equals that draw."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as TM
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    mesh = shd.make_rank_mesh(D, M, device=dev)
+    specs = TM.param_specs(cfg, mesh, shd.rules_for_profile(cfg.sharding_profile))
+    model = TM.init_params(cfg, seed=MESH_SEED, device=dev, mesh=mesh)
+    local = dict(model.named_parameters())
+    bad, gathered = [], 0
+    for name, full in TM.init_leaves(cfg, MESH_SEED, dev):
+        blk = local[name].detach()
+        if (tuple(blk.shape) != shd.shard_shape(full.shape, specs[name], mesh)
+                or not torch.equal(blk, shd.shard_of(full, specs[name], mesh))):
+            bad.append(name)
+        if arch == LM_ARCH:
+            if not torch.equal(shd.gather(blk, specs[name], mesh), full):
+                bad.append(f"{name} (gathered)")
+            gathered += 1
+        del full
+    rec["checks"][f"(a) {arch} {D}x{M}: {len(local)} leaves, {gathered} gathered"] = not bad
+    require(not bad, f"phase20 (a) {arch} {D}x{M}: leaves whose blocks differ: {bad[:8]}")
+    del model, local
+    torch.cuda.empty_cache()
+
+
+def mesh_f32_parity(rec, dev):
+    """(b) one float32 AdamW step of qwen2-1.5b at MESH_F32's depth and
+    shape on 2x2 and on 1x4 (its 2 KV heads do not split 4 ways: the
+    gathered fallback), against the single-device step of the same weights
+    on the card, which every rank takes and holds its blocks to. Loss rtol
+    1e-5; AdamW's moments within 1e-5 of their leaf's max (the key bias's
+    of ``wk``'s: its gradient is rounding noise); each parameter's update
+    within MESH_UPDATE_RTOL of the one-device update in norm (the key
+    bias's update, rounding noise in lr's size, within 1.01 lr). The worst
+    of each over the ranks (the norms over every rank's block)."""
+    import torch
+
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as TM
+    from repro_torch.train.optimizer import OptConfig, init_opt_state, lr_schedule
+    from repro_torch.train.steps import TrainState, make_train_step, state_specs
+
+    L_, B, S = MESH_F32
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=L_, param_dtype="float32",
+                              compute_dtype="float32")
+    oc = OptConfig(kind="adamw", warmup_steps=1, total_steps=10)
+    lr = float(lr_schedule(oc, 1))
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED + 1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    model = TM.init_params(cfg, seed=MESH_SEED, device=dev)
+    st = TrainState(model, init_opt_state(dict(model.named_parameters()), oc))
+    st, m = make_train_step(cfg, oc)(st, batch)
+    want = {p: v.detach() for p, v in _flatten_with_paths(st) if isinstance(v, torch.Tensor)}
+    want_loss = float(m["loss"])
+    del model, st
+    out = {}
+    for D, M in ((2, 2), (1, 4)):
+        mesh = shd.make_rank_mesh(D, M, device=dev)
+        model = TM.init_params(cfg, seed=MESH_SEED, device=dev, mesh=mesh)
+        init = {f"params/{n}": p.detach().clone() for n, p in model.named_parameters()}
+        st = TrainState(model, init_opt_state(dict(model.named_parameters()), oc))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, m = make_train_step(cfg, oc, mesh=mesh)(st, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        specs, _ = state_specs(st, cfg, mesh)
+        names = [p for p, _ in _flatten_with_paths(st) if p in specs]
+        errs, sq = [], []  # (max |error|, scale) a leaf; (|du - dw|^2, |dw|^2) an update
+        for p, v in _flatten_with_paths(st):
+            if p not in specs:
+                continue
+            w = shd.shard_of(want[p], specs[p], mesh)
+            if p in init:
+                du, dw = v.detach() - init[p], w - init[p]
+                errs += [float(du.abs().max()), lr]
+                sq += [float((du - dw).double().square().sum()), float(dw.double().square().sum())]
+                continue
+            scale = want[p.replace("attn.bk", "attn.wk")]
+            errs += [float((v.detach() - w).abs().max()), float(scale.abs().max()) or 1.0]
+            sq += [0.0, 0.0]
+        # the worst error of each leaf over the ranks (its scale is the same on every
+        # rank), and the update's squared norms summed over them (a replicated block
+        # counts once a holder in both, so their ratio is the whole leaf's)
+        worst = shd.all_reduce(torch.tensor(errs, dtype=torch.float64), mesh.axis_names, mesh,
+                               op="max").tolist()
+        sums = shd.all_reduce(torch.tensor(sq, dtype=torch.float64), mesh.axis_names,
+                              mesh).tolist()
+        err = {p: (worst[2 * i], worst[2 * i + 1]) for i, p in enumerate(names)}
+        upd = {p: (sums[2 * i] / max(sums[2 * i + 1], 1e-300)) ** 0.5
+               for i, p in enumerate(names) if p in init and not p.endswith("attn.bk")}
+        loss_rel = abs(float(m["loss"]) - want_loss) / abs(want_loss)
+        r = {"loss": float(m["loss"]), "single_loss": want_loss, "loss_rel": loss_rel,
+             "worst_moment_share": max(e / sc for p, (e, sc) in err.items()
+                                       if p.startswith("opt/")),
+             "worst_update_rel": max(upd.values()), "worst_update_leaf": max(upd, key=upd.get),
+             "update_rtol": MESH_UPDATE_RTOL,
+             "key_bias_update_share_of_lr": max(e / sc for p, (e, sc) in err.items()
+                                               if p.endswith("attn.bk")),
+             "step_seconds": step_s}
+        out[f"{D}x{M}"] = r
+        require(loss_rel <= 1e-5 and r["worst_moment_share"] <= 1e-5
+                and r["worst_update_rel"] <= MESH_UPDATE_RTOL
+                and r["key_bias_update_share_of_lr"] <= 1.01,
+                f"phase20 (b) {D}x{M} float32 step differs from one device: {r}")
+        del model, st
+        torch.cuda.empty_cache()
+    rec["f32_parity"] = out
+    del want
+    torch.cuda.empty_cache()
+
+
+def mesh_moe_checks(rec, dev):
+    """(c) qwen3-moe's layer at full width, bf16, on 2x2: the expert-sharded
+    ``moe_apply`` on MESH_MOE_T tokens against the one-device layer on each
+    data rank's rows (the same capacity from the same local T, so the same
+    assignments drop: counted); the weight-stationary decode on 4 tokens
+    against ``_moe_dense_oracle``; ``moe_combine_sharded`` over the data
+    axis on MESH_COMBINE_M assignments against ``index_add_`` in float64.
+    Limits: phase 15's |diff| <= MOE_BF16_TOL * S (S the same weighted sum
+    of |terms|), times 2 for the expert-sharded layer (each model rank's
+    partial sum and the psum round once more to bfloat16) and times 4 for
+    the weight-stationary one (its w1 / w3 products round per data rank
+    before their sum), each also rejecting every planted fault that drops
+    one assignment; the combine within one bfloat16 rounding of the sum."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import set_param
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), moe_dispatch_method="counting")
+    mesh = shd.make_rank_mesh(2, 2, device=dev)
+    shapes = L._moe_shapes(cfg)
+    layer, whole = L.MoE(cfg, "meta"), {}
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED + 2)
+    from repro_torch.models.params import winit_
+
+    for n in ("wr", "w1", "w3", "w2"):  # drawn whole on every rank, the same
+        t = torch.empty(shapes[n], dtype=torch.float32 if n == "wr" else cfg.pdtype, device=dev)
+        winit_(t, gen, cfg.d_ff ** -0.5 if n == "w2" else None)
+        spec = shd.spec_for(mesh, shapes[n], L.MOE_NAMES[n], shd.rules_for_profile("tp_fsdp"))
+        set_param(layer, n, shd.shard_of(t, spec, mesh).clone())
+        whole[n] = t
+    out = {}
+
+    def terms_of(x2d):
+        """(|terms|, signed rows, dispatch) of the one-device layer: each
+        kept assignment's |gate| times |h| @ |w2| and its weighted expert
+        row, (T, k, d) float32 (zero where dropped)."""
+        E = cfg.num_experts
+        d = L.moe_dispatch(x2d, whole["wr"], cfg, 0, E)
+        xb = d.xbuf.view(E, d.capacity, -1)
+        h = F.silu(torch.bmm(xb, whole["w1"])) * torch.bmm(xb, whole["w3"])
+        y_abs = torch.bmm(h.abs().float(), whole["w2"].abs().float()).reshape(E * d.capacity, -1)
+        y = torch.bmm(h, whole["w2"]).float().reshape(E * d.capacity, -1)
+        gw = d.gate_w.reshape(-1, 1)
+        shape = (x2d.shape[0], cfg.top_k, -1)
+        return ((L._kept_rows(y_abs, d.slot_of_assign) * gw.abs()).reshape(shape),
+                (L._kept_rows(y, d.slot_of_assign) * gw).reshape(shape), d)
+
+    # the expert-sharded layer on this data rank's rows
+    B, S = MESH_MOE_T
+    x = (torch.randn(B, S, cfg.d_model, generator=gen, device=dev) * 0.5).to(cfg.cdtype)
+    mine = shd.shard_of(x, ("data",), mesh)
+    with shd.use_mesh(mesh), torch.no_grad():
+        got = L.moe_apply(layer, mine, cfg)
+    x2d = mine.reshape(-1, cfg.d_model)
+    with torch.no_grad():
+        want = L._moe_expert_shard(x2d, whole["wr"], whole["w1"], whole["w3"], whole["w2"], cfg,
+                                   0, cfg.num_experts)
+        terms, rows, d = terms_of(x2d)
+    limit = 2 * MOE_BF16_TOL * terms.sum(1)
+    delta = got.reshape(x2d.shape).float() - want.float()
+    diff = delta.abs()
+    dropped = int((d.slot_of_assign < 0).sum())
+    fault = ((delta[:, None] - rows).abs() / limit[:, None]).amax(-1)  # a kept row taken out
+    kept = (d.slot_of_assign >= 0).reshape(-1, cfg.top_k)
+    out["expert_sharded"] = {
+        "tokens_per_data_rank": x2d.shape[0], "capacity": d.capacity, "dropped": dropped,
+        "max_abs_err": float(diff.max()), "tolerance_share": float((diff / limit).max()),
+        "planted_fault_min_share": float(fault[kept].min())}
+    require(bool((diff <= limit).all()) and float(fault[kept].min()) > 1,
+            f"phase20 (c) expert-sharded MoE differs from one device: {out['expert_sharded']}")
+    del terms, rows, d, want, got
+
+    # the weight-stationary decode against the dense oracle
+    ws = dataclasses.replace(cfg, moe_weight_stationary_decode=True)
+    xd = (torch.randn(MESH_WS_T, 1, cfg.d_model, generator=gen, device=dev) * 0.5).to(cfg.cdtype)
+    with shd.use_mesh(mesh), torch.no_grad():
+        got = L.moe_apply(layer, shd.shard_of(xd, ("data",), mesh), ws)
+        got = shd.all_gather(got, 0, "data", mesh).reshape(MESH_WS_T, -1)
+    x2d = xd.reshape(MESH_WS_T, -1)
+    with torch.no_grad():
+        want = L._moe_dense_oracle(x2d, whole["wr"], whole["w1"], whole["w3"], whole["w2"], cfg)
+        terms, rows, d = terms_of(x2d)
+    limit = 4 * MOE_BF16_TOL * terms.sum(1)
+    delta = got.float() - want.float()
+    diff = delta.abs()
+    fault = ((delta[:, None] - rows).abs() / limit[:, None]).amax(-1)
+    out["weight_stationary"] = {
+        "tokens": MESH_WS_T, "capacity": d.capacity, "dropped": int((d.slot_of_assign < 0).sum()),
+        "max_abs_err": float(diff.max()), "tolerance_share": float((diff / limit).max()),
+        "planted_fault_min_share": float(fault.min())}
+    require(bool((diff <= limit).all()) and float(fault.min()) > 1,
+            f"phase20 (c) weight-stationary MoE differs from the oracle: {out['weight_stationary']}")
+    del terms, rows, d, want, got
+
+    # moe_combine_sharded over the data axis
+    T_ = MESH_COMBINE_M // cfg.top_k
+    tok = torch.arange(T_, dtype=torch.int32, device=dev).repeat_interleave(cfg.top_k)
+    rows = torch.randn(MESH_COMBINE_M, cfg.d_model, generator=gen, device=dev).to(cfg.cdtype)
+    gw = torch.rand(MESH_COMBINE_M, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = L.moe_combine_sharded(tok, rows, gw, T_, mesh, "data")
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    wrows = (rows * gw[:, None].to(rows.dtype)).double()
+    want = torch.zeros(T_, cfg.d_model, dtype=torch.float64, device=dev).index_add_(0, tok.long(),
+                                                                                    wrows)
+    scale = torch.zeros_like(want).index_add_(0, tok.long(), wrows.abs())
+    ok = bool(((got.double() - want).abs() <= 2.0**-8 * want.abs() + _add_limit(scale)).all())
+    out["combine_sharded"] = {"assignments": MESH_COMBINE_M, "tokens": T_,
+                              "max_abs_err": float((got.double() - want).abs().max()),
+                              "seconds": sec}
+    require(ok, f"phase20 (c) moe_combine_sharded differs from index_add_: {out['combine_sharded']}")
+    rec["moe"] = out
+    del layer, whole, rows, wrows, want, scale, got
+    torch.cuda.empty_cache()
+
+
+def mesh_launcher_run(rec, dev, K, arch, ckpt_dir=None):
+    """(d) ``launch/train.py --mesh host:2x2`` inside this group of four
+    ranks at MESH_TRAIN's shape, bf16, remat, the optimizer
+    ``default_opt_config`` picks for the full model (qwen3-moe:
+    MESH_MOE_LAYERS of its 94 layers, counting dispatch, set on the config
+    the launcher reads), with the launch counts set to 0 before and read
+    after, and the host seconds inside ``torch.distributed``'s calls.
+    With ``ckpt_dir`` (qwen2-1.5b): MESH_STEPS + 1 steps, a checkpoint
+    after MESH_STEPS (each rank writes its blocks on a thread during the
+    next step) whose fingerprint (``_mesh_fingerprint``) is taken as it is
+    saved, and no save after the last; without (qwen3-moe): MESH_STEPS
+    steps, rank 0's whole run under ``torch.profiler`` (host events: the
+    gloo calls' milliseconds). A rank's launches, exact: a step runs flash
+    once per layer per forward pass (the pass and remat's recomputation),
+    the rows kernel once for the embedding backward and, per MoE layer,
+    the dispatch (row scatter, counting's histogram and positions) and the
+    combine (rows kernel) in both passes, and the backward's rows reduce
+    and row scatter. Returns (the run, its config, the last step's
+    gradients, the fingerprint or None)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as TM
+    from repro_torch.train import steps as steps_mod
+
+    full = get_config(arch)
+    cfg = full
+    if full.family == "moe":
+        cfg = dataclasses.replace(full, num_layers=MESH_MOE_LAYERS, moe_dispatch_method="counting")
+    B, S = MESH_TRAIN[arch]
+    steps = MESH_STEPS + 1 if ckpt_dir else MESH_STEPS
+    saved = train_mod.get_config, train_mod.default_opt_config, steps_mod.apply_updates
+    grads, fingerprint, save_seconds = {}, {}, []
+
+    def keep_grads(params, g, *a, **kw):  # the last step's gradients, for (e)
+        grads.clear()
+        grads.update(g)
+        return saved[2](params, g, *a, **kw)
+
+    save = train_mod.CheckpointManager.save
+
+    def fingerprinted_save(self, step, tree, *a, **kw):
+        fingerprint.update(_mesh_fingerprint(tree, kw["specs"], kw["mesh"]))
+        t = time.perf_counter()
+        try:
+            return save(self, step, tree, *a, **kw)
+        finally:
+            save_seconds.append(time.perf_counter() - t)
+
+    train_mod.get_config = lambda name: cfg
+    train_mod.default_opt_config = lambda c, total_steps=10_000: steps_mod.default_opt_config(
+        full, total_steps)
+    steps_mod.apply_updates = keep_grads
+    train_mod.CheckpointManager.save = fingerprinted_save
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    clock = _CollectiveClock()
+    argv = ["--arch", arch, "--preset", "full", "--seq-len", str(S), "--batch", str(B),
+            "--steps", str(steps), "--log-every", "1", "--mesh", "host:2x2",
+            "--device", str(dev)]
+    if ckpt_dir:
+        argv += ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(MESH_STEPS), "--no-ckpt-final"]
+    profiled = not ckpt_dir and torch.distributed.get_rank() == 0
+    t0 = time.perf_counter()
+    try:
+        K.reset_launch_counts()  # this model's mesh training path starts here
+        clock.on = True
+        if profiled:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                run = train_mod.train(train_mod.parse_args(argv))
+                torch.cuda.synchronize()
+        else:
+            run = train_mod.train(train_mod.parse_args(argv))
+            torch.cuda.synchronize()
+        clock.on = False
+        counts, shapes = K.launch_counts(), K.launch_shapes()  # and ends here
+    finally:
+        clock.close()
+        train_mod.get_config, train_mod.default_opt_config, steps_mod.apply_updates = saved
+        train_mod.CheckpointManager.save = save
+    seconds = time.perf_counter() - t0
+    require(len(run.losses) == steps
+            and all(math.isfinite(x) for x in run.losses + run.grad_norms),
+            f"phase20 {arch}: training diverged: {run.losses} {run.grad_norms}")
+    L_moe = cfg.num_layers if cfg.family == "moe" else 0
+    passes = 2 if cfg.remat else 1
+    want = {"cobra_bin_accumulate_rows": 1 + L_moe * (passes + 1),
+            "scatter_rows": L_moe * (passes + 1), "histogram": L_moe * passes,
+            "counting_positions": L_moe * passes,
+            "flash_attention": TM.attention_layers(cfg) * passes}
+    want = {k: v * steps for k, v in want.items()}
+    got = {k: counts[k] for k in want}
+    require(got == want, f"phase20 {arch}: {steps} steps launched {got} on a rank, "
+                         f"expected {want}")
+    ms = min(1e3 * x for x in run.step_seconds[1:MESH_STEPS])
+    r = {"arch": arch, "layers": cfg.num_layers, "of_layers": full.num_layers,
+         "local_parameters": sum(p.numel() for p in run.state.params.parameters()),
+         "optimizer": "adamw" if run.state.opt.m is not None else "adafactor",
+         "batch": B, "seq_len": S, "losses": run.losses, "grad_norms": run.grad_norms,
+         "step_ms": [1e3 * x for x in run.step_seconds], "steady_step_ms": ms,
+         "tokens_per_s": B * S / ms * 1e3, "collective_seconds": clock.seconds,
+         "collective_calls": clock.calls, "run_seconds": seconds, "save_seconds": save_seconds,
+         "peak_bytes_above_earlier": torch.cuda.max_memory_allocated() - mem0,
+         "launches": got}
+    if profiled:
+        ev = prof.key_averages()
+        coll = {e.key: e.cpu_time_total / 1e3 for e in ev
+                if e.key.startswith(("gloo:", "c10d::")) and e.cpu_time_total > 0}
+        r["profile"] = {"collective_cpu_ms": coll,
+                        "gloo_ms": sum(v for k, v in coll.items() if k.startswith("gloo:"))}
+    rec["train"][arch] = r
+    return run, cfg, grads, fingerprint or None
+
+
+def mesh_compression_and_pipe(rec, dev, grads):
+    """(e) ``compressed_psum_tree`` over the data axis of rank 0's last
+    qwen2 gradients of (d) (each data group takes its data-index-0
+    member's: identical gradients), twice with the residual: the largest
+    error within the reference test's 0.05 and the two-step error no
+    larger; then ``gpipe_apply`` over the 4 ranks as stages of
+    MESH_PIPE's layers of full-width qwen2 against those layers run in
+    order on rank 0 (M microbatches; bf16: within 2^-8 of max |y|)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.compression import compressed_psum_tree, init_residuals
+    from repro_torch.distributed.pipeline import bubble_fraction, gpipe_apply
+    from repro_torch.models import transformer as TM
+
+    mesh = shd.make_rank_mesh(2, 2, device=dev)
+    g = {}
+    src = mesh.global_ranks[mesh.coords["model"]]  # this rank's data-index-0 peer
+    for n, t in grads.items():
+        b = t.detach().clone()
+        torch.distributed.broadcast(b, src, group=mesh.group("data"))
+        g[n] = b
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    o1, r1 = compressed_psum_tree(g, init_residuals(g), mesh, axes=("data",))
+    o2, _ = compressed_psum_tree(g, r1, mesh, axes=("data",))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    err1 = max(float((o1[n] - g[n].float()).abs().max()) for n in g)
+    err2 = max(float(((o1[n] + o2[n]) / 2 - g[n].float()).abs().max()) for n in g)
+    gmax = max(float(g[n].float().abs().max()) for n in g)
+    rec["compression"] = {"leaves": len(g), "elements": sum(x.numel() for x in g.values()),
+                          "err1": err1, "err2": err2, "max_abs_grad": gmax, "seconds": sec}
+    require(err1 < 0.05 and err2 <= err1 + 1e-6,
+            f"phase20 (e) compression: {rec['compression']}")
+    del g, o1, o2, r1
+    torch.cuda.empty_cache()
+
+    stages, per, Mb, S = MESH_PIPE
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=stages * per)
+    pmesh = shd.make_mesh({"pipe": stages}, device=dev)
+    s = pmesh.axis_index("pipe")
+    model = TM.LM(cfg, "meta")
+    keep = range(stages * per) if pmesh.rank == 0 else range(s * per, (s + 1) * per)
+    for name, p in TM.init_leaves(cfg, MESH_SEED + 3, dev):
+        parts = name.split(".")
+        if parts[0] == "blocks" and int(parts[1]) in keep:
+            TM.set_param(model, name, p)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+
+    def stage_fn(blocks, x):
+        for blk in blocks:
+            x = TM._apply_dense_layer(blk, x, cfg, pos, None, None)
+        return x
+
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED + 4)
+    xs = (torch.randn(Mb, 1, S, cfg.d_model, generator=gen, device=dev)).to(cfg.cdtype)
+    mine = [model.blocks[i] for i in range(s * per, (s + 1) * per)]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = gpipe_apply(stage_fn, mine, xs, pmesh)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        if pmesh.rank == 0:
+            want = torch.stack([stage_fn(list(model.blocks), x) for x in xs])
+            diff = float((y.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            rec["pipeline"] = {"stages": stages, "layers_per_stage": per, "microbatches": Mb,
+                               "shape": [1, S, cfg.d_model], "max_abs_err": diff,
+                               "max_abs_y": scale, "equal": bool(torch.equal(y, want)),
+                               "bubble_fraction": bubble_fraction(Mb, stages), "seconds": sec}
+            require(diff <= 2.0**-8 * scale, f"phase20 (e) GPipe differs: {rec['pipeline']}")
+    del model, mine, xs, y
+    torch.cuda.empty_cache()
+
+
+def mesh_remesh(rec, dev, ckpt_dir, fp_saved, loss_next):
+    """(f) the 2x2 qwen2 state saved after (d) restored onto the mesh of
+    ``ElasticPlan(old_data=2, old_model=2, surviving_devices=2)`` (1x2 over
+    ranks 0 and 1, accumulation 2): the restored values' fingerprint
+    equals the saved state's (``_mesh_fingerprint``), and one more step
+    there gives the 2x2 mesh's next loss within rtol 1e-3 (bf16)."""
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_data
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.ft.resilience import ElasticPlan
+    from repro_torch.models import transformer as TM
+    from repro_torch.train import steps as steps_mod
+    from repro_torch.train.optimizer import init_opt_state
+
+    plan = ElasticPlan(old_data=2, old_model=2, surviving_devices=2)
+    D, M = plan.mesh_shape()
+    mesh = shd.make_rank_mesh(D, M, device=dev, ranks=range(D * M))
+    if mesh is not None:
+        cfg = get_config(LM_ARCH)
+        oc = steps_mod.default_opt_config(cfg, total_steps=MESH_STEPS + 1)  # the 2x2 run's
+        model = TM.init_params(cfg, seed=0, device=dev, mesh=mesh)
+        target = steps_mod.TrainState(model, init_opt_state(dict(model.named_parameters()), oc))
+        specs, _ = steps_mod.state_specs(target, cfg, mesh)
+        t = time.perf_counter()
+        state, at = CheckpointManager(ckpt_dir).restore(target, mesh=mesh, specs=specs)
+        restore_s = time.perf_counter() - t
+        del target, model
+        require(at == MESH_STEPS, f"phase20 (f): restored step {at}")
+        fp = _mesh_fingerprint(state, specs, mesh)
+        same = fp == fp_saved
+        B, S = MESH_TRAIN[LM_ARCH]
+        data = make_data(cfg, ShapeSpec("custom", S, B, "train"), host_index=0, host_count=1)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(MESH_STEPS).items()}
+        step = steps_mod.make_train_step(cfg, oc, accum_steps=plan.accumulation_steps(1),
+                                         mesh=mesh)
+        t = time.perf_counter()
+        _, m = step(state, batch)
+        loss = float(m["loss"])
+        rec["remesh"] = {"mesh": [D, M], "accum": plan.accumulation_steps(1),
+                         "restored_step": at, "fingerprint_equal": same,
+                         "restore_seconds": restore_s, "step_seconds": time.perf_counter() - t,
+                         "loss": loss, "loss_2x2": loss_next,
+                         "loss_rel": abs(loss - loss_next) / abs(loss_next)}
+        require(same, "phase20 (f): the restored state's fingerprint differs from the saved one")
+        require(rec["remesh"]["loss_rel"] <= 1e-3, f"phase20 (f): {rec['remesh']}")
+        del state, step, batch
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+
+
+def mesh_rank(rank, world, outdir, device="cuda:0"):
+    """One of phase 20's ranks (``repro_torch.launch.ranks.spawn_ranks``):
+    (a)-(f) of ``mesh_phase`` in order, every rank on ``cuda:0``; writes
+    what it measured to ``outdir/mesh<rank>.json``."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import repro_torch.kernels as K
+    from repro_torch.kernels import _lib
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _lib.load()  # built by the parent: this finds the library
+        torch.cuda.set_device(dev)
+    t_rank = time.perf_counter()
+    rec = {"rank": rank, "seconds": {}, "checks": {}, "train": {}, "counts": {}, "shapes": {}}
+
+    def part(name, fn, *a):
+        torch.distributed.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        rec["seconds"][name] = time.perf_counter() - t
+        rec.setdefault("peak_bytes", {})[name] = torch.cuda.max_memory_allocated(dev)
+        return out
+
+    for D, M in ((2, 2), (1, 4)):
+        part(f"(a) {LM_ARCH} {D}x{M}", mesh_specs_check, rec, LM_ARCH, 0, dev, D, M)
+        part(f"(a) {MOE_ARCH} {D}x{M}", mesh_specs_check, rec, MOE_ARCH, MESH_MOE_LAYERS, dev,
+             D, M)
+    part("(b)", mesh_f32_parity, rec, dev)
+    part("(c)", mesh_moe_checks, rec, dev)
+    ckpt_dir = os.path.join(outdir, "ckpt")
+    counts, shapes = {}, {}
+
+    def add(c, sh):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        for k, by in sh.items():
+            for key, v in by.items():
+                shapes.setdefault(k, {})[key] = shapes.get(k, {}).get(key, 0) + v
+
+    run, _, grads, fp_saved = part(f"(d) {LM_ARCH}", mesh_launcher_run, rec, dev, K, LM_ARCH,
+                                   ckpt_dir)
+    add(K.launch_counts(), K.launch_shapes())
+    loss_next = run.losses[MESH_STEPS]  # the 2x2 mesh's step after the checkpoint
+    del run
+    torch.cuda.empty_cache()
+    part("(e)", mesh_compression_and_pipe, rec, dev, grads)
+    del grads
+    torch.cuda.empty_cache()
+    part("(f)", mesh_remesh, rec, dev, ckpt_dir, fp_saved, loss_next)
+    moe_run, _, moe_grads, _ = part(f"(d) {MOE_ARCH}", mesh_launcher_run, rec, dev, K, MOE_ARCH)
+    add(K.launch_counts(), K.launch_shapes())
+    del moe_run, moe_grads
+    torch.cuda.empty_cache()
+    rec["counts"], rec["shapes"] = counts, shapes
+    rec["rank_seconds"] = time.perf_counter() - t_rank
+    with open(os.path.join(outdir, f"mesh{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def mesh_phase(dev, K, smi):
+    """Phase 20: the dense and MoE LMs over a (data, model) mesh of
+    MESH_RANKS gloo ranks, every one on ``cuda:0`` (``mesh_rank``): an
+    emulation with no interconnect (gloo stages every collective through
+    host memory), so its times say nothing about scaling. Prints the
+    checks, rank 0's training records, each rank's peaks and seconds, and
+    returns the launches of (d) summed over the ranks (counts, shapes) and
+    the kernels line's rows 8f and 5g at a rank's shapes."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import spawn_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as td:
+        t = time.perf_counter()
+        try:
+            spawn_ranks(mesh_rank, MESH_RANKS, store_dir=td, timeout=MESH_TIMEOUT,
+                        args=(td, "cuda:0"))
+        except Exception as e:  # a rank failed or hung: the run fails
+            fail(f"phase20: {type(e).__name__}: {e}")
+        wall = time.perf_counter() - t
+        recs = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(td, f"mesh{r}.json")) as f:
+                recs.append(json.load(f))
+    r0 = recs[0]
+    label = (f"{MESH_RANKS} ranks on one card, gloo through host memory: an emulation, "
+             "no interconnect's time and nothing about scaling")
+    say("phase20 checks (rank 0)", json.dumps(r0["checks"]))
+    say("phase20 (b) float32 step, mesh vs one device", json.dumps(dict(r0["f32_parity"],
+                                                                        card=smi)))
+    say("phase20 (c) MoE at full width", json.dumps(r0["moe"]))
+    for arch, tr in r0["train"].items():
+        losses = [r["train"][arch]["losses"] for r in recs]
+        require(all(x == losses[0] for x in losses), f"phase20 {arch}: ranks' losses differ")
+        say(f"phase20 (d) {arch} ({label})", json.dumps(dict(tr, card=smi)))
+    say("phase20 (e) compression", json.dumps(r0["compression"]))
+    say("phase20 (e) pipeline", json.dumps(r0["pipeline"]))
+    say("phase20 (f) re-mesh", json.dumps(r0["remesh"]))
+    say("phase20 ranks", json.dumps({
+        "ranks": MESH_RANKS, "spawn_to_join_s": wall, "parent_bytes_held": held,
+        "seconds": r0["seconds"], "rank_seconds": [r["rank_seconds"] for r in recs],
+        "peak_bytes": [r["peak_bytes"] for r in recs], "card": smi}))
+    counts, shapes = {}, {}
+    for r in recs:
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+        for k, by in r["shapes"].items():
+            for key, v in by.items():
+                shapes.setdefault(k, {})[key] = shapes.get(k, {}).get(key, 0) + v
+    say("phase20 launches of (d) (summed over the ranks):", json.dumps(counts))
+    # rows 8f and 5g at a rank's shapes of (d)'s qwen2 run
+    cfg = get_config(LM_ARCH)
+    B, S = MESH_TRAIN[LM_ARCH]
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED + 5)
+    tp_cfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // 2,
+                                 num_kv_heads=cfg.num_kv_heads // 2)
+    with torch.inference_mode():
+        r8 = flash_row("flash_attention:mesh_local_heads", tp_cfg, dev, gen, S,
+                       counts["flash_attention"], 0.0, B=B // 2)
+    emb = embedding_backward_check(dev, K, cfg, B=B // 2, S=S, vocab_block=(0, 2))
+    r5 = {"name": "cobra_bin_accumulate_rows:mesh_vocab_parallel_embedding_backward",
+          "route": "cuda", "source": "src/repro_torch/kernels/csrc/fused_rows.cu",
+          "replaces": "src/repro/kernels/fused.py:263",
+          "launches": counts["cobra_bin_accumulate_rows"], "checked_against_plain": True,
+          "shape": {k: emb[k] for k in ("m", "m_kept", "F", "n")},
+          "dtype": "bfloat16 cotangent, float32 rows; ids outside the block -1",
+          "max_abs_err": emb["max_abs_err"], "ms": emb["ms"],
+          "kernel_device_ms": emb["profile"]["device_ms"], "plain_ms": emb["plain_ms"],
+          "bound_ms": emb["bound_ms"], "bound_bytes": emb["bound_bytes"], "bound_by": "bytes",
+          "library_ms": emb["library_ms"]}
+    rows = [dict(r8, launches_20=counts["flash_attention"]),
+            dict(r5, launches_20=counts["cobra_bin_accumulate_rows"])]
+    say("phase20 rows 8f, 5g", json.dumps(rows))
+    torch.cuda.empty_cache()
     return counts, shapes, rows
 
 
@@ -4189,8 +4972,9 @@ def main() -> None:
             times = {a: time_fn(lambda fn=fn, i=i, v=v: chained(fn, i, v, indeg), reps=3, warmup=1)
                      for a, (fn, i, v) in arms9.items()}
             errs = {a: spread(o, outs["fused"]) for a, o in outs.items() if a != "fused"}
-            on_cpu = chained(fused_arm(n), dsort_cpu, vals_cpu[F], indeg_of(g_cpu))
-            errs["fused_vs_cpu"] = spread(outs["fused"].cpu(), on_cpu)
+            if F in FIG9_CPU_F:
+                on_cpu = chained(fused_arm(n), dsort_cpu, vals_cpu[F], indeg_of(g_cpu))
+                errs["fused_vs_cpu"] = spread(outs["fused"].cpu(), on_cpu)
             row[F] = {"f_tile": d.f_tile,
                       "ms_per_iter": {a: t / ITERS9 * 1e3 for a, t in times.items()},
                       "rel_err": errs}
@@ -4378,8 +5162,7 @@ def main() -> None:
 
     # -- phase 12: the traversal path (before phase 11's kernels line) --------------
     t12 = time.perf_counter()
-    trav_counts, trav_shapes = traversal_phase(
-        dev, T, K, suite, suite_cpu, {"S2": s2, "S3": s3}, cache)
+    trav_counts, trav_shapes = traversal_phase(dev, T, K, suite, {"S2": s2, "S3": s3}, cache)
     torch.cuda.empty_cache()
     say(f"phase12 seconds: {time.perf_counter() - t12:.1f}")
 
@@ -4418,6 +5201,11 @@ def main() -> None:
     t19 = time.perf_counter()
     x_counts, x_shapes, x_rows = cross_phase(dev, K, smi)
     say(f"phase19 seconds: {time.perf_counter() - t19:.1f}")
+
+    # -- phase 20: the LMs over a mesh of four ranks (before phase 11) ------------------
+    t20 = time.perf_counter()
+    mesh_counts, mesh_shapes, mesh_rows = mesh_phase(dev, K, smi)
+    say(f"phase20 seconds: {time.perf_counter() - t20:.1f}")
 
     # -- phase 11: the kernels line at the paths' shapes -------------------------
     t11 = time.perf_counter()
@@ -4525,11 +5313,12 @@ def main() -> None:
     ]
     path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
             + trav_counts[k] + serving_counts[k] + train_counts[k] + moe_counts[k]
-            + shard_counts[k] + rec_counts[k] + fam_counts[k] + x_counts[k] for k in after}
+            + shard_counts[k] + rec_counts[k] + fam_counts[k] + x_counts[k]
+            + mesh_counts.get(k, 0) for k in after}
     path_shapes = {}
     for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes,
                  serving_shapes, train_shapes, moe_shapes, shard_shapes, rec_shapes, fam_shapes,
-                 x_shapes):
+                 x_shapes, mesh_shapes):
         for k, by in part.items():
             for shp, c in by.items():
                 path_shapes.setdefault(k, {})[shp] = path_shapes.get(k, {}).get(shp, 0) + c
@@ -4573,6 +5362,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path[name], "launches_16": shard_counts[name],
             "launches_18": fam_counts[name], "launches_19": x_counts[name],
+            "launches_20": mesh_counts.get(name, 0),
             "checked_against_plain": True, "max_abs_err": err,
             "ms": cuda_ms(kfn, reps=reps), "plain_ms": cuda_ms(pfn, reps=reps),
             "bound_ms": bound_ms(nbytes), "bound_bytes": nbytes, "bound_by": "bytes",
@@ -4594,12 +5384,14 @@ def main() -> None:
         flash_row("flash_attention", lm_cfg, dev, gen, fS, path["flash_attention"],
                   worst["flash_attention"]),
         launches_16=shard_counts["flash_attention"], launches_18=fam_counts["flash_attention"],
-        launches_19=x_counts["flash_attention"], flash_hbm_bytes=flash_hbm_bytes(fB, fH, fKH, fS, fS, fhd)))
+        launches_19=x_counts["flash_attention"], launches_20=mesh_counts["flash_attention"],
+        flash_hbm_bytes=flash_hbm_bytes(fB, fH, fKH, fS, fS, fhd)))
     kernels += moe_rows  # rows 2b, 5c, 7b and 8b: phase 15's shapes and launches
     kernels += shard_rows  # rows 4c and 5d: a rank's local reduce in phase 16, its launches
     kernels += rec_rows  # row 8c: flash at the longest zamba2 prefill, phase 17's launches
     kernels += fam_rows  # rows 5e and 7c: the MoE backward at phase 15's shape, phase 18's launches
     kernels += x_rows  # rows 8d, 8e and 5f: the vlm's and Whisper's shapes, phase 19's launches
+    kernels += mesh_rows  # rows 8f and 5g: a rank's shapes in phase 20, its launches
     require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on a path: {path}")
     say(f"phase11 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}; rows F={GNN_D}; "
         f"COBRA pass S3 m={m3} bins={nb3}; embedding T={T_} d={d_} B={B_} L={L}; "

@@ -99,7 +99,7 @@ def _leaf_tensor(tree, name: str, device) -> torch.Tensor:
     return _torch_from_numpy(node if index is None else np.asarray(node)[index]).to(device)
 
 
-def train_state_from_numpy(params, opt, cfg, device=None):
+def train_state_from_numpy(params, opt, cfg, device=None, mesh=None):
     """A ``TrainState`` holding the reference's: ``params`` its unboxed
     parameter tree (as for ``lm_params_from_numpy``), ``opt`` its
     ``OptState`` (``step``, ``m``, ``v``: AdamW's moments trees like the
@@ -108,29 +108,51 @@ def train_state_from_numpy(params, opt, cfg, device=None):
     like the parameters; Adafactor's stay the reference's stacked leaves,
     keyed ``blocks.<rest>``, ``enc_blocks.<rest>`` or ``dec_blocks.<rest>``
     (two stacking axes for the hybrid family's Mamba2 blocks and the vlm's
-    self layers; ``train/optimizer.py``)."""
-    from repro_torch.train.optimizer import OptState, reference_leaf
+    self layers; ``train/optimizer.py``). On a ``mesh`` every tensor is
+    the rank's block (``lm_params_from_numpy``; a moment is blocked like
+    its parameter, ``optimizer.adafactor_specs`` for the factors)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.optimizer import OptState, adafactor_specs, moment_spec, reference_leaf
     from repro_torch.train.steps import TrainState
 
     dev = resolve_device(device)
-    model = lm_params_from_numpy(params, cfg, device=dev)
+    model = lm_params_from_numpy(params, cfg, device=dev, mesh=mesh)
     names = [n for n, _ in model.named_parameters()]
+    specs = _mesh_specs(cfg, mesh)
+
+    def block(t, spec):
+        return t if mesh is None else shd.shard_of(t, spec, mesh).clone()
+
     step = int(np.asarray(opt.step))
     if opt.m is not None:
-        m = {n: _leaf_tensor(opt.m, n, dev) for n in names}
-        v = {n: _leaf_tensor(opt.v, n, dev) for n in names}
+        m = {n: block(_leaf_tensor(opt.m, n, dev), specs and specs[n]) for n in names}
+        v = {n: block(_leaf_tensor(opt.v, n, dev), specs and specs[n]) for n in names}
         return TrainState(model, OptState(step, m, v))
     v = {}
+    vspecs = adafactor_specs(specs, names) if mesh is not None else {}
     for key in dict.fromkeys(reference_leaf(n)[0] for n in names):
         node = _tree_node(opt.v, key)
         if isinstance(node, (tuple, list)):
-            v[key] = tuple(_torch_from_numpy(x).to(dev) for x in node)
+            sp = moment_spec(vspecs[key], tuple(node)) if mesh is not None else (None, None)
+            v[key] = tuple(block(_torch_from_numpy(x).to(dev), s) for x, s in zip(node, sp))
         else:
-            v[key] = _torch_from_numpy(node).to(dev)
+            v[key] = block(_torch_from_numpy(node).to(dev), vspecs.get(key))
     return TrainState(model, OptState(step, None, v))
 
 
-def load_from_numpy(module: torch.nn.Module, tree) -> torch.nn.Module:
+def _mesh_specs(cfg, mesh):
+    """The parameters' specs on ``mesh`` under the config's profile (None
+    without a mesh)."""
+    if mesh is None:
+        return None
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.transformer import param_specs
+
+    return param_specs(cfg, mesh, shd.rules_for_profile(cfg.sharding_profile))
+
+
+def load_from_numpy(module: torch.nn.Module, tree, specs=None, mesh=None,
+                    device=None) -> torch.nn.Module:
     """Copy the reference's unboxed parameter tree (nested dicts of arrays)
     into ``module``, in place. Each parameter takes the leaf of its path
     with the numeric parts left out, indexed by those numbers in order: the
@@ -139,10 +161,15 @@ def load_from_numpy(module: torch.nn.Module, tree) -> torch.nn.Module:
     hybrid family's ``blocks.i.mamba.j.mamba.in_proj`` is
     ``tree["blocks"]["mamba"]["mamba"]["in_proj"][i, j]`` and the vlm's
     ``blocks.i.self.j.attn.wq`` is ``tree["blocks"]["self"]["attn"]["wq"][i, j]``. Shapes and dtypes
-    must agree, and every leaf of the tree must be used."""
+    must agree, and every leaf of the tree must be used. With ``specs``
+    and a ``mesh`` (the module's parameters on the meta device), each
+    parameter becomes this rank's block of its leaf, on ``device``."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.transformer import set_param
+
     used = set()
     with torch.no_grad():
-        for name, p in module.named_parameters():
+        for name, p in list(module.named_parameters()):
             parts = name.split(".")
             path = tuple(k for k in parts if not k.isdigit())
             index = tuple(int(k) for k in parts if k.isdigit())
@@ -155,7 +182,10 @@ def load_from_numpy(module: torch.nn.Module, tree) -> torch.nn.Module:
                     f"{name}: the tree holds {tuple(t.shape)} {t.dtype}, the model wants "
                     f"{tuple(p.shape)} {p.dtype}"
                 )
-            p.copy_(t)
+            if specs is None:
+                p.copy_(t)
+            else:
+                set_param(module, name, shd.shard_of(t, specs[name], mesh).to(device).clone())
             used.add(path)
 
     def leaves(node, path=()):
@@ -171,14 +201,20 @@ def load_from_numpy(module: torch.nn.Module, tree) -> torch.nn.Module:
     return module
 
 
-def lm_params_from_numpy(params, cfg, device=None):
+def lm_params_from_numpy(params, cfg, device=None, mesh=None):
     """An ``LM`` holding the reference's unboxed ``init_params`` tree, every
     ``blocks`` leaf with a leading cycle axis (two in the hybrid family's
     Mamba2 blocks and the vlm's self layers), every ``enc_blocks`` and
     ``dec_blocks`` leaf with a leading layer axis, ``shared_attn``,
     ``img_proj``, ``enc_ln`` and ``enc_pos`` with none (``load_from_numpy``; in the
     moe family ``blocks.i.moe.w1`` is ``params["blocks"]["moe"]["w1"][i]``,
-    (E, d, f))."""
+    (E, d, f)). On a ``mesh`` (the rank's; dense and moe families) each
+    parameter is the rank's block by ``param_specs`` under the config's
+    profile, and its local shape is the reference's
+    ``NamedSharding(mesh, spec).shard_shape``."""
     from repro_torch.models.transformer import LM
 
-    return load_from_numpy(LM(cfg, device=device), params)
+    if mesh is None:
+        return load_from_numpy(LM(cfg, device=device), params)
+    return load_from_numpy(LM(cfg, device="meta"), params, _mesh_specs(cfg, mesh), mesh,
+                           resolve_device(device))

@@ -10,9 +10,10 @@ in pure Python; all three pieces are host-side.
 
   ElasticPlan: given the surviving device count, the largest
     (data, model) mesh that keeps the model axis, and the gradient
-    accumulation that keeps the global batch. (The port runs one card;
-    the plan is arithmetic and waits for the sharded path, ROADMAP Queue 1
-    item 3.)
+    accumulation that keeps the global batch. A checkpoint saved on the old
+    mesh restores onto the new one (``CheckpointManager.restore(mesh=,
+    specs=)``), and ``make_train_step(accum_steps=, mesh=)`` continues
+    there.
 """
 from __future__ import annotations
 

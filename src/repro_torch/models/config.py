@@ -5,9 +5,10 @@ of the port equals the reference's field by field; ``pdtype`` and
 ``cdtype`` return torch dtypes. Exact per-architecture values live in
 ``repro_torch.configs.<id>``.
 
-Fields that only steer JAX (``scan_layers``, ``sharding_profile``,
-``ablate_attn_scores``) are kept and ignored: the port runs its layers in
-a Python loop, eagerly, on one card. ``remat`` means what it means there:
+Fields that only steer JAX (``scan_layers``, ``ablate_attn_scores``)
+are kept and ignored: the port runs its layers in a Python loop,
+eagerly. ``sharding_profile`` names the rules of a mesh
+(``distributed/sharding.PROFILES``). ``remat`` means what it means there:
 under autograd each layer's activations are recomputed in the backward
 (``torch.utils.checkpoint``; ``models/transformer.py``).
 ``attn_kv_block`` and ``use_blockwise_attn`` were VMEM sizes and a switch

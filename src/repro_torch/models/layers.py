@@ -2,8 +2,22 @@
 norms, RoPE, GQA self- and cross-attention with a KV cache, MLPs, the MoE layer with its
 PB dispatch and row-block combine, the embedding and the logits, with the
 PB embedding backward (``_pb_take``). The GNN half lives in
-``models/gnn.py``. Not ported: the sharded MoE (``moe_combine_sharded``,
-``_moe_weight_stationary``; ROADMAP Queue 1 item 3).
+``models/gnn.py``.
+
+Under an active mesh (``distributed/sharding.py``: each rank holds its
+blocks of the weights and its rows of the batch) the dense and MoE layers
+run tensor-parallel over ``model`` and FSDP over ``data``: attention with
+``H / m`` query and ``KH / m`` key-value heads on each rank (GQA's groups
+are contiguous, so the local query heads use the local KV heads), or, when
+the heads do not split, every head on every rank from the gathered
+``qkv`` columns, as GSPMD replicates them; the MLP column- then
+row-parallel (gathered when ``d_ff`` does not split); a vocab-parallel
+embedding and logits with the cross entropy's max and sum-exp reduced
+over ``model`` (``vocab_parallel_nll_sum``); the MoE's three branches of
+the reference (the expert-sharded layer, the weight-stationary decode,
+one device's), and ``moe_combine_sharded`` on ``shard_reduce_stream``.
+Caches and cross-attention over a mesh are not ported (ROADMAP Queue 1
+item 3).
 
 Parameters live in small ``nn.Module``s whose attribute names are the
 reference's keys (``w``/``b`` of a norm; ``wq``, ``wk``, ``wv``, ``wo`` and
@@ -44,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.executor import dispatch_permutation, execute_reduce
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.flashattn import MASKED, flash_attention
 from repro_torch.kernels.scatter_rows import scatter_rows
 from repro_torch.models.config import ModelConfig
@@ -120,22 +135,47 @@ class Attention(nn.Module):
         self.bv = _param((KH * hd,), dt, device) if bias else None
 
 
-def _qkv(p: Attention, x, cfg: ModelConfig, positions, kv_x=None):
-    """q from ``x``; k and v from ``kv_x`` (cross-attention) or ``x``."""
-    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def _head_split(cfg: ModelConfig):
+    """(axes the ``qkv`` columns stay split on, local query heads, local KV
+    heads) under the active mesh: with the columns split on ``model`` and
+    both head counts divisible by its size, this rank's ``H / m`` and
+    ``KH / m`` heads (GQA's groups are contiguous, so the local query heads
+    use the local KV heads); otherwise, and without a mesh, every head from
+    the whole weights, gathered as GSPMD replicates them."""
+    d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = shd.tp_axes((d, H * hd), ("embed", "qkv"), 1)
+    n = shd.active_mesh().axis_size(tp) if tp else 1
+    if (n > 1 and H % n == 0 and KH % n == 0
+            and shd.tp_axes((d, KH * hd), ("embed", "qkv"), 1) == tp):
+        return tp, H // n, KH // n
+    return (), H, KH
+
+
+def _qkv(p: Attention, x, cfg: ModelConfig, positions, kv_x=None, keep=(), heads=None):
+    """q from ``x``; k and v from ``kv_x`` (cross-attention) or ``x``.
+    ``keep``, ``heads``: ``_head_split``'s. The weights' dims sharded on
+    other axes are gathered (FSDP), and ``x`` enters through ``copy_to``."""
+    d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Hl, KHl = heads or (H, KH)
     dt = cfg.cdtype
-    xx = x.to(dt)
+
+    def w(t, shape, names):
+        return shd.weight(t, shape, names, keep).to(dt)
+
+    xx = shd.copy_to(x.to(dt), keep)
     kx = xx if kv_x is None else kv_x.to(dt)
-    q = xx @ p.wq.to(dt)
-    k = kx @ p.wk.to(dt)
-    v = kx @ p.wv.to(dt)
+    q = xx @ w(p.wq, (d, H * hd), ("embed", "qkv"))
+    k = kx @ w(p.wk, (d, KH * hd), ("embed", "qkv"))
+    v = kx @ w(p.wv, (d, KH * hd), ("embed", "qkv"))
     if p.bq is not None:
-        q, k, v = q + p.bq.to(dt), k + p.bk.to(dt), v + p.bv.to(dt)
+        q = q + w(p.bq, (H * hd,), ("qkv",))
+        k = k + w(p.bk, (KH * hd,), ("qkv",))
+        v = v + w(p.bv, (KH * hd,), ("qkv",))
     B, S = x.shape[:2]
     Skv = kx.shape[1]
-    q = q.view(B, S, H, hd)
-    k = k.view(B, Skv, KH, hd)
-    v = v.view(B, Skv, KH, hd)
+    q = q.view(B, S, Hl, hd)
+    k = k.view(B, Skv, KHl, hd)
+    v = v.view(B, Skv, KHl, hd)
     if cfg.use_rope and positions is not None:
         # queries only: the reference turns keys by ``kv_positions``, which
         # its self-attention never passes (ROADMAP Queue 3)
@@ -202,8 +242,12 @@ def attention_apply(
     (cross-attention's decode). RoPE turns the queries by ``positions``
     and leaves the keys as they are, which is the reference's function
     (ROADMAP Queue 3)."""
-    B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions, kv_src)
+    B, S, d = x.shape
+    if shd.active_mesh() is not None and (cache is not None or kv_src is not None):
+        raise ValueError("attention with a cache or a cross source over a mesh is not "
+                         "ported (ROADMAP Queue 1 item 3)")
+    keep, Hl, KHl = _head_split(cfg)
+    q, k, v = _qkv(p, x, cfg, positions, kv_src, keep, (Hl, KHl))
     Skv = k.shape[1]
     new_cache = None
     if cache is not None:
@@ -247,8 +291,8 @@ def attention_apply(
     else:
         out = _direct_attention(q, k, v, causal=causal, tile_f32=cfg.attn_tile_f32)
     dt = cfg.cdtype
-    y = out.to(dt) @ p.wo.to(dt)
-    return y, new_cache
+    wo = shd.weight(p.wo, (cfg.num_heads * cfg.head_dim, d), ("qkv", "embed"), keep).to(dt)
+    return shd.psum(out.to(dt) @ wo, keep), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -272,13 +316,23 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    dt = cfg.cdtype
-    xx = x.to(dt)
+    """The MLP; under the active mesh ``w1`` / ``w3`` column-parallel and
+    ``w2`` row-parallel over the axes ``d_ff`` is split on (a ``psum``
+    after ``w2``; gathered weights when it does not split)."""
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.cdtype
+    tp = shd.tp_axes((d, f), ("embed", "mlp"), 1)
+
+    def w(t, shape, names):
+        return shd.weight(t, shape, names, tp).to(dt)
+
+    xx = shd.copy_to(x.to(dt), tp)
     if p.w3 is not None:
-        h = F.silu(xx @ p.w1.to(dt)) * (xx @ p.w3.to(dt))
-        return (h @ p.w2.to(dt)).to(x.dtype)
-    h = F.gelu(xx @ p.w1.to(dt) + p.b1.to(dt), approximate="tanh")  # jax.nn.gelu's default
-    return (h @ p.w2.to(dt) + p.b2.to(dt)).to(x.dtype)
+        w1, w3 = w(p.w1, (d, f), ("embed", "mlp")), w(p.w3, (d, f), ("embed", "mlp"))
+        h = F.silu(xx @ w1) * (xx @ w3)
+        return shd.psum(h @ w(p.w2, (f, d), ("mlp", "embed")), tp).to(x.dtype)
+    # jax.nn.gelu's default
+    h = F.gelu(xx @ w(p.w1, (d, f), ("embed", "mlp")) + w(p.b1, (f,), ("mlp",)), approximate="tanh")
+    return (shd.psum(h @ w(p.w2, (f, d), ("mlp", "embed")), tp) + p.b2.to(dt)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +429,8 @@ class _MoEScatter(torch.autograd.Function):
         return gx.to(ctx.x_dtype), None, None, None, None, None
 
 
-def moe_dispatch(x2d, wr, cfg: ModelConfig, e_start: int, E_local: int) -> MoEDispatch:
+def moe_dispatch(x2d, wr, cfg: ModelConfig, e_start: int, E_local: int,
+                 route=None) -> MoEDispatch:
     """Binning: route all T tokens and write each kept (token, expert)
     assignment's row to its slot ``expert * C + rank``. The assignments,
     keyed by local expert (the rest to the overflow bin ``E_local``), go
@@ -383,12 +438,14 @@ def moe_dispatch(x2d, wr, cfg: ModelConfig, e_start: int, E_local: int) -> MoEDi
     rank ``>= C`` in its bin is dropped. The rows are written by the
     row-scatter kernel (``scatter_rows``, ``pos = -1`` for a dropped one),
     which is the reference's ``xbuf.at[slot].set(..., mode="drop")``;
-    under autograd its backward is the rows kernel (``_MoEScatter``)."""
+    under autograd its backward is the rows kernel (``_MoEScatter``).
+    ``route``: (gate_w, gate_ids) computed by the caller, in place of
+    ``moe_route(x2d, wr)``."""
     T, d = x2d.shape
     k = cfg.top_k
     dev = x2d.device
     C = moe_capacity(T, cfg)
-    gate_w, gate_ids = moe_route(x2d, wr, cfg)
+    gate_w, gate_ids = moe_route(x2d, wr, cfg) if route is None else route
     local_e = gate_ids.reshape(-1).to(torch.int32) - e_start
     valid = (local_e >= 0) & (local_e < E_local)
     key = torch.where(valid, local_e, E_local)  # others -> the overflow bin
@@ -484,19 +541,120 @@ def _moe_dense_oracle(x2d, wr, w1, w3, w2, cfg: ModelConfig):
     return torch.einsum("te,ted->td", gates, y_all)
 
 
+MOE_NAMES = {"wr": ("embed_act", None), "w1": ("experts", "embed", "expert_mlp"),
+             "w3": ("experts", "embed", "expert_mlp"), "w2": ("experts", "expert_mlp", "embed")}
+
+
+def _moe_shapes(cfg: ModelConfig) -> dict:
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {"wr": (d, E), "w1": (E, d, f), "w3": (E, d, f), "w2": (E, f, d)}
+
+
+def moe_combine_sharded(token_ids, rows, gate_w, num_tokens: int, mesh, axis_name=None,
+                        method: str = "fused") -> torch.Tensor:
+    """Distributed MoE combine (reference ``moe_combine_sharded``): the
+    (token, weighted row) assignment stream, held whole by every rank,
+    reduced across the ranks of one mesh axis by ``shard_reduce_stream``:
+    each rank takes its block of the stream and sends each row once, to
+    the rank that owns its token, which sums it with the rows kernel;
+    every rank gets the whole (num_tokens, d) result. ``mesh``: a
+    ``sharding.Mesh`` (``axis_name`` picks its axis; a 1-D mesh's only
+    axis by default) or a ``StreamMesh``."""
+    from repro_torch.core.distributed_pb import shard_reduce_stream
+
+    if isinstance(mesh, shd.Mesh):
+        if axis_name is None:
+            if len(mesh.axis_names) != 1:
+                raise ValueError(f"pass axis_name for mesh axes {mesh.axis_names}")
+            axis_name = mesh.axis_names[0]
+        mesh = shd.stream_mesh(axis_name, mesh)
+    weighted = rows * gate_w[:, None].to(rows.dtype)
+    return shard_reduce_stream(token_ids, weighted, out_size=num_tokens, mesh=mesh,
+                               axis_name=axis_name, op="add", method=method)
+
+
+def _moe_weight_stationary(p: MoE, x, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """Decode-time MoE (reference ``_moe_weight_stationary``): the weights
+    stay where they are, experts over ``model`` and features over the data
+    axes, and the tokens move: every token on every rank with this rank's
+    block of its features; the router's logits and the experts' ``w1`` /
+    ``w3`` products complete their feature sums over the data axes before
+    the nonlinearity, ``w2`` gives this rank's feature block of each row,
+    the local combine sums them (the rows kernel) and a sum over ``model``
+    adds the expert shards. Inference only (no autograd collectives)."""
+    B_l, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    m = mesh.shape["model"]
+    E_local = E // m
+    dt = cfg.cdtype
+    data = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    dspec = data if len(data) > 1 else data[0]
+    if d % mesh.axis_size(data):
+        raise ValueError(f"the weight-stationary MoE splits d_model {d} over the data axes "
+                         f"{data} of {mesh.axis_size(data)}")
+    split = shd.split_axes()
+    xa = shd.all_gather(x, 0, split, mesh)  # every token
+    T = xa.shape[0] * S
+    shapes = _moe_shapes(cfg)
+
+    def block(name, spec_to):
+        stored = shd.spec_for(mesh, shapes[name], MOE_NAMES[name])
+        return shd.reshard(getattr(p, name), stored, spec_to, mesh)
+
+    x2 = shd.shard_of(xa.reshape(T, d), (None, dspec), mesh).float()
+    logits = shd.all_reduce(x2 @ block("wr", (dspec, None)).float(), data, mesh)
+    gate_w, gate_ids = torch.topk(logits, k, dim=-1)
+    route = (torch.softmax(gate_w, dim=-1), gate_ids)
+    e_start = mesh.axis_index("model") * E_local
+    disp = moe_dispatch(x2, None, cfg, e_start, E_local, route=route)
+    xb = disp.xbuf.view(E_local, disp.capacity, -1)
+    h1 = shd.all_reduce(torch.bmm(xb, block("w1", ("model", dspec, None)).to(dt)), data, mesh)
+    h3 = shd.all_reduce(torch.bmm(xb, block("w3", ("model", dspec, None)).to(dt)), data, mesh)
+    yb = torch.bmm(F.silu(h1) * h3, block("w2", ("model", None, dspec)).to(dt))
+    out = moe_combine(yb.reshape(E_local * disp.capacity, -1), disp.slot_of_assign, disp.gate_w,
+                      cfg)
+    out = shd.all_gather(shd.all_reduce(out, "model", mesh), 1, data, mesh)
+    rows = shd.shard_of(out.reshape(-1, S, d), (split or None, None, None), mesh)
+    return rows.to(x.dtype)
+
+
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The MoE layer on (B, S, d) activations on one device (reference
-    ``moe_apply`` without a mesh: all experts, ``e_start = 0``); the dense
-    oracle under ``cfg.moe_dispatch == "dense"``. MoE over a mesh (expert
-    shards, ``moe_combine_sharded``, the weight-stationary decode) is not
-    ported (ROADMAP.md, Queue 1, "Sharded PB", item 3)."""
+    """The MoE layer on (B, S, d) activations (reference ``moe_apply``),
+    the dense oracle under ``cfg.moe_dispatch == "dense"``. Without a mesh,
+    or on a mesh whose ``model`` axis is 1 or does not divide the experts,
+    all experts from ``e_start = 0`` (FSDP's gathers first on a mesh).
+    On a mesh whose ``model`` axis of m divides them: at decode (S = 1)
+    with ``cfg.moe_weight_stationary_decode`` and a data axis, the
+    weight-stationary layer; otherwise the expert-sharded layer: each rank
+    routes its rows' tokens and runs experts ``[r E/m, (r + 1) E/m)`` with
+    the capacity of its own token count (the reference's ``shard_map``
+    computes it from the local T as well), and a ``psum`` over ``model``
+    adds the shards. Its input and router enter through ``copy_to``: each
+    shard computes part of their gradients."""
     B, S, d = x.shape
-    x2d = x.reshape(-1, d)
+    mesh = shd.active_mesh()
+    E = cfg.num_experts
+    m = 1 if mesh is None else mesh.shape.get("model", 1)
+    split = m > 1 and E % m == 0
+    if (split and cfg.moe_weight_stationary_decode and S == 1
+            and any(a in mesh.shape for a in ("pod", "data"))):
+        return _moe_weight_stationary(p, x, cfg, mesh)
+    shapes = _moe_shapes(cfg)
+    sharded = split and cfg.moe_dispatch != "dense"
+    if sharded and shd.tp_axes(shapes["w1"], MOE_NAMES["w1"], 0) != ("model",):
+        raise ValueError("the expert-sharded MoE needs the experts on 'model' "
+                         f"(rules {shd.active_rules()['experts']})")
+    keep = ("model",) if sharded else ()
+    w = {n: shd.weight(getattr(p, n), shapes[n], MOE_NAMES[n], keep) for n in MOE_NAMES}
+    x2d = shd.copy_to(x.reshape(-1, d), keep)
     if cfg.moe_dispatch == "dense":
-        out = _moe_dense_oracle(x2d, p.wr, p.w1, p.w3, p.w2, cfg)
+        out = _moe_dense_oracle(x2d, w["wr"], w["w1"], w["w3"], w["w2"], cfg)
     else:
-        out = _moe_expert_shard(x2d, p.wr, p.w1, p.w3, p.w2, cfg, 0, cfg.num_experts)
-    return out.reshape(B, S, d).to(x.dtype)
+        E_local = E // m if sharded else E
+        e_start = mesh.axis_index("model") * E_local if sharded else 0
+        out = _moe_expert_shard(x2d, shd.copy_to(w["wr"], keep), w["w1"], w["w3"], w["w2"], cfg,
+                                e_start, E_local)
+    return shd.psum(out, keep).reshape(B, S, d).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -521,13 +679,17 @@ class _PBTake(torch.autograd.Function):
     ``execute_reduce(method="fused")``: the rows kernel
     (``cobra_bin_accumulate_rows``) on CUDA tensors, its plain version on
     CPU ones. Rows accumulate in float32 in token order and the table's
-    gradient is cast to its dtype; the ids get none."""
+    gradient is cast to its dtype; the ids get none. With ``drop`` an id
+    of -1 gives a zero row and adds nothing to the gradient (the rows
+    kernel drops it): a vocab-parallel table's ids outside its rows."""
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, drop=False):
         ctx.save_for_backward(ids)
         ctx.vocab, ctx.dtype = table.shape[0], table.dtype
-        return F.embedding(ids, table)
+        if not drop:
+            return F.embedding(ids, table)
+        return F.embedding(ids.clamp(min=0), table).masked_fill_((ids < 0)[..., None], 0)
 
     @staticmethod
     def backward(ctx, g):
@@ -535,28 +697,95 @@ class _PBTake(torch.autograd.Function):
         flat_ids = ids.reshape(-1).to(torch.int32)
         flat_g = g.reshape(-1, g.shape[-1]).float().contiguous()
         dtable = execute_reduce(flat_ids, flat_g, out_size=ctx.vocab, op="add", method="fused")
-        return dtable.to(ctx.dtype), None
+        return dtable.to(ctx.dtype), None, None
 
 
-_pb_take = _PBTake.apply  # (table, ids) -> table[ids]
+_pb_take = _PBTake.apply  # (table, ids[, drop]) -> table[ids]
 
 
 def embed_apply(p: Embedding, ids: torch.Tensor, cfg: ModelConfig, positions=None):
     """``table[ids]`` in the compute dtype; with ``cfg.pb_embedding`` its
-    backward is the PB reduction of ``_pb_take``, else autograd's own."""
-    x = _pb_take(p.table, ids) if cfg.pb_embedding else F.embedding(ids, p.table)
-    x = x.to(cfg.cdtype)
+    backward is the PB reduction of ``_pb_take``, else autograd's own.
+    Under the active mesh, with the vocabulary split on ``model``, each
+    rank looks up the ids in its rows (the others go to -1: a zero row,
+    dropped by the backward's rows kernel) and a ``psum`` adds the ranks'
+    rows; the ``embed`` dim is gathered (FSDP)."""
+    V, d = cfg.padded_vocab, cfg.d_model
+    tp, start = _vocab_split(cfg, tied=True)
+    table = shd.weight(p.table, (V, d), ("vocab", "embed"), tp)
+    if tp:
+        local = ids - start
+        ids = torch.where((local >= 0) & (local < table.shape[0]), local, -1)
+    if cfg.pb_embedding:
+        x = _pb_take(table, ids, bool(tp))
+    elif tp:
+        x = F.embedding(ids.clamp(min=0), table) * (ids >= 0)[..., None].to(table.dtype)
+    else:
+        x = F.embedding(ids, table)
+    x = shd.psum(x, tp).to(cfg.cdtype)
     if p.pos is not None and positions is not None:
-        x = x + F.embedding(positions.clamp(max=cfg.learned_pos - 1), p.pos).to(cfg.cdtype)
+        pos = shd.weight(p.pos, tuple(p.pos.shape[:1]) + (d,), (None, "embed"))
+        x = x + F.embedding(positions.clamp(max=cfg.learned_pos - 1), pos).to(cfg.cdtype)
     return x
 
 
-def logits_apply(p: Embedding, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(..., padded_vocab) float32 logits; tied embeddings use ``table.T``."""
-    dt = cfg.cdtype
-    w = p.table.to(dt).t() if p.unembed is None else p.unembed.to(dt)
-    logits = x.to(dt) @ w
+def _vocab_split(cfg: ModelConfig, tied: bool):
+    """(axes the vocabulary is split on, this rank's first row of it);
+    ((), 0) without a mesh."""
+    V, d = cfg.padded_vocab, cfg.d_model
+    tp = (shd.tp_axes((V, d), ("vocab", "embed"), 0) if tied
+          else shd.tp_axes((d, V), ("embed", "vocab"), 1))
+    if not tp:
+        return (), 0
+    mesh = shd.active_mesh()
+    return tp, mesh.axis_index(tp) * (V // mesh.axis_size(tp))
+
+
+def vocab_weight(p: Embedding, cfg: ModelConfig):
+    """(the (d, V_local) logits weight in the compute dtype, its first
+    column of the vocabulary, the axes the vocabulary is split on): this
+    rank's block of ``unembed`` (or ``table.T`` when tied), its ``embed``
+    dim gathered (FSDP); the whole weight, 0 and () without a mesh."""
+    V, d, dt = cfg.padded_vocab, cfg.d_model, cfg.cdtype
+    tied = p.unembed is None
+    tp, start = _vocab_split(cfg, tied)
+    if tied:
+        return shd.weight(p.table, (V, d), ("vocab", "embed"), tp).to(dt).t(), start, tp
+    return shd.weight(p.unembed, (d, V), ("embed", "vocab"), tp).to(dt), start, tp
+
+
+def _local_logits(w, x, cfg: ModelConfig, tp):
+    """float32 logits of the rank's block of the vocabulary (``vocab_weight``)."""
+    logits = shd.copy_to(x.to(cfg.cdtype), tp) @ w
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits.float()
+
+
+def logits_apply(p: Embedding, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(..., padded_vocab) float32 logits; tied embeddings use ``table.T``
+    (under a mesh: the vocab-parallel blocks, gathered)."""
+    w, _, tp = vocab_weight(p, cfg)
+    return shd.gather_dim(_local_logits(w, x, cfg, tp), -1, tp)
+
+
+def vocab_parallel_nll_sum(w, start: int, tp, h, labels, cfg: ModelConfig) -> torch.Tensor:
+    """The sum of the next-token NLL over ``label >= 0`` under the active
+    mesh, from each rank's block of the logits (``vocab_weight``'s ``w``,
+    ``start``, ``tp``): the max over the vocabulary and the sum of
+    exponentials are reduced over the axes it is split on, and so is the
+    label's logit (held by one rank). Padded-vocab columns are -1e30, as in
+    the single-device loss."""
+    logits = _local_logits(w, h, cfg, tp)
+    Vl = logits.shape[-1]
+    col = start + torch.arange(Vl, device=logits.device)
+    if cfg.padded_vocab > cfg.vocab_size:
+        logits = logits.masked_fill(col >= cfg.vocab_size, -1e30)
+    mx = shd.all_reduce(logits.detach().amax(-1), tp, op="max")
+    se = shd.psum(torch.exp(logits - mx[..., None]).sum(-1), tp)
+    local = labels.long() - start
+    mine = (local >= 0) & (local < Vl)
+    tgt = logits.gather(-1, local.clamp(0, Vl - 1)[..., None])[..., 0] * mine
+    nll = torch.log(se) + mx - shd.psum(tgt, tp)
+    return (nll * (labels >= 0)).sum()

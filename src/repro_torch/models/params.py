@@ -3,8 +3,9 @@
 Only the init rule is ported: a truncated normal on [-2, 2] times
 ``fan_in ** -0.5`` (or an explicit ``scale``), drawn in float32 from an
 explicit ``torch.Generator`` on the tensor's device and cast to the
-parameter's dtype. The reference's ``Boxed`` leaves and logical sharding
-axes have no counterpart: the port runs on one card. The draws differ
+parameter's dtype. The reference's ``Boxed`` leaves carry their logical
+axis names; the port keeps them in a table beside the model
+(``models/transformer.param_axes``). The draws differ
 from ``jax.random``'s for the same seed; the tests carry the reference's
 weights across with ``repro_torch.convert.lm_params_from_numpy``.
 """

@@ -69,6 +69,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
@@ -215,12 +216,67 @@ class LM(nn.Module):
                                      dev)
 
 
+MESH_FAMILIES = ("dense", "moe")  # the families that run over a mesh
+
+# the reference's logical axis names of a leaf (its ``Boxed`` axes), by the
+# module that holds it and the leaf's name; a norm's w and b are
+# ("embed_act",), every other leaf here
+_AXES = {
+    "attn": {"wq": ("embed", "qkv"), "wk": ("embed", "qkv"), "wv": ("embed", "qkv"),
+             "wo": ("qkv", "embed"), "bq": ("qkv",), "bk": ("qkv",), "bv": ("qkv",)},
+    "mlp": {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"), "w2": ("mlp", "embed"),
+            "b1": ("mlp",), "b2": ("embed_act",)},
+    "moe": dict(L.MOE_NAMES),
+    "embed": {"table": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+              "pos": (None, "embed")},
+}
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    if cfg.family not in MESH_FAMILIES:
+        raise ValueError(
+            f"the {cfg.family} family over a mesh is not ported (ROADMAP Queue 1 item 3); "
+            f"meshes run the {' and '.join(MESH_FAMILIES)} families")
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Every parameter's logical axis names (the reference's ``Boxed``
+    axes), keyed by the port's parameter names; a ``blocks.<i>`` leaf has
+    one layer's names (the reference's stacked leaf adds ``layers`` in
+    front, which no rule shards)."""
+    check_mesh_family(cfg)
+    out = {}
+    for name, _ in LM(cfg, "meta").named_parameters():
+        parts = name.split(".")
+        table = _AXES.get(parts[-2], {}) if len(parts) > 1 else {}
+        out[name] = table.get(parts[-1], ("embed_act",))
+    return out
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """Every parameter's whole shape (one layer's for ``blocks.<i>``)."""
+    return {n: tuple(p.shape) for n, p in LM(cfg, "meta").named_parameters()}
+
+
+def param_specs(cfg: ModelConfig, mesh, rules=None) -> dict:
+    """Every parameter's spec on ``mesh`` (``spec_for`` of its whole
+    shape and names under ``rules``, default the active ones)."""
+    axes, shapes = param_axes(cfg), param_shapes(cfg)
+    return {n: shd.spec_for(mesh, shapes[n], axes[n], rules) for n in axes}
+
+
+def set_param(model: nn.Module, name: str, t: torch.Tensor) -> None:
+    """Replace parameter ``name`` of ``model`` by a new one holding ``t``."""
+    mod_name, _, leaf = name.rpartition(".")
+    setattr(model.get_submodule(mod_name), leaf, nn.Parameter(t, requires_grad=True))
+
+
 _INIT_ONES = ("w", "D", "norm_w")  # norm weights and Mamba2's skip D
 _INIT_ZEROS = ("A_log", "dt_bias")  # and every leaf whose name starts with "b": biases
 
 
 @torch.no_grad()
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, mesh=None) -> LM:
     """An ``LM`` with the reference's init rule, leaf by leaf (``layers.py``
     and ``ssm.py`` init_*): truncated-normal projections scaled by fan-in,
     the leading axis (so an expert's ``w1`` / ``w3`` (E, d, f) by E^-0.5,
@@ -230,15 +286,38 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     frontend_dim^-0.5, Whisper's ``enc_pos`` by encoder_seq^-0.5 and
     ``embed.pos`` by learned_pos^-0.5), norm weights and Mamba2's ``D`` one,
     biases, ``A_log`` and ``dt_bias`` zero; drawn from a generator seeded
-    with ``seed`` on the device."""
-    model = LM(cfg, device)
-    dev = model.embed.table.device
+    with ``seed`` on the device. On a ``mesh`` (the rank's, dense and moe
+    families) each leaf is drawn whole, in the same order, and the rank
+    keeps its block by ``param_specs`` under the config's profile: the
+    weights are the single-device ones, and the transient is one leaf."""
+    dev = resolve_device(device)
+    if mesh is None:
+        model = LM(cfg, dev)
+        for _ in init_leaves(cfg, seed, dev, model):
+            pass
+        return model
+    model = LM(cfg, "meta")
+    specs = param_specs(cfg, mesh, shd.rules_for_profile(cfg.sharding_profile))
+    for name, p in init_leaves(cfg, seed, dev):
+        set_param(model, name, shd.shard_of(p, specs[name], mesh).clone())
+        del p
+    return model
+
+
+@torch.no_grad()
+def init_leaves(cfg: ModelConfig, seed: int = 0, device=None, model: Optional[LM] = None):
+    """Yield (name, whole initial value) of every parameter in order, by
+    ``init_params``'s rule, one leaf at a time; into ``model``'s own
+    tensors when given (else each is a new tensor on ``device``)."""
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     H, hd, f = cfg.num_heads, cfg.head_dim, cfg.d_ff
     scale = {"wo": (H * hd) ** -0.5, "table": 1.0, "r": hd**-0.5}
     if f:  # xLSTM has no MLP (d_ff 0)
         scale["w2"] = f**-0.5
-    for name, p in model.named_parameters():
+    for name, p in list((model or LM(cfg, "meta")).named_parameters()):
+        if model is None:
+            p = torch.empty(p.shape, dtype=p.dtype, device=dev)
         leaf = name.rsplit(".", 1)[-1]
         if leaf in _INIT_ONES:
             p.fill_(1.0)
@@ -246,7 +325,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
             p.zero_()
         else:
             winit_(p, gen, scale.get(leaf))
-    return model
+        yield name, p
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
@@ -434,6 +513,10 @@ def hidden_forward(
     cycle keeps only its input (and the cross source) and is recomputed in
     the backward."""
     B, S = tokens.shape
+    if shd.active_mesh() is not None:
+        check_mesh_family(cfg)
+        if state is not None:
+            raise ValueError("serving over a mesh is not ported (ROADMAP Queue 1 item 3)")
     if positions is None:
         base = state.index if (state is not None and decode) else 0
         positions = (base + torch.arange(S, dtype=torch.int32, device=tokens.device)).expand(B, S)
@@ -497,16 +580,27 @@ def chunked_lm_loss(
     shorter; the reference pads it with label -1, which adds nothing),
     each chunk's logits recomputed in the backward
     (``torch.utils.checkpoint``), as the reference's checkpointed scan
-    (``transformer.py:471-510``). Labels < 0 are masked; float32."""
+    (``transformer.py:471-510``). Labels < 0 are masked; float32. Under a
+    mesh, ``hidden`` and ``labels`` are the rank's rows, the chunks' NLL
+    comes from the vocab-parallel logits, and the sum is divided by the
+    count of labelled tokens over all rows of the batch: the ranks' losses
+    add up to the global mean. The vocabulary's weight is gathered once
+    for all chunks there."""
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    fn, lead = _chunk_nll_sum, (params.embed,)
+    if shd.active_mesh() is not None:
+        fn, lead = L.vocab_parallel_nll_sum, L.vocab_weight(params.embed, cfg)
     for s in range(0, hidden.shape[1], chunk):
         h, lab = hidden[:, s:s + chunk], labels[:, s:s + chunk]
         if torch.is_grad_enabled():
-            part = checkpoint(_chunk_nll_sum, params.embed, h, lab, cfg, use_reentrant=False)
+            part = checkpoint(fn, *lead, h, lab, cfg, use_reentrant=False)
         else:
-            part = _chunk_nll_sum(params.embed, h, lab, cfg)
+            part = fn(*lead, h, lab, cfg)
         tot = tot + part
-    return tot / (labels >= 0).sum().clamp(min=1)
+    count = (labels >= 0).sum()
+    if shd.active_mesh() is not None:
+        count = shd.all_reduce(count, shd.split_axes())
+    return tot / count.clamp(min=1)
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int) -> torch.Tensor:

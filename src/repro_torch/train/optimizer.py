@@ -29,6 +29,13 @@ it is given (the reference's launcher donates its state to the step, so
 the old one is gone there as well) and returns the state with the step
 advanced. The step is a Python int and the learning rate a Python float,
 computed in float32 on the host as the reference computes them.
+
+On a mesh every tensor is the rank's block (``distributed/sharding.py``),
+and the moments are blocked like their parameters (Adafactor's factors
+like the parameter's dims they keep), which is the reference's ZeRO
+layout: the global norm sums the blocks' squares over the axes each
+parameter is sharded on, and Adafactor's row and column means over a
+sharded dim are summed over its axes.
 """
 from __future__ import annotations
 
@@ -37,6 +44,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import sharding as shd
 
 
 class OptState(NamedTuple):
@@ -156,21 +165,73 @@ def init_opt_state(params: Dict[str, torch.Tensor], oc: OptConfig) -> OptState:
     raise ValueError(oc.kind)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in float32 (0-d)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+def adafactor_specs(specs: Dict[str, tuple], names) -> Dict[str, Any]:
+    """The spec of each Adafactor second moment (keyed by the reference's
+    leaf, as ``init_opt_state``) from the parameters' ``specs``: a stack's
+    leading axes unsharded, then the parameter's; a factored pair keeps the
+    dims each factor keeps (rows: all but the last; columns: all but the
+    second to last)."""
+    out = {}
+    params = {n: None for n in names}
+    for key, group in _leaf_groups(params).items():
+        index = reference_leaf(group[0])[1]
+        spec = (None,) * (0 if index is None else len(index)) + tuple(specs[group[0]])
+        out[key] = spec
+    return out
+
+
+def moment_spec(spec: tuple, v) -> Any:
+    """A second moment's spec (or pair of specs, for factors) from its leaf's."""
+    if isinstance(v, tuple):
+        return spec[:-1], spec[:-2] + spec[-1:]
+    return spec
+
+
+def global_norm(tensors, axes=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in float32 (0-d). On a
+    ``mesh`` the tensors are blocks and ``axes`` gives, for each, the axes
+    it is sharded on: the block sums of squares are summed over those axes
+    (a replicated tensor counts once), in a fixed order of axis sets."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+    by_axes: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for x, ax in zip(tensors, axes):
+        sq = torch.sum(torch.square(x.float()))
+        by_axes[ax] = by_axes[ax] + sq if ax in by_axes else sq
+    return torch.sqrt(sum(shd.all_reduce(by_axes[ax], ax, mesh) for ax in sorted(by_axes)))
+
+
+def _mean(t: torch.Tensor, dim: int, axes, mesh, keepdim: bool = False) -> torch.Tensor:
+    """``t.mean(dim)`` of the whole tensor whose block ``t`` is, when
+    ``dim`` is sharded on ``axes``."""
+    if not axes:
+        return t.mean(dim, keepdim=keepdim)
+    n = t.shape[dim] * mesh.axis_size(axes)
+    return shd.all_reduce(t.sum(dim, keepdim=keepdim), axes, mesh) / n
 
 
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-                  state: OptState, oc: OptConfig):
+                  state: OptState, oc: OptConfig, mesh=None, specs=None):
     """One optimizer step, in place (module docstring). Returns (params,
     new state, {"lr", "grad_norm"}); ``grad_norm`` is a 0-d float32 tensor
-    on the gradients' device, taken before the clip."""
+    on the gradients' device, taken before the clip. On a ``mesh`` the
+    tensors are the rank's blocks and ``specs`` maps each parameter to its
+    spec: the norm is taken over the shards, AdamW runs on the blocks, and
+    Adafactor's factored means over a sharded dim are summed over its axes."""
     step = state.step + 1
     lr = float(lr_schedule(oc, step))
-    gnorm = global_norm(grads[n] for n in params)
+    if mesh is None:
+        gnorm = global_norm(grads[n] for n in params)
+    else:
+        gnorm = global_norm([grads[n] for n in params],
+                            [shd.spec_axes(specs[n]) for n in params], mesh)
     scale = torch.clamp(oc.clip_norm / (gnorm + 1e-9), max=1.0)
+
+    def dim_axes(name, stacked=0):
+        if mesh is None:
+            return None
+        return ((),) * stacked + tuple(shd.entry_axes(e) for e in specs[name])
 
     if oc.kind == "adamw":
         f32 = np.float32
@@ -200,11 +261,12 @@ def apply_updates(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor
                     vi = v if i is None else (tuple(t[i] for t in v) if isinstance(v, tuple)
                                               else v[i])
                     params[n].copy_(_adafactor_leaf(params[n].float(), grads[n].float() * scale,
-                                                    vi, lr, oc))
+                                                    vi, lr, oc, dim_axes(n), mesh))
             else:
                 # a stack of vectors: its factors mix the stacked tensors
+                stack = len(reference_leaf(names[0])[1])
                 p2 = _adafactor_leaf(_stacked(params, names), _stacked(grads, names) * scale,
-                                     v, lr, oc)
+                                     v, lr, oc, dim_axes(names[0], stack), mesh)
                 for n, row in zip(names, p2.view((len(names),) + tuple(params[names[0]].shape))):
                     params[n].copy_(row)
         return params, OptState(step, None, state.v), {"lr": lr, "grad_norm": gnorm}
@@ -212,19 +274,21 @@ def apply_updates(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor
     raise ValueError(oc.kind)
 
 
-def _adafactor_leaf(p, g, v, lr: float, oc: OptConfig) -> torch.Tensor:
+def _adafactor_leaf(p, g, v, lr: float, oc: OptConfig, axes=None, mesh=None) -> torch.Tensor:
     """The reference's Adafactor update of one float32 leaf ``p`` from its
     clipped gradient ``g``: the second moment ``v`` (a tensor, or the
     factored (rows, cols) pair) is updated in place; returns the new
-    parameters in float32."""
+    parameters in float32. On a ``mesh``, ``axes`` gives each dim's axes:
+    the factored means over a sharded dim are reduced over them."""
     d = 1e-30
     g2 = g * g + d
     if isinstance(v, tuple):
         vr, vc = v
-        vr.copy_(oc.b2 * vr + (1 - oc.b2) * g2.mean(-1))
-        vc.copy_(oc.b2 * vc + (1 - oc.b2) * g2.mean(-2))
+        a_row, a_col = (None, None) if axes is None else (axes[-1], axes[-2])
+        vr.copy_(oc.b2 * vr + (1 - oc.b2) * _mean(g2, -1, a_row, mesh))
+        vc.copy_(oc.b2 * vc + (1 - oc.b2) * _mean(g2, -2, a_col, mesh))
         del g2
-        rfac = vr / torch.clamp(vr.mean(-1, keepdim=True), min=d)
+        rfac = vr / torch.clamp(_mean(vr, -1, a_col, mesh, keepdim=True), min=d)
         precond = g / (torch.sqrt(rfac[..., None] * vc[..., None, :]) + oc.eps)
     else:
         v.copy_(oc.b2 * v + (1 - oc.b2) * g2)

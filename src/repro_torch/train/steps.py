@@ -17,14 +17,17 @@ kernels (``models/layers.py``). Prefill and decode run under
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.registry import ShapeSpec
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.train.optimizer import OptConfig, OptState, apply_updates, init_opt_state
+from repro_torch.train.optimizer import (OptConfig, OptState, apply_updates, init_opt_state,
+                                         reference_leaf)
 
 
 class TrainState(NamedTuple):
@@ -80,7 +83,27 @@ def make_loss_fn(cfg: ModelConfig):
     return loss_fn
 
 
-def make_train_step(cfg: ModelConfig, oc: Optional[OptConfig] = None, accum_steps: int = 1):
+def mesh_rules(cfg: ModelConfig) -> dict:
+    """The sharding rules of the config's profile."""
+    return shd.rules_for_profile(cfg.sharding_profile)
+
+
+def rows_of(batch: Dict[str, torch.Tensor], mesh, rules) -> tuple:
+    """(this rank's block of rows of each tensor of a global batch, the
+    axes the rows are split on: ``spec_for`` of the batch dim under the
+    ``batch`` rule). A batch that does not split over the rule's axes
+    present in the mesh is refused."""
+    B = batch["tokens"].shape[0]
+    entry = shd.spec_for(mesh, (B,), ("batch",), rules)[0]
+    axes = shd.entry_axes(entry)
+    want = mesh.axes([a for a in rules.get("batch", ()) if a in mesh.shape])
+    if axes != want:
+        raise ValueError(f"a batch of {B} rows does not split over the mesh axes {want}")
+    return {k: shd.shard_of(v, (entry,), mesh) for k, v in batch.items()}, axes
+
+
+def make_train_step(cfg: ModelConfig, oc: Optional[OptConfig] = None, accum_steps: int = 1,
+                    mesh=None):
     """``train_step(state, batch) -> (state, {"loss", "lr", "grad_norm"})``.
 
     The step updates the model's parameters and the moments in place
@@ -88,42 +111,102 @@ def make_train_step(cfg: ModelConfig, oc: Optional[OptConfig] = None, accum_step
     ``accum_steps > 1`` splits the batch into that many microbatches of
     consecutive rows, run one after another: losses and float32 gradients
     are summed, then divided by ``accum_steps``. A parameter the batch
-    does not reach gets a zero gradient, as under ``jax.grad``."""
+    does not reach gets a zero gradient, as under ``jax.grad``.
+
+    On a ``mesh`` (the dense and moe families; ``distributed/sharding.py``)
+    the state holds the rank's blocks (``init_params(mesh=)``,
+    ``train_state_from_numpy(mesh=)``) and every rank passes the same
+    global batch: each microbatch's rows are split over the batch axes and
+    the rank takes its block. Its loss is its rows' NLL over the global
+    count of labelled tokens, so the ranks' losses and gradients add up to
+    the global ones: a leaf sharded on a batch axis got that sum from its
+    gather's backward (a reduce-scatter), the others are all-reduced over
+    the batch axes they are not sharded on. The reported loss is the sum;
+    every rank ends the step with the same replicated leaves."""
     oc = oc or default_opt_config(cfg)
     loss_fn = make_loss_fn(cfg)
+    specs = rules = None
+    if mesh is not None:
+        T.check_mesh_family(cfg)
+        rules = mesh_rules(cfg)
+        specs = T.param_specs(cfg, mesh, rules)
 
     def value_and_grad(model, params, batch):
-        loss = loss_fn(model, batch)
-        grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
-        return loss.detach(), dict(zip(params, grads))
+        split = ()
+        if mesh is not None:
+            batch, split = rows_of(batch, mesh, rules)
+        with shd.batch_split(split):
+            loss = loss_fn(model, batch)
+            grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
+        if mesh is not None:
+            loss = shd.all_reduce(loss.detach(), split, mesh)
+        return loss.detach(), dict(zip(params, grads)), split
+
+    def grads_of(model, params, batch):
+        if accum_steps == 1:
+            return value_and_grad(model, params, batch)
+        B = batch["tokens"].shape[0]
+        if B % accum_steps:
+            raise ValueError(f"batch {B} does not split into {accum_steps} microbatches")
+        b = B // accum_steps
+        loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+        grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for n, p in params.items()}
+        for i in range(accum_steps):
+            mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+            li, gi, split = value_and_grad(model, params, mb)
+            loss = loss + li
+            for n, g in gi.items():
+                grads[n] += g
+            del gi
+        return loss / accum_steps, {n: g / accum_steps for n, g in grads.items()}, split
 
     def train_step(state: TrainState, batch):
         model = state.params
         params = dict(model.named_parameters())
-        with torch.enable_grad():
-            if accum_steps == 1:
-                loss, grads = value_and_grad(model, params, batch)
-            else:
-                B = batch["tokens"].shape[0]
-                if B % accum_steps:
-                    raise ValueError(f"batch {B} does not split into {accum_steps} microbatches")
-                b = B // accum_steps
-                loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
-                grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                         for n, p in params.items()}
-                for i in range(accum_steps):
-                    mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-                    li, gi = value_and_grad(model, params, mb)
-                    loss = loss + li
-                    for n, g in gi.items():
-                        grads[n] += g
-                    del gi
-                loss = loss / accum_steps
-                grads = {n: g / accum_steps for n, g in grads.items()}
-        _, opt, metrics = apply_updates(params, grads, state.opt, oc)
+        ctx = shd.use_mesh(mesh, rules) if mesh is not None else contextlib.nullcontext()
+        with ctx, torch.enable_grad():
+            loss, grads, split = grads_of(model, params, batch)
+        if mesh is not None:
+            for n in grads:
+                sharded = shd.spec_axes(specs[n])
+                grads[n] = shd.all_reduce(grads[n], [a for a in split if a not in sharded], mesh)
+        _, opt, metrics = apply_updates(params, grads, state.opt, oc, mesh=mesh, specs=specs)
         return TrainState(model, opt), dict(metrics, loss=loss)
 
     return train_step
+
+
+def state_specs(state: TrainState, cfg: ModelConfig, mesh) -> tuple:
+    """({path: spec}, {path: whole shape}) of a ``TrainState``'s tensors on
+    ``mesh`` under the config's profile, by ``CheckpointManager``'s paths:
+    ``params/<name>``; AdamW's ``opt/m/<name>`` and ``opt/v/<name>`` like
+    their parameter; Adafactor's ``opt/v/<key>`` (``/0`` and ``/1`` for its
+    factors) by ``adafactor_specs``."""
+    from repro_torch.train.optimizer import _factored_shape, adafactor_specs, moment_spec
+
+    specs = T.param_specs(cfg, mesh, mesh_rules(cfg))
+    shapes = T.param_shapes(cfg)
+    out, full = {}, {}
+    for n in specs:
+        for pre in ("params", "opt/m", "opt/v") if state.opt.m is not None else ("params",):
+            out[f"{pre}/{n}"], full[f"{pre}/{n}"] = specs[n], shapes[n]
+    if state.opt.m is None:
+        vspecs = adafactor_specs(specs, list(specs))
+        for key, v in state.opt.v.items():
+            names = [n for n in specs if reference_leaf(n)[0] == key]
+            stack = reference_leaf(names[0])[1]
+            whole = (() if stack is None else tuple(
+                max(reference_leaf(n)[1][a] for n in names) + 1 for a in range(len(stack)))
+                     ) + shapes[names[0]]
+            sp = moment_spec(vspecs[key], v)
+            if isinstance(v, tuple):
+                fs = _factored_shape(whole)
+                for i in range(2):
+                    out[f"opt/v/{key}/{i}"], full[f"opt/v/{key}/{i}"] = sp[i], fs[i]
+            else:
+                out[f"opt/v/{key}"], full[f"opt/v/{key}"] = sp, whole
+    return out, full
 
 
 def make_init_fn(cfg: ModelConfig, oc: Optional[OptConfig] = None):
@@ -131,8 +214,8 @@ def make_init_fn(cfg: ModelConfig, oc: Optional[OptConfig] = None):
     zero moments."""
     oc = oc or default_opt_config(cfg)
 
-    def init_fn(seed: int = 0, device=None) -> TrainState:
-        model = T.init_params(cfg, seed=seed, device=device)
+    def init_fn(seed: int = 0, device=None, mesh=None) -> TrainState:
+        model = T.init_params(cfg, seed=seed, device=device, mesh=mesh)
         return TrainState(model, init_opt_state(dict(model.named_parameters()), oc))
 
     return init_fn

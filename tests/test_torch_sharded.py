@@ -1,6 +1,7 @@
 """Sharded PB parity: ``repro_torch.core.distributed_pb`` and its graph
 consumers against ``repro.core`` (mirrors ``tests/test_sharded.py`` case
-for case; the LM side, ``moe_combine_sharded``, is not ported yet).
+for case; the LM side, ``moe_combine_sharded`` among it, is held in
+``test_torch_mesh_train.py``).
 
 The reference runs once, in a subprocess with 8 forced host devices; the
 port runs in gloo groups of 1, 2, 4 and 8 spawned CPU ranks

@@ -252,5 +252,19 @@ def test_train_launcher_end_to_end_with_resume(capsys):
             assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, pa
         # main returns the last loss; with the checkpoint at --steps, nothing is left
         assert np.isnan(train_mod.main(common + ["--steps", "8", "--ckpt-dir", d]))
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        train_mod.main(common + ["--steps", "1", "--mesh", "host:2x2"])
+    # over a mesh: four spawned gloo ranks on the CPU give the one-device losses
+    meshed = train_mod.train(train_mod.parse_args(common + ["--steps", "2", "--mesh", "host:2x2"]))
+    assert meshed.state is None and meshed.start_step == 0
+    np.testing.assert_allclose(meshed.losses, full.losses[:2], rtol=1e-5)
+
+
+def test_launcher_refuses_a_mesh_for_the_recurrent_families():
+    from repro_torch.launch import train as train_mod
+
+    common = ["--preset", "smoke", "--seq-len", "32", "--batch", "4", "--device", "cpu",
+              "--steps", "1", "--mesh", "host:2x2"]
+    for arch in ("xlstm-350m", "zamba2-2.7b"):
+        with pytest.raises(ValueError, match="Queue 1 item 3"):
+            train_mod.main(["--arch", arch] + common)
+    with pytest.raises(ValueError, match="256 ranks"):
+        train_mod.main(["--arch", "qwen2-1.5b", "--mesh", "prod"] + common[:-2])
