@@ -106,8 +106,9 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    DBP, KRON and URND for phase 20): at every size BFS levels and
    parents must equal a dense plain-torch BFS (parent: the largest-id
    predecessor on the previous level), CC labels scipy's weak components
-   (at S3 a plain-torch min-label propagation on the card: the S3 checks
-   took 46 s with scipy), both labelled by their smallest vertex, k-core
+   at S1 (at S2 and S3 a plain-torch min-label propagation on the card:
+   the S3 checks took 46 s with scipy), both labelled by their smallest
+   vertex, k-core
    ``k_core_oracle``; at S1 and S2 SSSP scipy's Dijkstra in float64; at
    S2 each batched lane must equal its single-source run; at S1 every
    ``sssp_batched`` lane scipy's Dijkstra, every ``bfs_batched`` lane the
@@ -151,13 +152,15 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    AdamW step of a 2-layer full-width float32 copy on the card and on the
    CPU from one state (S = 256). d) ``launch/train.py`` at full width,
    28 layers in bfloat16 with remat and AdamW, B 4, S 4096 (train_4k's
-   sequence; its global batch of 256 cut to 4 for one card): 3 steps
-   with a checkpoint at the end, the checkpoint restored and compared
-   bit for bit with the state, then a resume to step 4, and one more
-   step under ``torch.profiler`` (the async save at step 2, a 15.5 GB
-   host copy that stalled a step, was cut to make room for phase 18, and
-   the resumed run's save after step 4, another 15.5 GB write, for phase
-   20).
+   sequence; its global batch of 256 cut to 4 for one card): 3 steps,
+   one more step under ``torch.profiler``, then the checkpoint path at 4
+   of the 28 layers: 3 steps with a checkpoint at the end and a resume to
+   step 4 whose restore must give the saved state (``_mesh_fingerprint``
+   of both: sums of the bit patterns and their squares, tensor by
+   tensor). Cut to make room: the async save at step 2, a 15.5 GB host
+   copy that stalled a step (phase 18); the resumed run's save after step
+   4 (phase 20); the checkpoint of the whole model, a 15.5 GB write and
+   two reads (phase 21).
    Losses and grad norms must be
    finite, every moment must have moved (attention's key bias aside: its
    gradient is rounding, see ``_scale_name``), and each step must launch
@@ -226,7 +229,7 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    ``zamba2-2.7b`` (54 Mamba2 layers, 9 applications of the shared
    attention block) and ``xlstm-350m`` (24 layers) at full width and depth
    in bfloat16 from a seeded generator: (e) served by ``Engine`` (4 slots,
-   8 requests of 256-1024 prompt tokens, 32 new each, 2048 positions;
+   4 requests of 128-512 prompt tokens, 32 new each, 2048 positions;
    flash launches exactly 9 times a zamba2 prefill and never for xlstm),
    with prefill tokens/s, decode ms a tick, peak memory, a profile of one
    prefill and one decode tick, xlstm's mLSTM and sLSTM timed apart at the
@@ -249,9 +252,9 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    (6 Mamba2 blocks and the shared block) and of xlstm-350m, card against
    CPU, as 14c (zamba2's gradients and moments within 2e-4, ``FAM_TOL``). (c) ``launch/train.py`` at full width, 3 steps
    each, bfloat16 with remat: zamba2-2.7b (54 Mamba2 blocks, AdamW, B 2 x
-   S 2048), qwen3-moe-235b-a22b (2 of 94 layers, Adafactor as for the full
+   S 1024), qwen3-moe-235b-a22b (2 of 94 layers, Adafactor as for the full
    model, counting dispatch, B 2 x S 1024: 16,384 assignments, C = 160)
-   and xlstm-350m (12 cycles, AdamW, B 4 x S 512), the config and the
+   and xlstm-350m (12 cycles, AdamW, B 4 x S 64), the config and the
    optimizer set on the launcher's ``get_config`` and
    ``default_opt_config``. Losses and grad norms finite, every moment
    moved, and the launches exact: per step the embedding backward's rows
@@ -322,29 +325,56 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    same drops, counted), the weight-stationary decode on 4 tokens against
    ``_moe_dense_oracle``, ``moe_combine_sharded`` over the data axis on
    32,768 assignments against ``index_add_``. (d) ``launch/train.py
-   --mesh host:2x2`` inside the group, bf16, remat: qwen2-1.5b whole, B 4
-   x S 4096, AdamW, 4 steps with a checkpoint (in blocks, each rank its
-   file) after step 3; qwen3-moe at full width with 2 of 94 layers, B 2 x
-   S 1024, Adafactor, counting, 3 steps with rank 0 under
-   ``torch.profiler``; losses and grad norms finite and equal on every
-   rank, the launches exact (``mesh_launcher_run``); printed: ms a step,
-   tokens/s, the host seconds inside ``torch.distributed``'s calls on rank
-   0 (and the profiler's gloo milliseconds for qwen3-moe), each rank's
-   peak memory. (e) ``compressed_psum_tree`` of the last qwen2 step's
-   gradients over the data axis, twice; ``gpipe_apply`` over 4 stages of
-   7 full-width qwen2 layers, 8 microbatches of 1 x 1024, against the 28
-   layers in order on rank 0. (f) The step-3 checkpoint restored onto
-   ``ElasticPlan(2, 2, 2)``'s mesh, 1x2 over ranks 0 and 1 with
-   accumulation 2: its fingerprint equal to the saved state's, then one
-   step whose loss equals the 2x2 mesh's step 4. Its launches (of (d))
-   go into phase 11's counts.
+   --mesh host:2x2`` inside the group, bf16, remat: qwen2-1.5b at full
+   width with 7 of its 28 layers, B 4 x S 2048, AdamW, 3 steps with a
+   checkpoint (in blocks, each rank its file) after step 2; qwen3-moe at
+   full width with 1 of 94 layers, B 2 x S 256, Adafactor, counting, 2
+   steps; losses and grad norms finite and equal on every rank, the
+   launches exact (``mesh_launcher_run``); printed: ms a step, tokens/s,
+   the host seconds inside ``torch.distributed``'s calls on rank 0, each
+   rank's peak memory. (e) ``compressed_psum_tree`` of the last qwen2
+   step's gradients over the data axis, twice; ``gpipe_apply`` over 4
+   stages of 7 full-width qwen2 layers, 8 microbatches of 1 x 1024,
+   against the 28 layers in order on rank 0. (f) The step-2 checkpoint
+   restored onto ``ElasticPlan(2, 2, 2)``'s mesh, 1x2 over ranks 0 and 1
+   with accumulation 2: its fingerprint equal to the saved state's, then
+   one step whose loss equals the 2x2 mesh's step 3. Its launches (of
+   (d)) go into phase 11's counts.
+21. (Runs before phase 11.) Serving over a (data, model) mesh, and the
+   ssm, hybrid, vlm and encdec families on a mesh: SMESH_RANKS ranks of
+   one gloo group on ``cuda:0`` (``serve_mesh_rank``; an emulation, as
+   phase 20). Every rank holds its ``spec_for`` blocks of the weights and
+   of the caches, and the engines' one-device twins run on rank 0. (a)
+   qwen2-1.5b at full width with 4 of its 28 layers, float32, served on
+   2x2 and on 1x4 (2 requests, the longer of 255 tokens, 4 new each, 4
+   slots of 512, so that the decodes write and attend across the 2x2
+   cache's block boundary at 256) against the one-device engine of the
+   same weights: tokens equal, every prefill's and tick's logits within
+   LM_TOL of max |logit|. (b)
+   ``launch/serve.py --mesh host:2x2`` inside the group: qwen2-1.5b
+   whole, bf16, 4 slots of 2048, 8 requests of 64-511 tokens, 16 new
+   each; the launcher checks that every rank's tokens agree, and every
+   prefill's logits, and every tick's on the slots whose tokens so far
+   agree, must be within SMESH_BF16_TOL of the one-device engine's; printed: TTFT, tokens/s, ms a tick, the
+   host seconds inside ``torch.distributed`` on each rank, each rank's
+   peak memory. (c) qwen3-moe at full width with 2 of its 94 layers
+   (counting dispatch), float32, served on 1x4 (the expert-sharded layer)
+   against one device as (a); on 2x2 the engine's one-row prefill must raise the
+   reference's batch-split error. (d) zamba2-2.7b (1 of its 9 cycles),
+   xlstm-350m (4 of its 12), llama-3.2-vision-11b (1 of its 8) and
+   whisper-base (whole) at full width: 2 steps of ``launch/train.py --mesh host:2x2`` inside the group
+   (SMESH_FAM_TRAIN's shapes, bf16, remat; losses finite and equal on
+   every rank, the launches exact), then 2 requests (the longer of 255
+   tokens, so that the decodes cross the block boundary as (a)'s) served
+   over 2x2 in float32 against one device as (a). Its launches go into phase 11's counts.
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
-   phases 3-4, 6, 7, 9, 12, 13, 14, 15, 16, 17, 18, 19 and 20 (counts set
-   to 0 before each path, read after it; the checks of phases 2, 5, 8,
-   10, 11, 14a-c, 15a-e, 17a-d, 18a-b, 19a-b, d and 20a-c, e-f do not
-   count; ``launches_16`` is phase 16's share, summed over its ranks,
-   ``launches_18`` phase 18's, ``launches_19`` phase 19's,
-   ``launches_20`` phase 20's, summed over its ranks),
+   phases 3-4, 6, 7, 9, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21 (counts
+   set to 0 before each path, read after it; the checks of phases 2, 5,
+   8, 10, 11, 14a-c, 15a-e, 17a-d, 18a-b, 19a-b, d, 20a-c, e-f and the
+   one-device engines of 21 do not count; ``launches_16`` is phase 16's
+   share, summed over its ranks, ``launches_18`` phase 18's,
+   ``launches_19`` phase 19's, ``launches_20`` phase 20's and
+   ``launches_21`` phase 21's, summed over their ranks),
    its largest error against its plain version, and
    times at a path's shapes (Bin-Read's row also ``compact_index_add_ms``,
    the rows kernel's an ``embedding_backward`` record at phase 14's
@@ -365,10 +395,12 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    4,096 token rows of 4,096 into the vlm's 128,256-row vocabulary) with
    phase 19's launches (``launches_19`` on every row is phase 19's share),
    and rows 8f (``flash_attention:mesh_local_heads``: a 2x2 rank's (2, 6,
-   1, 4096, 128) causal) and 5g
+   1, 2048, 128) causal) and 5g
    (``cobra_bin_accumulate_rows:mesh_vocab_parallel_embedding_backward``:
-   a rank's 8,192 token rows of 1,536 into its 76,032 rows of the
-   vocabulary, the ids outside them -1) with phase 20's launches;
+   a rank's 4,096 token rows of 1,536 into its 76,032 rows of the
+   vocabulary, the ids outside them -1) with phase 20's launches, and row
+   8g (``flash_attention:serve_mesh_local_heads``: a 2x2 rank's (1, 6, 1,
+   S, S, 128) causal at 21b's longest prompt) with phase 21's launches;
    then the result line. Before it: the
    same launches split by shape, the fused accumulate and ``index_add_``
    timed at the S1 KRON and DBP streams (fig5's S1 PageRank shapes), and a
@@ -477,6 +509,17 @@ their sum), each limit also rejecting every planted fault that drops an
 assignment; the sharded combine within one bfloat16 rounding of the
 float64 sum; compression's error within the reference test's 0.05 and
 the two-step error no larger; the re-meshed step's loss within rtol 1e-3.
+Serving over a mesh (phase 21): float32 engines as phase 10 (tokens
+equal, every logged logits within 1e-4 of max |logit|: the ranks' sums
+run in another order); bfloat16 engines, mesh against one device,
+within SMESH_BF16_TOL (2%) of max |logit| at every prefill and at every
+tick on the slots whose request's tokens so far agree: a row-parallel
+product's two bfloat16 halves and their psum round once more than one
+device's product, and the difference grows through 28 residual layers
+(the worst of 38 readings at the first prefill and tick was 0.99%, PERF.md;
+2% is about five bfloat16 rounding steps of the largest logit, 2^-8
+each); later tokens may part at a bfloat16 near tie, so the tokens'
+agreement is printed, not required.
 """
 from __future__ import annotations
 
@@ -542,8 +585,9 @@ MOE_FLASH_SHAPES = [(1, 64, 4, S, S, 128) for S in (256, 1000, 2048)]  # qwen3-m
 MOE_CPU_EXPERTS = 16  # check (e): 2 float32 layers at full width, 16 experts, on both devices
 REC_ARCHS = ("zamba2-2.7b", "xlstm-350m")  # phase 17: the hybrid and the ssm family
 REC_SEED = 17
-REC_SLOTS, REC_MAX_LEN, REC_REQUESTS, REC_MAX_NEW = 4, 2048, 8, 32
-REC_PROMPT_LENS = (256, 1024)
+# 4 requests (8 until PR 27's review follow-up: one wave of the slots, not two)
+REC_SLOTS, REC_MAX_LEN, REC_REQUESTS, REC_MAX_NEW = 4, 2048, 4, 32
+REC_PROMPT_LENS = (128, 512)  # (256, 1024) until phase 21: xlstm's prefill is a loop a token
 REC_FLASH_SHAPES = [(1, 32, 32, 1024, 1024, 80), (1, 32, 32, 1000, 1000, 80),  # zamba2's heads
                     (1, 8, 2, 333, 333, 80)]  # head_dim 80 under GQA, ragged
 REC_FLASH_CANCEL_SHAPES = [(1, 32, 32, 1024, 1024, 80)]
@@ -554,22 +598,29 @@ REC_LAYER_S = 300  # phase 17 (b): ragged against both chunks (64: zamba2, 256: 
 # at full width on the CPU (four seeds); Mamba2 and sLSTM by 5e-6 or less
 REC_LAYER_TOL = 1e-3
 TRAIN_B, TRAIN_S = 4, 4096  # train_4k's sequence; its global batch of 256 cut to 4 for one card
-TRAIN_STEPS = 3  # then one more from the checkpoint
-TRAIN_CPU_S = 256  # phase 14's card-vs-CPU step: 2 float32 layers, B 1
+TRAIN_STEPS = 3  # then the checkpointed run's one more from its checkpoint
+TRAIN_CKPT_LAYERS = 4  # the checkpoint and resume: 4 of qwen2's 28 layers (28 until phase 21)
+# phase 14's (and 18's) card-vs-CPU step, B 1. At 128 tokens zamba2's one-cycle gradients
+# differed card vs CPU by 1.5e-3 of max |g| (2e-4 allowed; 9.7e-5 at 256). It is the Mamba2
+# chain's float32 conditioning at that batch (scripts/torch_zamba2_witness.py): moving each
+# weight by one ulp moves the CPU's own gradients by 4.3e-4 to 1.1e-3, and the card's float64
+# gradients equal the CPU's to 8e-12. So the step stays at 256
+TRAIN_CPU_S = 256
 TRAIN_TOL = 1e-4  # card vs CPU gradients and moments: times the tensor's max
 FAM_ARCHS = ("zamba2-2.7b", "qwen3-moe-235b-a22b", "xlstm-350m")  # phase 18's launcher runs
 FAM_SEED = 18
 FAM_STEPS = 3
 FAM_MOE_LAYERS = 2  # of qwen3-moe's 94: 2.49 B parameters a layer, 1.25 B in the embeddings
-# (B, S) a step: zamba2 4,096 tokens (about 37 GB reckoned: 29 GB of bf16 parameters and
-# gradients and float32 moments, one recomputed cycle); qwen3-moe 2,048 (16,384
-# assignments, C = 160); xlstm 2,048 (its sLSTM loop: about 14 launches a token a layer
-# in each forward, so some 400,000 launches a step with remat and the backward)
-FAM_SHAPES = {"zamba2-2.7b": (2, 2048), "qwen3-moe-235b-a22b": (2, 1024), "xlstm-350m": (4, 512)}
+# (B, S) a step: zamba2 2,048 tokens (29 GB of bf16 parameters and gradients and float32
+# moments, one recomputed cycle); qwen3-moe 2,048 (16,384 assignments, C = 160); xlstm
+# 512 (its sLSTM loop: about 14 launches a token a layer in each forward, so some
+# 100,000 launches a step with remat and the backward). Until phase 21: zamba2 2 x
+# 2048, xlstm 4 x 512; xlstm 4 x 128 until PR 27's review follow-up
+FAM_SHAPES = {"zamba2-2.7b": (2, 1024), "qwen3-moe-235b-a22b": (2, 1024), "xlstm-350m": (4, 64)}
 # the profiled step's S: xlstm's full step is some 400,000 launches, and the profiler's
 # processing of zamba2's full step (44-45 s) and xlstm's at S 32 (20-21 s) took a third of
-# phase 18 (PR 24); cut to make room for phase 19
-FAM_PROFILE_S = {"xlstm-350m": 16, "zamba2-2.7b": 256}
+# phase 18; cut to make room for phase 19, and again (from 16 and 256) for phase 21
+FAM_PROFILE_S = {"xlstm-350m": 8, "zamba2-2.7b": 128}
 FAM_MOE_T = 972  # check (a): phase 15's longest prefill (its prompts from MOE_SEED)
 FAM_CPU_T = 256  # check (b): the MoE layer's tokens
 # check (b): zamba2's one-cycle card-vs-CPU step. Its Mamba2 chain amplifies float32
@@ -602,7 +653,7 @@ F32_MAX = 3.4028234663852886e38  # float32's largest value: SSSP's unreached dis
 KCORE_K = 3  # benchmarks/fig8_traversal.py
 RADII_K, RADII_ITERS = 4, 300  # benchmarks/fig2_preproc_cost.py
 TRAV_BATCH = 8  # sources of the batched BFS/SSSP and of PPR
-TRAV_REPS = 2  # time_fn repetitions of the traversal phase (3 until phase 20)
+TRAV_REPS = 1  # time_fn repetitions of the traversal phase (3 until phase 20, 2 until 21)
 SERVE_REQUESTS = 64  # phase 13's trace: make_query_mix, Poisson arrivals
 SERVE_RATE = 200.0  # queries per second (launch/serve_graphs.py's default)
 SERVE_BATCH = 8  # max_batch (launch/serve_graphs.py's default)
@@ -629,10 +680,35 @@ MESH_UPDATE_RTOL = 1e-3
 MESH_MOE_T = (4, 256)  # (c): the expert-sharded layer's B x S
 MESH_WS_T = 4  # (c): decode tokens of the weight-stationary layer
 MESH_COMBINE_M = 32768  # (c): moe_combine_sharded's assignments (4,096 tokens, top 8)
-MESH_MOE_LAYERS = 2  # (a), (d): qwen3-moe at full width, 2 of its 94 layers
-MESH_TRAIN = {LM_ARCH: (4, 4096), "qwen3-moe-235b-a22b": (2, 1024)}  # (d): global B, S
-MESH_STEPS = 3
+MESH_MOE_LAYERS = 2  # (a): qwen3-moe at full width, 2 of its 94 layers
+# (d), (f): layers at full width: qwen2 7 of its 28, qwen3-moe 1 of its 94 (28 and 2 until
+# phase 21; qwen2 14 until PR 27's review follow-up)
+MESH_TRAIN_LAYERS = {LM_ARCH: 7, "qwen3-moe-235b-a22b": 1}
+# (d): global B, S (until phase 21: qwen2 S 4096, qwen3-moe S 1024 and 3 steps)
+MESH_TRAIN = {LM_ARCH: (4, 2048), "qwen3-moe-235b-a22b": (2, 256)}
+MESH_STEPS = 2  # qwen2's steps before its checkpoint (3 until phase 21)
+MESH_MOE_STEPS = 2
 MESH_PIPE = (4, 7, 8, 1024)  # (e): stages, qwen2 layers a stage, microbatches, S
+SMESH_RANKS = 4  # phase 21's ranks, all on cuda:0: the 2x2 and 1x4 meshes
+SMESH_TIMEOUT = 900  # s: the deadline of phase 21's ranks (spawn, run, join)
+SMESH_SEED = 21
+SMESH_SLOTS = 4
+# (a): qwen2 layers, requests, new tokens, max_len, shortest prompt (the longest is
+# max_len / 2 - 1: ``_crossing_prompts``)
+SMESH_F32 = (4, 2, 4, 512, 64)
+SMESH_BF16 = (2048, 8, 64, 16)  # (b): max_len (prompts [64, 512)), requests, shortest, new
+SMESH_BF16_TOL = 0.02  # (b): bf16 logits, times max |logit| (module docstring)
+SMESH_MOE = (2, 4, 4, 512, 64, 256)  # (c): qwen3-moe layers, requests, new, max_len, prompts
+SMESH_FAMILIES = ("zamba2-2.7b", "xlstm-350m", "llama-3.2-vision-11b", "whisper-base")
+# (d): layers at full width: zamba2 1 of its 9 cycles, xlstm 4 of its 12, the vlm 1 of its 8,
+# whisper-base whole
+SMESH_FAM_LAYERS = {"zamba2-2.7b": 6, "xlstm-350m": 8, "llama-3.2-vision-11b": 5}
+SMESH_FAM_TRAIN = {"zamba2-2.7b": (2, 256), "xlstm-350m": (2, 64),
+                   "llama-3.2-vision-11b": (2, 256), "whisper-base": (4, 256)}  # (d): B, S
+SMESH_FAM_STEPS = 2
+# (d): requests, new tokens (3: ``run_until_drained`` returns no request that its
+# admitting tick also finishes), max_len, shortest prompt (the longest as (a)'s)
+SMESH_FAM_SERVE = (2, 3, 512, 64)
 SSSP_EPS = 2.0**-23  # per hop, relative: twice float32's unit roundoff
 SSSP_W_MIN = 0.1  # the lightest weight (fig8: uniform in [0.1, 1.1))
 
@@ -1245,15 +1321,16 @@ def train_step_vs_cpu(dev, cfg32, seed=LM_SEED + 2, tol=TRAIN_TOL, frontend=None
 def train_phase(dev, K, smi):
     """Phase 14: the LM training path. The backward kernels against their
     plain versions (14a, 14b), a float32 step against the CPU (14c), then
-    ``launch/train.py`` at full width: 3 steps with a checkpoint at the
-    end, the checkpoint restored bit for bit, one more step from it, and
-    one step under the profiler (14d). Returns (launches, launches by shape, the
+    ``launch/train.py`` at full width: 3 steps and one more under the
+    profiler, and at TRAIN_CKPT_LAYERS layers 3 steps with a checkpoint at
+    the end and a resume whose restore holds the saved state's
+    fingerprint (14d). Returns (launches, launches by shape, the
     embedding-backward record)."""
     import tempfile
 
     import torch
 
-    from repro_torch.checkpoint.manager import CheckpointManager, _flatten_with_paths
+    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import train as train_mod
@@ -1283,56 +1360,84 @@ def train_phase(dev, K, smi):
             for key, x in by.items():
                 shapes.setdefault(k, {})[key] = shapes.get(k, {}).get(key, 0) + x
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
-        mem0 = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        args = train_mod.parse_args(flags + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", ck,
-                                             "--ckpt-every", "100"])  # saved at the end only
-        K.reset_launch_counts()  # the training path starts here
-        run = train_mod.train(args)
-        torch.cuda.synchronize()
-        c1, s1 = K.launch_counts(), K.launch_shapes()  # and ends here
-        add(c1, s1)
-        peak = torch.cuda.max_memory_allocated() - mem0
-        opt = run.state.opt
-        require(all(math.isfinite(x) for x in run.losses + run.grad_norms)
-                and len(run.losses) == TRAIN_STEPS, f"training diverged: {run.losses}")
-        stale = [n for n in opt.m if not n.endswith("attn.bk")
-                 and not (float(opt.m[n].abs().max()) > 0 and float(opt.v[n].abs().max()) > 0)]
-        require(opt.step == TRAIN_STEPS and not stale, f"moments that did not move: {stale}")
-        require(c1["cobra_bin_accumulate_rows"] >= TRAIN_STEPS
-                and c1["flash_attention"] >= cfg.num_layers * TRAIN_STEPS,
-                f"training launched {c1} in {TRAIN_STEPS} steps")
-        restored, at = CheckpointManager(ck).restore(run.state)
-        same = all((torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
-                   for (_, a), (_, b) in zip(_flatten_with_paths(restored),
-                                             _flatten_with_paths(run.state)))
-        require(at == TRAIN_STEPS and same, f"checkpoint step {at} does not restore bit for bit")
-        rec = {"arch": LM_ARCH, "layers": cfg.num_layers, "param_dtype": cfg.param_dtype,
-               "remat": cfg.remat, "optimizer": default_opt_config(cfg).kind,
-               "batch": TRAIN_B, "seq_len": TRAIN_S,
-               "cut": f"global batch {TRAIN_B} of train_4k's 256 (one card)",
-               "losses": run.losses, "grad_norms": run.grad_norms, "lrs": run.lrs,
-               "step_ms": [1e3 * x for x in run.step_seconds],
-               "launches": {k: c1[k] for k in ("cobra_bin_accumulate_rows", "flash_attention")},
-               "peak_bytes_above_earlier_phases": peak, "earlier_phases_bytes": mem0,
-               "checkpoint_restored_bit_equal": same, "card": smi}
-        del restored, run, opt
-        torch.cuda.empty_cache()
-        K.reset_launch_counts()  # the resumed run starts here
-        run = train_mod.train(train_mod.parse_args(
-            flags + ["--steps", str(TRAIN_STEPS + 1), "--ckpt-dir", ck, "--ckpt-every", "100",
-                     "--no-ckpt-final"]))
-        torch.cuda.synchronize()
-        c2, s2 = K.launch_counts(), K.launch_shapes()  # and ends here
-        add(c2, s2)
-        require(run.start_step == TRAIN_STEPS and len(run.losses) == 1
-                and math.isfinite(run.losses[0]) and c2["cobra_bin_accumulate_rows"] >= 1
-                and c2["flash_attention"] >= cfg.num_layers,
-                f"the resumed run: start {run.start_step}, losses {run.losses}, launches {c2}")
-        rec["resumed"] = {"start_step": run.start_step, "loss": run.losses[0],
-                          "step_ms": 1e3 * run.step_seconds[0]}
-    steady = [x for x in rec["step_ms"][1:]] + [rec["resumed"]["step_ms"]]
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()  # the training path starts here
+    run = train_mod.train(train_mod.parse_args(flags + ["--steps", str(TRAIN_STEPS)]))
+    torch.cuda.synchronize()
+    c1, s1 = K.launch_counts(), K.launch_shapes()  # and ends here
+    add(c1, s1)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    opt = run.state.opt
+    require(all(math.isfinite(x) for x in run.losses + run.grad_norms)
+            and len(run.losses) == TRAIN_STEPS, f"training diverged: {run.losses}")
+    stale = [n for n in opt.m if not n.endswith("attn.bk")
+             and not (float(opt.m[n].abs().max()) > 0 and float(opt.v[n].abs().max()) > 0)]
+    require(opt.step == TRAIN_STEPS and not stale, f"moments that did not move: {stale}")
+    require(c1["cobra_bin_accumulate_rows"] >= TRAIN_STEPS
+            and c1["flash_attention"] >= cfg.num_layers * TRAIN_STEPS,
+            f"training launched {c1} in {TRAIN_STEPS} steps")
+    rec = {"arch": LM_ARCH, "layers": cfg.num_layers, "param_dtype": cfg.param_dtype,
+           "remat": cfg.remat, "optimizer": default_opt_config(cfg).kind,
+           "batch": TRAIN_B, "seq_len": TRAIN_S,
+           "cut": f"global batch {TRAIN_B} of train_4k's 256 (one card)",
+           "losses": run.losses, "grad_norms": run.grad_norms, "lrs": run.lrs,
+           "step_ms": [1e3 * x for x in run.step_seconds],
+           "launches": {k: c1[k] for k in ("cobra_bin_accumulate_rows", "flash_attention")},
+           "peak_bytes_above_earlier_phases": peak, "earlier_phases_bytes": mem0,
+           "card": smi}
+    state = run.state
+    del run, opt
+    # the checkpoint and the resume at TRAIN_CKPT_LAYERS of the 28 layers: a checkpoint
+    # at the end of TRAIN_STEPS steps, then a resume whose restore must give the saved
+    # state's fingerprint (the whole model's 15.5 GB write and two reads until phase 21)
+    ck_cfg = dataclasses.replace(cfg, num_layers=TRAIN_CKPT_LAYERS)
+    restore, restored, saved_cfg = CheckpointManager.restore, {}, train_mod.get_config
+
+    def fingerprinted_restore(self, *a, **kw):
+        out = restore(self, *a, **kw)
+        if out[0] is not None:
+            restored.update(step=out[1], fp=_mesh_fingerprint(out[0]))
+        return out
+
+    CheckpointManager.restore = fingerprinted_restore
+    train_mod.get_config = lambda name: ck_cfg
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
+            ck_flags = flags + ["--ckpt-dir", ck, "--ckpt-every", "100"]
+            t = time.perf_counter()
+            K.reset_launch_counts()  # the checkpointed run starts here
+            first = train_mod.train(train_mod.parse_args(ck_flags + ["--steps", str(TRAIN_STEPS)]))
+            torch.cuda.synchronize()
+            add(K.launch_counts(), K.launch_shapes())  # and ends here
+            save_s = time.perf_counter() - t
+            fp_saved = _mesh_fingerprint(first.state)
+            del first
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            K.reset_launch_counts()  # the resumed run starts here
+            run = train_mod.train(train_mod.parse_args(
+                ck_flags + ["--steps", str(TRAIN_STEPS + 1), "--no-ckpt-final"]))
+            torch.cuda.synchronize()
+            c2, s2 = K.launch_counts(), K.launch_shapes()  # and ends here
+            resume_s = time.perf_counter() - t
+    finally:
+        CheckpointManager.restore = restore
+        train_mod.get_config = saved_cfg
+    add(c2, s2)
+    same = restored.get("fp") == fp_saved
+    require(restored.get("step") == TRAIN_STEPS and same,
+            f"checkpoint step {restored.get('step')} does not restore the saved state")
+    require(run.start_step == TRAIN_STEPS and len(run.losses) == 1
+            and math.isfinite(run.losses[0]) and c2["cobra_bin_accumulate_rows"] >= 1
+            and c2["flash_attention"] >= ck_cfg.num_layers,
+            f"the resumed run: start {run.start_step}, losses {run.losses}, launches {c2}")
+    rec["checkpoint"] = {"layers": ck_cfg.num_layers, "fingerprint_equal": same,
+                         "steps_and_save_seconds": save_s, "resume_seconds": resume_s,
+                         "resumed_loss": run.losses[0]}
+    del run
+    torch.cuda.empty_cache()
+    steady = rec["step_ms"][1:]
     tokens = TRAIN_B * TRAIN_S
     ms = min(steady)
     rec.update({"steady_step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
@@ -1340,18 +1445,17 @@ def train_phase(dev, K, smi):
                 "model_flop_share_of_989T": flops_per_token(cfg) * tokens / ms * 1e3
                 / BF16_FLOP_PER_S})
     say("phase14 train", json.dumps(rec))
-    # one more step under the profiler, from the resumed state
+    # one more step under the profiler, from the full model's state
     step = make_train_step(cfg, default_opt_config(cfg, total_steps=TRAIN_STEPS + 2))
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_B))
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(TRAIN_STEPS + 1).items()}
-    state = run.state
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(TRAIN_STEPS).items()}
     prof = device_profile(lambda: step(state, batch), dev, kinds={
         "flash kernel": ("flash_fwd",), "rows kernel": ("rows_kernel",),
         "float32 GEMM": ("f32f32_f32",), "other GEMM": ("gemm", "nvjet", "cutlass"),
         "elementwise": ("elementwise",), "reductions": ("reduce",),
         "copies and fills": ("Memcpy", "Memset", "fill")})
     say("phase14 profile", json.dumps(dict(prof, card=smi)))
-    del run, state, batch
+    del state, batch
     torch.cuda.empty_cache()
     return counts, shapes, emb
 
@@ -2853,7 +2957,7 @@ def traversal_phase(dev, T, K, suite, sizes, cache):
         """Results against code that does not use the executor. ``oracles``
         (every S1 graph): every batched lane, radii and PPR against
         executor-free oracles too. CC labels against scipy's components, or
-        (``scipy_cc=False``, S3) a plain-torch min-label propagation."""
+        (``scipy_cc=False``, S2 and S3) a plain-torch min-label propagation."""
         rec = {}
         dd, dp = dense_bfs(T, csr, source)
         b = res["bfs"]
@@ -3036,7 +3140,7 @@ def traversal_phase(dev, T, K, suite, sizes, cache):
         peak = torch.cuda.max_memory_allocated() if on_card else None
         t2 = time.perf_counter()
         rec = independent_checks(f"phase12 {tag}", g, csr, source, w, srcs, res, dijkstra=full,
-                                 lanes=full, scipy_cc=full)
+                                 lanes=full, scipy_cc=False)
         rec["seconds"] = {"run": t1 - t0, "timings": t2 - t1, "checks": time.perf_counter() - t2}
         say(f"phase12 {tag}", json.dumps({"n": g.num_nodes, "m": g.num_edges, "source": source,
                                          **summary(res), **rec, "times": times,
@@ -3652,12 +3756,13 @@ def sharded_phase(smi):
 # -- the dense and MoE LMs over a (data, model) mesh of ranks (phase 20) -----------------
 
 
-def _mesh_fingerprint(state, specs, mesh):
+def _mesh_fingerprint(state, specs=None, mesh=None):
     """{path: [sum of the bit patterns, sum of their squares]} of every
     tensor of a ``TrainState``, over its unique blocks (a rank adds its
     block when it sits at coordinate 0 of every axis the leaf is not
     sharded on), as int64 sums that wrap the same way in any order: equal
-    on two meshes when the two hold the same values."""
+    on two meshes when the two hold the same values (one device's whole
+    tensors without a ``mesh``)."""
     import torch
 
     from repro_torch.checkpoint.manager import _flatten_with_paths
@@ -3667,13 +3772,14 @@ def _mesh_fingerprint(state, specs, mesh):
     for path, v in _flatten_with_paths(state):
         if not isinstance(v, torch.Tensor):
             continue
-        sharded = shd.spec_axes(specs.get(path) or ())
-        mine = all(mesh.coords[a] == 0 for a in mesh.axis_names if a not in sharded)
+        sharded = shd.spec_axes((specs or {}).get(path) or ())
+        mine = mesh is None or all(mesh.coords[a] == 0 for a in mesh.axis_names
+                                   if a not in sharded)
         bits = v.detach().contiguous().view({2: torch.int16, 4: torch.int32}[v.element_size()])
         b = bits.reshape(-1).to(torch.int64)
         t = torch.stack([b.sum(), (b * b).sum()]) if mine else torch.zeros(2, dtype=torch.int64,
                                                                            device=v.device)
-        out[path] = shd.all_reduce(t, mesh.axis_names, mesh).tolist()
+        out[path] = (t if mesh is None else shd.all_reduce(t, mesh.axis_names, mesh)).tolist()
     return out
 
 
@@ -3958,16 +4064,15 @@ def mesh_moe_checks(rec, dev):
 def mesh_launcher_run(rec, dev, K, arch, ckpt_dir=None):
     """(d) ``launch/train.py --mesh host:2x2`` inside this group of four
     ranks at MESH_TRAIN's shape, bf16, remat, the optimizer
-    ``default_opt_config`` picks for the full model (qwen3-moe:
-    MESH_MOE_LAYERS of its 94 layers, counting dispatch, set on the config
-    the launcher reads), with the launch counts set to 0 before and read
+    ``default_opt_config`` picks for the full model, MESH_TRAIN_LAYERS'
+    depth (qwen3-moe with counting dispatch), set on the config the
+    launcher reads, with the launch counts set to 0 before and read
     after, and the host seconds inside ``torch.distributed``'s calls.
     With ``ckpt_dir`` (qwen2-1.5b): MESH_STEPS + 1 steps, a checkpoint
     after MESH_STEPS (each rank writes its blocks on a thread during the
     next step) whose fingerprint (``_mesh_fingerprint``) is taken as it is
-    saved, and no save after the last; without (qwen3-moe): MESH_STEPS
-    steps, rank 0's whole run under ``torch.profiler`` (host events: the
-    gloo calls' milliseconds). A rank's launches, exact: a step runs flash
+    saved, and no save after the last; without (qwen3-moe): MESH_MOE_STEPS
+    steps. A rank's launches, exact: a step runs flash
     once per layer per forward pass (the pass and remat's recomputation),
     the rows kernel once for the embedding backward and, per MoE layer,
     the dispatch (row scatter, counting's histogram and positions) and the
@@ -3982,11 +4087,11 @@ def mesh_launcher_run(rec, dev, K, arch, ckpt_dir=None):
     from repro_torch.train import steps as steps_mod
 
     full = get_config(arch)
-    cfg = full
+    cfg = dataclasses.replace(full, num_layers=MESH_TRAIN_LAYERS[arch])
     if full.family == "moe":
-        cfg = dataclasses.replace(full, num_layers=MESH_MOE_LAYERS, moe_dispatch_method="counting")
+        cfg = dataclasses.replace(cfg, moe_dispatch_method="counting")
     B, S = MESH_TRAIN[arch]
-    steps = MESH_STEPS + 1 if ckpt_dir else MESH_STEPS
+    steps = MESH_STEPS + 1 if ckpt_dir else MESH_MOE_STEPS
     saved = train_mod.get_config, train_mod.default_opt_config, steps_mod.apply_updates
     grads, fingerprint, save_seconds = {}, {}, []
 
@@ -4019,20 +4124,12 @@ def mesh_launcher_run(rec, dev, K, arch, ckpt_dir=None):
             "--device", str(dev)]
     if ckpt_dir:
         argv += ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(MESH_STEPS), "--no-ckpt-final"]
-    profiled = not ckpt_dir and torch.distributed.get_rank() == 0
     t0 = time.perf_counter()
     try:
         K.reset_launch_counts()  # this model's mesh training path starts here
         clock.on = True
-        if profiled:
-            from torch.profiler import ProfilerActivity, profile
-
-            with profile(activities=[ProfilerActivity.CPU]) as prof:
-                run = train_mod.train(train_mod.parse_args(argv))
-                torch.cuda.synchronize()
-        else:
-            run = train_mod.train(train_mod.parse_args(argv))
-            torch.cuda.synchronize()
+        run = train_mod.train(train_mod.parse_args(argv))
+        torch.cuda.synchronize()
         clock.on = False
         counts, shapes = K.launch_counts(), K.launch_shapes()  # and ends here
     finally:
@@ -4063,12 +4160,6 @@ def mesh_launcher_run(rec, dev, K, arch, ckpt_dir=None):
          "collective_calls": clock.calls, "run_seconds": seconds, "save_seconds": save_seconds,
          "peak_bytes_above_earlier": torch.cuda.max_memory_allocated() - mem0,
          "launches": got}
-    if profiled:
-        ev = prof.key_averages()
-        coll = {e.key: e.cpu_time_total / 1e3 for e in ev
-                if e.key.startswith(("gloo:", "c10d::")) and e.cpu_time_total > 0}
-        r["profile"] = {"collective_cpu_ms": coll,
-                        "gloo_ms": sum(v for k, v in coll.items() if k.startswith("gloo:"))}
     rec["train"][arch] = r
     return run, cfg, grads, fingerprint or None
 
@@ -4173,7 +4264,7 @@ def mesh_remesh(rec, dev, ckpt_dir, fp_saved, loss_next):
     D, M = plan.mesh_shape()
     mesh = shd.make_rank_mesh(D, M, device=dev, ranks=range(D * M))
     if mesh is not None:
-        cfg = get_config(LM_ARCH)
+        cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=MESH_TRAIN_LAYERS[LM_ARCH])
         oc = steps_mod.default_opt_config(cfg, total_steps=MESH_STEPS + 1)  # the 2x2 run's
         model = TM.init_params(cfg, seed=0, device=dev, mesh=mesh)
         target = steps_mod.TrainState(model, init_opt_state(dict(model.named_parameters()), oc))
@@ -4350,6 +4441,517 @@ def mesh_phase(dev, K, smi):
     say("phase20 rows 8f, 5g", json.dumps(rows))
     torch.cuda.empty_cache()
     return counts, shapes, rows
+
+# -- serving over a mesh, and the four other families on a mesh (phase 21) ----------------
+
+
+def _smesh_init(cfg, seed, dev, mesh):
+    """``init_params(mesh=)`` on each rank of the group in turn: a rank
+    draws each leaf whole before it keeps its block (qwen3-moe's experts of
+    a layer: 3.2 GB in float32), and four ranks share one card, so the
+    draws do not overlap; each rank then empties its cache."""
+    import torch
+
+    from repro_torch.models import transformer as TM
+
+    params = None
+    for r in range(torch.distributed.get_world_size()):
+        if r == torch.distributed.get_rank():
+            params = TM.init_params(cfg, seed=seed, device=dev, mesh=mesh)
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    return params
+
+
+def _crossing_prompts(cfg, n, lo, max_len, seed):
+    """``n`` prompts (``lm_prompts``) of lengths in [lo, max_len / 2), the
+    last of max_len / 2 - 1 tokens: the engine's shared decode index
+    starts there, so the first tick writes the last row of the 2x2 cache's
+    first ``seq_kv`` block and the next one the first row of the second."""
+    import numpy as np
+
+    half = max_len // 2
+    prompts = lm_prompts(cfg, n - 1, lo, half - 1, seed)
+    rng = np.random.default_rng(seed + 1)
+    return prompts + [rng.integers(0, cfg.vocab_size, half - 1).astype(np.int32)]
+
+
+def _logged(eng, log, times=None):
+    """Wrap ``eng``'s prefill and decode steps: each call appends (kind,
+    its float32 logits on the host, the slots' (rid, tokens so far) at a
+    tick) to ``log`` and, with ``times``, its synchronised host seconds.
+    The wrappers hold the engine's slot list, not the engine: a cycle
+    through the engine would keep its weights and caches on the card
+    until the next garbage collection."""
+    import torch
+
+    active = eng.active  # filled and emptied in place
+
+    def wrap(kind, fn):
+        def run(*a):
+            if times is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = fn(*a)
+            if times is not None:
+                torch.cuda.synchronize()
+                times[kind].append(time.perf_counter() - t0)
+            slots = None if kind == "prefill" else [
+                None if r is None else (r.rid, len(r.out)) for r in active]
+            log.append((kind, out[0].float().cpu(), slots))
+            return out
+        return run
+
+    eng._prefill = wrap("prefill", eng._prefill)
+    eng._decode = wrap("decode", eng._decode)
+
+
+def _smesh_engine(cfg, params, prompts, max_new, max_len, mesh=None):
+    """Serve ``prompts`` through an ``Engine`` (over ``mesh`` when given)
+    whose steps are wrapped by ``_logged``; returns (its log, its finished
+    requests by rid, {"prefill": [s], "decode": [s]} host seconds of each
+    call, synchronised, its final decode index)."""
+    from repro_torch.serving.server import Engine, Request
+
+    eng = Engine(cfg, params, slots=SMESH_SLOTS, max_len=max_len, mesh=mesh)
+    times, log = {"prefill": [], "decode": []}, []
+    _logged(eng, log, times)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new=max_new))
+    done = {r.rid: r for r in eng.run_until_drained()}
+    require(len(done) == len(prompts), f"phase21: {len(done)} of {len(prompts)} requests finished")
+    return log, done, times, eng.state.index
+
+
+def _logit_shares(got, want, done, done1):
+    """max |got - want| / max |want| of each pair of logged calls, in order:
+    a prefill whole, a tick on the slots whose request's tokens so far are
+    the same in both runs (``done``, ``done1``: the finished requests);
+    None for a tick with no such slot. The two logs must hold the same
+    calls on the same slots."""
+    out = []
+    for (kind, g, slots), (kind1, w, slots1) in zip(got, want):
+        require(kind == kind1 and slots == slots1,
+                f"phase21: the mesh engine's calls differ from one device's: {kind} {slots}, "
+                f"{kind1} {slots1}")
+        rows = list(range(g.shape[0])) if kind == "prefill" else [
+            s for s, x in enumerate(slots)
+            if x is not None and done[x[0]].out[:x[1]] == done1[x[0]].out[:x[1]]]
+        out.append(float((g[rows] - w[rows]).abs().max() / w[rows].abs().max()) if rows else None)
+    return out
+
+
+def _smesh_compare(rec_key, rec, cfg, make_one, prompts, max_new, max_len, log, done, tol,
+                   tokens_equal):
+    """Rank 0 serves ``prompts`` on one device (``make_one()``'s model) and
+    holds the mesh engine (its ``_logged`` log, its finished requests
+    ``done``) to it: every prefill's logits, and every tick's on the slots
+    whose request's tokens so far agree, within ``tol`` of max |logit|,
+    and with ``tokens_equal`` (float32) every token equal; else (bfloat16)
+    the tokens' agreement is reported (a bfloat16 near tie may pick
+    another). The other ranks wait at a barrier."""
+    import torch
+
+    if torch.distributed.get_rank() == 0:
+        one = make_one()
+        log1, done1, _, _ = _smesh_engine(cfg, one, prompts, max_new, max_len)
+        shares = _logit_shares(log, log1, done, done1)
+        held = [x for x in shares if x is not None]
+        same = [done[r].out == done1[r].out for r in sorted(done1)]
+        ticks = [x for (k, _, _), x in zip(log, shares) if k == "decode"]
+        r = {"logged": len(shares), "compared": len(held), "max_logit_share": max(held),
+             "prefill_shares": [x for (k, _, _), x in zip(log, shares) if k == "prefill"],
+             "tick_shares": ticks, "tolerance": tol, "requests_with_equal_tokens": sum(same),
+             "requests": len(same)}
+        rec.setdefault("compare", {})[rec_key] = r
+        ok = len(log) == len(log1) and max(held) <= tol and (all(same) or not tokens_equal)
+        require(ok, f"phase21 {rec_key}: the mesh engine differs from one device: {r}")
+        del one
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+
+
+def _smesh_record(final_index, done, times, seconds):
+    """Serving metrics of one engine run on this rank."""
+    tokens = sum(len(r.out) for r in done.values())
+    dec = times["decode"]
+    return {"requests": len(done), "tokens": tokens, "seconds": seconds,
+            "tokens_per_s": tokens / seconds,
+            "ttft_s": [done[r].t_first - done[r].t_submit for r in sorted(done)],
+            "prefill_ms": [1e3 * t for t in times["prefill"]],
+            "decode_ticks": len(dec),
+            "decode_ms_per_tick": [1e3 * min(dec), 1e3 * sum(dec) / len(dec)] if dec else None,
+            "final_index": final_index}
+
+
+def smesh_f32_parity(rec, dev, K):
+    """(a) qwen2-1.5b at full width with SMESH_F32's depth, float32, served
+    on 2x2 and on 1x4 (its 2 KV heads do not split 4 ways: gathered) by the
+    mesh engine against the one-device engine of the same weights (drawn
+    from SMESH_SEED on every rank, whole leaves, the rank keeping its
+    blocks): tokens equal and every prefill's and tick's logits within
+    LM_TOL of max |logit|, the decodes crossing the 2x2 cache's block
+    boundary (``_crossing_prompts``; on 1x4 too, whose blocks are half as
+    long). Launches counted over the mesh engines' runs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as TM
+
+    layers, n, new, max_len, lo = SMESH_F32
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=layers, param_dtype="float32",
+                              compute_dtype="float32")
+    prompts = _crossing_prompts(cfg, n, lo, max_len, SMESH_SEED)
+    out = {}
+    for D, M in ((2, 2), (1, 4)):
+        mesh = shd.make_rank_mesh(D, M, device=dev)
+        params = _smesh_init(cfg, SMESH_SEED, dev, mesh)
+        torch.distributed.barrier()
+        K.reset_launch_counts()  # this mesh's serving path starts here
+        t = time.perf_counter()
+        log, done, times, index = _smesh_engine(cfg, params, prompts, new, max_len, mesh)
+        secs = time.perf_counter() - t
+        rec["launch"][f"(a) {D}x{M}"] = K.launch_counts()  # and ends here
+        out[f"{D}x{M}"] = _smesh_record(index, done, times, secs)
+        require(rec["launch"][f"(a) {D}x{M}"]["flash_attention"] == layers * n,
+                f"phase21 (a): flash {rec['launch'][f'(a) {D}x{M}']} for {n} prefills")
+        require(index > max_len // 2, f"phase21 (a): the decodes stop at {index}, before the "
+                                      f"block boundary at {max_len // 2}")
+        del params
+        torch.cuda.empty_cache()
+        _smesh_compare(f"(a) {D}x{M}", rec, cfg,
+                       lambda: TM.init_params(cfg, seed=SMESH_SEED, device=dev), prompts, new,
+                       max_len, log, done, LM_TOL, True)
+    rec["f32"] = out
+
+
+def smesh_launcher(rec, dev, K):
+    """(b) ``launch/serve.py --mesh host:2x2`` inside this group: qwen2-1.5b
+    whole, bfloat16, SMESH_SLOTS slots, SMESH_BF16's requests, prompt
+    lengths and new tokens (the launcher checks that every rank's tokens
+    agree); its engine is wrapped to time each call and keep the logits
+    (``_logged``), and rank 0 holds every prefill's logits and every
+    tick's on the slots whose tokens so far agree to the one-device
+    engine's on the same weights and prompts (seed 0, the launcher's
+    draw) within SMESH_BF16_TOL of max |logit|. Host seconds
+    inside ``torch.distributed`` on each rank (``_CollectiveClock``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import transformer as TM
+
+    max_len, n, lo, new = SMESH_BF16
+    held = []
+    base = serve_mod.Engine
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.times, self.log, self.finished = {"prefill": [], "decode": []}, [], {}
+            _logged(self, self.log, self.times)
+            held.append(self)
+
+        def run_until_drained(self, max_ticks=10_000):
+            done = super().run_until_drained(max_ticks)
+            self.finished = {r.rid: r for r in done}
+            return done
+
+    argv = ["--arch", LM_ARCH, "--preset", "full", "--slots", str(SMESH_SLOTS), "--max-len",
+            str(max_len), "--requests", str(n), "--min-prompt", str(lo), "--max-new", str(new),
+            "--mesh", "host:2x2", "--device", str(dev)]
+    serve_mod.Engine = Recorded
+    clock = _CollectiveClock()
+    try:
+        torch.distributed.barrier()
+        K.reset_launch_counts()  # the launcher's serving path starts here
+        clock.on = True
+        t = time.perf_counter()
+        count = serve_mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        clock.on = False
+        rec["launch"]["(b)"] = K.launch_counts()  # and ends here
+    finally:
+        clock.close()
+        serve_mod.Engine = base
+    eng = held[0]
+    require(count == n and all(len(r.out) == new for r in eng.finished.values()),
+            f"phase21 (b): {count} of {n} requests")
+    r = _smesh_record(eng.state.index, eng.finished, eng.times, secs)
+    r.update(collective_seconds=clock.seconds, collective_calls=clock.calls,
+             prompt_lens=[len(x.prompt) for x in eng.finished.values()])
+    layers = get_config(LM_ARCH).num_layers
+    require(rec["launch"]["(b)"]["flash_attention"] == layers * n,
+            f"phase21 (b): flash {rec['launch']['(b)']}, expected {layers} x {n} prefills")
+    rec["bf16"] = r
+    cfg = get_config(LM_ARCH)
+    rng = np.random.default_rng(0)  # the launcher's draw
+    prompts = []
+    for _ in range(n):
+        plen = int(rng.integers(lo, max_len // 4))
+        prompts.append(rng.integers(0, cfg.vocab_size, size=plen).astype(np.int32))
+    require([len(p) for p in prompts] == [len(eng.finished[i].prompt) for i in range(n)],
+            "phase21 (b): the launcher's prompts")
+    log, done = eng.log, eng.finished
+    del held, eng
+    torch.cuda.empty_cache()
+    _smesh_compare("(b)", rec, cfg, lambda: TM.init_params(cfg, seed=0, device=dev), prompts,
+                   new, max_len, log, done, SMESH_BF16_TOL, False)
+
+
+def smesh_moe(rec, dev, K):
+    """(c) qwen3-moe at full width with SMESH_MOE's layers (counting
+    dispatch), float32 (a bfloat16 near tie in the router would send a
+    token to other experts), served on 1x4 (the expert-sharded layer, the
+    experts over ``model``) against the one-device engine as (a), with
+    exact launches; then on 2x2, where the engine's one-row prefill must
+    raise the reference's batch-split error."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as TM
+
+    layers, n, new, max_len, lo, hi = SMESH_MOE
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=layers, param_dtype="float32",
+                              compute_dtype="float32", moe_dispatch_method="counting")
+    prompts = lm_prompts(cfg, n, lo, hi, SMESH_SEED + 1)
+    mesh = shd.make_rank_mesh(1, 4, device=dev)
+    params = _smesh_init(cfg, SMESH_SEED + 1, dev, mesh)
+    torch.distributed.barrier()
+    K.reset_launch_counts()  # the moe serving path starts here
+    t = time.perf_counter()
+    log, done, times, index = _smesh_engine(cfg, params, prompts, new, max_len, mesh)
+    secs = time.perf_counter() - t
+    rec["launch"]["(c)"] = K.launch_counts()  # and ends here
+    r = _smesh_record(index, done, times, secs)
+    calls = len(times["prefill"]) + len(times["decode"])
+    want = {"flash_attention": layers * n, "scatter_rows": layers * calls,
+            "cobra_bin_accumulate_rows": layers * calls, "histogram": layers * calls,
+            "counting_positions": layers * calls}
+    got = {k: rec["launch"]["(c)"][k] for k in want}
+    require(got == want, f"phase21 (c): launches {got}, expected {want}")
+    rec["moe"] = r
+    del params
+    torch.cuda.empty_cache()
+    _smesh_compare("(c) 1x4", rec, cfg,
+                   lambda: TM.init_params(cfg, seed=SMESH_SEED + 1, device=dev), prompts, new,
+                   max_len, log, done, LM_TOL, True)
+    one = dataclasses.replace(cfg, num_layers=1)
+    mesh = shd.make_rank_mesh(2, 2, device=dev)
+    params = _smesh_init(one, SMESH_SEED + 1, dev, mesh)
+    try:
+        _smesh_engine(one, params, prompts[:1], new, max_len, mesh)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    r["2x2_raises"] = raised
+    require(raised is not None and "does not evenly divide 1" in raised,
+            f"phase21 (c): the 2x2 engine did not raise the batch-split error ({raised})")
+    del params
+    torch.cuda.empty_cache()
+
+
+def smesh_family(rec, dev, K, arch):
+    """(d) ``arch`` at full width with SMESH_FAM_LAYERS's depth:
+    SMESH_FAM_STEPS steps of ``launch/train.py --mesh host:2x2`` inside the
+    group at SMESH_FAM_TRAIN's shape (bf16, remat; the launcher checks that
+    every rank's losses agree; its batches carry no image or frames, so the
+    cross layers and Whisper's encoder are skipped, as in the reference),
+    with exact launches: flash twice a self-attention layer a step, the
+    rows kernel once a step (the embedding backward); then
+    SMESH_FAM_SERVE's requests served over 2x2, in float32, against the
+    one-device engine as (a), the decodes crossing the cache's block
+    boundary as (a)'s."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as TM
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=SMESH_FAM_LAYERS.get(arch, full.num_layers))
+    B, S = SMESH_FAM_TRAIN[arch]
+    saved = train_mod.get_config
+    train_mod.get_config = lambda name: cfg
+    argv = ["--arch", arch, "--preset", "full", "--seq-len", str(S), "--batch", str(B),
+            "--steps", str(SMESH_FAM_STEPS), "--log-every", "1", "--mesh", "host:2x2",
+            "--device", str(dev), "--no-ckpt-final"]
+    clock = _CollectiveClock()
+    try:
+        torch.distributed.barrier()
+        K.reset_launch_counts()  # this family's mesh training path starts here
+        clock.on = True
+        run = train_mod.train(train_mod.parse_args(argv))
+        torch.cuda.synchronize()
+        clock.on = False
+        counts = K.launch_counts()  # and ends here
+    finally:
+        clock.close()
+        train_mod.get_config = saved
+    require(len(run.losses) == SMESH_FAM_STEPS
+            and all(math.isfinite(x) for x in run.losses + run.grad_norms),
+            f"phase21 (d) {arch}: training diverged: {run.losses} {run.grad_norms}")
+    nc = TM._num_cycles(cfg)
+    self_attn = {"vlm": nc * (cfg.cross_attn_every - 1), "hybrid": nc, "ssm": 0,
+                 "encdec": cfg.num_layers}[cfg.family]
+    want = {"flash_attention": 2 * self_attn * SMESH_FAM_STEPS,
+            "cobra_bin_accumulate_rows": SMESH_FAM_STEPS}
+    got = {k: counts[k] for k in want}
+    require(got == want, f"phase21 (d) {arch}: launches {got}, expected {want}")
+    rec["launch"][f"(d) train {arch}"] = counts
+    r = {"layers": cfg.num_layers, "of_layers": full.num_layers, "batch": B, "seq_len": S,
+         "losses": run.losses, "grad_norms": run.grad_norms,
+         "step_ms": [1e3 * x for x in run.step_seconds],
+         "tokens_per_s": B * S / min(run.step_seconds[1:] or run.step_seconds),
+         "collective_seconds": clock.seconds, "collective_calls": clock.calls}
+    rec["families"][arch] = r
+    del run
+    torch.cuda.empty_cache()
+    n, new, max_len, lo = SMESH_FAM_SERVE
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    prompts = _crossing_prompts(cfg32, n, lo, max_len, SMESH_SEED + 2)
+    mesh = shd.make_rank_mesh(2, 2, device=dev)
+    params = _smesh_init(cfg32, SMESH_SEED + 2, dev, mesh)
+    torch.distributed.barrier()
+    K.reset_launch_counts()  # this family's mesh serving path starts here
+    t = time.perf_counter()
+    log, done, times, index = _smesh_engine(cfg32, params, prompts, new, max_len, mesh)
+    secs = time.perf_counter() - t
+    counts = K.launch_counts()  # and ends here
+    rec["launch"][f"(d) serve {arch}"] = counts
+    attn = TM.attention_layers(cfg32)
+    require(counts["flash_attention"] == attn * n,
+            f"phase21 (d) {arch}: serving flash {counts['flash_attention']}, expected {attn * n}")
+    r["serve"] = _smesh_record(index, done, times, secs)
+    require(index > max_len // 2, f"phase21 (d) {arch}: the decodes stop at {index}, before "
+                                  f"the block boundary at {max_len // 2}")
+    del params
+    torch.cuda.empty_cache()
+    _smesh_compare(f"(d) {arch}", rec, cfg32,
+                   lambda: TM.init_params(cfg32, seed=SMESH_SEED + 2, device=dev), prompts, new,
+                   max_len, log, done, LM_TOL, True)
+
+
+def serve_mesh_rank(rank, world, outdir, device="cuda:0"):
+    """One of phase 21's ranks (``repro_torch.launch.ranks.spawn_ranks``):
+    (a)-(d) of ``serve_mesh_phase`` in order, every rank on ``cuda:0``;
+    writes what it measured to ``outdir/smesh<rank>.json``."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import repro_torch.kernels as K
+    from repro_torch.kernels import _lib
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _lib.load()  # built by the parent: this finds the library
+        torch.cuda.set_device(dev)
+    t_rank = time.perf_counter()
+    rec = {"rank": rank, "seconds": {}, "launch": {}, "families": {}, "peak_bytes": {}}
+
+    def part(name, fn, *a):
+        torch.cuda.empty_cache()  # the ranks share the card: free what the last part cached
+        torch.distributed.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        fn(*a)
+        torch.cuda.synchronize()
+        rec["seconds"][name] = time.perf_counter() - t
+        rec["peak_bytes"][name] = torch.cuda.max_memory_allocated(dev)
+        with open(os.path.join(outdir, f"smesh{rank}.json"), "w") as f:
+            json.dump(rec, f)  # what the parts so far measured, should a later one fail
+
+    part("(a)", smesh_f32_parity, rec, dev, K)
+    part("(b)", smesh_launcher, rec, dev, K)
+    part("(c)", smesh_moe, rec, dev, K)
+    for arch in SMESH_FAMILIES:
+        part(f"(d) {arch}", smesh_family, rec, dev, K, arch)
+    rec["rank_seconds"] = time.perf_counter() - t_rank
+    with open(os.path.join(outdir, f"smesh{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def serve_mesh_phase(dev, K, smi):
+    """Phase 21: serving over a (data, model) mesh of SMESH_RANKS gloo
+    ranks on ``cuda:0`` (``serve_mesh_rank``), and the ssm, hybrid, vlm and
+    encdec families trained and served there: an emulation with no
+    interconnect, whose times say nothing about scaling. Prints each
+    part's records and checks, rank 0's serving metrics, each rank's peaks
+    and seconds, and returns the launches of the serving and training
+    paths summed over the ranks and the kernels line's row 8g (flash at
+    (b)'s longest prefill on a 2x2 rank's heads)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import spawn_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as td:
+        t = time.perf_counter()
+        try:
+            spawn_ranks(serve_mesh_rank, SMESH_RANKS, store_dir=td, timeout=SMESH_TIMEOUT,
+                        args=(td, "cuda:0"))
+        except Exception as e:  # a rank failed or hung: the run fails, after what it measured
+            if os.path.exists(os.path.join(td, "smesh0.json")):
+                with open(os.path.join(td, "smesh0.json")) as f:
+                    say("phase21 rank 0 before the failure", f.read())
+            fail(f"phase21: {type(e).__name__}: {e}")
+        wall = time.perf_counter() - t
+        recs = []
+        for r in range(SMESH_RANKS):
+            with open(os.path.join(td, f"smesh{r}.json")) as f:
+                recs.append(json.load(f))
+    r0 = recs[0]
+    label = (f"{SMESH_RANKS} ranks on one card, gloo through host memory: an emulation, "
+             "no interconnect's time and nothing about scaling")
+    say("phase21 (a) float32 serving, mesh vs one device",
+        json.dumps(dict(r0["f32"], compare={k: v for k, v in r0["compare"].items()
+                                            if k.startswith("(a)")}, card=smi)))
+    say(f"phase21 (b) launch/serve.py --mesh host:2x2, qwen2-1.5b bf16 ({label})",
+        json.dumps(dict(r0["bf16"], compare=r0["compare"]["(b)"],
+                        collective_seconds_by_rank=[r["bf16"]["collective_seconds"]
+                                                    for r in recs],
+                        peak_bytes_by_rank=[r["peak_bytes"]["(b)"] for r in recs], card=smi)))
+    say("phase21 (c) qwen3-moe float32 on 1x4, the 2x2 raise",
+        json.dumps(dict(r0["moe"], compare=r0["compare"]["(c) 1x4"], card=smi)))
+    for arch, fr in r0["families"].items():
+        losses = [r["families"][arch]["losses"] for r in recs]
+        require(all(x == losses[0] for x in losses), f"phase21 {arch}: ranks' losses differ")
+        say(f"phase21 (d) {arch} ({label})",
+            json.dumps(dict(fr, compare=r0["compare"][f"(d) {arch}"], card=smi)))
+    say("phase21 ranks", json.dumps({
+        "ranks": SMESH_RANKS, "spawn_to_join_s": wall, "parent_bytes_held": held,
+        "seconds": r0["seconds"], "rank_seconds": [r["rank_seconds"] for r in recs],
+        "peak_bytes": [r["peak_bytes"] for r in recs], "card": smi}))
+    counts = {}
+    for r in recs:
+        for part in r["launch"].values():
+            for k, v in part.items():
+                counts[k] = counts.get(k, 0) + v
+    say("phase21 launches of (a)-(d) (summed over the ranks):", json.dumps(counts))
+    # row 8g: flash at (b)'s longest prefill on a 2x2 rank's heads
+    cfg = get_config(LM_ARCH)
+    S = max(r0["bf16"]["prompt_lens"])
+    tp_cfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // 2,
+                                 num_kv_heads=cfg.num_kv_heads // 2)
+    gen = torch.Generator(device=dev).manual_seed(SMESH_SEED + 3)
+    with torch.inference_mode():
+        r8 = flash_row("flash_attention:serve_mesh_local_heads", tp_cfg, dev, gen, S,
+                       counts["flash_attention"], 0.0)
+    rows = [dict(r8, launches_21=counts["flash_attention"])]
+    say("phase21 row 8g", json.dumps(rows))
+    torch.cuda.empty_cache()
+    return counts, rows
 
 
 def main() -> None:
@@ -5207,6 +5809,11 @@ def main() -> None:
     mesh_counts, mesh_shapes, mesh_rows = mesh_phase(dev, K, smi)
     say(f"phase20 seconds: {time.perf_counter() - t20:.1f}")
 
+    # -- phase 21: serving over a mesh, the other families on a mesh (before phase 11) --
+    t21 = time.perf_counter()
+    smesh_counts, smesh_rows = serve_mesh_phase(dev, K, smi)
+    say(f"phase21 seconds: {time.perf_counter() - t21:.1f}")
+
     # -- phase 11: the kernels line at the paths' shapes -------------------------
     t11 = time.perf_counter()
     n2, br2 = s2.num_nodes, min(max(64, T.compromise_bin_range(s2.num_nodes, hw)), s2.num_nodes)
@@ -5314,7 +5921,7 @@ def main() -> None:
     path = {k: after[k] + fig9_counts[k] + gnn_counts[k] + ops_counts[k] + serve_counts[k]
             + trav_counts[k] + serving_counts[k] + train_counts[k] + moe_counts[k]
             + shard_counts[k] + rec_counts[k] + fam_counts[k] + x_counts[k]
-            + mesh_counts.get(k, 0) for k in after}
+            + mesh_counts.get(k, 0) + smesh_counts.get(k, 0) for k in after}
     path_shapes = {}
     for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes,
                  serving_shapes, train_shapes, moe_shapes, shard_shapes, rec_shapes, fam_shapes,
@@ -5362,7 +5969,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path[name], "launches_16": shard_counts[name],
             "launches_18": fam_counts[name], "launches_19": x_counts[name],
-            "launches_20": mesh_counts.get(name, 0),
+            "launches_20": mesh_counts.get(name, 0), "launches_21": smesh_counts.get(name, 0),
             "checked_against_plain": True, "max_abs_err": err,
             "ms": cuda_ms(kfn, reps=reps), "plain_ms": cuda_ms(pfn, reps=reps),
             "bound_ms": bound_ms(nbytes), "bound_bytes": nbytes, "bound_by": "bytes",
@@ -5385,6 +5992,7 @@ def main() -> None:
                   worst["flash_attention"]),
         launches_16=shard_counts["flash_attention"], launches_18=fam_counts["flash_attention"],
         launches_19=x_counts["flash_attention"], launches_20=mesh_counts["flash_attention"],
+        launches_21=smesh_counts["flash_attention"],
         flash_hbm_bytes=flash_hbm_bytes(fB, fH, fKH, fS, fS, fhd)))
     kernels += moe_rows  # rows 2b, 5c, 7b and 8b: phase 15's shapes and launches
     kernels += shard_rows  # rows 4c and 5d: a rank's local reduce in phase 16, its launches
@@ -5392,6 +6000,7 @@ def main() -> None:
     kernels += fam_rows  # rows 5e and 7c: the MoE backward at phase 15's shape, phase 18's launches
     kernels += x_rows  # rows 8d, 8e and 5f: the vlm's and Whisper's shapes, phase 19's launches
     kernels += mesh_rows  # rows 8f and 5g: a rank's shapes in phase 20, its launches
+    kernels += smesh_rows  # row 8g: flash at a 2x2 rank's heads in phase 21, its launches
     require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on a path: {path}")
     say(f"phase11 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}; rows F={GNN_D}; "
         f"COBRA pass S3 m={m3} bins={nb3}; embedding T={T_} d={d_} B={B_} L={L}; "

@@ -208,7 +208,7 @@ def lm_params_from_numpy(params, cfg, device=None, mesh=None):
     ``dec_blocks`` leaf with a leading layer axis, ``shared_attn``,
     ``img_proj``, ``enc_ln`` and ``enc_pos`` with none (``load_from_numpy``; in the
     moe family ``blocks.i.moe.w1`` is ``params["blocks"]["moe"]["w1"][i]``,
-    (E, d, f)). On a ``mesh`` (the rank's; dense and moe families) each
+    (E, d, f)). On a ``mesh`` (the rank's) each
     parameter is the rank's block by ``param_specs`` under the config's
     profile, and its local shape is the reference's
     ``NamedSharding(mesh, spec).shard_shape``."""

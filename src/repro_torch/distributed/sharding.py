@@ -23,8 +23,14 @@ the identity. Under autograd each collective has its adjoint:
   that share the input each computed part of its gradient;
 - ``weight``'s all-gather of a dim sums the gathered gradient over the
   axes the batch is split on (the ranks saw different rows: a
-  reduce-scatter) and takes this rank's block along the others (the ranks
-  computed the same thing).
+  reduce-scatter) and over its ``partial`` axes (the ranks used
+  different columns of it), and takes this rank's block along the others
+  (the ranks computed the same thing).
+
+Serving adds two collectives GSPMD generates for the reference, without
+autograd: ``seq_softmax_attend``, a softmax over keys split on an axis
+(max, sum of exponentials, weighted values), and ``vocab_argmax``, the
+greedy token of vocab-parallel logits with ``torch.argmax``'s tie rule.
 
 **The mesh.** ``Mesh`` names the axes of a process group (ranks laid out
 row-major over the axes in order, as ``jax.make_mesh`` lays out devices)
@@ -214,7 +220,7 @@ _CTX = _Ctx()
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Mesh, rules: Optional[Dict[str, Tuple[str, ...]]] = None):
+def use_mesh(mesh: Optional[Mesh], rules: Optional[Dict[str, Tuple[str, ...]]] = None):
     prev = _CTX.mesh, _CTX.rules, _CTX.split
     _CTX.mesh = mesh
     _CTX.rules = {**DEFAULT_RULES, **(rules or {})}
@@ -336,8 +342,10 @@ def model_axis(mesh: Optional[Mesh] = None) -> Optional[str]:
 
 
 def shard_of(full: torch.Tensor, spec: Spec, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """This rank's block of ``full`` (a view)."""
+    """This rank's block of ``full`` (a view; ``full`` without a mesh)."""
     mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return full
     out = full
     for dim, e in enumerate(spec):
         axes = entry_axes(e)
@@ -464,14 +472,17 @@ def copy_to(x: torch.Tensor, axes, mesh: Optional[Mesh] = None) -> torch.Tensor:
     return _CopyTo.apply(x, mesh.axes(axes), mesh)
 
 
-def gather_dim(x: torch.Tensor, dim: int, axes, mesh: Optional[Mesh] = None) -> torch.Tensor:
+def gather_dim(x: torch.Tensor, dim: int, axes, mesh: Optional[Mesh] = None,
+               partial: Sequence[str] = ()) -> torch.Tensor:
     """All-gather ``x`` along ``dim`` over ``axes``. Backward: the cotangent
-    summed over the batch-split axes among them, then this rank's block."""
+    summed over the batch-split axes among them and the ``partial`` ones
+    (whose ranks each use a different part of the gathered tensor), then
+    this rank's block."""
     mesh = mesh or _CTX.mesh
     axes = () if mesh is None else mesh.axes(axes)
     if not axes or mesh.axis_size(axes) == 1:
         return x
-    split = split_axes()
+    split = tuple(split_axes()) + tuple(partial)
     summed = any(a in split for a in axes)
     if summed and not all(a in split for a in axes):
         raise ValueError(f"a gather over {axes} mixes batch-split axes {split} with others")
@@ -479,10 +490,12 @@ def gather_dim(x: torch.Tensor, dim: int, axes, mesh: Optional[Mesh] = None) -> 
 
 
 def weight(local: torch.Tensor, full_shape: Sequence[int], names: Sequence[Optional[str]],
-           keep: Sequence[str] = ()) -> torch.Tensor:
+           keep: Sequence[str] = (), partial: Sequence[str] = ()) -> torch.Tensor:
     """A weight as its use needs it: every dim of its spec sharded on axes
     outside ``keep`` all-gathered (FSDP's gather; a fallback's replication),
-    the dims on ``keep`` left as this rank's block."""
+    the dims on ``keep`` left as this rank's block. ``partial``: axes whose
+    ranks each compute with a different part of the gathered weight (a
+    fused projection's columns), so its gradient is summed over them."""
     mesh = _CTX.mesh
     if mesh is None:
         return local
@@ -490,8 +503,52 @@ def weight(local: torch.Tensor, full_shape: Sequence[int], names: Sequence[Optio
     for dim, e in enumerate(spec_for(mesh, full_shape, names)):
         axes = entry_axes(e)
         if axes and not set(axes) <= set(keep):
-            out = gather_dim(out, dim, axes, mesh)
+            out = gather_dim(out, dim, axes, mesh, partial)
     return out
+
+
+def block_range(n: int, axes, mesh: Optional[Mesh] = None) -> Tuple[int, int]:
+    """[start, stop) of this rank's block of a dim of ``n`` split on
+    ``axes`` (the whole dim without a mesh or axes)."""
+    mesh = mesh or _CTX.mesh
+    k = 1 if mesh is None else mesh.axis_size(axes)
+    if k == 1:
+        return 0, n
+    b = n // k
+    i = mesh.axis_index(axes)
+    return i * b, (i + 1) * b
+
+
+def vocab_argmax(logits: torch.Tensor, start: int, axes, mesh: Optional[Mesh] = None
+                 ) -> torch.Tensor:
+    """``torch.argmax`` over the last dim of logits whose columns are split
+    on ``axes`` (this rank's block starts at column ``start``), as int64 on
+    every rank: the max all-reduced, then the least index among the ranks
+    that hold it, so a tie keeps the first index, as ``torch.argmax`` does
+    on the whole row."""
+    mesh = mesh or _CTX.mesh
+    mx, idx = logits.max(-1)  # the first index of the local max
+    idx = idx + start
+    if mesh is None or mesh.axis_size(axes) == 1:
+        return idx
+    top = all_reduce(mx, axes, mesh, op="max")
+    big = torch.iinfo(torch.int64).max
+    cand = torch.where(mx == top, idx, torch.full_like(idx, big))
+    return -all_reduce(-cand, axes, mesh, op="max")
+
+
+def seq_softmax_attend(scores: torch.Tensor, v: torch.Tensor, axes,
+                       mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """softmax(scores) @ v over a key axis split on ``axes``: ``scores``
+    (..., Skv_local) float32 and ``v`` (..., Skv_local, hd) this rank's
+    keys. The row max is all-reduced with max, the sum of exponentials
+    with sum, and the weights (cast to v's dtype, as the one-device
+    softmax's are) times the values with sum, in float32; no autograd."""
+    mesh = mesh or _CTX.mesh
+    m = all_reduce(scores.amax(-1, keepdim=True), axes, mesh, op="max")
+    p = torch.exp(scores - m)
+    w = (p / all_reduce(p.sum(-1, keepdim=True), axes, mesh)).to(v.dtype)
+    return all_reduce((w @ v).float(), axes, mesh).to(v.dtype)
 
 
 def tp_axes(full_shape: Sequence[int], names: Sequence[Optional[str]], dim: int

@@ -21,7 +21,7 @@ in the reference: the deterministic restartable data pipeline
 watchdog (``ft/resilience.py``). The weights start from ``init_params``
 with seed 0.
 
-``--mesh host:DxM`` trains the dense and moe families over a D x M mesh
+``--mesh host:DxM`` trains every family over a D x M mesh
 of ranks (``distributed/sharding.py``: tensor-parallel over ``model``,
 FSDP over ``data``, each data rank on its block of the global batch's
 rows). Without a process group it spawns D*M gloo ranks
@@ -148,7 +148,6 @@ def train(args: argparse.Namespace) -> TrainRun:
     shape_of_mesh = mesh_shape(args.mesh)
     mesh = None
     if shape_of_mesh is not None:
-        T.check_mesh_family(cfg)
         world = math.prod(shape_of_mesh.values())
         grouped = dist.is_available() and dist.is_initialized()
         if not grouped and args.mesh.startswith("host:") and world > 1:

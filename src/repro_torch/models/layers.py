@@ -16,8 +16,11 @@ embedding and logits with the cross entropy's max and sum-exp reduced
 over ``model`` (``vocab_parallel_nll_sum``); the MoE's three branches of
 the reference (the expert-sharded layer, the weight-stationary decode,
 one device's), and ``moe_combine_sharded`` on ``shard_reduce_stream``.
-Caches and cross-attention over a mesh are not ported (ROADMAP Queue 1
-item 3).
+Attention over a cache split by ``spec_for`` (its positions on the axes
+the batch leaves, or its KV heads) writes each new key on the rank that
+holds its position and combines the ranks' blocks by a distributed
+softmax (``_cache_attention``); cross-attention projects its source
+as self-attention projects its input.
 
 Parameters live in small ``nn.Module``s whose attribute names are the
 reference's keys (``w``/``b`` of a norm; ``wq``, ``wk``, ``wv``, ``wo`` and
@@ -163,7 +166,7 @@ def _qkv(p: Attention, x, cfg: ModelConfig, positions, kv_x=None, keep=(), heads
         return shd.weight(t, shape, names, keep).to(dt)
 
     xx = shd.copy_to(x.to(dt), keep)
-    kx = xx if kv_x is None else kv_x.to(dt)
+    kx = xx if kv_x is None else shd.copy_to(kv_x.to(dt), keep)
     q = xx @ w(p.wq, (d, H * hd), ("embed", "qkv"))
     k = kx @ w(p.wk, (d, KH * hd), ("embed", "qkv"))
     v = kx @ w(p.wv, (d, KH * hd), ("embed", "qkv"))
@@ -218,6 +221,102 @@ def blockwise_attention(q, k, v, *, causal, q_block: int = 512):
     return out.transpose(1, 2).reshape(B, S, H * hd)
 
 
+def _seq_split_attention(q, kc, vc, causal, q_offset, s0, axes, tile_f32):
+    """``_direct_attention`` of q (B, Sq, H, hd) over a cache whose key
+    axis is split on ``axes``: this rank holds keys ``[s0, s0 + S_l)`` of
+    every KV head, masked on those absolute positions, combined over the
+    ranks by ``sharding.seq_softmax_attend``; (B, Sq, H * hd) on every
+    rank along ``axes``."""
+    B, Sq, H, hd = q.shape
+    KH = kc.shape[2]
+    qg = q.reshape(B, Sq, KH, H // KH, hd)
+    sdt = torch.float32 if tile_f32 else q.dtype
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.to(sdt), kc.to(sdt)) * hd**-0.5
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        kpos = s0 + torch.arange(kc.shape[1], device=q.device)
+        scores = torch.where(qpos[:, None] >= kpos[None, :], scores,
+                             torch.full((), MASKED, dtype=sdt, device=q.device))
+    out = shd.seq_softmax_attend(scores.float(), vc.permute(0, 2, 1, 3)[:, :, None], axes)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H * hd)  # from (B, KH, G, Sq, hd)
+
+
+def _cache_attention(q, k, v, cache, cache_index, causal, cfg: ModelConfig, spec, keep):
+    """``attention_apply``'s cache branches on this rank's block of the
+    cache, whose ``spec`` is (batch, seq_kv, kv_heads, None) (None: the
+    whole cache, without a mesh): q, k, v are the rank's rows and its heads
+    (``_head_split``'s ``keep``). With a ``cache_index`` the new keys and
+    values are written there, several at 0 (prefill), one anywhere
+    (decode; a write at or past ``S_max`` is dropped, as the reference's
+    one-hot write drops it, so that the tokens stay the reference's);
+    without one the cache is read as it stands. Over a mesh, the
+    collectives GSPMD generates for the reference, written out:
+
+    - a cache split on its key axis (``seq_kv``; it holds every KV head):
+      the new keys and values are gathered over ``keep`` to every head and
+      land on the rank whose block holds their positions; the queries are
+      gathered to every head and attend over every rank's block on
+      absolute positions (``_seq_split_attention``), and the rank keeps
+      its heads of the result for ``wo``;
+    - a cache split on its KV heads (the axes ``keep`` splits them on) or
+      not split: the rank's heads attend over its block as on one device.
+
+    A causal prefill runs the flash kernel over the prompt's own keys and
+    values: the reference attends over the whole S_max cache under the
+    causal mask, and every cache row at or past the prompt is masked for
+    every query (its score is -1e30 and exp(-1e30 - m) is exactly 0 in
+    float32), so the result is the same. A non-causal prefill attends over
+    the whole cache as it stands after the write, unmasked, the zero rows
+    past the new keys included (the reference's cross-attention prefill;
+    its key axis gathered). Returns the rank's heads (B, Sq, Hl * hd)."""
+    mesh = shd.active_mesh()
+    kc, vc = cache
+    s_axes, h_axes = ((), ()) if spec is None else (shd.entry_axes(spec[1]),
+                                                     shd.entry_axes(spec[2]))
+    if h_axes and (s_axes or mesh.axes(h_axes) != mesh.axes(keep)):
+        raise ValueError(f"a cache split as {spec} does not follow the heads' split {keep}")
+    S_l = kc.shape[1]
+    S_max = S_l * (mesh.axis_size(s_axes) if s_axes else 1)
+    s0 = shd.block_range(S_max, s_axes)[0]
+    B, Sq, Hl, hd = q.shape
+    Skv = k.shape[1]
+    # the query heads' KV heads in the cache block: all of them, or this rank's
+    kh = (0, kc.shape[2]) if h_axes or not keep else shd.block_range(kc.shape[2], keep)
+    out = None
+    if cache_index is not None and Skv > 1:
+        if cache_index != 0 or Skv > S_max:
+            raise ValueError(
+                f"a multi-token step is a prefill: it starts at index 0 and fits the "
+                f"cache; got index {cache_index}, {Skv} tokens, S_max {S_max}")
+        if causal:
+            out = blockwise_attention(q, k, v, causal=True, q_block=cfg.attn_q_block)
+    if not h_axes:  # the cache holds every KV head: gather the rank's new ones
+        k, v = shd.all_gather(k, 2, keep), shd.all_gather(v, 2, keep)
+    if cache_index is not None:
+        lo, hi = max(s0, cache_index), min(s0 + S_l, cache_index + Skv)
+        if lo < hi:
+            kc[:, lo - s0:hi - s0] = k[:, lo - cache_index:hi - cache_index]
+            vc[:, lo - s0:hi - s0] = v[:, lo - cache_index:hi - cache_index]
+    if out is not None:
+        return out
+    if cache_index is not None and Skv > 1:  # unmasked: every row of the cache counts
+        kf = shd.all_gather(kc, 1, s_axes)[:, :, kh[0]:kh[1]]
+        vf = shd.all_gather(vc, 1, s_axes)[:, :, kh[0]:kh[1]]
+        return blockwise_attention(q, kf.to(q.dtype), vf.to(q.dtype), causal=False,
+                                   q_block=cfg.attn_q_block)
+    # the reference projects k and v at a read-only step too, and drops them
+    q_offset = 0 if cache_index is None else cache_index
+    if not s_axes:
+        return _direct_attention(q, kc[:, :, kh[0]:kh[1]].to(q.dtype),
+                                 vc[:, :, kh[0]:kh[1]].to(q.dtype), causal=causal,
+                                 q_offset=q_offset, tile_f32=cfg.attn_tile_f32)
+    qa = shd.all_gather(q, 2, keep)  # every head attends over every block
+    out = _seq_split_attention(qa, kc.to(q.dtype), vc.to(q.dtype), causal, q_offset, s0,
+                               s_axes, cfg.attn_tile_f32)
+    h0 = shd.block_range(cfg.num_heads, keep)[0] if keep else 0
+    return out[..., h0 * hd:(h0 + Hl) * hd]
+
+
 def attention_apply(
     p: Attention,
     x: torch.Tensor,
@@ -228,6 +327,7 @@ def attention_apply(
     cache: Optional[Cache] = None,
     cache_index: Optional[int] = None,
     causal: bool = True,
+    cache_spec=None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Self-attention, or cross-attention over ``kv_src`` (B, Skv, d),
     whose keys and values are projected from it. ``cache``: (k_cache,
@@ -241,51 +341,16 @@ def attention_apply(
     ``cache_index`` the cache is read as it stands and nothing is written
     (cross-attention's decode). RoPE turns the queries by ``positions``
     and leaves the keys as they are, which is the reference's function
-    (ROADMAP Queue 3)."""
+    (ROADMAP Queue 3). Under a mesh the cache is this rank's block by
+    ``cache_spec``, its (batch, seq_kv, kv_heads, None) entries
+    (``_cache_attention``)."""
     B, S, d = x.shape
-    if shd.active_mesh() is not None and (cache is not None or kv_src is not None):
-        raise ValueError("attention with a cache or a cross source over a mesh is not "
-                         "ported (ROADMAP Queue 1 item 3)")
     keep, Hl, KHl = _head_split(cfg)
     q, k, v = _qkv(p, x, cfg, positions, kv_src, keep, (Hl, KHl))
-    Skv = k.shape[1]
     new_cache = None
     if cache is not None:
-        kc, vc = cache
-        if cache_index is None:
-            # the reference projects k and v here too, and drops them
-            out = _direct_attention(
-                q, kc.to(q.dtype), vc.to(q.dtype), causal=causal, tile_f32=cfg.attn_tile_f32,
-            )
-        elif Skv == 1:
-            # decode. The reference's one-hot write drops a write at or past
-            # S_max; so does this one, so that the tokens stay the reference's.
-            if cache_index < kc.shape[1]:
-                kc[:, cache_index] = k[:, 0]
-                vc[:, cache_index] = v[:, 0]
-            out = _direct_attention(
-                q, kc.to(q.dtype), vc.to(q.dtype), causal=causal,
-                q_offset=cache_index, tile_f32=cfg.attn_tile_f32,
-            )
-        else:
-            if cache_index != 0 or Skv > kc.shape[1]:
-                raise ValueError(
-                    f"a multi-token step is a prefill: it starts at index 0 and fits the "
-                    f"cache; got index {cache_index}, {Skv} tokens, S_max {kc.shape[1]}"
-                )
-            kc[:, :Skv] = k
-            vc[:, :Skv] = v
-            if causal:
-                # The reference attends over the whole S_max cache here, under
-                # the causal mask. Every cache row at or past S is masked for
-                # every query (its score is -1e30 and exp(-1e30 - m) is exactly
-                # 0 in float32), so attending over the prompt's own k and v
-                # gives the same result: that is what the kernel computes.
-                out = blockwise_attention(q, k, v, causal=True, q_block=cfg.attn_q_block)
-            else:
-                # unmasked: every cache row counts, the zero rows past Skv too
-                out = blockwise_attention(q, kc, vc, causal=False, q_block=cfg.attn_q_block)
-        new_cache = (kc, vc)
+        out = _cache_attention(q, k, v, cache, cache_index, causal, cfg, cache_spec, keep)
+        new_cache = cache
     elif S > 1:
         out = blockwise_attention(q, k, v, causal=causal, q_block=cfg.attn_q_block)
     else:
@@ -644,6 +709,16 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if sharded and shd.tp_axes(shapes["w1"], MOE_NAMES["w1"], 0) != ("model",):
         raise ValueError("the expert-sharded MoE needs the experts on 'model' "
                          f"(rules {shd.active_rules()['experts']})")
+    if sharded and not shd.split_axes():
+        # the reference's shard_map takes the batch split over the batch axes
+        # (in_specs P(ba, None, None)): a batch the ranks hold whole, such as
+        # the engine's one-row prefill, fails there when it does not divide
+        ba = shd.batch_axes(mesh)
+        n = mesh.axis_size(ba)
+        if n > 1:
+            raise ValueError(f"the expert-sharded MoE splits the batch over {ba}: "
+                             f"{n} does not evenly divide {B}" if B % n else
+                             f"the expert-sharded MoE takes the batch split over {ba}")
     keep = ("model",) if sharded else ()
     w = {n: shd.weight(getattr(p, n), shapes[n], MOE_NAMES[n], keep) for n in MOE_NAMES}
     x2d = shd.copy_to(x.reshape(-1, d), keep)

@@ -31,6 +31,15 @@ reference's ``exp`` overflows there and ``where`` drops the inf, which
 leaves its forward right and its gradient NaN; the port's decays are 0
 there, its forward the same and its gradient finite.
 
+Over a mesh each block runs tensor-parallel over its heads on the axes
+the ``heads`` rule splits them on (``_heads_tp``): its input enters
+through ``copy_to``, the fused projections whose blocks do not fall on
+heads (Mamba2's and mLSTM's ``in_proj``) are gathered whole and the rank
+takes its heads' columns (their gradient summed over those axes), a norm
+over the split width sums its squares over them (``_rms_var``), and
+``out_proj`` is row-parallel with a ``psum``. The states hold the rank's
+heads.
+
 sLSTM is sequential: the reference scans every position, and so does the
 port, one Python step a position (the input projection of all positions
 is one product before the loop, so a step holds only the recurrent
@@ -45,10 +54,44 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _param
 
 State = Tuple[torch.Tensor, ...]
+
+
+def _heads_tp(H: int, *blocks) -> Tuple[str, ...]:
+    """The axes a block's heads run tensor-parallel on under the active
+    mesh: the ``heads`` rule's split of its ``H`` heads, when each
+    ``(size, names)`` of ``blocks`` (its head-major weight and state dims)
+    splits on the same axes; () without a mesh or when one does not (every
+    head on every rank, from the gathered weights)."""
+    tp = shd.tp_axes((H,), ("heads",), 0)
+    if tp and all(shd.tp_axes((n,), names, 0) == tp for n, names in blocks):
+        return tp
+    return ()
+
+
+def _rank_heads(H: int, tp) -> Tuple[int, int]:
+    """[h0, h1): the heads this rank runs (all of them without ``tp``)."""
+    return shd.block_range(H, tp) if tp else (0, H)
+
+
+def _columns(parts, device) -> torch.Tensor:
+    """The column indices of ``[start, stop)`` ranges, in order: a rank's
+    columns of a fused projection whose blocks do not fall on its heads."""
+    return torch.cat([torch.arange(a, b, device=device) for a, b in parts])
+
+
+def _rms_var(y: torch.Tensor, n: int, tp) -> torch.Tensor:
+    """mean(y^2) over the last dim of ``n`` values, this rank's block of
+    them under ``tp``: its sum of squares summed over the axes, where each
+    rank scales its own block by the result, so the cotangents are
+    partial and are summed too (``copy_to`` under the ``psum``)."""
+    if not tp:
+        return (y * y).mean(-1, keepdim=True)
+    return shd.psum(shd.copy_to((y * y).sum(-1, keepdim=True), tp), tp) / n
 
 
 def _causal_mask(c: int, device) -> torch.Tensor:
@@ -102,11 +145,32 @@ class Mamba2(nn.Module):
         self.out_proj = _param((d_inner, d), dt, device)
 
 
-def _split_inproj(p: Mamba2, x, cfg: ModelConfig):
-    """(z, xs, B, C, dt) in the compute dtype."""
+def _mamba_tp(cfg: ModelConfig):
+    """(tensor-parallel axes, this rank's heads [h0, h1)) of a Mamba2
+    block: its heads, ``d_inner``'s channels (``conv_w``, ``norm_w``,
+    ``out_proj``'s rows, the conv state) split on the same axes."""
+    d_inner, H, P, N = mamba2_dims(cfg)
+    tp = _heads_tp(H, (d_inner, ("mlp",)))
+    return tp, _rank_heads(H, tp)
+
+
+def _split_inproj(p: Mamba2, x, cfg: ModelConfig, tp=(), heads=None):
+    """(z, xs, B, C, dt) in the compute dtype, of heads ``[h0, h1)`` (all
+    by default). ``in_proj`` is gathered whole (its ``mlp`` blocks do not
+    fall on the five parts) and, under ``tp``, the rank takes its columns:
+    its channels of z and xs, B and C whole, its heads of dt."""
     d_inner, H, P, N = mamba2_dims(cfg)
     dt = cfg.cdtype
-    return torch.split(x.to(dt) @ p.in_proj.to(dt), [d_inner, d_inner, N, N, H], dim=-1)
+    h0, h1 = heads or (0, H)
+    w = shd.weight(p.in_proj, (cfg.d_model, 2 * d_inner + 2 * N + H), ("embed", "mlp"),
+                   partial=tp).to(dt)
+    c0, c1 = h0 * P, h1 * P
+    if tp:
+        w = w[:, _columns([(c0, c1), (d_inner + c0, d_inner + c1),
+                           (2 * d_inner, 2 * d_inner + 2 * N),
+                           (2 * d_inner + 2 * N + h0, 2 * d_inner + 2 * N + h1)], x.device)]
+    xx = shd.copy_to(x.to(dt), tp)
+    return torch.split(xx @ w, [c1 - c0, c1 - c0, N, N, h1 - h0], dim=-1)
 
 
 def _causal_conv(xs, w, conv_state=None):
@@ -166,35 +230,57 @@ def mamba2_apply(
 ):
     """x: (B, S, d). state = (ssm_state (B, H, N, P) float32, conv_state
     (B, K - 1, d_inner)). decode=True expects S == 1 and takes the
-    recurrent step."""
+    recurrent step. Under a mesh x is the rank's rows and the block runs
+    tensor-parallel over its heads (``_mamba_tp``): its channels of the
+    conv and the gated norm (whose sum of squares is summed over the
+    axes), ``out_proj`` row-parallel with a ``psum``; the state is the
+    rank's block of heads and channels. Where the heads do not split,
+    every rank runs them all from the gathered weights and keeps its
+    block of the conv state."""
     B, S, d = x.shape
     d_inner, H, P, N = mamba2_dims(cfg)
-    z, xs, Bm, Cm, dtr = _split_inproj(p, x, cfg)
+    tp, (h0, h1) = _mamba_tp(cfg)
+    Hl, C = h1 - h0, (h1 - h0) * P
+    z, xs, Bm, Cm, dtr = _split_inproj(p, x, cfg, tp, (h0, h1))
     conv_state = state[1] if state is not None else None
-    xs, new_conv = _causal_conv(xs, p.conv_w.to(xs.dtype), conv_state)
-    xh = xs.reshape(B, S, H, P).float()
-    dt_s = F.softplus(dtr.float() + p.dt_bias)  # (B, S, H)
-    a_log = -dt_s * torch.exp(p.A_log)  # (B, S, H), negative
+    conv_w = shd.weight(p.conv_w, (cfg.ssm_conv, d_inner), ("conv", "mlp"), tp)
+    norm_w = shd.weight(p.norm_w, (d_inner,), ("mlp",), tp)
+    out_w = shd.weight(p.out_proj, (d_inner, d), ("mlp", "embed"), tp)
+    # replicated, and each rank uses its heads: their gradients sum over tp
+    A_log, D, dt_bias = (shd.copy_to(t, tp)[h0:h1] for t in (p.A_log, p.D, p.dt_bias))
+    conv_axes = ()
+    if not tp:  # every channel here; the state holds the rank's block of them
+        conv_axes = shd.tp_axes((d_inner,), ("mlp",), 0)
+        if conv_state is not None:
+            conv_state = shd.all_gather(conv_state, 2, conv_axes)
+    xs, new_conv = _causal_conv(xs, conv_w.to(xs.dtype), conv_state)
+    if conv_axes:
+        new_conv = shd.shard_of(new_conv, (None, None, conv_axes))
+    xh = xs.reshape(B, S, Hl, P).float()
+    dt_s = F.softplus(dtr.float() + dt_bias)  # (B, S, H)
+    a_log = -dt_s * torch.exp(A_log)  # (B, S, H), negative
     Bm, Cm = Bm.float(), Cm.float()
     xdt = xh * dt_s[..., None]  # (B, S, H, P)
-    h0 = (state if state is not None else mamba2_init_state(cfg, B, device=x.device))[0].float()
+    if state is not None:
+        h0_state = state[0].float()
+    else:
+        h0_state = torch.zeros(B, Hl, N, P, dtype=torch.float32, device=x.device)
 
     if decode:
         a = torch.exp(a_log[:, 0])  # (B, H)
         upd = Bm[:, 0, None, :, None] * xdt[:, 0, :, None, :]  # (B, H, N, P)
-        h_last = h0 * a[..., None, None] + upd
+        h_last = h0_state * a[..., None, None] + upd
         y = (Cm[:, 0, None, None, :] @ h_last)[:, None, :, 0]  # (B, 1, H, P)
     else:
-        y, h_last = _ssd_chunked(xdt, a_log, Bm, Cm, h0, cfg.mlstm_chunk)
-    y = y + p.D[None, None, :, None] * xh
+        y, h_last = _ssd_chunked(xdt, a_log, Bm, Cm, h0_state, cfg.mlstm_chunk)
+    y = y + D[None, None, :, None] * xh
 
-    y = y.reshape(B, S, d_inner)
+    y = y.reshape(B, S, C)
     # gated RMSNorm (mamba2 style)
     y = y * F.silu(z.float())
-    var = (y * y).mean(-1, keepdim=True)
-    y = y * torch.rsqrt(var + cfg.norm_eps) * p.norm_w
+    y = y * torch.rsqrt(_rms_var(y, d_inner, tp) + cfg.norm_eps) * norm_w
     dt = cfg.cdtype
-    out = y.to(dt) @ p.out_proj.to(dt)
+    out = shd.psum(y.to(dt) @ out_w.to(dt), tp)
     return out.to(x.dtype), (h_last, new_conv)
 
 
@@ -224,14 +310,26 @@ class MLSTM(nn.Module):
         self.norm_w = _param((H * hd,), torch.float32, device)
 
 
-def _mlstm_split(p: MLSTM, x, cfg: ModelConfig):
-    """(q * hd^-0.5, k, v, sigmoid(o), sigmoid(i), sigmoid(f)) in float32."""
+def _mlstm_split(p: MLSTM, x, cfg: ModelConfig, tp=(), heads=None):
+    """(q * hd^-0.5, k, v, sigmoid(o), sigmoid(i), sigmoid(f)) in float32,
+    of heads ``[h0, h1)`` (all by default). ``in_proj`` is gathered whole
+    (its ``qkv`` blocks do not fall on the six parts) and, under ``tp``,
+    the rank takes its heads' columns of each."""
     H, hd = cfg.num_heads, cfg.head_dim
     dt = cfg.cdtype
-    q, k, v, o, g = torch.split(x.to(dt) @ p.in_proj.to(dt), [H * hd] * 4 + [2 * H], dim=-1)
     B, S = x.shape[:2]
-    shp = (B, S, H, hd)
-    i_raw, f_raw = g.float().chunk(2, dim=-1)  # (B, S, H)
+    h0, h1 = heads or (0, H)
+    Hl = h1 - h0
+    w = shd.weight(p.in_proj, (cfg.d_model, 4 * H * hd + 2 * H), ("embed", "qkv"),
+                   partial=tp).to(dt)
+    if tp:
+        w = w[:, _columns([(j * H * hd + h0 * hd, j * H * hd + h1 * hd) for j in range(4)]
+                          + [(4 * H * hd + h0, 4 * H * hd + h1),
+                             (4 * H * hd + H + h0, 4 * H * hd + H + h1)], x.device)]
+    proj = shd.copy_to(x.to(dt), tp) @ w
+    q, k, v, o, i_raw, f_raw = torch.split(proj, [Hl * hd] * 4 + [Hl] * 2, dim=-1)
+    i_raw, f_raw = i_raw.float(), f_raw.float()
+    shp = (B, S, Hl, hd)
     return (
         q.reshape(shp).float() * hd**-0.5,
         k.reshape(shp).float(),
@@ -292,12 +390,19 @@ def mlstm_apply(
     state: Optional[State] = None,
     decode: bool = False,
 ):
-    """state = (S (B, H, hd, hd), n (B, H, hd))."""
+    """state = (S (B, H, hd, hd), n (B, H, hd)). Under a mesh the block
+    runs tensor-parallel over its heads (``_heads_tp``): the rank's heads
+    of the recurrence and of the norm (its sum of squares summed over the
+    axes), ``out_proj`` row-parallel with a ``psum``; the state holds the
+    rank's heads (every head where they do not split)."""
     B, S_len, d = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    q, k, v, o, ig, fg = _mlstm_split(p, x, cfg)
+    tp = _heads_tp(H, (H * hd, ("qkv",)))
+    h0, h1 = _rank_heads(H, tp)
+    q, k, v, o, ig, fg = _mlstm_split(p, x, cfg, tp, (h0, h1))
     if state is None:
-        St, nt = mlstm_init_state(cfg, B, device=x.device)
+        St = torch.zeros(B, h1 - h0, hd, hd, dtype=torch.float32, device=x.device)
+        nt = torch.zeros(B, h1 - h0, hd, dtype=torch.float32, device=x.device)
     else:
         St, nt = state
 
@@ -313,11 +418,12 @@ def mlstm_apply(
         num, den, St, nt = _mlstm_chunked(q, k, v, ig, fg, St, nt, cfg.mlstm_chunk)
         y = o * num / (den.abs()[..., None] + 1e-6)
 
-    y = y.reshape(B, S_len, H * hd)
-    var = (y * y).mean(-1, keepdim=True)
-    y = y * torch.rsqrt(var + cfg.norm_eps) * p.norm_w
+    y = y.reshape(B, S_len, (h1 - h0) * hd)
+    norm_w = shd.weight(p.norm_w, (H * hd,), ("qkv",), tp)
+    y = y * torch.rsqrt(_rms_var(y, H * hd, tp) + cfg.norm_eps) * norm_w
     dt = cfg.cdtype
-    out = y.to(dt) @ p.out_proj.to(dt)
+    out_w = shd.weight(p.out_proj, (H * hd, d), ("qkv", "embed"), tp)
+    out = shd.psum(y.to(dt) @ out_w.to(dt), tp)
     return out.to(x.dtype), (St, nt)
 
 
@@ -368,27 +474,41 @@ def slstm_apply(
     decode: bool = False,
 ):
     """state = (c, n, h) each (B, H, hd) float32. Sequential over time;
-    decode is the same step on one token."""
+    decode is the same step on one token. Under a mesh the block runs
+    tensor-parallel over its heads (``_heads_tp``): ``w_in``'s and ``b``'s
+    blocks are head-major, so they are the rank's heads' gates, ``r`` is
+    split by head; the loop runs on the rank's heads with no collective
+    in it; the norm's sum of squares is summed over the axes and
+    ``out_proj`` is row-parallel with a ``psum``."""
     B, S_len, d = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     dt = cfg.cdtype
-    pre = (x.to(dt) @ p.w_in.to(dt)).float() + p.b
-    pre = pre.reshape(B, S_len, H, hd, 4)
-    c, n, h = state if state is not None else slstm_init_state(cfg, B, device=x.device)
-    r = p.r.float()
+    tp = _heads_tp(H, (4 * H * hd, ("qkv",)), (H * hd, ("qkv",)))
+    h0, h1 = _rank_heads(H, tp)
+    Hl = h1 - h0
+    w_in = shd.weight(p.w_in, (d, 4 * H * hd), ("embed", "qkv"), tp)
+    b = shd.weight(p.b, (4 * H * hd,), ("qkv",), tp)
+    pre = (shd.copy_to(x.to(dt), tp) @ w_in.to(dt)).float() + b
+    pre = pre.reshape(B, S_len, Hl, hd, 4)
+    if state is not None:
+        c, n, h = state
+    else:
+        c, n, h = (torch.zeros(B, Hl, hd, dtype=torch.float32, device=x.device) for _ in range(3))
+    r = shd.weight(p.r, (H, hd, 4 * hd), ("heads", None, None), tp).float()
     ys = []
     for t in range(S_len):
         # "bhd,hdk->bhk" as one batched product over the heads
-        rec = torch.bmm(h.transpose(0, 1), r).transpose(0, 1).view(B, H, hd, 4)
+        rec = torch.bmm(h.transpose(0, 1), r).transpose(0, 1).view(B, Hl, hd, 4)
         c, n, h = _slstm_cell(pre[:, t] + rec, c, n)
         ys.append(h)
 
     # stacked once: a write of each step into one buffer would make autograd
     # copy the whole buffer's gradient at every step
-    y = torch.stack(ys, 1).reshape(B, S_len, H * hd)
-    var = (y * y).mean(-1, keepdim=True)
-    y = y * torch.rsqrt(var + cfg.norm_eps) * p.norm_w
-    out = y.to(dt) @ p.out_proj.to(dt)
+    y = torch.stack(ys, 1).reshape(B, S_len, Hl * hd)
+    norm_w = shd.weight(p.norm_w, (H * hd,), ("qkv",), tp)
+    y = y * torch.rsqrt(_rms_var(y, H * hd, tp) + cfg.norm_eps) * norm_w
+    out_w = shd.weight(p.out_proj, (H * hd, d), ("qkv", "embed"), tp)
+    out = shd.psum(y.to(dt) @ out_w.to(dt), tp)
     return out.to(x.dtype), (c, n, h)
 
 

@@ -36,6 +36,12 @@ frontend input skips it (and the encoder), and the serving ``Engine``,
 which passes prompts only, prefills the cross cache with keys and values
 projected from the prompt itself (ROADMAP Queue 3).
 
+Over a mesh (``distributed/sharding.py``) every family runs with each
+rank's blocks: ``param_axes`` are the reference's ``Boxed`` axes, and
+``init_cache(mesh=)`` gives each cache leaf its ``spec_for`` block of the
+reference's names (``cache_specs``), whose specs the state carries to the
+layers.
+
 ``StepState.caches`` holds the reference's cache tree with the same
 leading axes: dense and moe one pair of tensors ``(L, B, S_max, KH, hd)``;
 ssm ``{"mlstm": (S, n), "slstm": (c, n, h)}`` with a leading cycle axis;
@@ -61,6 +67,7 @@ sequence chunk's logits, so neither the layers' activations nor the
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
@@ -77,11 +84,48 @@ from repro_torch.models.params import winit_
 
 
 class StepState(NamedTuple):
-    """Decode-time state: the cache tree (see the module docstring) and
-    the next write position."""
+    """Decode-time state: the cache tree (see the module docstring), the
+    next write position and, on a mesh, the tree of the leaves' specs
+    (``LeafSpec``; each tensor is the rank's block by its spec)."""
 
     caches: Any  # a tuple or dict of tuples of stacked tensors
     index: int
+    specs: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """A cache leaf's spec (``sharding.spec_for`` entries) and the index
+    of its batch dim, in a spec tree; not a tuple, so that ``map_cache``
+    takes it for a leaf."""
+
+    entries: tuple
+    batch: int
+
+    def inner(self) -> "LeafSpec":
+        """The spec of one slice along the leading (stacking) axis."""
+        return LeafSpec(self.entries[1:], self.batch - 1)
+
+
+def rows_entry(state: StepState):
+    """The spec entry a mesh state's batch dim is split on (None: whole,
+    or a state without a mesh)."""
+    if state.specs is None:
+        return None
+    leaf = cache_leaves(state.specs)[0]
+    return leaf.entries[leaf.batch]
+
+
+def batch_entry(mesh, batch: int, layout_batch: Optional[int] = None, rules=None):
+    """The spec entry of ``batch`` rows laid out as for ``layout_batch``
+    rows (``cache_specs``): their split when it is the layout's, else
+    None (every rank holds them whole, as without a ``mesh``)."""
+    if mesh is None:
+        return None
+    rules = rules or shd.active_rules()
+    whole = shd.spec_for(mesh, (batch,), ("batch",), rules)[0]
+    return whole if whole == shd.spec_for(mesh, (layout_batch or batch,), ("batch",), rules)[0] \
+        else None
 
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
@@ -216,39 +260,40 @@ class LM(nn.Module):
                                      dev)
 
 
-MESH_FAMILIES = ("dense", "moe")  # the families that run over a mesh
+MESH_FAMILIES = PORTED_FAMILIES  # every family runs over a mesh
 
 # the reference's logical axis names of a leaf (its ``Boxed`` axes), by the
 # module that holds it and the leaf's name; a norm's w and b are
-# ("embed_act",), every other leaf here
+# ("embed_act",), as is every other leaf not named here
+_ATTN_AXES = {"wq": ("embed", "qkv"), "wk": ("embed", "qkv"), "wv": ("embed", "qkv"),
+              "wo": ("qkv", "embed"), "bq": ("qkv",), "bk": ("qkv",), "bv": ("qkv",)}
 _AXES = {
-    "attn": {"wq": ("embed", "qkv"), "wk": ("embed", "qkv"), "wv": ("embed", "qkv"),
-             "wo": ("qkv", "embed"), "bq": ("qkv",), "bk": ("qkv",), "bv": ("qkv",)},
+    "attn": _ATTN_AXES,
+    "xattn": _ATTN_AXES,
     "mlp": {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"), "w2": ("mlp", "embed"),
             "b1": ("mlp",), "b2": ("embed_act",)},
     "moe": dict(L.MOE_NAMES),
     "embed": {"table": ("vocab", "embed"), "unembed": ("embed", "vocab"),
               "pos": (None, "embed")},
+    "mamba": {"in_proj": ("embed", "mlp"), "conv_w": ("conv", "mlp"), "A_log": ("state",),
+              "D": ("state",), "dt_bias": ("state",), "norm_w": ("mlp",),
+              "out_proj": ("mlp", "embed")},
+    "mlstm": {"in_proj": ("embed", "qkv"), "out_proj": ("qkv", "embed"), "norm_w": ("qkv",)},
+    "slstm": {"w_in": ("embed", "qkv"), "r": ("heads", None, None), "b": ("qkv",),
+              "out_proj": ("qkv", "embed"), "norm_w": ("qkv",)},
 }
-
-
-def check_mesh_family(cfg: ModelConfig) -> None:
-    if cfg.family not in MESH_FAMILIES:
-        raise ValueError(
-            f"the {cfg.family} family over a mesh is not ported (ROADMAP Queue 1 item 3); "
-            f"meshes run the {' and '.join(MESH_FAMILIES)} families")
+_TOP_AXES = {"img_proj": (None, "embed"), "enc_pos": (None, "embed")}
 
 
 def param_axes(cfg: ModelConfig) -> dict:
     """Every parameter's logical axis names (the reference's ``Boxed``
     axes), keyed by the port's parameter names; a ``blocks.<i>`` leaf has
     one layer's names (the reference's stacked leaf adds ``layers`` in
-    front, which no rule shards)."""
-    check_mesh_family(cfg)
+    front, once a stacking axis, which no rule shards)."""
     out = {}
     for name, _ in LM(cfg, "meta").named_parameters():
         parts = name.split(".")
-        table = _AXES.get(parts[-2], {}) if len(parts) > 1 else {}
+        table = _AXES.get(parts[-2], {}) if len(parts) > 1 else _TOP_AXES
         out[name] = table.get(parts[-1], ("embed_act",))
     return out
 
@@ -286,10 +331,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, mesh=None) -> LM:
     frontend_dim^-0.5, Whisper's ``enc_pos`` by encoder_seq^-0.5 and
     ``embed.pos`` by learned_pos^-0.5), norm weights and Mamba2's ``D`` one,
     biases, ``A_log`` and ``dt_bias`` zero; drawn from a generator seeded
-    with ``seed`` on the device. On a ``mesh`` (the rank's, dense and moe
-    families) each leaf is drawn whole, in the same order, and the rank
-    keeps its block by ``param_specs`` under the config's profile: the
-    weights are the single-device ones, and the transient is one leaf."""
+    with ``seed`` on the device. On a ``mesh`` (the rank's) each leaf is
+    drawn whole, in the same order, and the rank keeps its block by
+    ``param_specs`` under the config's profile: the weights are the
+    single-device ones, and the transient is one leaf."""
     dev = resolve_device(device)
     if mesh is None:
         model = LM(cfg, dev)
@@ -328,43 +373,98 @@ def init_leaves(cfg: ModelConfig, seed: int = 0, device=None, model: Optional[LM
         yield name, p
 
 
+_KV = ("batch", "seq_kv", "kv_heads", None)  # the reference's cache axes (transformer.py:159-187)
+_HEADS4 = ("batch", "heads", None, None)
+_HEADS3 = ("batch", "heads", None)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """A cache leaf to be: its shape, logical names and dtype (not a tuple,
+    so that ``map_cache`` takes it for a leaf)."""
+
+    shape: tuple
+    names: tuple
+    dtype: torch.dtype
+
+
+def _cache_tree(cfg: ModelConfig, batch: int, max_len: int, img_tokens: int = 0):
+    """The cache tree as ``_Leaf``s (shape, logical names, dtype); the
+    stacking axes in front are named ``layers``, as ``stack_boxed`` names
+    them."""
+    nc = _num_cycles(cfg)
+    f32 = torch.float32
+
+    def leaf(lead, shape, names, dtype=f32):
+        return _Leaf(tuple(lead) + tuple(shape), ("layers",) * len(lead) + tuple(names), dtype)
+
+    def kv(lead, rows=max_len):
+        k = leaf(lead, (batch, rows, cfg.num_kv_heads, cfg.head_dim), _KV, cfg.cdtype)
+        return (k, k)
+
+    if cfg.family == "ssm":
+        H, hd = cfg.num_heads, cfg.head_dim
+        return {"mlstm": (leaf((nc,), (batch, H, hd, hd), _HEADS4),
+                          leaf((nc,), (batch, H, hd), _HEADS3)),
+                "slstm": tuple(leaf((nc,), (batch, H, hd), _HEADS3) for _ in range(3))}
+    if cfg.family == "hybrid":
+        d_inner, H, P, N = SSM.mamba2_dims(cfg)
+        lead = (nc, cfg.attn_every)
+        return {"mamba": (leaf(lead, (batch, H, N, P), _HEADS4),
+                          leaf(lead, (batch, cfg.ssm_conv - 1, d_inner), ("batch", None, "mlp"))),
+                "kv": kv((nc,))}
+    if cfg.family == "vlm":
+        return {"self": kv((nc, cfg.cross_attn_every - 1)),
+                "cross": kv((nc,), img_tokens or cfg.num_image_tokens)}
+    if cfg.family == "encdec":
+        return {"self": kv((nc,)), "cross": kv((nc,), cfg.encoder_seq or 1500)}
+    return kv((nc,))
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, mesh, img_tokens: int = 0,
+                layout_batch: Optional[int] = None, rules=None):
+    """The tree of every cache leaf's spec (``LeafSpec``) on ``mesh``:
+    ``spec_for`` of its shape and the reference's names under ``rules``
+    (default the active ones). ``layout_batch``: lay the leaves out as for
+    that many rows (an engine's slots) and hold the ``batch`` rows whole on
+    every rank unless they split the same way: the one-row prefill the
+    engine splices into its slots."""
+    rules = rules or shd.active_rules()
+    tree = _cache_tree(cfg, layout_batch or batch, max_len, img_tokens)
+    rows = batch_entry(mesh, batch, layout_batch, rules)
+
+    def spec(leaf):
+        entries = list(shd.spec_for(mesh, leaf.shape, leaf.names, rules))
+        b = leaf.names.index("batch")
+        entries[b] = rows
+        return LeafSpec(tuple(entries), b)
+
+    return map_cache(spec, tree)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
-               img_tokens: int = 0) -> StepState:
+               img_tokens: int = 0, mesh=None, layout_batch: Optional[int] = None,
+               rules=None) -> StepState:
     """A zero cache of ``batch`` sequences of ``max_len`` positions, index
     0: the KV caches in the compute dtype, the recurrent states in float32
     (the reference's ``init_cache``). The vlm's cross caches hold
     ``img_tokens`` rows (default ``num_image_tokens``), Whisper's
-    ``encoder_seq``."""
+    ``encoder_seq``. On a ``mesh`` each leaf is the rank's block by
+    ``cache_specs`` (``layout_batch``, ``rules``: its), and the state holds
+    the specs."""
     dev = resolve_device(device)
-    nc = _num_cycles(cfg)
+    tree = _cache_tree(cfg, batch, max_len, img_tokens)
+    if mesh is None:
+        return StepState(map_cache(lambda lf: torch.zeros(lf.shape, dtype=lf.dtype, device=dev),
+                                     tree), 0)
+    specs = cache_specs(cfg, batch, max_len, mesh, img_tokens, layout_batch, rules)
+    leaves = iter(cache_leaves(specs))
 
-    def zeros(*shape, dtype=torch.float32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def zeros(lf):
+        return torch.zeros(shd.shard_shape(lf.shape, next(leaves).entries, mesh), dtype=lf.dtype,
+                           device=dev)
 
-    def kv(lead):
-        k = zeros(*lead, batch, max_len, cfg.num_kv_heads, cfg.head_dim, dtype=cfg.cdtype)
-        return (k, torch.zeros_like(k))
-
-    if cfg.family == "ssm":
-        H, hd = cfg.num_heads, cfg.head_dim
-        caches = {"mlstm": (zeros(nc, batch, H, hd, hd), zeros(nc, batch, H, hd)),
-                  "slstm": tuple(zeros(nc, batch, H, hd) for _ in range(3))}
-    elif cfg.family == "hybrid":
-        d_inner, H, P, N = SSM.mamba2_dims(cfg)
-        ae = cfg.attn_every
-        caches = {"mamba": (zeros(nc, ae, batch, H, N, P),
-                            zeros(nc, ae, batch, cfg.ssm_conv - 1, d_inner)),
-                  "kv": kv((nc,))}
-    elif cfg.family in ("vlm", "encdec"):
-        if cfg.family == "vlm":
-            self_kv, rows = kv((nc, cfg.cross_attn_every - 1)), img_tokens or cfg.num_image_tokens
-        else:
-            self_kv, rows = kv((nc,)), cfg.encoder_seq or 1500
-        k = zeros(nc, batch, rows, cfg.num_kv_heads, cfg.head_dim, dtype=cfg.cdtype)
-        caches = {"self": self_kv, "cross": (k, torch.zeros_like(k))}
-    else:
-        caches = kv((nc,))
-    return StepState(caches=caches, index=0)
+    return StepState(map_cache(zeros, tree), 0, specs)
 
 
 def map_cache(fn, caches):
@@ -390,18 +490,25 @@ def _store(dst, src) -> None:
         d.copy_(s)
 
 
+def _kv_spec(spec):
+    """A (k, v) pair's spec tree as ``attention_apply``'s ``cache_spec``."""
+    return None if spec is None else spec[0].entries
+
+
 def _apply_dense_layer(pl: DenseBlock, x, cfg, positions, cache, cache_index, causal=True,
-                       cross_src=None, cross_cache=None, decode=False):
+                       cross_src=None, cross_cache=None, decode=False, spec=None,
+                       cross_spec=None):
     """One layer (reference ``_apply_dense_layer``). ``cross_src``: the
     source to project the cross keys and values from (train, prefill);
     ``cross_cache``: the cross cache, written at 0 (prefill) or read as it
     stands (``decode``). Without either, a cross layer skips its
-    cross-attention."""
+    cross-attention. ``spec``, ``cross_spec``: the caches' spec trees on a
+    mesh."""
     if pl.attn is not None:
         h = L.apply_norm(pl.ln1, x, cfg)
         attn_out, _ = L.attention_apply(
             pl.attn, h, cfg, positions=positions, cache=cache, cache_index=cache_index,
-            causal=causal,
+            causal=causal, cache_spec=_kv_spec(spec),
         )
         x = x + attn_out
     if pl.xattn is not None and (cross_src is not None or cross_cache is not None):
@@ -410,6 +517,7 @@ def _apply_dense_layer(pl: DenseBlock, x, cfg, positions, cache, cache_index, ca
         xo, _ = L.attention_apply(
             pl.xattn, h, cfg, kv_src=None if read_only else cross_src, cache=cross_cache,
             cache_index=None if read_only or cross_cache is None else 0, causal=False,
+            cache_spec=_kv_spec(cross_spec),
         )
         x = x + xo
     h = L.apply_norm(pl.ln2, x, cfg)
@@ -433,7 +541,7 @@ def _apply_ssm_cycle(pc: SSMCycle, x, cfg, cache, decode):
 
 
 def _apply_hybrid_cycle(pc: HybridCycle, shared: SharedAttn, x, cfg, positions, cache, index,
-                        decode):
+                        decode, spec=None):
     for j, blk in enumerate(pc.mamba):
         st = None if cache is None else tuple(a[j] for a in cache["mamba"])
         h = L.apply_norm(blk.ln, x, cfg)
@@ -445,39 +553,43 @@ def _apply_hybrid_cycle(pc: HybridCycle, shared: SharedAttn, x, cfg, positions, 
     h = L.apply_norm(pc.attn_ln, x, cfg)
     kv = cache["kv"] if cache is not None else None
     attn_out, _ = L.attention_apply(
-        shared.attn, h, cfg, positions=positions, cache=kv, cache_index=index, causal=True
+        shared.attn, h, cfg, positions=positions, cache=kv, cache_index=index, causal=True,
+        cache_spec=None if spec is None else _kv_spec(spec["kv"]),
     )
     x = x + attn_out
     h = L.apply_norm(shared.ln2, x, cfg)
     return x + L.mlp_apply(shared.mlp, h, cfg)
 
 
-def _apply_vlm_cycle(pc: VLMCycle, x, cfg, positions, cache, index, kv_src, decode):
+def _apply_vlm_cycle(pc: VLMCycle, x, cfg, positions, cache, index, kv_src, decode, spec=None):
     for j, blk in enumerate(pc.self):
         kv = None if cache is None else tuple(a[j] for a in cache["self"])
-        x = _apply_dense_layer(blk, x, cfg, positions, kv, index)
+        sp = None if spec is None else tuple(a.inner() for a in spec["self"])
+        x = _apply_dense_layer(blk, x, cfg, positions, kv, index, spec=sp)
     return _apply_dense_layer(pc.cross, x, cfg, positions, None, None, cross_src=kv_src,
                               cross_cache=None if cache is None else cache["cross"],
-                              decode=decode)
+                              decode=decode, cross_spec=None if spec is None else spec["cross"])
 
 
-def _apply_cycle(pc, shared, x, cfg, positions, cache, index, decode, kv_src=None):
+def _apply_cycle(pc, shared, x, cfg, positions, cache, index, decode, kv_src=None, spec=None):
     """One cycle of ``cfg.family`` (a decoder layer in the encdec family);
     ``cache`` is this cycle's slice of the cache tree (or None), updated
-    in place; ``kv_src`` the cross layers' source."""
+    in place, ``spec`` its spec tree on a mesh; ``kv_src`` the cross
+    layers' source."""
     if cfg.family == "ssm":
         return _apply_ssm_cycle(pc, x, cfg, cache, decode)
     if cfg.family == "hybrid":
-        return _apply_hybrid_cycle(pc, shared, x, cfg, positions, cache, index, decode)
+        return _apply_hybrid_cycle(pc, shared, x, cfg, positions, cache, index, decode, spec)
     if cfg.family == "vlm":
-        return _apply_vlm_cycle(pc, x, cfg, positions, cache, index, kv_src, decode)
+        return _apply_vlm_cycle(pc, x, cfg, positions, cache, index, kv_src, decode, spec)
     if cfg.family == "encdec":
         return _apply_dense_layer(pc, x, cfg, positions,
                                   None if cache is None else cache["self"], index,
                                   cross_src=kv_src,
                                   cross_cache=None if cache is None else cache["cross"],
-                                  decode=decode)
-    return _apply_dense_layer(pc, x, cfg, positions, cache, index)
+                                  decode=decode, spec=None if spec is None else spec["self"],
+                                  cross_spec=None if spec is None else spec["cross"])
+    return _apply_dense_layer(pc, x, cfg, positions, cache, index, spec=spec)
 
 
 def _encode(params: LM, enc_embed, cfg: ModelConfig):
@@ -486,7 +598,8 @@ def _encode(params: LM, enc_embed, cfg: ModelConfig):
     remat, as in the reference), then ``enc_ln``."""
     dt = cfg.cdtype
     enc = enc_embed.to(dt)
-    enc = enc + params.enc_pos[:enc.shape[1]].to(dt)[None]
+    pos = shd.weight(params.enc_pos, (cfg.encoder_seq or 1500, cfg.d_model), _TOP_AXES["enc_pos"])
+    enc = enc + pos[:enc.shape[1]].to(dt)[None]
     for blk in params.enc_blocks:
         enc = _apply_dense_layer(blk, enc, cfg, None, None, None, causal=False)
     return L.apply_norm(params.enc_ln, enc, cfg)
@@ -513,10 +626,8 @@ def hidden_forward(
     cycle keeps only its input (and the cross source) and is recomputed in
     the backward."""
     B, S = tokens.shape
-    if shd.active_mesh() is not None:
-        check_mesh_family(cfg)
-        if state is not None:
-            raise ValueError("serving over a mesh is not ported (ROADMAP Queue 1 item 3)")
+    if shd.active_mesh() is not None and state is not None and state.specs is None:
+        raise ValueError("a state over a mesh holds its leaves' specs (init_cache(mesh=))")
     if positions is None:
         base = state.index if (state is not None and decode) else 0
         positions = (base + torch.arange(S, dtype=torch.int32, device=tokens.device)).expand(B, S)
@@ -526,7 +637,9 @@ def hidden_forward(
     shared = params.shared_attn
     kv_src = None
     if cfg.family == "vlm" and img_embed is not None:
-        kv_src = img_embed.to(cfg.cdtype) @ params.img_proj.to(cfg.cdtype)
+        img_proj = shd.weight(params.img_proj, (cfg.frontend_dim or cfg.d_model, cfg.d_model),
+                              _TOP_AXES["img_proj"])
+        kv_src = img_embed.to(cfg.cdtype) @ img_proj.to(cfg.cdtype)
     blocks = params.blocks
     if cfg.family == "encdec":
         if enc_embed is not None:
@@ -538,8 +651,10 @@ def hidden_forward(
                            kv_src, use_reentrant=False)
         else:
             cache = None if state is None else map_cache(lambda a: a[i], state.caches)
-            x = _apply_cycle(blk, shared, x, cfg, positions, cache, index, decode, kv_src)
-    new_state = None if state is None else StepState(state.caches, state.index + S)
+            spec = None if state is None or state.specs is None else map_cache(
+                LeafSpec.inner, state.specs)
+            x = _apply_cycle(blk, shared, x, cfg, positions, cache, index, decode, kv_src, spec)
+    new_state = None if state is None else StepState(state.caches, state.index + S, state.specs)
     return L.apply_norm(params.final_ln, x, cfg), new_state
 
 
@@ -547,11 +662,6 @@ def forward(params: LM, tokens, cfg: ModelConfig, **kw):
     """Full logits (B, S, V_pad) and the new state."""
     hidden, new_state = hidden_forward(params, tokens, cfg, **kw)
     return L.logits_apply(params.embed, hidden, cfg), new_state
-
-
-def last_logits(params: LM, hidden, cfg: ModelConfig):
-    """Logits of the final position only (prefill)."""
-    return L.logits_apply(params.embed, hidden[:, -1:], cfg)[:, 0]
 
 
 def _masked_nll_sum(logits, labels, vocab_size: int) -> torch.Tensor:

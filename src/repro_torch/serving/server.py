@@ -20,6 +20,18 @@ whatever the slot (``_splice_slot``), and so does the port. Requests are
 prompts only, as in the reference: a vlm or Whisper prefill fills its
 cross caches from the prompt itself (``models/transformer.py``), and a
 prompt longer than those caches raises ``ValueError``.
+
+Over a (data, model) mesh of ranks (``mesh=``; ``params`` the rank's
+blocks, ``init_params(mesh=)``) every rank runs the same admissions and
+ticks on the same requests. The state holds each leaf's ``spec_for``
+block (slots over the batch axes, the cache's positions over the axes
+the slots leave, the recurrent states' heads over ``model``); the
+one-row prefill holds its row whole on every rank with the state's
+blocks of the other dims, so a splice moves only the slot's rows and
+only on the ranks that hold them (batch row 0, where the reference's
+fault writes the twice-stacked leaves, lives on data rank 0). Every rank
+agrees on every token: the prefill's logits come back whole, and a
+tick's tokens come from the distributed argmax.
 """
 from __future__ import annotations
 
@@ -30,10 +42,11 @@ from typing import Deque, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.graph_frontend import Clock
-from repro_torch.train.steps import make_decode_step, make_prefill_step
+from repro_torch.train.steps import make_decode_step, make_prefill_step, mesh_rules
 
 
 @dataclasses.dataclass
@@ -56,7 +69,9 @@ class Engine:
         slots: int = 4,
         max_len: int = 256,
         clock: Optional[Clock] = None,
+        mesh=None,
     ):
+        """``mesh``: serve over this rank's mesh (module docstring)."""
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -64,12 +79,14 @@ class Engine:
         # injected monotonic clock; tests inject a FakeClock
         self.clock = clock or Clock()
         self.device = params.embed.table.device
+        self.mesh = mesh
         with torch.inference_mode():
-            self.state = T.init_cache(cfg, slots, max_len, device=self.device)
+            self.state = T.init_cache(cfg, slots, max_len, device=self.device, mesh=mesh,
+                                      rules=None if mesh is None else mesh_rules(cfg))
         self.active: List[Optional[Request]] = [None] * slots
         self.pending: Deque[Request] = deque()
-        self._prefill = make_prefill_step(cfg, max_len)
-        self._decode = make_decode_step(cfg)
+        self._prefill = make_prefill_step(cfg, max_len, mesh=mesh, slots=slots)
+        self._decode = make_decode_step(cfg, mesh=mesh)
         self.last_tok = np.zeros((slots, 1), dtype=np.int32)
 
     def submit(self, req: Request):
@@ -89,7 +106,7 @@ class Engine:
                 req.out.append(tok)
                 req.t_first = self.clock.now()
                 self.last_tok[s, 0] = tok
-                self.state = _splice_slot(self.state, st1, s)
+                self.state = _splice_slot(self.state, st1, s, self.mesh)
                 self.active[s] = req
 
     def tick(self) -> int:
@@ -128,7 +145,7 @@ class Engine:
         return finished
 
 
-def _splice_slot(state: T.StepState, single: T.StepState, slot: int) -> T.StepState:
+def _splice_slot(state: T.StepState, single: T.StepState, slot: int, mesh=None) -> T.StepState:
     """Copy a one-sequence prefill state into batch position ``slot`` of
     ``state``, in place, leaf by leaf as the reference does: each cache
     leaf's batch is taken to be its axis 1 (``_update_axis1``). That holds
@@ -141,18 +158,44 @@ def _splice_slot(state: T.StepState, single: T.StepState, slot: int) -> T.StepSt
     block; so with the vlm's self caches, (cycles, n_self, B, ...), whose
     axis 1 is the layer. Its cross caches and Whisper's caches are
     stacked once and land in their slot. The port keeps that fault, so
-    that it gives the reference's tokens (ROADMAP Queue 3)."""
-    for dst, src in zip(T.cache_leaves(state.caches), T.cache_leaves(single.caches)):
-        _update_axis1(dst, src, slot)
+    that it gives the reference's tokens (ROADMAP Queue 3). On a ``mesh``
+    the two states are blocks by their specs, and each rank writes the
+    part of the slot's region its block holds."""
+    dst_specs = [None] * len(T.cache_leaves(state.caches))
+    src_specs = dst_specs
+    if mesh is not None:
+        dst_specs, src_specs = T.cache_leaves(state.specs), T.cache_leaves(single.specs)
+    for dst, src, dsp, ssp in zip(T.cache_leaves(state.caches), T.cache_leaves(single.caches),
+                                  dst_specs, src_specs):
+        _update_axis1(dst, src, slot, mesh, dsp, ssp)
     # decode positions are per-slot in intent; the reference keeps the
     # max index and decodes every slot there (ROADMAP Queue 3)
-    return T.StepState(caches=state.caches, index=max(state.index, single.index))
+    return T.StepState(caches=state.caches, index=max(state.index, single.index),
+                       specs=state.specs)
 
 
-def _update_axis1(dst: torch.Tensor, src: torch.Tensor, start: int) -> None:
+def _update_axis1(dst: torch.Tensor, src: torch.Tensor, start: int, mesh=None, dst_spec=None,
+                  src_spec=None) -> None:
     """``jax.lax.dynamic_update_slice_in_dim(dst, src, start, axis=1)`` in
     place: ``src`` goes to ``dst`` at ``start`` on axis 1 and 0 on every
-    other axis, the start clamped so that ``src`` fits, as XLA clamps it."""
-    start = min(max(start, 0), dst.shape[1] - src.shape[1])
-    at = (slice(None), slice(start, start + src.shape[1])) + tuple(slice(0, n) for n in src.shape[2:])
-    dst[at] = src
+    other axis, the start clamped so that ``src`` fits, as XLA clamps it.
+    On a ``mesh`` both are the rank's blocks by their specs (``LeafSpec``):
+    the rank writes the part of that region its ``dst`` block holds, from
+    its ``src`` block, which must hold it."""
+    at_dst, at_src = [], []
+    for a in range(dst.ndim):
+        dax = () if mesh is None else shd.entry_axes(dst_spec.entries[a])
+        sax = () if mesh is None else shd.entry_axes(src_spec.entries[a])
+        n_dst = dst.shape[a] * (1 if mesh is None else mesh.axis_size(dax))
+        n_src = src.shape[a] * (1 if mesh is None else mesh.axis_size(sax))
+        lo = min(max(start, 0), n_dst - n_src) if a == 1 else 0
+        d0 = shd.block_range(n_dst, dax, mesh)[0] if dax else 0
+        s0 = shd.block_range(n_src, sax, mesh)[0] if sax else 0
+        r0, r1 = max(lo, d0), min(lo + n_src, d0 + dst.shape[a])
+        if r0 >= r1:
+            return  # no part of the region is this rank's
+        if r0 - lo < s0 or r1 - lo > s0 + src.shape[a]:
+            raise ValueError(f"the prefill's block of axis {a} does not hold the slot's region")
+        at_dst.append(slice(r0 - d0, r1 - d0))
+        at_src.append(slice(r0 - lo - s0, r1 - lo - s0))
+    dst[tuple(at_dst)] = src[tuple(at_src)]

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.registry import ShapeSpec
 from repro_torch.distributed import sharding as shd
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import (OptConfig, OptState, apply_updates, init_opt_state,
@@ -113,7 +114,7 @@ def make_train_step(cfg: ModelConfig, oc: Optional[OptConfig] = None, accum_step
     are summed, then divided by ``accum_steps``. A parameter the batch
     does not reach gets a zero gradient, as under ``jax.grad``.
 
-    On a ``mesh`` (the dense and moe families; ``distributed/sharding.py``)
+    On a ``mesh`` (every family; ``distributed/sharding.py``)
     the state holds the rank's blocks (``init_params(mesh=)``,
     ``train_state_from_numpy(mesh=)``) and every rank passes the same
     global batch: each microbatch's rows are split over the batch axes and
@@ -127,7 +128,6 @@ def make_train_step(cfg: ModelConfig, oc: Optional[OptConfig] = None, accum_step
     loss_fn = make_loss_fn(cfg)
     specs = rules = None
     if mesh is not None:
-        T.check_mesh_family(cfg)
         rules = mesh_rules(cfg)
         specs = T.param_specs(cfg, mesh, rules)
 
@@ -221,29 +221,69 @@ def make_init_fn(cfg: ModelConfig, oc: Optional[OptConfig] = None):
     return init_fn
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int):
+def _last_logits(params, hidden, cfg: ModelConfig):
+    """(float32 logits of the last position over this rank's block of the
+    vocabulary, its first column, the axes the vocabulary is split on);
+    the whole vocabulary, 0 and () without a mesh."""
+    w, start, tp = L.vocab_weight(params.embed, cfg)
+    return L._local_logits(w, hidden[:, -1], cfg, tp), start, tp
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int, mesh=None, slots: Optional[int] = None):
+    """``prefill_step(params, batch) -> (logits (B, V_pad), state)``.
+
+    On a ``mesh`` (the rank's; ``params`` its blocks) every rank passes the
+    same global batch. The state is laid out as the ``slots`` rows of an
+    engine's state would be (default: the batch's own rows): the rows are
+    split as there when they split the same way (the rank runs its rows),
+    else every rank runs them all, with its blocks of the other dims (the
+    one-row prefill the engine splices into a slot). The logits come back
+    whole on every rank. Without a mesh every collective is the identity."""
+    rules = None if mesh is None else mesh_rules(cfg)
+
     @torch.inference_mode()
     def prefill_step(params, batch):
         """Last-position logits (B, V_pad) of a fresh cache of ``max_len``
         filled with ``batch["tokens"]`` (and the cross caches from its
         ``img_embed`` or ``enc_embed``, where it has one), and that state."""
         tokens = batch["tokens"]
-        state = T.init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
-        hidden, new_state = T.hidden_forward(
-            params, tokens, cfg, img_embed=batch.get("img_embed"),
-            enc_embed=batch.get("enc_embed"), state=state, decode=False)
-        return T.last_logits(params, hidden, cfg), new_state
+        B = tokens.shape[0]
+        entry = T.batch_entry(mesh, B, slots, rules)
+        rows = {k: shd.shard_of(v, (entry,), mesh) for k, v in batch.items()}
+        state = T.init_cache(cfg, B, max_len, device=tokens.device, mesh=mesh,
+                             layout_batch=slots, rules=rules)
+        with shd.use_mesh(mesh, rules), shd.batch_split(shd.entry_axes(entry)):
+            hidden, new_state = T.hidden_forward(
+                params, rows["tokens"], cfg, img_embed=rows.get("img_embed"),
+                enc_embed=rows.get("enc_embed"), state=state, decode=False)
+            local, _, tp = _last_logits(params, hidden, cfg)
+        return shd.gather(local, (entry, tp), mesh), new_state
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
+    """``decode_step(params, state, tokens) -> (logits (B, V_pad), next
+    tokens (B,) int32, new state)``: one token per sequence at
+    ``state.index``, the greedy one.
+
+    On a ``mesh`` every rank passes the global tokens (B, 1) and the state
+    of its blocks; the rank runs its rows, its logits' block of the
+    vocabulary gives the greedy token by the distributed argmax
+    (``sharding.vocab_argmax``: ``torch.argmax``'s first index on a tie),
+    and the rows' tokens and the logits are gathered, so every rank
+    returns them whole. Without a mesh every collective is the identity."""
+    rules = None if mesh is None else mesh_rules(cfg)
+
     @torch.inference_mode()
     def decode_step(params, state: T.StepState, tokens):
-        """One token per sequence at ``state.index``: (logits (B, V_pad),
-        greedy next tokens (B,) int32, new state)."""
-        logits, new_state = T.forward(params, tokens, cfg, state=state, decode=True)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return logits[:, -1], next_tok, new_state
+        entry = T.rows_entry(state)
+        split = shd.entry_axes(entry)
+        with shd.use_mesh(mesh, rules), shd.batch_split(split):
+            hidden, new_state = T.hidden_forward(params, shd.shard_of(tokens, (entry,), mesh), cfg,
+                                                 state=state, decode=True)
+            local, start, tp = _last_logits(params, hidden, cfg)
+            next_tok = shd.all_gather(shd.vocab_argmax(local, start, tp), 0, split)
+        return shd.gather(local, (entry, tp), mesh), next_tok.to(torch.int32), new_state
 
     return decode_step

@@ -28,7 +28,10 @@ from torch_sharded_harness import run_port, run_reference, save_rank
 MESHES = {"2x2": {"data": 2, "model": 2}, "1x4": {"data": 1, "model": 4},
           "4x2": {"data": 4, "model": 2}, "2x2x2": {"pod": 2, "data": 2, "model": 2}}
 ARCHS = ("qwen2-1.5b", "qwen3-moe-235b-a22b", "qwen2.5-14b", "deepseek-7b", "phi3-medium-14b",
-         "llama4-maverick-400b-a17b")
+         "llama4-maverick-400b-a17b", "xlstm-350m", "zamba2-2.7b", "llama-3.2-vision-11b",
+         "whisper-base")
+SERVE_ARCHS = ("qwen2-1.5b", "qwen3-moe-235b-a22b", "xlstm-350m", "zamba2-2.7b",
+               "llama-3.2-vision-11b", "whisper-base")  # one of each family
 NAMES = (None, "batch", "seq", "seq_kv", "embed", "embed_act", "heads", "kv_heads", "qkv",
          "mlp", "vocab", "experts", "expert_mlp", "layers")
 SIZES = (1, 2, 3, 4, 6, 8, 12, 16)
@@ -136,12 +139,81 @@ def test_leaf_names_match_boxed_axes(arch):
 
 
 def test_families_off_the_mesh_raise():
-    from repro_torch.configs import get_config
-    from repro_torch.models.transformer import param_axes
+    """No family is off the mesh any more: the ssm, hybrid, vlm and encdec
+    families' parameters carry the reference's ``Boxed`` axes, including
+    the leaves only they have (Mamba2's, the LSTMs', ``xattn``,
+    ``shared_attn``, ``img_proj``, ``enc_pos``)."""
+    from repro.configs import get_config as ref_get_config
+    from repro.models import params as RP
+    from repro.models import transformer as RT
+    import jax
 
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import MESH_FAMILIES, PORTED_FAMILIES, param_axes
+    from repro_torch.train.optimizer import reference_leaf
+
+    assert MESH_FAMILIES == PORTED_FAMILIES
+    seen = set()
     for arch in ("xlstm-350m", "zamba2-2.7b", "llama-3.2-vision-11b", "whisper-base"):
-        with pytest.raises(ValueError, match="Queue 1 item 3"):
-            param_axes(get_config(arch))
+        with RP.abstract_init():
+            _, axes = RP.unbox(RT.init_params(jax.random.PRNGKey(0), ref_get_config(arch)))
+        for name, names in param_axes(get_config(arch)).items():
+            key, index = reference_leaf(name)
+            node = axes
+            for k in key.split("."):
+                node = node[k]
+            assert tuple(names) == tuple(node)[len(index or ()):], name
+            seen.update(key.split("."))
+    assert {"mamba", "mlstm", "slstm", "xattn", "shared_attn", "img_proj", "enc_pos"} <= seen
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_cache_blocks_match_shard_shape(arch, mesh):
+    """Every cache leaf's spec is the reference's ``spec_for`` of its
+    ``init_cache`` axes (under ``abstract_init``), and every rank's block
+    has ``NamedSharding.shard_shape``: an engine's 4 slots of 64
+    positions, and its one-row prefill (its row whole on every rank, the
+    other dims as the slots' layout)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    import jax
+
+    from repro.configs import get_config as ref_get_config
+    from repro.distributed import sharding as RS
+    from repro.models import params as RP
+    from repro.models import transformer as RT
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models import transformer as T
+
+    shape = MESHES[mesh]
+    amesh = _abstract(shape)
+    rules = S.rules_for_profile("tp_fsdp")
+    n = int(np.prod(list(shape.values())))
+    cfg = get_config(arch).reduced()
+    with RP.abstract_init():
+        boxed = RT.init_cache(ref_get_config(arch).reduced(), 4, 64).caches
+    want = [RS.spec_for(amesh, b.value.shape, b.axes, rules)
+            for b in jax.tree.leaves(boxed, is_leaf=RP.is_boxed)]
+    shapes = [tuple(b.value.shape) for b in jax.tree.leaves(boxed, is_leaf=RP.is_boxed)]
+    def leaves(tree):  # in jax's order: a dict's keys sorted
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [x for v in tree for x in leaves(v)] if isinstance(tree, tuple) else [tree]
+
+    specs = leaves(T.cache_specs(cfg, 4, 64, _port_mesh(shape), rules=rules))
+    assert [_as_tuple(sp.entries) for sp in specs] == [_as_tuple(tuple(w)) for w in want]
+    for r in (0, n - 1):
+        pm = _port_mesh(shape, r)
+        st = T.init_cache(cfg, 4, 64, device="cpu", mesh=pm, rules=rules)
+        for t, sp, full in zip(leaves(st.caches), leaves(st.specs), shapes):
+            assert tuple(t.shape) == NamedSharding(amesh, P(*sp.entries)).shard_shape(full)
+        one = T.init_cache(cfg, 1, 64, device="cpu", mesh=pm, layout_batch=4, rules=rules)
+        for t, sp, big in zip(leaves(one.caches), leaves(one.specs), specs):
+            assert sp.entries[sp.batch] is None or sp.entries == big.entries
+            assert sp.entries[:sp.batch] + sp.entries[sp.batch + 1:] == \
+                big.entries[:big.batch] + big.entries[big.batch + 1:]
+            assert t.shape[sp.batch] == 1
 
 
 @pytest.mark.parametrize("M,P", [(8, 4), (1, 1), (4, 2), (32, 16)])

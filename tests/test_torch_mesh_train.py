@@ -32,7 +32,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_sharded_harness import run_port, run_reference, save_rank
+from torch_sharded_harness import gathered_state as _gathered_state
+from torch_sharded_harness import nest as _nest
+from torch_sharded_harness import ref_leaf as _ref_leaf
+from torch_sharded_harness import ref_opt as _ref_opt
+from torch_sharded_harness import REF_LM, run_port, run_reference, save_rank
 
 B, SEQ, STEPS = 4, 64, 3
 CFG_KW = dict(loss_chunk=24)
@@ -45,23 +49,12 @@ UPDATE_RTOL = 1e-3
 
 REFERENCE = """
 import dataclasses
-from jax.sharding import AxisType
 from repro.configs import get_config
 from repro.distributed import sharding as shd
 from repro.models import layers as L
 from repro.models import transformer as RT
 from repro.models.params import unbox
 from repro.train import optimizer as RO, steps as RS
-
-def mesh(tag):
-    shape = tuple(int(x) for x in tag.split("x"))
-    return jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2,
-                         devices=jax.devices()[:int(np.prod(shape))])
-
-def flat(prefix, tree):
-    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        key = "/".join(str(getattr(k, "key", getattr(k, "idx", getattr(k, "name", k)))) for k in path)
-        out[f"{prefix}/{key}"] = np.asarray(leaf, np.float32)
 
 batches = [{k: jnp.asarray(inputs[f"{k}{i}"]) for k in ("tokens", "labels")} for i in range(3)]
 
@@ -123,69 +116,6 @@ def _write_inputs(workdir):
     d["moe_x"] = rng.standard_normal((4, MOE_T, 64)).astype(np.float32)
     d["moe_xd"] = rng.standard_normal((4, 1, 64)).astype(np.float32)
     np.savez(os.path.join(str(workdir), "inputs.npz"), **d)
-
-
-def _nest(flat: dict, prefix: str) -> dict:
-    """The reference's tree under ``prefix`` from its flattened leaves."""
-    tree = {}
-    for k, v in flat.items():
-        if not k.startswith(prefix + "/"):
-            continue
-        node = tree
-        parts = k[len(prefix) + 1:].split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = v
-    return tree
-
-
-def _ref_opt(ref, prefix, kind):
-    """A reference ``OptState`` at step 0 (zero moments) for the converter."""
-    from types import SimpleNamespace
-
-    params = _nest(ref, prefix)
-
-    def zeros(t):
-        return {k: zeros(v) for k, v in t.items()} if isinstance(t, dict) else np.zeros_like(t)
-
-    if kind == "adamw":
-        return SimpleNamespace(step=0, m=zeros(params), v=zeros(params))
-    from repro_torch.train.optimizer import _factored_shape
-
-    def fac(t):
-        if isinstance(t, dict):
-            return {k: fac(v) for k, v in t.items()}
-        fs = _factored_shape(t.shape)
-        return np.zeros(t.shape, np.float32) if fs is None else (
-            np.zeros(fs[0], np.float32), np.zeros(fs[1], np.float32))
-
-    return SimpleNamespace(step=0, m=None, v=fac(params))
-
-
-def _gathered_state(state, cfg, mesh, prefix):
-    """{"<prefix>/<what>/<reference path>": whole float32 array} of a
-    state's parameters and moments, gathered from the ranks' blocks."""
-    from repro_torch.distributed import sharding as shd
-    from repro_torch.train.steps import state_specs
-
-    specs, _ = state_specs(state, cfg, mesh)
-
-    def whole(t, spec):  # a copy: the step updates its tensors in place
-        return shd.gather(t.detach(), spec, mesh).numpy().copy()
-
-    out = {}
-    for n, p in state.params.named_parameters():
-        out[f"{prefix}/params/{n}"] = whole(p, specs[f"params/{n}"])
-    if state.opt.m is not None:
-        for n in state.opt.m:
-            out[f"{prefix}/m/{n}"] = whole(state.opt.m[n], specs[f"opt/m/{n}"])
-            out[f"{prefix}/v/{n}"] = whole(state.opt.v[n], specs[f"opt/v/{n}"])
-    else:
-        for k, v in state.opt.v.items():
-            for i, t in enumerate(v if isinstance(v, tuple) else (v,)):
-                key = f"opt/v/{k}/{i}" if isinstance(v, tuple) else f"opt/v/{k}"
-                out[f"{prefix}/v/{k}/{i}"] = whole(t, specs[key])
-    return out
 
 
 def _batches(workdir):
@@ -290,7 +220,7 @@ def _moe_layer(ref, cfg, mesh):
 def runs(tmp_path_factory):
     wd = tmp_path_factory.mktemp("mesh_train")
     _write_inputs(wd)
-    ref = run_reference("import contextlib\n" + REFERENCE, wd)
+    ref = run_reference("import contextlib\n" + REF_LM + REFERENCE, wd)
     return ref, run_port(_port_ranks, wd, worlds=(4, 8)), wd
 
 
@@ -317,15 +247,6 @@ def single(runs):
             snaps[i + 1].update({f"m/{n}": t.numpy().copy() for n, t in state.opt.m.items()})
             snaps[i + 1].update({f"v/{n}": t.numpy().copy() for n, t in state.opt.v.items()})
     return np.asarray(losses), snaps
-
-
-def _ref_leaf(ref, prefix, name):
-    """The reference's leaf for the port's ``name`` (layer i of a stack)."""
-    from repro_torch.train.optimizer import reference_leaf
-
-    key, index = reference_leaf(name)
-    arr = ref[f"{prefix}/{key.replace('.', '/')}"]
-    return arr if index is None else arr[index]
 
 
 def _scale_name(name):

@@ -258,13 +258,38 @@ def test_train_launcher_end_to_end_with_resume(capsys):
     np.testing.assert_allclose(meshed.losses, full.losses[:2], rtol=1e-5)
 
 
-def test_launcher_refuses_a_mesh_for_the_recurrent_families():
+def test_hybrid_block_checkpoint_resumes_on_another_mesh():
+    """zamba2 (its Mamba2 leaves stacked twice in the reference) saved in
+    blocks after a step on 2x2 resumes on 1x2 with accumulation 2, and the
+    two steps' losses are the one-device run's."""
     from repro_torch.launch import train as train_mod
 
-    common = ["--preset", "smoke", "--seq-len", "32", "--batch", "4", "--device", "cpu",
-              "--steps", "1", "--mesh", "host:2x2"]
-    for arch in ("xlstm-350m", "zamba2-2.7b"):
-        with pytest.raises(ValueError, match="Queue 1 item 3"):
-            train_mod.main(["--arch", arch] + common)
+    common = ["--arch", "zamba2-2.7b", "--preset", "smoke", "--seq-len", "32", "--batch", "4",
+              "--device", "cpu", "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as d:
+        first = train_mod.train(train_mod.parse_args(
+            common + ["--steps", "1", "--mesh", "host:2x2", "--ckpt-dir", d]))
+        assert CheckpointManager(d).all_steps() == [1]
+        resumed = train_mod.train(train_mod.parse_args(
+            common + ["--steps", "2", "--mesh", "host:1x2", "--accum", "2", "--ckpt-dir", d,
+                      "--no-ckpt-final"]))
+    assert resumed.start_step == 1 and len(resumed.losses) == 1
+    one = train_mod.train(train_mod.parse_args(common + ["--steps", "2", "--no-ckpt-final"]))
+    np.testing.assert_allclose(first.losses + resumed.losses, one.losses, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b", "llama-3.2-vision-11b",
+                                  "whisper-base"])
+def test_launcher_refuses_a_mesh_for_the_recurrent_families(arch):
+    """The launcher no longer refuses them: ``--mesh host:2x2`` trains the
+    ssm, hybrid, vlm and encdec families on four spawned ranks with the
+    one-device loss; ``prod`` still needs its 256 ranks."""
+    from repro_torch.launch import train as train_mod
+
+    common = ["--arch", arch, "--preset", "smoke", "--seq-len", "32", "--batch", "4",
+              "--device", "cpu", "--steps", "1", "--no-ckpt-final"]
+    meshed = train_mod.main(common + ["--mesh", "host:2x2"])
+    assert np.isfinite(meshed)
+    assert meshed == pytest.approx(train_mod.main(common), rel=1e-5)
     with pytest.raises(ValueError, match="256 ranks"):
-        train_mod.main(["--arch", "qwen2-1.5b", "--mesh", "prod"] + common[:-2])
+        train_mod.main(common + ["--mesh", "prod"])

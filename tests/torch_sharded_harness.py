@@ -37,6 +37,23 @@ def save_json(key, obj):
 """
 
 
+# the LM tests' reference prelude: Auto-axis (data, model) meshes on the
+# forced devices, and ``flat`` to save a tree's leaves under "prefix/path"
+REF_LM = """
+from jax.sharding import AxisType
+
+def mesh(tag):
+    shape = tuple(int(x) for x in tag.split("x"))
+    return jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2,
+                         devices=jax.devices()[:int(np.prod(shape))])
+
+def flat(prefix, tree):
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = "/".join(str(getattr(k, "key", getattr(k, "idx", getattr(k, "name", k)))) for k in path)
+        out[f"{prefix}/{key}"] = np.asarray(leaf, np.float32)
+"""
+
+
 def run_reference(body: str, workdir, timeout: int = 600) -> dict:
     """Run ``body`` (after ``REF_PRELUDE``) on 8 forced host devices in
     ``workdir``; it fills ``out``, which comes back as the loaded npz."""
@@ -90,3 +107,78 @@ def run_port(fn, workdir, worlds=WORLDS) -> dict:
 
 def loads(a: np.ndarray):
     return json.loads(str(a))
+
+
+# -- the LM meshes' helpers (test_torch_mesh_train.py, test_torch_mesh_families.py) --
+
+
+def nest(flat: dict, prefix: str) -> dict:
+    """The reference's tree under ``prefix`` from its flattened leaves."""
+    tree = {}
+    for k, v in flat.items():
+        if not k.startswith(prefix + "/"):
+            continue
+        node = tree
+        parts = k[len(prefix) + 1:].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def ref_opt(ref, prefix, kind):
+    """A reference ``OptState`` at step 0 (zero moments) for the converter."""
+    from types import SimpleNamespace
+
+    params = nest(ref, prefix)
+
+    def zeros(t):
+        return {k: zeros(v) for k, v in t.items()} if isinstance(t, dict) else np.zeros_like(t)
+
+    if kind == "adamw":
+        return SimpleNamespace(step=0, m=zeros(params), v=zeros(params))
+    from repro_torch.train.optimizer import _factored_shape
+
+    def fac(t):
+        if isinstance(t, dict):
+            return {k: fac(v) for k, v in t.items()}
+        fs = _factored_shape(t.shape)
+        return np.zeros(t.shape, np.float32) if fs is None else (
+            np.zeros(fs[0], np.float32), np.zeros(fs[1], np.float32))
+
+    return SimpleNamespace(step=0, m=None, v=fac(params))
+
+
+def gathered_state(state, cfg, mesh, prefix):
+    """{"<prefix>/<what>/<reference path>": whole float32 array} of a
+    state's parameters and moments, gathered from the ranks' blocks."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.steps import state_specs
+
+    specs, _ = state_specs(state, cfg, mesh)
+
+    def whole(t, spec):  # a copy: the step updates its tensors in place
+        return shd.gather(t.detach(), spec, mesh).numpy().copy()
+
+    out = {}
+    for n, p in state.params.named_parameters():
+        out[f"{prefix}/params/{n}"] = whole(p, specs[f"params/{n}"])
+    if state.opt.m is not None:
+        for n in state.opt.m:
+            out[f"{prefix}/m/{n}"] = whole(state.opt.m[n], specs[f"opt/m/{n}"])
+            out[f"{prefix}/v/{n}"] = whole(state.opt.v[n], specs[f"opt/v/{n}"])
+    else:
+        for k, v in state.opt.v.items():
+            for i, t in enumerate(v if isinstance(v, tuple) else (v,)):
+                key = f"opt/v/{k}/{i}" if isinstance(v, tuple) else f"opt/v/{k}"
+                out[f"{prefix}/v/{k}/{i}"] = whole(t, specs[key])
+    return out
+
+
+def ref_leaf(ref, prefix, name):
+    """The reference's leaf for the port's ``name`` (layer i of a stack)."""
+    from repro_torch.train.optimizer import reference_leaf
+
+    key, index = reference_leaf(name)
+    arr = ref[f"{prefix}/{key.replace('.', '/')}"]
+    return arr if index is None else arr[index]
