@@ -352,7 +352,7 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    same weights: tokens equal, every prefill's and tick's logits within
    LM_TOL of max |logit|. (b)
    ``launch/serve.py --mesh host:2x2`` inside the group: qwen2-1.5b
-   whole, bf16, 4 slots of 2048, 8 requests of 64-511 tokens, 16 new
+   whole, bf16, 4 slots of 2048, 4 requests of 64-511 tokens, 16 new
    each; the launcher checks that every rank's tokens agree, and every
    prefill's logits, and every tick's on the slots whose tokens so far
    agree, must be within SMESH_BF16_TOL of the one-device engine's; printed: TTFT, tokens/s, ms a tick, the
@@ -367,6 +367,22 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    every rank, the launches exact), then 2 requests (the longer of 255
    tokens, so that the decodes cross the block boundary as (a)'s) served
    over 2x2 in float32 against one device as (a). Its launches go into phase 11's counts.
+22. (Runs before phase 11.) The stream contract, the dry run and the
+   linter (``contract_phase``). (a) ``check_stream`` at the cheap level on
+   S2's stream and decision inside ``torch.cuda.set_sync_debug_mode
+   ("error")``, beside a control sync that must raise there. (b) Arms C,
+   D and E's reduce streams at S2 and S1 KRON's dst-sorted rows at F = 32
+   through ``PBExecutor.reduce_stream`` with their true claims, with and
+   without ``REPRO_PB_CHECK=1``: equal within the add rule, each arm's ms
+   both ways and the full check's own ms printed; an index of n under
+   ``in_bounds=True`` and one backwards pair under ``sorted_within=1``
+   must raise ``ContractError`` named ``in-bounds`` and ``sortedness``.
+   (c) ``launch/dryrun.py``'s trace of phase 14's step on ``meta`` (one
+   rank, B 4 x S 4096, bf16): its peak within DRYRUN_PEAK_TOL (20%) of
+   phase 14's ``max_memory_allocated``, its counted FLOPs at least the
+   model-FLOP count; both gaps printed. (d) The port's linter over
+   ``src/repro_torch``, ``chip_smoke.py`` and ``scripts/torch_*.py``: no
+   finding. Its launches are checks and do not count.
 11. The ``kernels`` JSON line: each kernel's launches on the paths of
    phases 3-4, 6, 7, 9, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21 (counts
    set to 0 before each path, read after it; the checks of phases 2, 5,
@@ -696,7 +712,9 @@ SMESH_SLOTS = 4
 # (a): qwen2 layers, requests, new tokens, max_len, shortest prompt (the longest is
 # max_len / 2 - 1: ``_crossing_prompts``)
 SMESH_F32 = (4, 2, 4, 512, 64)
-SMESH_BF16 = (2048, 8, 64, 16)  # (b): max_len (prompts [64, 512)), requests, shortest, new
+# (b): max_len (prompts [64, 512)), requests, shortest, new; 4 requests (one wave of the
+# slots; 8 until phase 22 needed the time)
+SMESH_BF16 = (2048, 4, 64, 16)
 SMESH_BF16_TOL = 0.02  # (b): bf16 logits, times max |logit| (module docstring)
 SMESH_MOE = (2, 4, 4, 512, 64, 256)  # (c): qwen3-moe layers, requests, new, max_len, prompts
 SMESH_FAMILIES = ("zamba2-2.7b", "xlstm-350m", "llama-3.2-vision-11b", "whisper-base")
@@ -709,6 +727,7 @@ SMESH_FAM_STEPS = 2
 # (d): requests, new tokens (3: ``run_until_drained`` returns no request that its
 # admitting tick also finishes), max_len, shortest prompt (the longest as (a)'s)
 SMESH_FAM_SERVE = (2, 3, 512, 64)
+DRYRUN_PEAK_TOL = 0.2  # phase 22 (c): |predicted - measured| / measured, phase 14's peak
 SSSP_EPS = 2.0**-23  # per hop, relative: twice float32's unit roundoff
 SSSP_W_MIN = 0.1  # the lightest weight (fig8: uniform in [0.1, 1.1))
 
@@ -1325,7 +1344,8 @@ def train_phase(dev, K, smi):
     profiler, and at TRAIN_CKPT_LAYERS layers 3 steps with a checkpoint at
     the end and a resume whose restore holds the saved state's
     fingerprint (14d). Returns (launches, launches by shape, the
-    embedding-backward record)."""
+    embedding-backward record, the training record: phase 22 (c) reads its
+    peak and step time)."""
     import tempfile
 
     import torch
@@ -1457,7 +1477,7 @@ def train_phase(dev, K, smi):
     say("phase14 profile", json.dumps(dict(prof, card=smi)))
     del state, batch
     torch.cuda.empty_cache()
-    return counts, shapes, emb
+    return counts, shapes, emb, rec
 
 
 # -- the MoE serving path (phase 15) -------------------------------------------------
@@ -3581,6 +3601,7 @@ def sharded_rank(rank, world, outdir, device="cuda:0"):
     del pre, pre_ref
     got = _rank_timed(rec, "S2 in-degrees, use_pallas executor, method pallas",
                       lambda: ex_pallas.shard_reduce_stream(
+                          # pb-lint: disable=PB001 — the pallas arm, forced to launch its kernels
                           s2.dst, ones, out_size=n2, mesh=mesh, method="pallas"), mesh)
     check("S2 pallas reduce == in-degrees", torch.equal(got, indeg_i))
     rec["counts"] = [K.launch_counts()]
@@ -4954,6 +4975,177 @@ def serve_mesh_phase(dev, K, smi):
     return counts, rows
 
 
+def contract_phase(dev, smi, s2, kron, kron_sorted, train_rec):
+    """Phase 22: the stream contract on the card, the dry run's prediction
+    of phase 14's step, and the linter. (a) ``check_stream`` at the cheap
+    level on S2's stream and decision inside
+    ``torch.cuda.set_sync_debug_mode("error")`` (a control sync must
+    raise there). (b) Arms C, D and E's reduce streams at S2 (C binned at
+    its range, D by the COBRA plan, E as drawn) and S1 KRON's dst-sorted
+    row stream at F = 32 through ``PBExecutor.reduce_stream`` with their
+    true claims, without the check and with ``REPRO_PB_CHECK=1``: equal
+    within the add rule; each arm's ms with and without the check and the
+    full check's own ms; an index of n under ``in_bounds=True`` and one
+    backwards pair under ``sorted_within=1`` must raise ``ContractError``
+    named ``in-bounds`` and ``sortedness``. (c) ``launch/dryrun.py``'s trace
+    of phase 14's step (one rank, B TRAIN_B x S TRAIN_S, bf16) on ``meta``:
+    its predicted peak within DRYRUN_PEAK_TOL of phase 14's
+    ``max_memory_allocated``, its counted FLOPs beside the model-FLOP
+    count (at least that), the gaps printed. (d) The port's linter over
+    its default targets: no finding."""
+    import torch
+
+    from repro_torch.analysis import contracts, lint
+    from repro_torch.analysis.contracts import ContractError
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.core import pb
+    from repro_torch.core.cobra import hierarchical_binning
+    from repro_torch.core.executor import PBExecutor
+    from repro_torch.core.plan import CobraPlan, compromise_bin_range
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import flops_per_token
+    from repro_torch.timing import cuda_ms
+
+    prev = os.environ.pop("REPRO_PB_CHECK", None)
+    ex = PBExecutor()
+    n2, m2 = s2.num_nodes, s2.num_edges
+    outdeg = torch.bincount(s2.src, minlength=n2).clamp(min=1).float()
+    vals = (torch.full((n2,), 1.0 / n2, device=dev) / outdeg)[s2.src]
+    d2 = ex.decide(n2, m2, torch.float32, kind="reduce", device=dev)
+
+    # (a) the cheap level reads no data: no host sync
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cheap_ms = []  # the first call reads the executor's source once (cache-key check)
+        for _ in range(2):
+            t = time.perf_counter()
+            # in-bounds-ok: S2's endpoints are drawn in [0, n)
+            contracts.check_stream(s2.dst, vals, n2, d2, hw=ex.hw, level="cheap", in_bounds=True)
+            cheap_ms.append((time.perf_counter() - t) * 1e3)
+        try:
+            int(s2.dst[0])
+            control = False
+        except RuntimeError:
+            control = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(control, "phase22 (a): set_sync_debug_mode('error') let a host sync through")
+    say("phase22 (a)", json.dumps({"stream": "S2", "m": m2, "n": n2, "decision": d2.describe(),
+                                   "cheap_check_host_ms_first_then_warm": cheap_ms,
+                                   "syncs": 0,
+                                   "control_sync_refused": control, "card": smi}))
+
+    # (b) the arms' streams, checked and not
+    br = min(max(64, compromise_bin_range(n2, ex.hw)), n2)  # arm C's range, as phase 3's
+    plan = CobraPlan.from_hardware(n2, ex.hw)
+    bc = pb.binning(s2.dst, vals, br, -(-n2 // br), method="sort")
+    bd = hierarchical_binning(s2.dst, vals, plan)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = torch.randn(kron_sorted.shape[0], 32, device=dev, generator=gen)
+    n1 = kron.num_nodes
+    streams = {  # (indices, values, out_size, the arm's method and true claims)
+        "C": (bc.idx, bc.val, n2, dict(method="sort", bin_range=br, sorted_within=br)),
+        "D": (bd.idx, bd.val, n2, dict(method="hierarchical",
+                                       sorted_within=plan.final_bin_range)),
+        "E": (s2.dst, vals, n2, {}),
+        # sorted-ok: KRON's destinations, sorted in phase 5
+        "S1 KRON rows F=32": (kron_sorted, rows, n1, dict(sorted_within=1)),
+    }
+    out = {}
+    for name, (idx, v, n, kw) in streams.items():
+        def run(idx=idx, v=v, n=n, kw=kw):
+            # in-bounds-ok: binned or sorted permutations of edge streams drawn in [0, n)
+            return ex.reduce_stream(idx, v, out_size=n, op="add", in_bounds=True, **kw)
+
+        d = ex.decide_or_forced(kw.get("method"), n, int(idx.shape[0]), v.dtype,
+                                bin_range=kw.get("bin_range"), kind="reduce",
+                                feature_dim=v.shape[1] if v.ndim == 2 else 0, device=dev)
+        os.environ.pop("REPRO_PB_CHECK", None)
+        want = run()
+        ms = cuda_ms(run, reps=5)
+        os.environ["REPRO_PB_CHECK"] = "1"
+        got = run()
+        checked_ms = cuda_ms(run, reps=5)
+        check_ms = cuda_ms(lambda: contracts.check_stream(
+            # in-bounds-ok: as run's
+            idx, v, n, d, hw=ex.hw, in_bounds=True, sorted_within=kw.get("sorted_within")),
+            reps=5)
+        scale = want if v.ndim == 1 else ex.reduce_stream(
+            # in-bounds-ok: as run's
+            idx, v.abs(), out_size=n, op="add", in_bounds=True, **kw)
+        ok = add_close(got, want, scale)
+        out[name] = {"m": int(idx.shape[0]), "n": n, "decision": d.describe(),
+                     "claims": {"in_bounds": True, **{k: x for k, x in kw.items()
+                                                      if k == "sorted_within"}},
+                     "add_ratio_checked_vs_unchecked": add_ratio(got, want, scale),
+                     "arm_ms": ms, "arm_checked_ms": checked_ms, "full_check_ms": check_ms}
+        require(ok, f"phase22 (b) {name}: the checked result differs from the unchecked one")
+        del want, got, scale
+    faults = {}
+    bad = s2.dst.clone()
+    bad[m2 // 2] = n2
+    back = kron_sorted.clone()
+    i = int(torch.nonzero(back[1:] != back[:-1])[0])  # back[i] < back[i + 1]
+    back[i], back[i + 1] = kron_sorted[i + 1], kron_sorted[i]
+    for name, fn, invariant in (
+        ("index n under in_bounds", lambda: ex.reduce_stream(
+            # in-bounds-ok: the planted fault the contract must refuse
+            bad, vals, out_size=n2, op="add", in_bounds=True), "in-bounds"),
+        ("a backwards pair under sorted_within=1", lambda: ex.reduce_stream(
+            # sorted-ok: the planted fault the contract must refuse
+            back, rows, out_size=n1, op="add", sorted_within=1), "sortedness"),
+    ):
+        try:
+            fn()
+            faults[name] = None
+        except ContractError as e:
+            faults[name] = e.invariant
+        require(faults[name] == invariant,
+                f"phase22 (b) {name}: raised {faults[name]!r}, not {invariant!r}")
+    say("phase22 (b)", json.dumps({"streams": out, "faults": faults, "card": smi}))
+    del bc, bd, rows, bad, back
+    if prev is None:
+        os.environ.pop("REPRO_PB_CHECK", None)
+    else:
+        os.environ["REPRO_PB_CHECK"] = prev
+    torch.cuda.empty_cache()
+
+    # (c) the dry run's prediction of phase 14's step
+    cfg = get_config(LM_ARCH)
+    t = time.perf_counter()
+    tr = dryrun.trace_cell(cfg, ShapeSpec("train_4k", TRAIN_S, TRAIN_B, "train"))
+    trace_s = time.perf_counter() - t
+    measured = train_rec["peak_bytes_above_earlier_phases"]
+    gap = (tr.peak_bytes - measured) / measured
+    model_flops = flops_per_token(cfg) * TRAIN_B * TRAIN_S
+    step_s = train_rec["steady_step_ms"] / 1e3
+    say("phase22 (c)", json.dumps({
+        "arch": LM_ARCH, "batch": TRAIN_B, "seq_len": TRAIN_S, "trace_s": trace_s,
+        "predicted_peak_bytes": tr.peak_bytes, "measured_peak_bytes": measured,
+        "peak_gap": gap, "tolerance": DRYRUN_PEAK_TOL,
+        "counted_flops": tr.flops, "aten_flops": tr.aten_flops,
+        "kernel_flops": {k: e["flops"] for k, e in tr.kernels.items()},
+        "model_flops": model_flops, "counted_over_model": tr.flops / model_flops,
+        "predicted_bytes_accessed": tr.bytes_accessed, "steady_step_ms": step_s * 1e3,
+        "counted_flop_share_of_989T": tr.flops / step_s / BF16_FLOP_PER_S,
+        "model_flop_share_of_989T": model_flops / step_s / BF16_FLOP_PER_S, "card": smi}))
+    require(abs(gap) <= DRYRUN_PEAK_TOL,
+            f"phase22 (c): predicted peak {tr.peak_bytes} vs measured {measured} ({gap:+.3f})")
+    require(tr.flops >= model_flops,
+            f"phase22 (c): counted {tr.flops} FLOPs below the model count {model_flops}")
+
+    # (d) the linter over the port
+    t = time.perf_counter()
+    files = list(lint.iter_python_files(lint.DEFAULT_TARGETS))
+    findings = lint.lint_paths()
+    say("phase22 (d)", json.dumps({"targets": list(lint.DEFAULT_TARGETS), "files": len(files),
+                                   "findings": [f.render() for f in findings],
+                                   "seconds": time.perf_counter() - t}))
+    require(not findings and len(files) > 50, f"phase22 (d): lint findings {findings}")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         fail("src/repro_torch is not beside chip_smoke.py: run it from a checkout of the repo")
@@ -4990,6 +5182,7 @@ def main() -> None:
 
     def fused_arm(n):
         return lambda idx, v: execute_reduce(
+            # sorted-ok: CSC segment ids  # in-bounds-ok: each in [0, n)
             idx, v, out_size=n, op="add", method="fused", sorted_within=1, in_bounds=True)
 
     def two_phase_arm(n, r):
@@ -5776,7 +5969,7 @@ def main() -> None:
 
     # -- phase 14: the LM training path (before phase 11's kernels line) ------------
     t14 = time.perf_counter()
-    train_counts, train_shapes, emb_bwd = train_phase(dev, K, smi)
+    train_counts, train_shapes, emb_bwd, train_rec = train_phase(dev, K, smi)
     say(f"phase14 seconds: {time.perf_counter() - t14:.1f}")
 
     # -- phase 15: the MoE serving path (before phase 11's kernels line) ------------
@@ -5813,6 +6006,11 @@ def main() -> None:
     t21 = time.perf_counter()
     smesh_counts, smesh_rows = serve_mesh_phase(dev, K, smi)
     say(f"phase21 seconds: {time.perf_counter() - t21:.1f}")
+
+    # -- phase 22: the stream contract, the dry run and the linter (before phase 11) --
+    t22 = time.perf_counter()
+    contract_phase(dev, smi, s2, kron_g, kron_sorted, train_rec)
+    say(f"phase22 seconds: {time.perf_counter() - t22:.1f}")
 
     # -- phase 11: the kernels line at the paths' shapes -------------------------
     t11 = time.perf_counter()

@@ -9,7 +9,7 @@ still returns its config, and ``models.transformer`` raises for it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.models.config import ModelConfig
 
@@ -53,3 +53,19 @@ def list_archs() -> List[str]:
     from repro_torch.configs import all_archs  # noqa: F401
 
     return sorted(_REGISTRY)
+
+
+def cells(include_skipped: bool = False) -> List[Tuple[str, str, Optional[str]]]:
+    """All (arch, shape, skip_reason) cells; ``skip_reason`` None: runnable."""
+    out = []
+    for arch in list_archs():
+        cfg = get_config(arch)
+        for sname, sp in SHAPES.items():
+            reason = None
+            if sp.name == "long_500k" and not cfg.supports_long_context:
+                reason = "full quadratic attention at 512k is intractable (per spec: skip for pure full-attention archs; see DESIGN.md)"
+            if sp.kind == "decode" and not cfg.is_decoder:
+                reason = "encoder-only architecture has no decode step"
+            if include_skipped or reason is None:
+                out.append((arch, sname, reason))
+    return out

@@ -45,7 +45,10 @@ choice that changes which collectives run (the measured K, the autotuner's
 timings) is taken from values reduced across the ranks, and only rank 0
 writes the decision cache.
 
-Not ported yet: the stream-contract check (Queue 1, "Analysis").
+``reduce_stream`` and ``shard_reduce_stream`` check every stream against
+its decision before they run it (``_check_contract``,
+``analysis/contracts.py``): shapes and the decision always, the caller's
+in-bounds and sortedness claims under ``REPRO_PB_CHECK=1``.
 """
 from __future__ import annotations
 
@@ -67,6 +70,7 @@ from repro_torch.core.plan import (
     HardwareModel,
     binning_optimal_num_bins,
     compromise_bin_range,
+    fused_fits,
     num_bins_for_range,
 )
 
@@ -184,7 +188,7 @@ def execute_reduce(
     nb = num_bins or -(-out_size // r)
     if method == "fused":
         vshape = pb.value_block_shape(values)
-        if indices.device.type != "cuda":
+        if indices.device.type not in ("cuda", "meta"):  # meta: the wrappers' shape-only route
             return _fused_reduce_plain(indices, values, out_size, op)
         if vshape != ():
             from repro_torch.kernels.fused import cobra_bin_accumulate_rows
@@ -652,15 +656,7 @@ class PBExecutor:
         shared memory, so only the index bound and the scratch of
         ``fused_scratch_per_tuple`` bytes a tuple, within the device
         memory, limit it."""
-        if num_indices * value_bytes <= self.hw.fast_levels[-1] // 2:
-            return True
-        hw = self.hw
-        return bool(
-            flat
-            and value_bytes == 4
-            and 0 < num_indices <= hw.fused_max_indices
-            and stream_len * hw.fused_scratch_per_tuple <= hw.device_memory
-        )
+        return fused_fits(self.hw, num_indices, value_bytes, stream_len, flat)
 
     def analytic_reduce_method(
         self,
@@ -1079,7 +1075,8 @@ class PBExecutor:
         ``method=None``/"auto" consults ``decide`` with the reduce
         candidate set (which includes ``fused``). Row-block values carry
         the F-tile the reference would choose; ``sorted_within`` and
-        ``in_bounds`` are passed on as hints (see ``execute_reduce``).
+        ``in_bounds`` are claims the stream contract holds the stream to
+        (``_check_contract``), then hints (see ``execute_reduce``).
         ``kind="update"`` tags a graph-mutation delta-merge stream: its own
         cache keys and decision records, and a forced method is logged
         too (source "caller")."""
@@ -1119,6 +1116,9 @@ class PBExecutor:
         if not flat and d.method == "pallas":
             # pallas binning is 1-D-only; row values take the sort path
             d = self._finalize("sort", out_size, bin_range, d.source)
+        self._check_contract(
+            indices, values, out_size, d, op=op, sorted_within=sorted_within, in_bounds=in_bounds
+        )
         return execute_reduce(
             indices, values, out_size=out_size, op=op, method=d.method,
             bin_range=d.bin_range, num_bins=d.num_bins, plan=d.plan,
@@ -1242,6 +1242,9 @@ class PBExecutor:
             d = self._finalize(method, r, bin_range, "caller")
         if not flat and d.method == "pallas":  # pallas binning is 1-D only
             d = self._finalize("sort", r, bin_range, d.source)
+        # per-rank contract: the decision's geometry must cover the owned
+        # range r, at the received stream the decision was taken for
+        self._check_contract(indices, values, r, d, op=op, stream_len=n_dev * cap)
         k = pipeline_chunks
         if k is None:
             key = self._key(r, n_dev * cap, values.dtype, bin_range, "reduce", op, feat,
@@ -1284,6 +1287,32 @@ class PBExecutor:
                 **xfields,
             })
         return out
+
+    # -- the stream contract ----------------------------------------------
+
+    def _check_contract(
+        self,
+        indices: torch.Tensor,
+        values: torch.Tensor,
+        num_nodes: int,
+        d: BinningDecision,
+        *,
+        op: str = "add",
+        sorted_within: Optional[int] = None,
+        in_bounds: bool = False,
+        stream_len: Optional[int] = None,
+    ) -> None:
+        """Validate the stream against the decision before running it
+        (``analysis.contracts.check_stream`` under this executor's model):
+        the cheap clauses always, the in-bounds and sortedness claims under
+        ``REPRO_PB_CHECK=1``. Raises ``ContractError`` naming the
+        invariant and ``d.describe()``."""
+        from repro_torch.analysis import contracts
+
+        contracts.check_stream(
+            indices, values, num_nodes, d, op=op, sorted_within=sorted_within,
+            in_bounds=in_bounds, hw=self.hw, stream_len=stream_len,
+        )
 
     def scatter_add(
         self,

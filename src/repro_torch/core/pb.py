@@ -79,6 +79,10 @@ def bincount(keys: torch.Tensor, length: int) -> torch.Tensor:
     ``length`` are dropped (``jnp.bincount(..., length=)`` semantics)."""
     if keys.numel() == 0:
         return torch.zeros(length, dtype=torch.int32, device=keys.device)
+    if keys.device.type == "meta":
+        # torch.bincount sizes its output by the largest key, a host sync on
+        # the card that a meta tensor cannot answer; the shape here is fixed
+        return torch.empty(length, dtype=torch.int32, device=keys.device)
     return torch.bincount(keys, minlength=length)[:length].to(torch.int32)
 
 
@@ -192,3 +196,19 @@ def bin_read_reduce(
 
 def bin_read_scatter_add(bins: Bins, out_size: int, out_dtype=torch.float32) -> torch.Tensor:
     return bin_read_reduce(bins, out_size, op="add", out_dtype=out_dtype)
+
+
+def segment_ids_from_starts(starts: torch.Tensor, stream_len: int) -> torch.Tensor:
+    """The bin of each position of a binned stream of ``stream_len``
+    tuples, from its ``starts`` (int32)."""
+    pos = torch.arange(stream_len, dtype=starts.dtype, device=starts.device)
+    return torch.searchsorted(starts[1:].contiguous(), pos, right=True).to(torch.int32)
+
+
+def full_pb_scatter_add(
+    indices: torch.Tensor, values: torch.Tensor, out_size: int, *, bin_range: int, num_bins: int
+) -> torch.Tensor:
+    """Two-phase PB scatter-add: ``binning_sort``, then a Bin-Read in the
+    values' dtype."""
+    b = binning_sort(indices, values, bin_range, num_bins)
+    return bin_read_scatter_add(b, out_size, out_dtype=values.dtype)

@@ -93,6 +93,26 @@ class HardwareModel:
 TUPLE_BYTES = 8  # (index, value) int32 pairs, as in the paper
 
 
+def fused_fits(
+    hw: HardwareModel, num_indices: int, value_bytes: int = 4, stream_len: int = 0,
+    flat: bool = True,
+) -> bool:
+    """Fusion legality, capacity half (``PBExecutor.fused_fits``): the
+    reference's rule, a dense accumulator of ``num_indices * value_bytes``
+    within half the largest fast level; a model with ``fused_max_indices``
+    also admits a flat stream of 4-byte values that its two-pass kernel
+    takes, limited by that index bound and by ``fused_scratch_per_tuple``
+    bytes of scratch a tuple within ``device_memory``."""
+    if num_indices * value_bytes <= hw.fast_levels[-1] // 2:
+        return True
+    return bool(
+        flat
+        and value_bytes == 4
+        and 0 < num_indices <= hw.fused_max_indices
+        and stream_len * hw.fused_scratch_per_tuple <= hw.device_memory
+    )
+
+
 def num_bins_for_range(num_indices: int, bin_range: int) -> int:
     return max(1, math.ceil(num_indices / bin_range))
 

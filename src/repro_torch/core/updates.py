@@ -265,10 +265,12 @@ def apply_edge_batch(
             # the delta-merge pair over the batch's src-keyed stream
             delta = ex.reduce_stream(
                 src, torch.where(ins, 1, -1).to(torch.int32), out_size=n, op="add",
+                # in-bounds-ok: the endpoints were checked against [0, n) above
                 method=method, kind="update", in_bounds=True,
             )
             ins_counts = ex.reduce_stream(
                 src, ins.to(torch.int32), out_size=n, op="add",
+                # in-bounds-ok: the endpoints were checked against [0, n) above
                 method=method, kind="update", in_bounds=True,
             ).long()
             del delta  # the net delta feeds the traffic model; counts drive the layout

@@ -356,6 +356,31 @@ def shard_of(full: torch.Tensor, spec: Spec, mesh: Optional[Mesh] = None) -> tor
     return out
 
 
+_COLLECTIVE_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def record_collectives(rec: dict):
+    """Add the result bytes of every collective run inside the block to
+    ``rec`` by kind (``all-reduce``, ``reduce-scatter``, ``all-gather``),
+    the convention of the reference's HLO count: the dry run's collective
+    term (``launch/dryrun.py``)."""
+    _COLLECTIVE_RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        for i, r in enumerate(_COLLECTIVE_RECORDERS):  # by identity
+            if r is rec:
+                del _COLLECTIVE_RECORDERS[i]
+                break
+
+
+def _note(kind: str, result: torch.Tensor, parts: int = 1) -> None:
+    nbytes = result.numel() * result.element_size() * parts
+    for rec in _COLLECTIVE_RECORDERS:
+        rec[kind] = rec.get(kind, 0) + nbytes
+
+
 def all_reduce(t: torch.Tensor, axes, mesh: Optional[Mesh] = None, op: str = "sum"
                ) -> torch.Tensor:
     """``t`` reduced (sum or max) over ``axes`` (a new tensor; ``t`` itself
@@ -366,6 +391,7 @@ def all_reduce(t: torch.Tensor, axes, mesh: Optional[Mesh] = None, op: str = "su
         return t
     buf = t.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX, group=group)
+    _note("all-reduce", buf)
     return buf
 
 
@@ -381,6 +407,7 @@ def reduce_scatter(t: torch.Tensor, dim: int, axes, mesh: Optional[Mesh] = None
     out = torch.empty((src.shape[0] // mesh.axis_size(axes),) + tuple(src.shape[1:]),
                       dtype=t.dtype, device=t.device)
     dist.reduce_scatter_tensor(out, src, group=group)
+    _note("reduce-scatter", out)
     return out.movedim(0, dim).contiguous()
 
 
@@ -394,6 +421,7 @@ def all_gather(t: torch.Tensor, dim: int, axes, mesh: Optional[Mesh] = None) -> 
     b = t.contiguous().reshape(-1).view(torch.uint8)
     parts = [torch.empty_like(b) for _ in range(mesh.axis_size(axes))]
     dist.all_gather(parts, b, group=group)
+    _note("all-gather", b, len(parts))
     return torch.cat([p.view(t.dtype).view(t.shape) for p in parts], dim=dim)
 
 

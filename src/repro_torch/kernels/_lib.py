@@ -7,9 +7,18 @@ hash covers the sources, the flags and ``nvcc --version``, so a stale
 library is never loaded after an edit. ``_build/`` is listed in
 ``.gitignore``. Nothing here runs at import time: this module imports on
 machines without ``nvcc`` or a card, where only the plain versions run.
+
+The meta route: a wrapper called on ``meta`` tensors (the dry run's
+trace, ``launch/dryrun.py``) launches nothing and counts no launch. It
+returns empty outputs of the kernel's shapes and dtypes and reports the
+kernel's own FLOPs and bytes (the formulas of the kernels' bounds) to
+``meta_call``, which adds them to every recorder ``record_meta`` holds
+open. Only ``meta`` tensors take it: CUDA tensors reach the kernel, CPU
+tensors the plain version.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -173,6 +182,33 @@ def count_launch(wrapper, shape: tuple) -> None:
     """One launch of ``wrapper``'s kernel: its count, and its count at ``shape``."""
     wrapper.launches += 1
     wrapper.shapes[shape] = wrapper.shapes.get(shape, 0) + 1
+
+
+_META_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def record_meta(rec: dict):
+    """Add every meta-route call made inside the block to ``rec``:
+    ``{wrapper name: {"calls", "flops", "bytes"}}``."""
+    _META_RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        for i, r in enumerate(_META_RECORDERS):  # by identity: equal dicts are distinct recorders
+            if r is rec:
+                del _META_RECORDERS[i]
+                break
+
+
+def meta_call(wrapper, flops: float, nbytes: float) -> None:
+    """One call of ``wrapper`` on meta tensors: its kernel's FLOPs and
+    bytes, added to every open recorder."""
+    for rec in _META_RECORDERS:
+        e = rec.setdefault(wrapper.__name__, {"calls": 0, "flops": 0.0, "bytes": 0.0})
+        e["calls"] += 1
+        e["flops"] += float(flops)
+        e["bytes"] += float(nbytes)
 
 
 @functools.lru_cache(maxsize=None)

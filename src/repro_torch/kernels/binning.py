@@ -74,6 +74,10 @@ def counting_positions(
         raise ValueError(f"the onesweep design takes at most {ONESWEEP_MAX_BINS} bins, got {num_bins}")
     if keys.device.type == "cpu":
         return counting_positions_ref(keys, starts, num_bins)
+    if keys.device.type == "meta":  # the dry run's shape-only route (_lib.meta_call)
+        m = keys.shape[0]
+        _lib.meta_call(counting_positions, 0, 8 * m + 4 * num_bins)
+        return torch.empty(m, dtype=torch.int32, device=keys.device)
     _lib.require_cuda(keys, torch.int32, "keys")
     _lib.require_cuda(starts, torch.int32, "starts")
     m = keys.shape[0]

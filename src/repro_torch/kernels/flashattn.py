@@ -152,6 +152,8 @@ class _FlashAttention(torch.autograd.Function):
         ctx.causal, ctx.q_block = causal, q_block
         if q.device.type == "cpu":
             return flash_attention_ref(q, k, v, causal=causal)
+        if q.device.type == "meta":
+            return _flash_forward_meta(q, k, v, causal)
         return _flash_forward_cuda(q, k, v, causal)
 
     @staticmethod
@@ -161,17 +163,37 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _flash_forward_cuda(q, k, v, causal: bool) -> torch.Tensor:
-    """Launch ``csrc/flashattn.cu`` (inputs checked; see the module
-    docstring); counts the launch on ``flash_attention``."""
-    B, H, Sq, hd = q.shape
-    KH, Skv = k.shape[1], k.shape[2]
+def _check_kernel_shape(q) -> None:
+    """What the kernel takes on any device: float32 or bfloat16, a head
+    dim it is built for, a grid within CUDA's limits."""
+    B, H, _, hd = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"the flash kernel takes float32 or bfloat16, got {q.dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"the flash kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if B > _GRID_MAX or H > _GRID_MAX:
         raise ValueError(f"batch {B} or heads {H} exceed the kernel grid's {_GRID_MAX}")
+
+
+def _flash_forward_meta(q, k, v, causal: bool) -> torch.Tensor:
+    """The meta route (``_lib.meta_call``): the kernel's checks of shape
+    and dtype, q's shape and strides, and the kernel's FLOPs
+    (``flash_flops``) and bytes (q, k, v read and the output written
+    once)."""
+    _check_kernel_shape(q)
+    B, H, Sq, hd = q.shape
+    KH, Skv = k.shape[1], k.shape[2]
+    nbytes = q.element_size() * (2 * B * H * Sq * hd + 2 * B * KH * Skv * hd)
+    _lib.meta_call(flash_attention, flash_flops(B, H, Sq, Skv, hd, causal), nbytes)
+    return torch.empty_like(q)
+
+
+def _flash_forward_cuda(q, k, v, causal: bool) -> torch.Tensor:
+    """Launch ``csrc/flashattn.cu`` (inputs checked; see the module
+    docstring); counts the launch on ``flash_attention``."""
+    B, H, Sq, hd = q.shape
+    KH, Skv = k.shape[1], k.shape[2]
+    _check_kernel_shape(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")

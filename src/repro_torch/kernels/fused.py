@@ -138,6 +138,9 @@ def cobra_bin_accumulate(
         raise ValueError("accumulator must cover the domain: num_bins * bin_range < num_indices")
     if idx.device.type == "cpu":
         return scatter_reduce_ref(idx, val, num_indices, op=op)
+    if idx.device.type == "meta":  # the dry run's shape-only route (_lib.meta_call)
+        _lib.meta_call(cobra_bin_accumulate, m, 4 * m + val.element_size() * (m + num_indices))
+        return torch.empty((num_indices,), dtype=val.dtype, device=val.device)
     _lib.require_cuda(idx, torch.int32, "idx")
     if val.dtype not in _DTYPE_CODE:
         raise ValueError(f"fused kernel takes float32 or int32 values, got {val.dtype}")
@@ -204,13 +207,22 @@ def cobra_bin_accumulate_rows(
         raise ValueError(f"f_tile {f_tile} out of range for F={F}")
     if idx.device.type == "cpu":
         return scatter_reduce_ref(idx, val, num_indices, op=op)
-    _lib.require_cuda(idx, torch.int32, "idx")
     if val.dtype not in ROW_DTYPES:
         raise ValueError(f"the rows kernel takes {ROW_DTYPES} values, got {val.dtype}")
-    _lib.require_cuda(val, val.dtype, "val")
     _lib.check_int32_size(m, "stream length")
     _lib.check_int32_size(num_indices, "num_indices")
     _lib.check_int32_size(F, "feature width")
+    if idx.device.type == "meta":  # the dry run's shape-only route (_lib.meta_call)
+        esize = val.element_size()
+        _lib.meta_call(cobra_bin_accumulate_rows, m * F, 4 * m + esize * (m + num_indices) * F)
+        # the bfloat16 kernel's float32 accumulator lives beside its output
+        acc = (torch.empty((num_indices, F), dtype=torch.float32, device=val.device)
+               if val.dtype == torch.bfloat16 else None)
+        out = torch.empty((num_indices, F), dtype=val.dtype, device=val.device)
+        del acc
+        return out
+    _lib.require_cuda(idx, torch.int32, "idx")
+    _lib.require_cuda(val, val.dtype, "val")
     lib = _lib.load()
     if val.dtype == torch.bfloat16:
         acc = torch.full((num_indices, F), ident, dtype=torch.float32, device=val.device)

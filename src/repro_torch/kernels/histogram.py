@@ -21,6 +21,9 @@ def histogram(keys: torch.Tensor, num_bins: int) -> torch.Tensor:
         raise ValueError(f"num_bins must be >= 1, got {num_bins}")
     if keys.device.type == "cpu":
         return histogram_ref(keys, num_bins)
+    if keys.device.type == "meta":  # the dry run's shape-only route (_lib.meta_call)
+        _lib.meta_call(histogram, 0, 4 * keys.shape[0] + 4 * num_bins)
+        return torch.empty(num_bins, dtype=torch.int32, device=keys.device)
     _lib.require_cuda(keys, torch.int32, "keys")
     m = keys.shape[0]
     _lib.check_int32_size(m, "stream length")

@@ -29,6 +29,10 @@ def scatter_rows(x: torch.Tensor, pos: torch.Tensor, out_rows: int) -> torch.Ten
         )
     if pos.device.type == "cpu":
         return scatter_rows_ref(x, pos, out_rows)
+    if pos.device.type == "meta":  # the dry run's shape-only route (_lib.meta_call)
+        m, d = x.shape
+        _lib.meta_call(scatter_rows, 0, 4 * m + x.element_size() * (m + out_rows) * d)
+        return torch.empty((out_rows, d), dtype=x.dtype, device=x.device)
     if x.dtype not in ROW_DTYPES:
         raise ValueError(f"scatter_rows takes {ROW_DTYPES} rows, got {x.dtype}")
     _lib.require_cuda(x, x.dtype, "x")

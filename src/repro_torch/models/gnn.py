@@ -34,6 +34,7 @@ def _spmm_stream(x, seg, neighs, n, op):
     sorted segment ids ``seg`` into (n, F)."""
     rows = x.index_select(0, neighs)
     return execute_reduce(
+        # sorted-ok: a CSR's segment ids  # in-bounds-ok: each in [0, n)
         seg, rows, out_size=n, op=op, method="fused", sorted_within=1, in_bounds=True
     )
 
@@ -71,6 +72,7 @@ class _PBNeighborMax(torch.autograd.Function):
         del lost
         dh = execute_reduce(
             csr_seg, contrib, out_size=h.shape[0], op="add", method="fused",
+            # sorted-ok: the CSR's segment ids  # in-bounds-ok: each in [0, n)
             sorted_within=1, in_bounds=True,
         )
         return dh.to(h.dtype), None, None, None, None

@@ -468,6 +468,7 @@ def _sum_token_rows(rows, T: int) -> torch.Tensor:
     tokens = torch.arange(T, dtype=torch.int32, device=rows.device)  # assignment t * k + j: t
     return execute_reduce(
         tokens.repeat_interleave(rows.shape[0] // T), rows, out_size=T, op="add",
+        # sorted-ok: arange(T) repeated in place  # in-bounds-ok: so in [0, T)
         method="fused", sorted_within=1, in_bounds=True,
     )
 

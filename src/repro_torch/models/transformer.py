@@ -664,6 +664,11 @@ def forward(params: LM, tokens, cfg: ModelConfig, **kw):
     return L.logits_apply(params.embed, hidden, cfg), new_state
 
 
+def last_logits(params: LM, hidden, cfg: ModelConfig) -> torch.Tensor:
+    """float32 logits (B, V_pad) of the final position only (prefill)."""
+    return L.logits_apply(params.embed, hidden[:, -1:], cfg)[:, 0]
+
+
 def _masked_nll_sum(logits, labels, vocab_size: int) -> torch.Tensor:
     """Sum of the next-token NLL over positions with ``label >= 0``; the
     padded-vocab logits are set to -1e30 before the float32 softmax."""

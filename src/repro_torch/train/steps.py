@@ -44,28 +44,47 @@ def default_opt_config(cfg: ModelConfig, total_steps: int = 10_000) -> OptConfig
     return OptConfig(kind="adamw", total_steps=total_steps)
 
 
-def make_batch(cfg: ModelConfig, shape: ShapeSpec, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """A random batch of ``shape`` with the reference's names, shapes and
-    dtypes (``batch_struct``): int32 ``tokens`` and, to train, ``labels``
-    (B, S) ((B, 1) to decode); for train and prefill, the vlm's
-    ``img_embed`` (B, num_image_tokens, frontend_dim) and Whisper's
-    ``enc_embed`` (B, encoder_seq, d), normal times 0.02 in the compute
-    dtype, the stub frontends' outputs. Drawn from ``generator`` on its
-    device, in that order. The draws are torch's, not ``jax.random``'s:
-    tests that hold the port to the reference feed both the same numpy
-    batch."""
+def batch_struct(cfg: ModelConfig, shape: ShapeSpec, device="meta") -> Dict[str, torch.Tensor]:
+    """The model inputs of one step as empty tensors (on ``meta``: shapes
+    and dtypes only; the dry run's stand-ins), with the reference's names:
+    int32 ``tokens`` and, to train, ``labels`` (B, S) ((B, 1) to decode);
+    for train and prefill, the vlm's ``img_embed`` (B, num_image_tokens,
+    frontend_dim) and Whisper's ``enc_embed`` (B, encoder_seq, d) in the
+    compute dtype, the stub frontends' outputs."""
     B, S = shape.global_batch, shape.seq_len
-    dev = generator.device
     names = ("tokens", "labels") if shape.kind == "train" else ("tokens",)
     size = (B, 1) if shape.kind == "decode" else (B, S)
-    out = {n: torch.randint(0, cfg.vocab_size, size, generator=generator,
-                            dtype=torch.int32, device=dev) for n in names}
+    out = {n: torch.empty(size, dtype=torch.int32, device=device) for n in names}
     frontend = {"vlm": ("img_embed", cfg.num_image_tokens, cfg.frontend_dim or cfg.d_model),
                 "encdec": ("enc_embed", cfg.encoder_seq, cfg.d_model)}.get(cfg.family)
     if frontend and shape.kind != "decode":
         name, rows, width = frontend
-        out[name] = (torch.randn(B, rows, width, generator=generator, device=dev)
-                     * 0.02).to(cfg.cdtype)
+        out[name] = torch.empty((B, rows, width), dtype=cfg.cdtype, device=device)
+    return out
+
+
+def serve_state_struct(cfg: ModelConfig, shape: ShapeSpec, device="meta") -> T.StepState:
+    """A decode-time ``StepState`` with a cache of depth ``shape.seq_len``
+    for ``shape.global_batch`` sequences, on ``meta`` by default (the dry
+    run's KV and state stand-in)."""
+    return T.init_cache(cfg, shape.global_batch, shape.seq_len, device=device)
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeSpec, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """A random batch of ``batch_struct``'s names, shapes and dtypes:
+    tokens and labels uniform in the vocabulary, the frontend inputs normal
+    times 0.02 (drawn in float32, then cast). Drawn from ``generator`` on
+    its device, in that order. The draws are torch's, not ``jax.random``'s:
+    tests that hold the port to the reference feed both the same numpy
+    batch."""
+    dev = generator.device
+    out = {}
+    for name, t in batch_struct(cfg, shape).items():
+        if t.dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, t.shape, generator=generator,
+                                      dtype=torch.int32, device=dev)
+        else:
+            out[name] = (torch.randn(t.shape, generator=generator, device=dev) * 0.02).to(t.dtype)
     return out
 
 

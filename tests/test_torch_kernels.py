@@ -203,13 +203,25 @@ def test_fused_argument_checks():
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
+    """A ``meta`` tensor (the dry run's) takes the wrappers' shape-only
+    route: empty outputs of the kernel's shapes and dtypes, no launch
+    counted. Any other device that is not the CPU reaches
+    ``_lib.require_cuda``, which refuses it."""
+    from repro_torch.kernels import _lib, launch_counts
+
     keys = torch.zeros(4, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="must be a CUDA tensor"):
-        histogram(keys, 4)
-    with pytest.raises(ValueError, match="must be a CUDA tensor"):
-        counting_positions(keys, torch.zeros(4, dtype=torch.int32, device="meta"), 4)
-    with pytest.raises(ValueError, match="must be a CUDA tensor"):
-        cobra_bin_accumulate(keys, torch.ones(4, device="meta"), 4, 4, 1)
+    before = launch_counts()
+    outs = (histogram(keys, 4),
+            counting_positions(keys, torch.zeros(4, dtype=torch.int32, device="meta"), 4),
+            cobra_bin_accumulate(keys, torch.ones(4, device="meta"), 4, 4, 1),
+            cobra_bin_accumulate_rows(keys, torch.ones(4, 3, device="meta"), 5, 5, 1))
+    assert [(tuple(o.shape), o.dtype, o.device.type) for o in outs] == [
+        ((4,), torch.int32, "meta"), ((4,), torch.int32, "meta"),
+        ((4,), torch.float32, "meta"), ((5, 3), torch.float32, "meta")]
+    assert launch_counts() == before
+    for t, dt in ((keys, torch.int32), (torch.ones(4, device="meta"), torch.float32)):
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            _lib.require_cuda(t, dt, "keys")
 
 
 # -- the other oracles of kernels/ref.py ---------------------------------------
