@@ -12,7 +12,9 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    beside ``HardwareModel.h100()``, then the kernels' build (nvcc, sm_90a),
    and the HMMA (tensor-core) instructions that ``cuobjdump -sass`` finds
    in each flash kernel: every bfloat16 one (head dims 16, 32, 64, 80 and
-   128) must have them.
+   128) must have them; and the REDG.E.ADD.F32x4 (float4 reduction)
+   instructions in each instantiation of the rows kernel's tile walk: the
+   float32 add of 16-byte rows must have them.
 2. The first slice's kernels against their plain versions on the card:
    histogram and positions at m in {1, 17, 5000, 2^25} x B in
    {2, 257, 908, 65536} (random and all-one-key streams), and positions
@@ -394,7 +396,10 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    its largest error against its plain version, and
    times at a path's shapes (Bin-Read's row also ``compact_index_add_ms``,
    the rows kernel's an ``embedding_backward`` record at phase 14's
-   shape), then rows 2b, 5c, 7b and 8b (``<kernel>:moe_...``): positions,
+   shape; the rows kernel's launches also split by walk, ``narrow`` or
+   ``tile`` as ``rows_design`` names them, and by shape m,F,n, and each
+   rows-kernel line its ``rows_design``), then rows 2b, 5c, 7b and 8b
+   (``<kernel>:moe_...``): positions,
    the bfloat16 rows kernel, the row scatter and flash at phase 15's
    shapes with phase 15's launches, and rows 4c and 5d
    (``<kernel>:sharded_s2_local``): the fused and rows kernels at phase
@@ -1470,7 +1475,7 @@ def train_phase(dev, K, smi):
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=TRAIN_B))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(TRAIN_STEPS).items()}
     prof = device_profile(lambda: step(state, batch), dev, kinds={
-        "flash kernel": ("flash_fwd",), "rows kernel": ("rows_kernel",),
+        "flash kernel": ("flash_fwd",), "rows kernel": ("rows_tile_kernel", "rows_seg_kernel"),
         "float32 GEMM": ("f32f32_f32",), "other GEMM": ("gemm", "nvjet", "cutlass"),
         "elementwise": ("elementwise",), "reductions": ("reduce",),
         "copies and fills": ("Memcpy", "Memset", "fill")})
@@ -1784,9 +1789,8 @@ def moe_phase(dev, K, smi):
     say("phase15 routing per layer (dropped assignments, top-k ties)", json.dumps(dict({
         k: {"dropped": sum(r["dropped"] for r in v), "topk_ties": sum(r["topk_ties"] for r in v),
             "layers": v} for k, v in routing.items()}, card=smi)))
-    # "row scatter" first: ``scatter_rows_kernel`` holds "rows_kernel" too
     kinds = {"flash kernel": ("flash_fwd",), "row scatter": ("scatter_rows",),
-             "rows kernel": ("rows_kernel", "f32_to_bf16"),
+             "rows kernel": ("rows_tile_kernel", "rows_seg_kernel", "f32_to_bf16"),
              "histogram+positions": ("histogram", "positions"),
              "GEMM": ("gemm", "nvjet", "cutlass", "xmma"), "elementwise": ("elementwise",),
              "copies and fills": ("Memcpy", "Memset", "fill")}
@@ -2336,9 +2340,8 @@ def family_train_run(dev, K, smi, arch):
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=pS, global_batch=B))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(FAM_STEPS).items()}
     state = run.state
-    # "row scatter" first: ``scatter_rows_kernel`` holds "rows_kernel" too
     kinds = {"flash kernel": ("flash_fwd",), "row scatter": ("scatter_rows",),
-             "rows kernel": ("rows_kernel", "f32_to_bf16"),
+             "rows kernel": ("rows_tile_kernel", "rows_seg_kernel", "f32_to_bf16"),
              "histogram+positions": ("histogram", "positions"), "float32 GEMM": ("f32f32_f32",), "other GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
              "elementwise": ("elementwise",), "reductions": ("reduce",),
              "copies and fills": ("Memcpy", "Memset", "fill", "copy")}
@@ -4634,6 +4637,7 @@ def smesh_f32_parity(rec, dev, K):
         log, done, times, index = _smesh_engine(cfg, params, prompts, new, max_len, mesh)
         secs = time.perf_counter() - t
         rec["launch"][f"(a) {D}x{M}"] = K.launch_counts()  # and ends here
+        rec["launch_shapes"][f"(a) {D}x{M}"] = K.launch_shapes()
         out[f"{D}x{M}"] = _smesh_record(index, done, times, secs)
         require(rec["launch"][f"(a) {D}x{M}"]["flash_attention"] == layers * n,
                 f"phase21 (a): flash {rec['launch'][f'(a) {D}x{M}']} for {n} prefills")
@@ -4695,6 +4699,7 @@ def smesh_launcher(rec, dev, K):
         secs = time.perf_counter() - t
         clock.on = False
         rec["launch"]["(b)"] = K.launch_counts()  # and ends here
+        rec["launch_shapes"]["(b)"] = K.launch_shapes()
     finally:
         clock.close()
         serve_mod.Engine = base
@@ -4748,6 +4753,7 @@ def smesh_moe(rec, dev, K):
     log, done, times, index = _smesh_engine(cfg, params, prompts, new, max_len, mesh)
     secs = time.perf_counter() - t
     rec["launch"]["(c)"] = K.launch_counts()  # and ends here
+    rec["launch_shapes"]["(c)"] = K.launch_shapes()
     r = _smesh_record(index, done, times, secs)
     calls = len(times["prefill"]) + len(times["decode"])
     want = {"flash_attention": layers * n, "scatter_rows": layers * calls,
@@ -4825,6 +4831,7 @@ def smesh_family(rec, dev, K, arch):
     got = {k: counts[k] for k in want}
     require(got == want, f"phase21 (d) {arch}: launches {got}, expected {want}")
     rec["launch"][f"(d) train {arch}"] = counts
+    rec["launch_shapes"][f"(d) train {arch}"] = K.launch_shapes()
     r = {"layers": cfg.num_layers, "of_layers": full.num_layers, "batch": B, "seq_len": S,
          "losses": run.losses, "grad_norms": run.grad_norms,
          "step_ms": [1e3 * x for x in run.step_seconds],
@@ -4845,6 +4852,7 @@ def smesh_family(rec, dev, K, arch):
     secs = time.perf_counter() - t
     counts = K.launch_counts()  # and ends here
     rec["launch"][f"(d) serve {arch}"] = counts
+    rec["launch_shapes"][f"(d) serve {arch}"] = K.launch_shapes()
     attn = TM.attention_layers(cfg32)
     require(counts["flash_attention"] == attn * n,
             f"phase21 (d) {arch}: serving flash {counts['flash_attention']}, expected {attn * n}")
@@ -4874,7 +4882,8 @@ def serve_mesh_rank(rank, world, outdir, device="cuda:0"):
         _lib.load()  # built by the parent: this finds the library
         torch.cuda.set_device(dev)
     t_rank = time.perf_counter()
-    rec = {"rank": rank, "seconds": {}, "launch": {}, "families": {}, "peak_bytes": {}}
+    rec = {"rank": rank, "seconds": {}, "launch": {}, "launch_shapes": {}, "families": {},
+           "peak_bytes": {}}
 
     def part(name, fn, *a):
         torch.cuda.empty_cache()  # the ranks share the card: free what the last part cached
@@ -4905,8 +4914,8 @@ def serve_mesh_phase(dev, K, smi):
     interconnect, whose times say nothing about scaling. Prints each
     part's records and checks, rank 0's serving metrics, each rank's peaks
     and seconds, and returns the launches of the serving and training
-    paths summed over the ranks and the kernels line's row 8g (flash at
-    (b)'s longest prefill on a 2x2 rank's heads)."""
+    paths summed over the ranks (counts, shapes) and the kernels line's
+    row 8g (flash at (b)'s longest prefill on a 2x2 rank's heads)."""
     import tempfile
 
     import torch
@@ -4954,11 +4963,15 @@ def serve_mesh_phase(dev, K, smi):
         "ranks": SMESH_RANKS, "spawn_to_join_s": wall, "parent_bytes_held": held,
         "seconds": r0["seconds"], "rank_seconds": [r["rank_seconds"] for r in recs],
         "peak_bytes": [r["peak_bytes"] for r in recs], "card": smi}))
-    counts = {}
+    counts, shapes = {}, {}
     for r in recs:
         for part in r["launch"].values():
             for k, v in part.items():
                 counts[k] = counts.get(k, 0) + v
+        for part in r["launch_shapes"].values():
+            for k, by in part.items():
+                for shp, c in by.items():
+                    shapes.setdefault(k, {})[shp] = shapes.get(k, {}).get(shp, 0) + c
     say("phase21 launches of (a)-(d) (summed over the ranks):", json.dumps(counts))
     # row 8g: flash at (b)'s longest prefill on a 2x2 rank's heads
     cfg = get_config(LM_ARCH)
@@ -4972,7 +4985,7 @@ def serve_mesh_phase(dev, K, smi):
     rows = [dict(r8, launches_21=counts["flash_attention"])]
     say("phase21 row 8g", json.dumps(rows))
     torch.cuda.empty_cache()
-    return counts, rows
+    return counts, shapes, rows
 
 
 def contract_phase(dev, smi, s2, kron, kron_sorted, train_rec):
@@ -5168,7 +5181,7 @@ def main() -> None:
     from repro_torch.core.pb import bin_ids, reduce_identity, starts_from_counts
     from repro_torch.kernels import _lib, ref
     from repro_torch.kernels.binning import COBRA_PASS_DESIGNS, cobra_pass_design, positions_design
-    from repro_torch.kernels.fused import FUSED_DESIGNS, fused_design
+    from repro_torch.kernels.fused import FUSED_DESIGNS, fused_design, rows_design
     from repro_torch.models import GNNLayer
     from repro_torch.timing import cuda_ms, time_fn
 
@@ -5306,6 +5319,13 @@ def main() -> None:
     bf16_hmma = [n for name, n in hmma.items() if "flash_fwd_bf16_kernel" in name]
     require(len(bf16_hmma) == 5 and min(bf16_hmma) > 0,
             f"the bf16 flash kernels do not all run on the tensor cores: {hmma}")
+    # the rows kernel's tile walk: float4 reductions (REDG.E.ADD.F32x4) in its SASS,
+    # <TIn, TAcc, op, VEC>: the float32 add of 16-byte rows is rows_tile_kernelIffLi0ELi4E
+    redg = {name: body.count("REDG.E.ADD.F32x4")
+            for name, body in _lib.kernel_sass("rows_tile_kernel").items()}
+    say("phase1 rows tile walk SASS REDG.E.ADD.F32x4 count:", json.dumps(redg))
+    require(any(n > 0 for name, n in redg.items() if "rows_tile_kernelIffLi0ELi4E" in name),
+            f"the float32-add tile walk issues no float4 reduction: {redg}")
 
     # -- phase 2: kernels against their plain versions -------------------------
     t2 = time.perf_counter()
@@ -6004,7 +6024,7 @@ def main() -> None:
 
     # -- phase 21: serving over a mesh, the other families on a mesh (before phase 11) --
     t21 = time.perf_counter()
-    smesh_counts, smesh_rows = serve_mesh_phase(dev, K, smi)
+    smesh_counts, smesh_shapes, smesh_rows = serve_mesh_phase(dev, K, smi)
     say(f"phase21 seconds: {time.perf_counter() - t21:.1f}")
 
     # -- phase 22: the stream contract, the dry run and the linter (before phase 11) --
@@ -6123,7 +6143,7 @@ def main() -> None:
     path_shapes = {}
     for part in (after_shapes, fig9_shapes, gnn_shapes, ops_shapes, serve_shapes, trav_shapes,
                  serving_shapes, train_shapes, moe_shapes, shard_shapes, rec_shapes, fam_shapes,
-                 x_shapes, mesh_shapes):
+                 x_shapes, mesh_shapes, smesh_shapes):
         for k, by in part.items():
             for shp, c in by.items():
                 path_shapes.setdefault(k, {})[shp] = path_shapes.get(k, {}).get(shp, 0) + c
@@ -6180,9 +6200,18 @@ def main() -> None:
         cuda_ms(lambda: torch.zeros(B_ * EMB_BIN_RANGE, d_, device=dev).index_add_(0, ids, x),
                 reps=5)
     # the rows kernel at its second shape: the embedding backward of phase 14
-    next(k for k in kernels if k["name"] == "cobra_bin_accumulate_rows")["embedding_backward"] = {
+    rows5 = next(k for k in kernels if k["name"] == "cobra_bin_accumulate_rows")
+    rows5["embedding_backward"] = {
         k: emb_bwd[k] for k in ("m", "F", "n", "max_abs_err", "ms", "plain_ms", "library_ms",
                                 "bound_ms", "bound_bytes")}
+    rows5["embedding_backward"]["rows_design"] = rows_design(emb_bwd["F"])
+    # its launches on the paths by walk and shape (key m,F,n; 16-byte rows assumed)
+    by_walk = {}
+    for shp, c in path_shapes.get("cobra_bin_accumulate_rows", {}).items():
+        walk = by_walk.setdefault(rows_design(int(shp.split(",")[1])), {})
+        walk[shp] = walk.get(shp, 0) + c
+    rows5["launches_by_walk"] = {w: {"launches": sum(v.values()), "shapes": v}
+                                 for w, v in sorted(by_walk.items())}
     # flash: the longest prefill's attention, qwen2-1.5b's heads at S = 4096, bf16, causal
     fB, fH, fKH, fS, fhd = 1, lm_cfg.num_heads, lm_cfg.num_kv_heads, LM_MAX_LEN, lm_cfg.head_dim
     kernels.append(dict(
@@ -6200,6 +6229,9 @@ def main() -> None:
     kernels += mesh_rows  # rows 8f and 5g: a rank's shapes in phase 20, its launches
     kernels += smesh_rows  # row 8g: flash at a 2x2 rank's heads in phase 21, its launches
     require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on a path: {path}")
+    for k in kernels:  # the walk each rows-kernel line ran (fused.py's rule)
+        if k["name"].startswith("cobra_bin_accumulate_rows"):
+            k["rows_design"] = rows_design(k.get("shape", {}).get("F", GNN_D))
     say(f"phase11 shapes: S2 m={m2} n={n2} bin_range={br2} num_bins={nb2}; rows F={GNN_D}; "
         f"COBRA pass S3 m={m3} bins={nb3}; embedding T={T_} d={d_} B={B_} L={L}; "
         f"flash B={fB} H={fH} KH={fKH} S={fS} hd={fhd} bf16 causal")

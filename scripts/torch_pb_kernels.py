@@ -62,19 +62,32 @@ and ``rows`` (default: all three):
   Variants, built from this tree's ``binread.cu`` when it has a
   ``kBrTile`` constant: tiles of 2048 and 8192 positions, blocks of 1024
   threads, and 8 or 16 rows gathered before they are folded (4 kept).
-- ``rows``: the row-block reduce (add, float32) at every fig9 shape: the
-  KRON, EURO and HBUBL graphs of the bench suite (m 2,097,152,
-  1,568,770 and 1,046,528 edges, n 262,144, destination-sorted) at F in
-  {1, 8, 32, 128}, and S2 (``gen_uniform(2^22, 8, seed=3)``) at F = 64.
-  Interleaved: the kernel, ``torch.zeros(n, F).index_add_(0, idx, val)``,
-  the base tree's kernel, and variants of the row walk built from
-  ``--base``'s sources (this tree's without it): ``kRowChunk`` 8 and 16,
-  and ``fill``, a chunk chosen from m so that the grid holds two waves of
-  2048 threads on every SM. min, max and int32 are checked against the
-  plain version at each shape, not timed. At S1 KRON, F = 1 and 8: a
-  ``torch.profiler`` breakdown in each tree and ``enqueue``, the host time
-  of one call of each function. With ``--base``: the SASS of every
-  ``rows_kernel`` instantiation both trees have, opcode by opcode.
+- ``rows``: the row-block reduce (add) at every fig9 shape: the KRON,
+  EURO and HBUBL graphs of the bench suite (m 2,097,152, 1,046,528 and
+  1,568,770 edges, n 262,144, destination-sorted) at F in {1, 8, 32,
+  128}; S2 (``gen_uniform(2^22, 8, seed=3)``) at F = 64 (PERF.md row 5);
+  row 5d's stream, rank 0's local rows after the owner exchange of S2's
+  first 2^24 tuples over four ranks (``chip_smoke.py`` phase 16),
+  rebuilt without a process group; the embedding backwards' token
+  streams (``SyntheticLM``): 5b (qwen2-1.5b, 16,384 x 1536 into
+  152,064), 5f (the vlm, 4,096 x 4096 into 128,256) and 5g (a 2x2
+  rank's vocabulary half, 4,096 x 1536 into 76,032, the ids outside it
+  -1); zipf token ids at 5b's shape; and 5c (the MoE combine, 972
+  tokens x top-8 in token order, 4096 bfloat16 columns into 972; 5e has
+  its shape). Interleaved: the
+  kernel, ``torch.zeros(n, F).index_add_(0, idx, val)`` over the kept
+  rows, the base tree's kernel, and, where the tile walk runs, variants
+  built from this tree's ``pb_rows.cuh``: ``unroll8`` (8 rows gathered
+  a lane), ``tile1024`` (1,024-row tiles) and ``nosort`` (tiles never
+  sorted; streams without dropped rows only), and where the narrow walk
+  runs, ``tile_all`` (the tile walk at F <= 16 too). Each is checked
+  against the plain version first; min, max and int32 are checked, not
+  timed, at the float32 shapes but 5d. A
+  ``torch.profiler`` breakdown at S1 KRON F = 1 and 8, S2, 5d and 5b in
+  each tree, and ``enqueue`` (the host time of one call) at KRON. With
+  ``--base``: the narrow walk's SASS (``rows_seg_kernel``) in both
+  trees, opcode by opcode; the REDG.E.ADD.F32x4 count of every tile-walk
+  instantiation.
 
 Variants go to ``_build/variants/`` beside the kernels' own build, one
 ``nvcc`` each, all started together. The card's name and power limit
@@ -217,11 +230,11 @@ def main() -> None:
         binread_section(K, KB, ref, bin_ids, starts_from_counts, with_base, R, N, dev, _lib,
                         args.src)
     if "rows" in sections:
-        rows_section(K, KB, T, ref, with_base, R, N, dev, _lib, args.base or args.src)
+        rows_section(K, KB, T, ref, with_base, R, N, dev, _lib, args.src)
     # last: profiles taken after cuobjdump has run came back empty
     if KB is not None:  # kernels that share a changed header, in the two trees, opcode by opcode
         names = (["positions_onesweep_kernel", "slab_bin_kernel"] if "binning" in sections
-                 else []) + (["rows_kernel"] if "rows" in sections else [])
+                 else []) + (["rows_seg_kernel"] if "rows" in sections else [])
         for name in names:
             ops = [{n[-48:]: [ln.split(";")[0].split("*/")[-1].split()[:1]
                               for ln in body.splitlines() if ln.strip().startswith("/*")]
@@ -230,6 +243,10 @@ def main() -> None:
                                                "base_instructions": len(ops[1].get(k, [])),
                                                "same_opcodes": v == ops[1].get(k)}
                                            for k, v in ops[0].items()}})
+    if "rows" in sections:  # the tile walk's float4 reductions
+        say("sass", {"kernel": "rows_tile_kernel", "REDG.E.ADD.F32x4": {
+            n[-48:]: body.count("REDG.E.ADD.F32x4")
+            for n, body in K._lib.kernel_sass("rows_tile_kernel").items()}})
     say("card", {"nvidia-smi": smi})
 
 
@@ -422,21 +439,19 @@ def histogram_and_cobra(K, KB, T, ref, bin_ids, starts_from_counts, with_base, R
 
 EMB_T, EMB_VOCAB, EMB_D, EMB_BIN_RANGE = 262_144, 50_304, 256, 4096  # benchmarks/embed_grad.py
 F_GRID = (1, 8, 32, 128)  # benchmarks/fig9_spmm.py
-ROW_CHUNK = "constexpr int kRowChunk = 64;"
-# ``fill``: the row walk's chunk from m, two waves of 2048 threads on every SM
-FILL = [
-    ("pb_rows.cuh", ROW_CHUNK, "__constant__ int c_row_chunk;"),
-    ("pb_rows.cuh", "(t / lpr) * kRowChunk;", "(t / lpr) * c_row_chunk;"),
-    ("pb_rows.cuh", "i0 + kRowChunk < m ? i0 + kRowChunk : m;",
-     "i0 + c_row_chunk < m ? i0 + c_row_chunk : m;"),
-    ("pb_rows.cuh", "  const long long threads = ((m + kRowChunk - 1) / kRowChunk) * lpr;\n",
-     "  const long long fill = m * lpr / (2LL * 2048 * pb_num_sms());\n"
-     "  const int chunk = (int)(fill < 1 ? 1 : fill > kFillMax ? kFillMax : fill);\n"
-     "  cudaMemcpyToSymbolAsync(c_row_chunk, &chunk, sizeof(int), 0, cudaMemcpyHostToDevice, s);\n"
-     "  const long long threads = ((m + chunk - 1) / chunk) * lpr;\n"),
-    ("pb_rows.cuh", "constexpr int kRowThreads = 256;",
-     "constexpr int kRowThreads = 256;\nconstexpr int kFillMax = 64;"),
-]
+SHARD_ROWS_M = 1 << 24  # chip_smoke.py phase 16: the row-valued stream's first tuples
+# variants of the tile walk, built from this tree's pb_rows.cuh
+ROW_VARIANTS = {
+    "unroll8": [("pb_rows.cuh", "constexpr int kTileUnroll = 4;",
+                 "constexpr int kTileUnroll = 8;")],
+    "tile1024": [("pb_rows.cuh", "constexpr int kTileItems = 2;",
+                  "constexpr int kTileItems = 4;")],
+    "nosort": [("pb_rows.cuh", "if (!__syncthreads_and(ordered)) {",
+                "if (!__syncthreads_and(ordered) && false) {")],
+    # the narrow walk's rows (F <= 16) through the tile walk too
+    "tile_all": [("pb_rows.cuh", "  if (lpr <= kSegMaxLpr)\n    return vec4 ? launch_seg_lpr",
+                  "  if (false)\n    return vec4 ? launch_seg_lpr")],
+}
 
 
 def build_variants(_lib, csrc: str, entry: str, variants: dict, root: str) -> dict:
@@ -590,74 +605,145 @@ def binread_section(K, KB, ref, bin_ids, starts_from_counts, with_base, R, N, de
         torch.cuda.empty_cache()
 
 
-def rows_section(K, KB, T, ref, with_base, R, N, dev, _lib, variant_src) -> None:
+def _rows_cases(T, dev, gen):
+    """(tag, idx, n, F, dtype, row values or None for randn) of every timed
+    shape of the rows kernel (module docstring), one at a time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed_pb as dpb
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    suite = T.graph_suite("bench", device=dev)
+    for name in ("KRON", "EURO", "HBUBL"):
+        g = suite[name]
+        idx = torch.sort(g.dst, stable=True).values
+        for F in F_GRID:
+            yield f"S1 {name}", idx, g.num_nodes, F, torch.float32, None
+    del suite
+    s2 = T.gen_uniform(1 << 22, 8, seed=3, device=dev)
+    n2 = s2.num_nodes
+    yield "S2", torch.sort(s2.dst, stable=True).values, n2, 64, torch.float32, None
+    # 5d: rank 0's local stream after the owner exchange of S2's first 2^24
+    # tuples over 4 ranks (chip_smoke.py phase 16): each source block's
+    # tuples of [0, r2) in source order, padded to the capacity with the
+    # last owned index (zero rows)
+    ridx = s2.dst[:SHARD_ROWS_M]
+    r2 = dpb.shard_range_for(n2, 4)
+    cap = dpb.estimate_capacity(ridx, out_size=n2, n_dev=4)
+    blk = SHARD_ROWS_M // 4
+    parts, vparts = [], []
+    for j in range(4):
+        b = ridx[j * blk:(j + 1) * blk]
+        own = b[b < r2][:cap]
+        parts.append(torch.cat([own, torch.full((cap - own.shape[0],), r2 - 1, dtype=own.dtype,
+                                                device=dev)]))
+        vparts.append(torch.cat([torch.randn(own.shape[0], 64, device=dev, generator=gen),
+                                 torch.zeros(cap - own.shape[0], 64, device=dev)]))
+    del s2, ridx
+    yield "5d", torch.cat(parts), r2, 64, torch.float32, torch.cat(vparts)
+    del parts, vparts
+    # the embedding backwards: _pb_take's stream at the training shapes
+    for tag, arch, B, S, block in (("5b", "qwen2-1.5b", 4, 4096, None),
+                                   ("5f", "llama-3.2-vision-11b", 2, 2048, None),
+                                   ("5g", "qwen2-1.5b", 2, 2048, (0, 2))):
+        cfg = get_config(arch)
+        ids = torch.from_numpy(SyntheticLM(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)).batch_at(0)["tokens"])
+        n = cfg.padded_vocab
+        if block is not None:  # a vocab-parallel rank's block: ids outside it -1
+            n //= block[1]
+            local = ids - block[0] * n
+            ids = torch.where((local >= 0) & (local < n), local, -1)
+        yield tag, ids.reshape(-1).to(dev), n, cfg.d_model, torch.float32, None
+    # zipf token ids at 5b's shape (binread's embedding stream's skew)
+    rng = np.random.default_rng(0)
+    zipf = np.minimum((rng.pareto(1.2, 16_384) * 50).astype(np.int64), 152_063)
+    yield "zipf", torch.from_numpy(zipf.astype(np.int32)).to(dev), 152_064, 1536, torch.float32, None
+    # 5c / 5e: the MoE combine, 972 tokens x top-8 in token order, bfloat16
+    yield ("5c", torch.arange(972, dtype=torch.int32, device=dev).repeat_interleave(8), 972, 4096,
+           torch.bfloat16, None)
+
+
+def rows_section(K, KB, T, ref, with_base, R, N, dev, _lib, src) -> None:
     """The ``rows`` lines (module docstring)."""
     import torch
 
-    csrc = os.path.join(os.path.abspath(variant_src), "repro_torch", "kernels", "csrc")
-    libs = build_variants(_lib, csrc, "fused_rows.cu", {
-        "chunk8": [("pb_rows.cuh", ROW_CHUNK, "constexpr int kRowChunk = 8;")],
-        "chunk16": [("pb_rows.cuh", ROW_CHUNK, "constexpr int kRowChunk = 16;")],
-        "fill": FILL}, os.path.join(str(_lib.BUILD_ROOT), "variants", "rows"))
+    csrc = os.path.join(os.path.abspath(src), "repro_torch", "kernels", "csrc")
+    libs = build_variants(_lib, csrc, "fused_rows.cu", ROW_VARIANTS,
+                          os.path.join(str(_lib.BUILD_ROOT), "variants", "rows"))
     for lib in libs.values():
-        fn = lib.pb_fused_accumulate_rows
-        fn.argtypes, fn.restype = _lib.SIGNATURES["pb_fused_accumulate_rows"]
+        for name in ("pb_fused_accumulate_rows", "pb_fused_accumulate_rows_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = _lib.SIGNATURES[name]
 
     def variant(lib, idx, val, n):
-        out = torch.zeros(n, val.shape[1], device=dev)  # add's identity
-        _lib.check(lib.pb_fused_accumulate_rows(
-            idx.data_ptr(), val.data_ptr(), idx.shape[0], val.shape[1], out.data_ptr(), n, 0, 0,
-            _lib.stream(idx)), "rows variant")
+        F = val.shape[1]
+        if val.dtype == torch.bfloat16:
+            acc = torch.zeros(n, F, device=dev)
+            out = torch.empty(n, F, dtype=torch.bfloat16, device=dev)
+            st = lib.pb_fused_accumulate_rows_bf16(idx.data_ptr(), val.data_ptr(), idx.shape[0],
+                                                   F, acc.data_ptr(), out.data_ptr(), n, 0,
+                                                   _lib.stream(idx))
+        else:
+            out = torch.zeros(n, F, device=dev)  # add's identity
+            st = lib.pb_fused_accumulate_rows(idx.data_ptr(), val.data_ptr(), idx.shape[0], F,
+                                              out.data_ptr(), n, 0, 0, _lib.stream(idx))
+        _lib.check(st, "rows variant")
         return out
 
-    suite = T.graph_suite("bench", device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
-    graphs = [(f"S1 {k}", suite[k], F_GRID) for k in ("KRON", "EURO", "HBUBL")]
-    graphs.append(("S2", T.gen_uniform(1 << 22, 8, seed=3, device=dev), (64,)))
-    for tag, g, fs in graphs:
-        idx = torch.sort(g.dst, stable=True).values
-        n, m = g.num_nodes, idx.shape[0]
+    for tag, idx, n, F, dt, val in _rows_cases(T, dev, gen):
+        m = idx.shape[0]
         br = min(512, n)
         nb = -(-n // br)
-        for F in fs:
-            for dt, op in ((torch.float32, "min"), (torch.float32, "max"), (torch.int32, "add"),
-                           (torch.int32, "min"), (torch.int32, "max")):
-                v = torch.randn(m, F, device=dev, generator=gen) if dt == torch.float32 else \
+        if dt == torch.float32 and tag != "5d":  # every op and dtype, once, against plain
+            for vdt, op in ((torch.float32, "min"), (torch.float32, "max"), (torch.int32, "add"),
+                            (torch.int32, "min"), (torch.int32, "max")):
+                v = torch.randn(m, F, device=dev, generator=gen) if vdt == torch.float32 else \
                     torch.randint(-50, 50, (m, F), device=dev, generator=gen, dtype=torch.int32)
                 if not torch.equal(K.cobra_bin_accumulate_rows(idx, v, n, br, nb, op),
                                    ref.scatter_reduce_ref(idx, v, n, op)):
-                    raise SystemExit(f"rows {op} {dt} differs from plain at {tag} F={F}")
+                    raise SystemExit(f"rows {op} {vdt} differs from plain at {tag} F={F}")
                 del v
-            val = torch.randn(m, F, device=dev, generator=gen)
+        if val is None:
+            val = torch.randn(m, F, device=dev, generator=gen).to(dt)
+        keep = (idx >= 0) & (idx < n)
+        kidx, kval = idx[keep], val[keep]
+        kept = int(kidx.shape[0])
 
-            def rows(mod, idx=idx, val=val, n=n, br=br, nb=nb):
-                return mod.cobra_bin_accumulate_rows(idx, val, n, br, nb, "add")
+        def rows(mod, idx=idx, val=val, n=n, br=br, nb=nb):
+            return mod.cobra_bin_accumulate_rows(idx, val, n, br, nb, "add")
 
-            fns = {"rows": lambda: rows(K),
-                   "index_add_": lambda val=val, n=n, F=F: torch.zeros(
-                       n, F, device=dev).index_add_(0, idx, val)}
-            fns.update({k: lambda lib=lib, val=val, n=n: variant(lib, idx, val, n)
-                        for k, lib in libs.items()})
-            fns = with_base(fns, rows)
-            want = ref.scatter_reduce_ref(idx, val, n, "add")
-            scale = ref.scatter_reduce_ref(idx, val.abs(), n, "add")
-            for k, fn in fns.items():
-                if k != "index_add_" and not bool(((fn() - want).abs() <= 1e-5 * scale + 1e-6).all()):
-                    raise SystemExit(f"rows {k} (add) differs from plain at {tag} F={F}")
-            del want, scale
-            rec = {"at": tag, "m": m, "n": n, "F": F, "dtype": "torch.float32", "op": "add",
-                   "bound_ms": (4 * m + 4 * m * F + 4 * n * F) / 3.35e12 * 1e3}
-            say("rows", {**rec, **interleaved(fns, R, N)})
-            if tag == "S1 KRON" and F in (1, 8):
-                say("profile", {"kernel": "rows", **rec, **kernel_profile(lambda: rows(K))})
-                if KB is not None:
-                    say("profile", {"kernel": "base:rows", **rec,
-                                    **kernel_profile(lambda: rows(KB))})
-                say("enqueue", {**rec, **enqueue_ms(fns)})
-            del fns, val
-        del idx
+        fns = {"rows": lambda: rows(K),
+               "index_add_": lambda: torch.zeros(n, F, dtype=dt, device=dev).index_add_(
+                   0, kidx, kval)}
+        narrow = K.fused.rows_design(F) == "narrow"
+        fns.update({k: lambda lib=lib: variant(lib, idx, val, n) for k, lib in libs.items()
+                    if (k == "tile_all") == narrow  # tile_all: the narrow walk's rows only
+                    and (k != "nosort" or kept == m)})  # nosort: no dropped rows, none last
+        fns = with_base(fns, rows)
+        want = ref.scatter_reduce_ref(idx, val, n, "add").float()
+        scale = ref.scatter_reduce_ref(idx, val.float().abs(), n, "add")
+        tol = 1e-5 * scale + 1e-6 + (2.0**-7 * want.abs() if dt == torch.bfloat16 else 0)
+        for k, fn in fns.items():  # index_add_ sums bfloat16 rows in bfloat16: not held
+            if k != "index_add_" and not bool(((fn().float() - want).abs() <= tol).all()):
+                raise SystemExit(f"rows {k} (add) differs from plain at {tag} F={F}")
+        del want, scale, tol
+        es = val.element_size()
+        rec = {"at": tag, "m": m, "kept": kept, "n": n, "F": F, "dtype": str(dt), "op": "add",
+               "design": K.fused.rows_design(F),
+               "bound_ms": (4 * m + es * kept * F + es * n * F) / 3.35e12 * 1e3}
+        say("rows", {**rec, **interleaved(fns, R, N)})
+        if (tag == "S1 KRON" and F in (1, 8)) or tag in ("S2", "5d", "5b"):
+            say("profile", {"kernel": "rows", **rec, **kernel_profile(lambda: rows(K))})
+            if KB is not None:
+                say("profile", {"kernel": "base:rows", **rec, **kernel_profile(lambda: rows(KB))})
+        if tag == "S1 KRON" and F in (1, 8):
+            say("enqueue", {**rec, **enqueue_ms(fns)})
+        del fns, val, kidx, kval, idx
         torch.cuda.empty_cache()
-
 
 if __name__ == "__main__":
     main()

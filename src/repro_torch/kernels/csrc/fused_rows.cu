@@ -14,19 +14,25 @@
 // Bound on the H100: bytes — the 4*m*F bytes of rows and 4*m of indices
 // read once, 4*n*F of output written (and initialised by the caller).
 //
-// Design: the row walks of pb_rows.cuh. A group of lanes spans a row with
-// 16-byte loads and a run of equal destinations is combined in registers,
-// then applied with one atomic per column (float min/max by
-// pb_common.cuh's sign-split int/uint atomics). Rows of at most 4 lanes
-// (F <= 16 with 16-byte loads: fig9's F = 1 and 8) take the narrow walk,
-// a warp-cooperative segmented scan over 32 / lpr rows a step, so that a
-// short row is not a long chain of dependent loads in one thread; wider
-// rows (the GNN layer's F = 64, fig9's 32 and 128) walk a 64-row chunk
-// per group of lanes. A destination-sorted stream (the GNN and fig9
-// streams, sorted_within = 1) therefore costs one atomic per column per
-// (chunk, destination) pair; any other order is still right, with more
-// atomics. Row offsets are 64-bit: m * F may exceed 2^31. Indices outside
-// [0, num_indices), negative ones included, are dropped.
+// Design: the row walks of pb_rows.cuh. Rows of at most 4 lanes (F <= 16
+// with 16-byte loads: fig9's F = 1 and 8) take the narrow walk, a
+// warp-cooperative segmented scan over 32 / lpr rows a step, so that a
+// short row is not a long chain of dependent loads in one thread; a run
+// of equal destinations is combined in registers and applied with one
+// atomic per column (float min/max by pb_common.cuh's sign-split int/uint
+// atomics). Wider rows (the GNN layer's F = 64, fig9's 32 and 128, the
+// embedding backward's 1536 and 4096) take the tile walk: a block stages
+// a 512-row tile's indices once in shared memory, sorts them by
+// destination unless they already are, cuts the list into run-aligned
+// segments for its lane groups, gathers four rows a lane before folding
+// them, joins the pieces of a run cut between segments in shared memory,
+// and applies a float32 add with one float4 reduction per run and 4
+// columns. A destination-sorted stream (the GNN and fig9 streams,
+// sorted_within = 1) therefore costs one reduction per (tile,
+// destination) and column group; repeated destinations in an unsorted
+// tile combine too; any order is right. Row offsets are 64-bit: m * F
+// may exceed 2^31. Indices outside [0, num_indices), negative ones
+// included, are dropped.
 //
 // bfloat16 rows (the MoE combine's weighted expert rows, F = 4096): read as
 // bfloat16, combined in float32 registers and applied with float32 atomics
@@ -34,9 +40,10 @@
 // bfloat16 by a second kernel (round to nearest even). No bfloat16 atomic
 // touches the output, so the rounding does not depend on the order of the
 // atomics. On the combine's token-ordered stream each token is one run of
-// k = 8 rows inside one 64-row chunk, so each accumulator column gets one
-// atomic. Bound: 2*m*F bytes of rows and 4*m of indices read, 2*n*F
-// written; the accumulator adds 4*n*F written and read, and its fill.
+// k = 8 rows inside one (already ordered) tile, so each accumulator column
+// gets one reduction, or two where a run crosses a tile edge.
+// Bound: 2*m*F bytes of rows and 4*m of indices read, 2*n*F written; the
+// accumulator adds 4*n*F written and read, and its fill.
 #include <cuda_bf16.h>
 
 #include "pb_common.cuh"

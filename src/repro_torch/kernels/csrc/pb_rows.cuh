@@ -9,17 +9,46 @@
 // 8-byte bfloat16 load; the caller picks it when F % 4 == 0 and the rows
 // are aligned). Row offsets are 64-bit: m * F may exceed 2^31.
 //
-// Wide rows (lpr >= 8, rows_kernel): each group walks a contiguous chunk
-// of kRowChunk rows in stream order and keeps a run of equal indices in
-// registers (in TAcc); when the index changes it applies the run with one
-// atomic per column. A stream sorted by index costs one atomic per column
-// per (chunk, index) pair; any other order is still right, with more
-// atomics. Rows wider than lpr * VEC columns are cut into column groups of
-// that width, one group per blockIdx.y (at most 65,535 of them; wider
-// rows stride over them), each re-reading the (cheap) index chunk: at
-// F = 4096 (the MoE combine) a group walking all 32 column groups of its
-// chunk in turn would leave 8,192 threads for m = 16,384 rows on a card
-// that holds 270,336.
+// Wide rows (lpr >= 8: F >= 17, or F >= 5 when not 16-byte rows;
+// rows_tile_kernel, "tile" in fused.py's rows_design): a block of 256
+// threads takes a tile of kTileRows consecutive rows of the stream.
+// - Staged indices: each thread loads kTileItems of the tile's indices
+//   once; a dropped index gets the key num_out, which sorts after every
+//   kept one. Every column slice the block covers reuses the staged list,
+//   so the indices are read once per (tile, column group), not once per
+//   lane group, and no row's load waits on its index load.
+// - Runs across the tile: if the staged keys are already non-decreasing
+//   (a destination-sorted stream, the MoE combine's token runs) the list
+//   stays in stream order; otherwise a stable cub::BlockRadixSort over
+//   the key's bits groups the (key, position) pairs, so repeated
+//   destinations anywhere in the tile combine before any atomic. The
+//   choice is made from the tile alone. Run heads become a bit mask
+//   (one ballot per 32 slots); the kept entries are the first n slots.
+// - Walkers: a group of lpr lanes spans one slice of lpr * VEC columns
+//   (VEC = 4: 16-byte float32/int32 or 8-byte bfloat16 loads). A slice's
+//   n entries are cut into P segments (P = walkers / slices in the
+//   block, at least 1), each starting at the first run head of its window
+//   of n / P slots, so a run shorter than the window is never cut; a
+//   longer one (a hub) is cut at most once a window and so still spreads
+//   over the walkers. A walker gathers kTileUnroll rows (independent
+//   loads, issued together) before folding them into its run in
+//   registers. The pieces of a cut run meet in shared memory: a segment
+//   that starts inside a run leaves its first piece there, and the
+//   walker whose segment holds the run's head adds them (after a block
+//   barrier) and applies the run once.
+// - Apply: one atomic per (tile, run) and group of VEC columns: a float32
+//   add of 4 columns is one atomicAdd on a float4 (REDG.E.ADD.F32x4 on
+//   sm_90a); int32 add, min and max keep pb_common.cuh's scalar
+//   atomics. A run that crosses a tile boundary is applied once by each
+//   tile, which is still right.
+// - Column groups: where the tiles alone would leave the card short of
+//   kTileBlocksPerSm blocks an SM (the embedding backward: 16,384 rows;
+//   the MoE combine: 7,776), the slices are split over blockIdx.y, each
+//   block restaging the tile's indices (cheap: 4 bytes a row against
+//   lpr * VEC * 4 a slice). A block takes spb consecutive slices, so
+//   the groups never pass kTileBlocksPerSm * SMs, however wide the row.
+// Any stream order gives the right result; a sorted stream costs one
+// atomic per column group per (tile, destination).
 //
 // Narrow rows (lpr <= kSegMaxLpr, rows_seg_kernel): one lane a row at
 // F = 1, so a group walking 64 rows one after another leaves a chain of
@@ -31,20 +60,25 @@
 // over the step's row slots with shuffles. Only the last slot of a run
 // applies it; the run still open at the end of a step is carried in
 // registers into the next. Chunks are sized so that the grid holds two
-// waves of resident warps. Atomics: one per column per (chunk, run), as
-// in the wide walk.
+// waves of resident warps. Atomics: one per column per (chunk, run).
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
+#include <cub/block/block_radix_sort.cuh>
 #include <cuda_bf16.h>
 
 #include "pb_common.cuh"
 
 namespace {
 
-constexpr int kRowThreads = 256;
-constexpr int kRowChunk = 64;
+constexpr int kTileThreads = 256;
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kTileItems = 2;  // indices a thread stages
+constexpr int kTileRows = kTileThreads * kTileItems;
+constexpr int kTileUnroll = 4;  // rows a lane loads before folding them
+constexpr int kTileBlocksPerSm = 8;  // below this many tiles an SM, split the columns
 
 template <int VEC, typename TIn, typename TAcc>
 __device__ __forceinline__ void load_row(const TIn* p, TAcc (&v)[VEC]);
@@ -95,43 +129,205 @@ __device__ __forceinline__ void load_row<1, __nv_bfloat16, float>(const __nv_bfl
   v[0] = __bfloat162float(p[0]);
 }
 
-template <typename TIn, typename TAcc, int OP, int VEC>
-__global__ void __launch_bounds__(kRowThreads)
-rows_kernel(const int* __restrict__ idx, const TIn* __restrict__ val, long long m, int F,
-            TAcc* __restrict__ out, long long num_out, int lpr) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long i0 = (t / lpr) * kRowChunk;
-  if (i0 >= m) return;
-  const long long i1 = i0 + kRowChunk < m ? i0 + kRowChunk : m;
-  const int width = lpr * VEC;
-  const long long stride = (long long)gridDim.y * width;
-  for (long long c0 = (long long)blockIdx.y * width + (t % lpr) * VEC; c0 < F; c0 += stride) {
-    long long run = -1;
-    TAcc acc[VEC];
-    for (long long i = i0; i < i1; ++i) {
-      const long long k = __ldg(idx + i);
-      if (k < 0 || k >= num_out) continue;
-      TAcc v[VEC];
-      load_row<VEC>(val + i * F + c0, v);
-      if (k == run) {
+// Apply a run's VEC columns at o: one float4 reduction for a float32 add
+// of 4 columns, else one scalar atomic a column.
+template <int OP, int VEC, typename TAcc>
+__device__ __forceinline__ void apply_cols(TAcc* o, const TAcc (&a)[VEC]) {
+  if constexpr (OP == pb::kAdd && VEC == 4 && std::is_same<TAcc, float>::value) {
+    atomicAdd(reinterpret_cast<float4*>(o), make_float4(a[0], a[1], a[2], a[3]));
+  } else {
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[j] = pb::combine<OP>(acc[j], v[j]);
+    for (int j = 0; j < VEC; ++j) pb::apply<OP>(o + j, a[j]);
+  }
+}
+
+// The first slot of segment `seg` (windows of L slots over the n kept
+// ones): the first run head inside its window, or the window's start when
+// a run covers the whole window; n past the end.
+__device__ __forceinline__ int seg_start(const unsigned* heads, int seg, int L, int n) {
+  const int a = seg * L;
+  if (a >= n) return n;
+  if (seg == 0) return 0;
+  const int c = a + L < n ? a + L : n;
+  for (int w = a >> 5; w <= (c - 1) >> 5; ++w) {
+    unsigned bits = heads[w];
+    if (w == a >> 5) bits &= ~0u << (a & 31);
+    const int hi = c - 32 * w;  // slots of this word below c
+    if (hi < 32) bits &= (1u << hi) - 1;
+    if (bits) return 32 * w + __ffs(bits) - 1;
+  }
+  return a;
+}
+
+// One walker's segment [b, e) of the staged list at one slice: vrow is the
+// tile's first row at this lane's columns, ocol the output's. Every run
+// is applied but two: where the segment starts inside a run (`open_lo`),
+// its first piece goes to `piece` (this lane's slots in shared memory) for
+// the run's owner; where the next segment does (`open_hi`), the last run
+// stays in `a`. Returns 1 if the segment owns that last run (it began
+// here), 2 if the whole segment is one piece passed on, else 0.
+template <int OP, int VEC, typename TIn, typename TAcc>
+__device__ __forceinline__ int walk_runs(const unsigned* key, const int* pos, int b, int e,
+                                         bool open_lo, bool open_hi, const TIn* vrow,
+                                         long long F, TAcc* ocol, TAcc (&a)[VEC],
+                                         TAcc* piece) {
+  int cur = -1;
+  bool first = true;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) a[j] = TAcc(0);
+  for (int j0 = b; j0 < e; j0 += kTileUnroll) {
+    TAcc v[kTileUnroll][VEC];
+    int kk[kTileUnroll];
+#pragma unroll
+    for (int u = 0; u < kTileUnroll; ++u) {
+      const int j = j0 + u;
+      kk[u] = j < e ? (int)key[j] : -1;
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) v[u][c] = TAcc(0);
+      if (kk[u] >= 0) load_row<VEC>(vrow + (long long)pos[j] * F, v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kTileUnroll; ++u) {
+      if (kk[u] < 0) break;  // past the segment
+      if (kk[u] == cur) {
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) a[c] = pb::combine<OP>(a[c], v[u][c]);
       } else {
-        if (run >= 0) {
-          TAcc* o = out + run * F + c0;
+        if (cur >= 0) {
+          if (first && open_lo) {
 #pragma unroll
-          for (int j = 0; j < VEC; ++j) pb::apply<OP>(o + j, acc[j]);
+            for (int c = 0; c < VEC; ++c) piece[c] = a[c];
+          } else {
+            apply_cols<OP, VEC>(ocol + (long long)cur * F, a);
+          }
+          first = false;
         }
-        run = k;
+        cur = kk[u];
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[j] = v[j];
+        for (int c = 0; c < VEC; ++c) a[c] = v[u][c];
       }
     }
-    if (run >= 0) {
-      TAcc* o = out + run * F + c0;
+  }
+  if (cur < 0) return 0;
+  if (first && open_lo) {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) pb::apply<OP>(o + j, acc[j]);
+    for (int c = 0; c < VEC; ++c) piece[c] = a[c];
+    return open_hi ? 2 : 0;
+  }
+  if (open_hi) return 1;
+  apply_cols<OP, VEC>(ocol + (long long)cur * F, a);
+  return 0;
+}
+
+// lpr = 1 << lpr_log lanes a row; the row's `slices` slices of lpr * VEC
+// columns go in groups of `spb` to blockIdx.y.
+template <typename TIn, typename TAcc, int OP, int VEC>
+__global__ void __launch_bounds__(kTileThreads)
+rows_tile_kernel(const int* __restrict__ idx, const TIn* __restrict__ val, long long m, int F,
+                 TAcc* __restrict__ out, int num_out, int key_bits, int lpr_log,
+                 long long slices, int spb) {
+  typedef cub::BlockRadixSort<unsigned, kTileThreads, kTileItems, int> Sort;
+  struct Staged {
+    unsigned key[kTileRows];
+    int pos[kTileRows];
+  };
+  __shared__ union {
+    typename Sort::TempStorage sort;
+    Staged st;
+  } sh;
+  __shared__ unsigned s_edge[kTileThreads];   // each thread's last staged key
+  __shared__ unsigned s_head[kTileRows / 32];  // run heads of the staged list, a bit a slot
+  __shared__ int s_n;                          // kept slots: the list's first n
+  __shared__ TAcc s_piece[kTileThreads][VEC];  // each lane's piece of a run begun before
+  __shared__ bool s_through[kTileThreads];     // a walker's segment is one piece passed on
+
+  const long long row0 = (long long)blockIdx.x * kTileRows;
+  const unsigned drop = (unsigned)num_out;  // a dropped index's key: sorts after the kept
+  unsigned k[kTileItems];
+  int p[kTileItems];
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < kTileItems; ++j) {
+    const int q = threadIdx.x * kTileItems + j;  // blocked: stream order
+    p[j] = q;
+    k[j] = drop;
+    if (row0 + q < m) {
+      const int x = __ldg(idx + row0 + q);
+      if (x >= 0 && x < num_out) {
+        k[j] = (unsigned)x;
+        any = true;
+      }
     }
+  }
+  bool ordered = true;  // this thread's keys non-decreasing, and after the previous thread's
+#pragma unroll
+  for (int j = 1; j < kTileItems; ++j) ordered &= k[j - 1] <= k[j];
+  s_edge[threadIdx.x] = k[kTileItems - 1];
+  if (threadIdx.x == 0) s_n = 0;
+  __syncthreads();
+  if (threadIdx.x > 0) ordered &= s_edge[threadIdx.x - 1] <= k[0];
+  if (!__syncthreads_or(any)) return;  // every index of the tile dropped
+  if (!__syncthreads_and(ordered)) {
+    Sort(sh.sort).Sort(k, p, 0, key_bits);  // stable: equal keys keep stream order
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < kTileItems; ++j) {
+    sh.st.key[threadIdx.x * kTileItems + j] = k[j];
+    sh.st.pos[threadIdx.x * kTileItems + j] = p[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kTileItems; ++j) {  // n: the slot after the last kept one
+    const int q = threadIdx.x * kTileItems + j;
+    if (k[j] != drop && (q + 1 == kTileRows || sh.st.key[q + 1] == drop)) s_n = q + 1;
+  }
+  // striped, so that a warp's ballot covers 32 consecutive slots
+  for (int q = threadIdx.x; q < kTileRows; q += kTileThreads) {
+    const unsigned key = sh.st.key[q];
+    const bool head = key != drop && (q == 0 || sh.st.key[q - 1] != key);
+    const unsigned word = __ballot_sync(PB_FULL_MASK, head);
+    if ((threadIdx.x & 31) == 0) s_head[q >> 5] = word;
+  }
+  __syncthreads();
+  const int n = s_n;
+
+  const int lane = threadIdx.x & 31;
+  const int lpr = 1 << lpr_log;
+  const int walkers = kTileWarps * (32 >> lpr_log);
+  const int walker = (threadIdx.x >> 5) * (32 >> lpr_log) + (lane >> lpr_log);
+  const long long width = (long long)lpr * VEC;  // a slice's columns
+  const int cl = (lane & (lpr - 1)) * VEC;       // this lane's first column in its slice
+  const long long s0 = (long long)blockIdx.y * spb;  // this block's first slice
+  const int ns = (int)(slices - s0 < spb ? slices - s0 : spb);
+  const int P = ns >= walkers ? 1 : walkers / ns;  // segments a slice: one unit a walker if > 1
+  const int L = (n + P - 1) / P;
+  int own = 0, run = -1;  // this walker's open last run (P > 1), and its index
+  long long c = 0;
+  TAcc a[VEC];
+  for (int u = walker; u < ns * P; u += walkers) {
+    c = (s0 + u % ns) * width + cl;
+    if (c >= F) continue;  // F % VEC == 0: a lane's columns are all in or all out
+    const int seg = u / ns;
+    const int b = seg_start(s_head, seg, L, n);
+    const int e = seg + 1 < P ? seg_start(s_head, seg + 1, L, n) : n;
+    const bool open_lo = b < e && !(s_head[b >> 5] >> (b & 31) & 1);
+    const bool open_hi = e < n && !(s_head[e >> 5] >> (e & 31) & 1);
+    own = walk_runs<OP, VEC>(sh.st.key, sh.st.pos, b, e, open_lo, open_hi, val + row0 * F + c,
+                             F, out + c, a, s_piece[threadIdx.x]);
+    if (own == 1) run = (int)sh.st.key[e - 1];
+    if ((lane & (lpr - 1)) == 0) s_through[walker] = own == 2;
+  }
+  if (P == 1) return;  // uniform: no run was cut inside the tile
+  __syncthreads();
+  if (own == 1) {  // the run's owner: add the pieces of the next segments, apply once
+    for (int w = walker + ns;; w += ns) {
+      const TAcc* q = s_piece[w * lpr + (lane & (lpr - 1))];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) a[j] = pb::combine<OP>(a[j], q[j]);
+      if (!s_through[w]) break;
+    }
+    apply_cols<OP, VEC>(out + c + (long long)run * F, a);
   }
 }
 
@@ -247,9 +443,37 @@ int launch_seg_lpr(cudaStream_t s, int lpr, const int* idx, const TIn* val, long
   return launch_seg<TIn, TAcc, OP, VEC, 4>(s, idx, val, m, F, out, num_out);
 }
 
+template <typename TIn, typename TAcc, int OP, int VEC>
+int launch_tile(cudaStream_t s, const int* idx, const TIn* val, long long m, int F, TAcc* out,
+                long long num_out, int lpr) {
+  const long long tiles = (m + kTileRows - 1) / kTileRows;
+  if (tiles > 0x7fffffffLL || num_out > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int lpr_log = 0;
+  while ((1 << lpr_log) < lpr) ++lpr_log;
+  const long long slices = (F + (long long)lpr * VEC - 1) / ((long long)lpr * VEC);
+  const long long target = (long long)kTileBlocksPerSm * pb_num_sms();
+  long long groups = 1, spb = slices;  // enough tiles: each block takes every slice
+  if (tiles < target) {
+    groups = (target + tiles - 1) / tiles;
+    groups = groups < slices ? groups : slices;
+    spb = (slices + groups - 1) / groups;
+    groups = (slices + spb - 1) / spb;
+  }
+  // groups <= target: a wide row's slices go to a block spb at a time
+  if (spb > 0x7fffffffLL || groups > 65535) return (int)cudaErrorInvalidValue;
+  // bits of num_out itself: the dropped key num_out sorts last
+  int key_bits = 1;
+  while (key_bits < 31 && (num_out >> key_bits) != 0) ++key_bits;
+  const dim3 grid((unsigned)tiles, (unsigned)groups);
+  rows_tile_kernel<TIn, TAcc, OP, VEC><<<grid, kTileThreads, 0, s>>>(
+      idx, val, m, F, out, (int)num_out, key_bits, lpr_log, slices, (int)spb);
+  return (int)cudaGetLastError();
+}
+
 // Launch the row walk on the stream: VEC = 4 when `vec4`, lanes per row
-// from F; the narrow walk up to kSegMaxLpr lanes a row, rows_kernel
-// above. Returns cudaErrorInvalidValue if the grid would not fit.
+// from F; the narrow walk up to kSegMaxLpr lanes a row, the tile walk
+// above (fused.py's rows_design names the same rule). Returns
+// cudaErrorInvalidValue if the grid would not fit.
 template <typename TIn, typename TAcc, int OP>
 int launch_rows(cudaStream_t s, const int* idx, const TIn* val, long long m, int F,
                 TAcc* out, long long num_out) {
@@ -260,18 +484,8 @@ int launch_rows(cudaStream_t s, const int* idx, const TIn* val, long long m, int
   if (lpr <= kSegMaxLpr)
     return vec4 ? launch_seg_lpr<TIn, TAcc, OP, 4>(s, lpr, idx, val, m, F, out, num_out)
                 : launch_seg_lpr<TIn, TAcc, OP, 1>(s, lpr, idx, val, m, F, out, num_out);
-  const long long threads = ((m + kRowChunk - 1) / kRowChunk) * lpr;
-  const long long blocks = (threads + kRowThreads - 1) / kRowThreads;
-  const int width = lpr * (vec4 ? 4 : 1);
-  long long groups = (F + width - 1) / width;  // column groups over blockIdx.y
-  groups = groups < 65535 ? groups : 65535;    // wider rows stride over them
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, (unsigned)groups);
-  if (vec4)
-    rows_kernel<TIn, TAcc, OP, 4><<<grid, kRowThreads, 0, s>>>(idx, val, m, F, out, num_out, lpr);
-  else
-    rows_kernel<TIn, TAcc, OP, 1><<<grid, kRowThreads, 0, s>>>(idx, val, m, F, out, num_out, lpr);
-  return (int)cudaGetLastError();
+  return vec4 ? launch_tile<TIn, TAcc, OP, 4>(s, idx, val, m, F, out, num_out, lpr)
+              : launch_tile<TIn, TAcc, OP, 1>(s, idx, val, m, F, out, num_out, lpr);
 }
 
 }  // namespace

@@ -49,10 +49,14 @@ than that sum.
 
 ``cobra_bin_accumulate_rows`` is the row-block (SpMM) form: ``(m, F)``
 values reduced into ``(num_indices, F)`` by ``csrc/fused_rows.cu`` on a
-CUDA tensor (rows of up to 16 float32/int32 columns in a warp-cooperative
-segmented walk, wider ones a 64-row chunk per group of lanes and column
-group), by the same plain version on a CPU tensor, with the same index
-rule and tolerances (per column). Row offsets are 64-bit, so only
+CUDA tensor, in one of the two walks of ``csrc/pb_rows.cuh``
+(``rows_design``): ``"narrow"``, a warp-cooperative segmented scan for
+rows of at most four lanes (F <= 16 with 16-byte rows), and ``"tile"``
+for wider rows (a block stages a 512-row tile's indices, sorts them by
+destination unless they already are, and applies each run with float4
+reductions for a float32 add). On a CPU tensor the same plain version
+runs, with the same index rule and tolerances (per column). Row offsets
+are 64-bit, so only
 m and num_indices, not m * F, must fit int32. bfloat16 rows (the MoE
 combine) are read as bfloat16, reduced in float32 into a float32
 accumulator and rounded once to bfloat16 (round to nearest even); the
@@ -73,6 +77,7 @@ FUSED_OPS = ("add", "min", "max")
 _OP_CODE = {"add": 0, "min": 1, "max": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
 ROW_DTYPES = (torch.float32, torch.int32, torch.bfloat16)  # bfloat16: the rows kernel only
+ROWS_NARROW_MAX_LANES = 4  # csrc/pb_rows.cuh: kSegMaxLpr
 
 
 FUSED_DESIGNS = ("two-pass", "single-sweep")
@@ -169,6 +174,19 @@ def cobra_bin_accumulate(
 
 
 cobra_bin_accumulate.launches, cobra_bin_accumulate.shapes = 0, {}
+
+
+def rows_design(F: int, aligned: bool = True) -> str:
+    """The walk ``csrc/pb_rows.cuh``'s ``launch_rows`` takes for rows of F
+    columns: 4 columns a lane where F % 4 == 0 and the rows are ``aligned``
+    (16 bytes for float32 and int32, 8 for bfloat16), else 1; lanes a row
+    the next power of two of a row's lane-columns, at most 32; the narrow
+    walk up to ROWS_NARROW_MAX_LANES lanes, the tile walk above."""
+    cols = F // 4 if F % 4 == 0 and aligned else F
+    lanes = 1
+    while lanes < cols and lanes < 32:
+        lanes <<= 1
+    return "narrow" if lanes <= ROWS_NARROW_MAX_LANES else "tile"
 
 
 def cobra_bin_accumulate_rows(

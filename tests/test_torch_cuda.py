@@ -290,8 +290,8 @@ def test_cuda_rows_edges(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("F", [65536 * 128 + 4, 65536 * 32 + 1])
 def test_cuda_rows_wider_than_the_grid(cuda, F):
-    """More column groups than grid.y holds (65,535): the wide walk strides
-    over them (16-byte lanes, then scalar lanes)."""
+    """More column slices than grid.y holds (65,535): the tile walk gives
+    each block a run of slices (16-byte lanes, then scalar lanes)."""
     n = 3
     gen = torch.Generator(device=cuda).manual_seed(F)
     ti = torch.tensor([0, 2, 0, 1, -1], dtype=torch.int32, device=cuda)
@@ -549,6 +549,118 @@ def test_cuda_rows_at_the_gnn_shape(cuda, op):
     got = cobra_bin_accumulate_rows(ti, tv, n, 512, n // 512, op)
     want = tref.scatter_reduce_ref(ti, tv, n, op)
     assert _rows_ok(got, want, ti, tv, n, op)
+
+
+# The tile walk of csrc/pb_rows.cuh (rows wider than 4 lanes: F >= 17 with
+# 16-byte rows, F >= 5 otherwise) against the plain version: five orders
+# (destination-sorted, uniform, zipf token ids whose tiles are sorted in
+# shared memory, one destination, a hub taking half of the rows), 1% of
+# the indices -1, -7, n or n + 11; scalar lanes at F = 17, 31, 33 and
+# 1000 % 4 == 0 but 1000 / 4 lanes not a power of two; bfloat16 for add.
+TILE_ORDERS = ["sorted", "random", "zipf", "one-destination", "hub"]
+
+
+def _tile_stream(order, n, m, seed):
+    rng = _rng(seed)
+    if order == "one-destination":
+        idx = np.full(m, n // 2, np.int64)
+    elif order == "zipf":
+        idx = np.minimum((rng.pareto(1.2, m) * 20).astype(np.int64), n - 1)
+    elif order == "hub":
+        idx = np.where(rng.random(m) < 0.5, n // 3, rng.integers(0, n, m))
+    else:
+        idx = rng.integers(0, n, m)
+        if order == "sorted":
+            idx.sort()
+    bad = rng.random(m) < 0.01
+    idx[bad] = rng.choice([-1, -7, n, n + 11], int(bad.sum()))
+    return idx.astype(np.int32)
+
+
+def _tile_values(m, F, dtype, cuda, seed, offset=0):
+    """(m, F) values; ``offset`` elements past the start of their storage
+    (1: rows off a 16-byte boundary, so every lane loads one column)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if dtype == torch.int32:
+        flat = torch.randint(-50, 50, (m * F + offset,), device=cuda, generator=gen,
+                             dtype=torch.int32)
+    else:
+        flat = torch.randn(m * F + offset, device=cuda, generator=gen).to(dtype)
+    return flat[offset:].view(m, F)
+
+
+def _tile_ok(got, want, ti, tv, n, op):
+    if tv.dtype != torch.bfloat16:
+        return _rows_ok(got, want, ti, tv, n, op)
+    if op != "add":
+        return torch.equal(got, want)
+    scale = tref.scatter_reduce_ref(ti, tv.float().abs(), n)
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= 2.0**-7 * want.float().abs() + 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [17, 20, 31, 32, 33, 64, 128, 1000, 1536, 4096])
+@pytest.mark.parametrize("order", TILE_ORDERS)
+@pytest.mark.parametrize("dtype,op", [(torch.float32, "add"), (torch.float32, "min"),
+                                      (torch.float32, "max"), (torch.int32, "add"),
+                                      (torch.int32, "min"), (torch.int32, "max"),
+                                      (torch.bfloat16, "add")])
+def test_cuda_rows_tile_walk(cuda, F, order, dtype, op):
+    from repro_torch.kernels.fused import rows_design
+
+    n, m = 2003, 20_011
+    ti = torch.from_numpy(_tile_stream(order, n, m, seed=F)).to(cuda)
+    tv = _tile_values(m, F, dtype, cuda, seed=F + 1)
+    assert rows_design(F) == "tile"
+    before = cobra_bin_accumulate_rows.launches
+    got = cobra_bin_accumulate_rows(ti, tv, n, 512, -(-n // 512), op)
+    assert cobra_bin_accumulate_rows.launches == before + 1
+    want = tref.scatter_reduce_ref(ti, tv, n, op)
+    assert got.shape == (n, F) and got.dtype == dtype and _tile_ok(got, want, ti, tv, n, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [20, 64, 1536])
+@pytest.mark.parametrize("order", ["sorted", "zipf"])
+@pytest.mark.parametrize("dtype,op", [(torch.float32, "add"), (torch.float32, "max"),
+                                      (torch.int32, "min"), (torch.bfloat16, "add")])
+def test_cuda_rows_tile_walk_unaligned_rows(cuda, F, order, dtype, op):
+    """Values one element past a 16-byte boundary: the tile walk with one
+    column a lane and scalar atomics (F = 20 and 64 leave the narrow walk's
+    reach too: 20 and 64 lanes)."""
+    from repro_torch.kernels.fused import rows_design
+
+    n, m = 701, 9_001
+    ti = torch.from_numpy(_tile_stream(order, n, m, seed=F + 2)).to(cuda)
+    tv = _tile_values(m, F, dtype, cuda, seed=F + 3, offset=1)
+    assert tv.data_ptr() % 16 != 0 and rows_design(F, aligned=False) == "tile"
+    got = cobra_bin_accumulate_rows(ti, tv, n, 512, -(-n // 512), op)
+    want = tref.scatter_reduce_ref(ti, tv, n, op)
+    assert _tile_ok(got, want, ti, tv, n, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "max"])
+def test_cuda_rows_past_int32_elements_in_token_order(cuda, op):
+    """m * F > 2^31 in an unsorted stream (every tile sorted in shared
+    memory), with indices -1 and >= n: 64-bit row offsets through the
+    tile's positions."""
+    n, m, F = 1 << 20, (1 << 25) + 3, 64
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ti = torch.randint(-2, n + 2, (m,), device=cuda, generator=gen, dtype=torch.int32)
+    tv = torch.randn(m, F, device=cuda, generator=gen)
+    assert m * F > 2**31
+    got = cobra_bin_accumulate_rows(ti, tv, n, 512, n // 512, op)
+    want = tref.scatter_reduce_ref(ti, tv, n, op)
+    if op == "add":
+        scale = tref.scatter_reduce_ref(ti, tv.abs(), n, "add")
+        del tv
+        assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+    else:
+        del tv
+        assert torch.equal(got, want)
+    assert float(got[-1].abs().sum()) > 0  # the last rows were reached
 
 
 @pytest.mark.cuda

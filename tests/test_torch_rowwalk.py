@@ -442,3 +442,332 @@ def test_lane_packing_and_chunk_sizing():
     warps = -(-m // (32 * steps))
     assert warps >= 2 * 64 * H100_SMS
     assert seg_steps(1000, 4) == 1 and seg_steps(1 << 30, 1) == SEG_MAX_STEPS
+
+
+# -- the tile walk (wide rows) ---------------------------------------------------
+
+# csrc/pb_rows.cuh
+TILE_THREADS, TILE_ITEMS, TILE_BLOCKS_PER_SM = 256, 2, 8
+TILE_ROWS, TILE_WARPS = TILE_THREADS * TILE_ITEMS, TILE_THREADS // 32
+M32 = 0xFFFFFFFF
+
+
+def tile_grid(m, F, lpr, vec, sms=H100_SMS):
+    """launch_tile: (tiles, slices, column groups, slices a group). The
+    slices go to blockIdx.y only where the tiles alone leave the card
+    short of TILE_BLOCKS_PER_SM blocks an SM."""
+    tiles, slices = -(-m // TILE_ROWS), -(-F // (lpr * vec))
+    target = TILE_BLOCKS_PER_SM * sms
+    groups, spb = 1, slices
+    if tiles < target:
+        groups = min(-(-target // tiles), slices)
+        spb = -(-slices // groups)
+        groups = -(-slices // spb)
+    return tiles, slices, groups, spb
+
+
+def key_bits(num_out):
+    """The sort's key bits: enough for num_out itself (a dropped row's key)."""
+    bits = 1
+    while bits < 31 and num_out >> bits:
+        bits += 1
+    return bits
+
+
+def stage_tile(idx_tile, num_out):
+    """One block's staged list: keys (a dropped index's key is num_out) and
+    tile positions in list order, whether the tile was already ordered,
+    the kept count n, and the run heads as the ballots' 32-bit words."""
+    k = np.full(TILE_ROWS, num_out, np.int64)
+    k[:idx_tile.shape[0]] = np.where((idx_tile >= 0) & (idx_tile < num_out), idx_tile, num_out)
+    # each thread's items in order, and its first after the previous thread's last
+    items = k.reshape(TILE_THREADS, TILE_ITEMS)
+    ordered = bool((np.diff(items, axis=1) >= 0).all() and (items[1:, 0] >= items[:-1, -1]).all())
+    assert ordered == bool((np.diff(k) >= 0).all())
+    assert k.max() < 1 << key_bits(num_out)  # the sort's bits hold every key
+    pos = np.arange(TILE_ROWS) if ordered else np.argsort(k, kind="stable")
+    keys = k[pos]
+    nxt = np.r_[keys[1:], num_out]
+    last = np.flatnonzero((keys != num_out) & (nxt == num_out))
+    n = int(last[0]) + 1 if last.size else 0
+    assert n == int((k != num_out).sum())
+    head = (keys != num_out) & (keys != np.r_[-1, keys[:-1]])
+    return keys, pos, ordered, n, ballot_words(head)
+
+
+def ballot_words(head):
+    """The head flags as 32-bit words, slot 32 w + b at bit b of word w."""
+    return [int(w) for w in (head.reshape(-1, 32) << np.arange(32, dtype=np.uint64)).sum(1)]
+
+
+def seg_start(words, seg, L, n):
+    """The kernel's seg_start, bit for bit: the first run head in the
+    window [seg * L, min(n, (seg + 1) * L)), or the window's start."""
+    a = seg * L
+    if a >= n:
+        return n
+    if seg == 0:
+        return 0
+    c = min(a + L, n)
+    for w in range(a >> 5, ((c - 1) >> 5) + 1):
+        bits = words[w]
+        if w == a >> 5:
+            bits &= (M32 << (a & 31)) & M32
+        hi = c - 32 * w
+        if hi < 32:
+            bits &= (1 << hi) - 1
+        if bits:
+            return 32 * w + (bits & -bits).bit_length() - 1
+    return a
+
+
+_REDUCEAT = {"add": np.add, "min": np.minimum, "max": np.maximum}
+
+
+def _bit(words, q):
+    return words[q >> 5] >> (q & 31) & 1
+
+
+def tile_walk_model(idx, val, num_out, op, *, aligned=True, sms=H100_SMS):
+    """The dense (num_out, F) result of rows_tile_kernel's blocks, and what
+    they counted: vector (float4) and scalar reductions, tiles taken in
+    stream order and tiles sorted, runs applied, run pieces passed on."""
+    m, F = val.shape
+    lpr, vec = lanes_per_row(F, aligned)
+    assert lpr > SEG_MAX_LPR  # the tile walk's rows
+    tiles, slices, groups, spb = tile_grid(m, F, lpr, vec, sms)
+    walkers = TILE_WARPS * (32 // lpr)
+    width = lpr * vec
+    out = np.full((num_out, F), reduce_identity(op, torch.from_numpy(val).dtype), val.dtype)
+    vector = op == "add" and val.dtype == np.float32 and vec == 4
+    stats = {"vector": 0, "scalar": 0, "ordered": 0, "sorted": 0, "applies": 0, "pieces": 0}
+
+    def apply(k, cols, s, lanes):
+        out[k, cols] = _combine(op, out[k, cols], s)
+        stats["applies"] += 1
+        stats["vector" if vector else "scalar"] += lanes * (1 if vector else vec)
+
+    for t in range(tiles):
+        r0 = t * TILE_ROWS
+        keys, pos, ordered, n, words = stage_tile(idx[r0:r0 + TILE_ROWS], num_out)
+        if n == 0:  # the block ends after staging
+            continue
+        stats["ordered" if ordered else "sorted"] += 1
+        for g in range(groups):
+            s0 = g * spb
+            ns = min(spb, slices - s0)
+            P = 1 if ns >= walkers else walkers // ns
+            assert P == 1 or ns * P <= walkers  # one unit a walker where runs are cut
+            L = -(-n // P)
+            piece, through, owned = {}, {}, []
+            for u in range(ns * P):  # the units the block's walkers take in turn
+                sl, seg = s0 + u % ns, u // ns
+                lanes = [sl * width + ln * vec for ln in range(lpr) if sl * width + ln * vec < F]
+                if not lanes:
+                    continue
+                b = seg_start(words, seg, L, n)
+                e = seg_start(words, seg + 1, L, n) if seg + 1 < P else n
+                if b == e:
+                    continue
+                open_lo = not _bit(words, b)
+                open_hi = e < n and not _bit(words, e)
+                assert P > 1 or not (open_lo or open_hi)
+                cols = slice(lanes[0], lanes[-1] + vec)
+                kseg, rows = keys[b:e], val[r0 + pos[b:e], cols]
+                starts = np.flatnonzero(np.r_[True, kseg[1:] != kseg[:-1]])
+                sums = _REDUCEAT[op].reduceat(rows, starts, axis=0)
+                last = starts.shape[0] - 1
+                through[u] = False
+                for i, (k, s) in enumerate(zip(kseg[starts], sums)):
+                    if i == 0 and open_lo:  # the tail of a run begun before: passed on
+                        piece[u] = s
+                        through[u] = last == 0 and open_hi
+                        stats["pieces"] += 1
+                    elif i == last and open_hi:  # begun here, goes on: this walker owns it
+                        owned.append((u, k, s, cols, len(lanes)))
+                    else:
+                        apply(k, cols, s, len(lanes))
+            for u, k, s, cols, lanes in owned:  # after the block barrier
+                w = u + ns
+                while True:
+                    s = _combine(op, s, piece[w])
+                    if not through[w]:
+                        break
+                    w += ns
+                apply(k, cols, s, lanes)
+    return out, stats
+
+
+def _tile_stream(order, n, m, seed, negatives):
+    """Indices in five orders: destination-sorted, uniform, zipf token ids,
+    one destination and a hub (half of the rows on one destination); with
+    ``negatives``, 5% dropped (-1, -4, n, n + 9)."""
+    rng = _rng(seed)
+    if order == "one-destination":
+        idx = np.full(m, n // 3, np.int64)
+    elif order == "zipf":
+        idx = np.minimum((rng.pareto(1.2, m) * 3).astype(np.int64), n - 1)
+    elif order == "hub":
+        idx = np.where(rng.random(m) < 0.5, n // 2, rng.integers(0, n, m))
+    else:
+        idx = rng.integers(0, n, m)
+        if order == "sorted":
+            idx.sort()
+    if negatives:
+        bad = rng.random(m) < 0.05
+        idx[bad] = rng.choice([-1, -4, n, n + 9], int(bad.sum()))
+    return idx.astype(np.int32)
+
+
+def _tile_values(m, F, dtype, seed):
+    rng = _rng(seed)
+    if dtype == np.int32:
+        return rng.integers(-50, 50, (m, F)).astype(np.int32)
+    return rng.normal(size=(m, F)).astype(np.float32)
+
+
+TILE_F = [17, 20, 32, 33, 64, 128, 1536]
+TILE_ORDERS = ["sorted", "random", "zipf", "one-destination", "hub"]
+
+
+@pytest.mark.parametrize("F", TILE_F)
+@pytest.mark.parametrize("order", TILE_ORDERS)
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+def test_tile_walk_matches_plain(F, order, dtype, op):
+    """Two tiles (the second one short), 16-byte lanes (F = 20, 32, 64, 128,
+    1536) and scalar ones (17, 33), one slice or many, every order; 5% of
+    the indices are -1, -4, n or n + 9 and are dropped."""
+    n, m = 97, TILE_ROWS + 77
+    idx = _tile_stream(order, n, m, seed=F, negatives=True)
+    val = _tile_values(m, F, dtype, seed=F + 1)
+    got, stats = tile_walk_model(idx, val, n, op)
+    want = tref.scatter_reduce_ref(torch.from_numpy(idx), torch.from_numpy(val), n, op).numpy()
+    _check_rows(got, want, idx, val, n, op)
+    assert stats["ordered"] + stats["sorted"] == 2
+    vec = lanes_per_row(F)[1]
+    assert (stats["vector"] > 0) == (op == "add" and dtype == np.float32 and vec == 4)
+
+
+# one case a row of TILE_F: every F, op, dtype and order held to the Pallas kernel at least once
+PALLAS_CASES = [(17, "add", np.float32, "sorted"), (20, "min", np.int32, "random"),
+                (32, "max", np.float32, "zipf"), (33, "add", np.int32, "one-destination"),
+                (64, "min", np.float32, "hub"), (128, "max", np.int32, "sorted"),
+                (1536, "add", np.float32, "random")]
+
+
+@pytest.mark.parametrize("F,op,dtype,order", PALLAS_CASES)
+def test_tile_walk_matches_pallas(F, op, dtype, order):
+    """Non-negative streams inside [0, n) against the Pallas rows kernel in
+    interpret mode."""
+    n, m = 97, TILE_ROWS + 77
+    idx = _tile_stream(order, n, m, seed=F + 7, negatives=False)
+    val = _tile_values(m, F, dtype, seed=F + 8)
+    got, _ = tile_walk_model(idx, val, n, op)
+    want = np.asarray(cobra_bin_accumulate_rows_pallas(
+        jnp.asarray(idx), jnp.asarray(val), num_indices=n, bin_range=32, num_bins=4, op=op,
+        block=512, cap=512, interpret=True))
+    _check_rows(got, want, idx, val, n, op)
+
+
+def test_tile_walk_sorted_stream_costs_one_apply_a_run():
+    """A destination-sorted stream stays in stream order, and each tile
+    applies each of its runs once (at F = 64, 16 segments of 32 slots a
+    tile; runs of about two rows are never cut)."""
+    n, m, F = 4000, 4 * TILE_ROWS, 64
+    idx = np.sort(_rng(2).integers(0, n, m)).astype(np.int32)
+    val = np.ones((m, F), np.float32)
+    got, stats = tile_walk_model(idx, val, n, "add")
+    np.testing.assert_array_equal(got[:, 0], np.bincount(idx, minlength=n))
+    assert stats["ordered"] == 4 and stats["sorted"] == 0
+    distinct = sum(len(np.unique(idx[t:t + TILE_ROWS])) for t in range(0, m, TILE_ROWS))
+    assert stats["applies"] == distinct and stats["pieces"] == 0
+    assert stats["vector"] == distinct * 16  # 16 lanes of 4 columns, one float4 each
+
+
+def test_tile_walk_sort_combines_repeats():
+    """Zipf token ids in token order: each tile is sorted, and its repeated
+    ids combine before any reduction (a row-by-row walk would apply once
+    per row)."""
+    n, m, F = 152_064, 4 * TILE_ROWS, 128
+    ids = np.minimum((_rng(4).pareto(1.2, m) * 50).astype(np.int64), n - 1).astype(np.int32)
+    val = _tile_values(m, F, np.float32, seed=5)
+    got, stats = tile_walk_model(ids, val, n, "add")
+    want = tref.scatter_reduce_ref(torch.from_numpy(ids), torch.from_numpy(val), n).numpy()
+    _check_rows(got, want, ids, val, n, "add")
+    assert stats["sorted"] == 4
+    assert stats["applies"] < 0.5 * m * 1  # one slice: fewer than half the rows
+
+
+@pytest.mark.parametrize("F", [20, 64, 128])
+@pytest.mark.parametrize("op", ["add", "max"])
+def test_tile_walk_long_runs_meet_in_the_tile(F, op):
+    """Runs longer than a segment's window (one destination for a whole
+    tile, hubs of 40 to 300 rows): each is cut into pieces over the
+    walkers, and the pieces meet at the walker that holds the run's head,
+    which applies the run once a tile (a sorted tile's runs are its
+    distinct destinations)."""
+    n = 50
+    rng = _rng(F)
+    for idx in (np.full(TILE_ROWS, 3), np.repeat(rng.integers(0, n, 20), rng.integers(40, 300, 20))):
+        idx = idx.astype(np.int32)
+        m = idx.shape[0]
+        val = _tile_values(m, F, np.float32, seed=F)
+        got, stats = tile_walk_model(idx, val, n, op)
+        want = tref.scatter_reduce_ref(torch.from_numpy(idx), torch.from_numpy(val), n, op).numpy()
+        _check_rows(got, want, idx, val, n, op)
+        runs = sum(len(np.unique(idx[t:t + TILE_ROWS])) for t in range(0, m, TILE_ROWS))
+        assert stats["applies"] == runs * -(-F // (lanes_per_row(F)[0] * lanes_per_row(F)[1]))
+        assert stats["pieces"] > 0
+
+
+def test_seg_start_bits():
+    """seg_start's masks against a plain search, windows of every length
+    and offset over random heads."""
+    rng = _rng(6)
+    for trial in range(50):
+        head = rng.random(TILE_ROWS) < rng.choice([0.01, 0.1, 0.5])
+        n = int(rng.integers(1, TILE_ROWS + 1))
+        head[n:] = False
+        head[0] = True
+        words = ballot_words(head)
+        for P in (2, 3, 8, 16, 32, 64):
+            L = -(-n // P)
+            prev = -1
+            for seg in range(P):
+                a = seg * L
+                hits = np.flatnonzero(head[a:min(a + L, n)])
+                want = n if a >= n else 0 if seg == 0 else a + int(hits[0]) if hits.size else a
+                got = seg_start(words, seg, L, n)
+                assert got == want and got >= prev
+                prev = got
+
+
+def test_tile_walk_grid_at_the_path_shapes():
+    """launch_tile's plan at the main path's shapes: S2's F = 64 stream has
+    tiles enough for every block to take the whole row; the embedding
+    backward (16,384 x 1536), the vlm's (4,096 x 4096), the MoE combine
+    (7,776 x 4096 bfloat16) and a vocab-parallel rank (8,192 x 1536) split
+    their slices over blockIdx.y, one slice a block; key bits hold
+    num_out."""
+    assert tile_grid(1 << 25, 64, 16, 4) == (65536, 1, 1, 1)
+    assert tile_grid(16_384, 1536, 32, 4) == (32, 12, 12, 1)
+    assert tile_grid(4096, 4096, 32, 4) == (8, 32, 32, 1)
+    assert tile_grid(7776, 4096, 32, 4) == (16, 32, 32, 1)
+    assert tile_grid(8192, 1536, 32, 4) == (16, 12, 12, 1)
+    assert tile_grid(5, 65536 * 128 + 4, 32, 4) == (1, 65537, 1041, 63)
+    assert key_bits(1 << 22) == 23 and key_bits(152_064) == 18 and key_bits(1) == 1
+    assert key_bits(2**31 - 1) == 31
+
+
+def test_rows_design_names_the_walk():
+    """fused.py's rows_design and launch_rows's rule: the narrow walk up to
+    four lanes a row, the tile walk above."""
+    from repro_torch.kernels.fused import rows_design
+
+    for F in range(1, 70):
+        for aligned in (True, False):
+            lpr, _ = lanes_per_row(F, aligned)
+            assert rows_design(F, aligned) == ("narrow" if lpr <= SEG_MAX_LPR else "tile")
+    assert [rows_design(F) for F in (1, 8, 16, 17, 32, 64, 1536)] == [
+        "narrow", "narrow", "narrow", "tile", "tile", "tile", "tile"]
