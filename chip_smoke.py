@@ -10,9 +10,11 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
 
 1. Device: ``nvidia-smi`` name and power limit, the device properties
    beside ``HardwareModel.h100()``, then the kernels' build (nvcc, sm_90a),
-   and the HMMA (tensor-core) instructions that ``cuobjdump -sass`` finds
-   in each flash kernel: every bfloat16 one (head dims 16, 32, 64, 80 and
-   128) must have them; and the REDG.E.ADD.F32x4 (float4 reduction)
+   and the HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
+   instructions that ``cuobjdump -sass`` finds in each flash kernel: every
+   bfloat16 one (head dims 16, 32, 64, 80 and 128, in blocks of 64 and
+   128 queries) must have HGMMA and UTMALDG and no HMMA, and the float32
+   ones none of the three; and the REDG.E.ADD.F32x4 (float4 reduction)
    instructions in each instantiation of the rows kernel's tile walk: the
    float32 add of 16-byte rows must have them.
 2. The first slice's kernels against their plain versions on the card:
@@ -76,9 +78,11 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    (1, 2, 1, 128, 16) and (2, 4, 2, 256, 32), at qwen2-1.5b's heads
    (1, 12, 2, S, 128) for S in {1, 7, 500, 513, 2048, 4096}, at
    Sq = 256 against Skv = 512, at qwen-like grouping (2, 12, 2, 300, hd)
-   for hd in {16, 32, 64}, and at every Sq, Skv in {1, 15, 63, 65, 127,
-   129} (around the 64-row tiles); then where outputs nearly cancel
-   (v = +-1 alternating by key), which a bfloat16-rounded P would fail.
+   for hd in {16, 32, 64}, at every Sq, Skv in {1, 15, 63, 65, 127,
+   129} (around the 64-row tiles), and around the 128-row tiles in
+   128-query blocks ((12, 12, 2, Sq, Skv, hd) for hd in {80, 128}); then
+   where outputs nearly cancel (v = +-1 alternating by key), which a
+   bfloat16-rounded P would fail.
    The largest |diff| and share of the tolerance are printed per dtype.
 9. The LM serving path: full-size ``qwen2-1.5b`` (28 layers, bf16, random
    weights from seed 0) served by ``Engine`` with 4 slots and 4096
@@ -579,9 +583,13 @@ FLASH_SHAPES = (  # (B, H, KH, Sq, Skv, hd): the JAX test's, then qwen2-1.5b's h
     + [(2, 12, 2, 300, 300, hd) for hd in (16, 32, 64)]
     + [(1, 12, 2, sq, skv, 128) for sq in (1, 15, 63, 65, 127, 129)
        for skv in (1, 15, 63, 65, 127, 129)]
+    # around the 128-row tiles of 128-query blocks (12 x 12 heads fill the SMs)
+    + [(12, 12, 2, sq, skv, hd) for hd in (80, 128)
+       for sq, skv in ((127, 129), (129, 127), (255, 257), (257, 255))]
 )
 FLASH_CANCEL_SHAPES = [(1, 2, 2, 128, 128, 16), (1, 12, 2, 512, 512, 128),
-                       (1, 12, 2, 2048, 2048, 128), (1, 12, 2, 100, 1000, 64)]
+                       (1, 12, 2, 2048, 2048, 128), (1, 12, 2, 100, 1000, 64),
+                       (12, 12, 2, 300, 300, 80)]
 FLASH_F32_ATOL = 1e-4  # flash kernel vs plain, float32 (see flash_close)
 FLASH_BF16_REL, FLASH_BF16_FLOOR = 2.0**-7, 1e-4  # bfloat16: times |plain| plus the floor
 PROFILE_GUARD_MS = 20.0  # least spin time before and after a profiled call (_profiled)
@@ -5313,12 +5321,18 @@ def main() -> None:
     for line in _lib.build_log().splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             say("phase1 nvcc:", line.strip())
-    # which flash kernels run on the tensor cores: HMMA lines in their SASS
-    hmma = {name: body.count("HMMA") for name, body in _lib.kernel_sass("flash_fwd_").items()}
-    say("phase1 flash SASS HMMA count:", json.dumps(hmma))
-    bf16_hmma = [n for name, n in hmma.items() if "flash_fwd_bf16_kernel" in name]
-    require(len(bf16_hmma) == 5 and min(bf16_hmma) > 0,
-            f"the bf16 flash kernels do not all run on the tensor cores: {hmma}")
+    # the bf16 flash kernels are Hopper's (wgmma fed by TMA, no mma.sync), the
+    # float32 ones CUDA-core code: HGMMA, UTMALDG and HMMA lines in their SASS
+    ops = {name: {op: body.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
+           for name, body in _lib.kernel_sass("flash_fwd_").items()}
+    say("phase1 flash SASS HGMMA, UTMALDG, HMMA counts:", json.dumps(ops))
+    bf16_ops = [n for name, n in ops.items() if "flash_fwd_bf16_kernel" in name]
+    f32_ops = [n for name, n in ops.items() if "flash_fwd_f32_kernel" in name]
+    require(len(bf16_ops) == 10 and all(n["HGMMA"] and n["UTMALDG"] and not n["HMMA"]
+                                        for n in bf16_ops),
+            f"the bf16 flash kernels are not all wgmma fed by TMA: {ops}")
+    require(len(f32_ops) == 5 and not any(sum(n.values()) for n in f32_ops),
+            f"a float32 flash kernel runs on the tensor cores: {ops}")
     # the rows kernel's tile walk: float4 reductions (REDG.E.ADD.F32x4) in its SASS,
     # <TIn, TAcc, op, VEC>: the float32 add of 16-byte rows is rows_tile_kernelIffLi0ELi4E
     redg = {name: body.count("REDG.E.ADD.F32x4")

@@ -2,7 +2,7 @@
 """Time and trace the port's PB binning kernels on one NVIDIA card.
 
     python3 scripts/torch_pb_kernels.py [--src DIR] [--base DIR] [--rounds 5] [--reps 20]
-                                        [--sections binning,binread,rows]
+                                        [--sections binning,binread,rows,flash]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's
 ``src``). ``--base`` names another tree's ``src`` (a parent commit
@@ -45,8 +45,8 @@ Prints one JSON object per line:
   of the two trees compared opcode by opcode (they share the look-back
   core), after every trace.
 
-``--sections`` picks among ``binning`` (every line above), ``binread``
-and ``rows`` (default: all three):
+``--sections`` picks among ``binning`` (every line above), ``binread``,
+``rows`` (default: those three) and ``flash``:
 
 - ``binread``: Bin-Read at ``benchmarks/embed_grad.py``'s full shapes
   (T 262,144 rows of d 256, ``bin_range`` 4096, 13 bins) on its zipf ids
@@ -88,6 +88,27 @@ and ``rows`` (default: all three):
   ``--base``: the narrow walk's SASS (``rows_seg_kernel``) in both
   trees, opcode by opcode; the REDG.E.ADD.F32x4 count of every tile-walk
   instantiation.
+- ``flash``: the bfloat16 flash-attention forward at the shapes of
+  PERF.md's rows 8-8g (``chip_smoke.py``'s ``flash_row`` shapes: qwen2's
+  S 4096 prefill, qwen3-moe's 972-token one, zamba2's 453 at head_dim 80,
+  the vlm's cross prefill against 1601 image tokens, Whisper's encoder, a
+  2x2 rank's heads at S 2048 and at a 450-token serve prefill). Each
+  tree's kernel and each variant (``FLASH_VARIANTS``: 128-key tiles; the
+  producer a warpgroup, without and with ``setmaxnreg``; built from this
+  tree's ``flashattn.cu`` into ``_build/variants/flash/`` and called
+  through ctypes, without the wrapper's host work) is checked against the
+  plain version first (one bfloat16 step); then interleaved: the kernel,
+  the base tree's, the variants, and ``scaled_dot_product_attention``
+  (``enable_gqa=True``, the yardstick);
+  per row the ``torch.profiler`` device ms of one call in each tree, the
+  host ms a call takes to enqueue, and TFLOP/s on the device time, useful
+  (``flash_flops``) and executed (x 1.5: P V runs twice, hi and lo). Then
+  ``flash_build``: the registers and spills nvcc gave each bf16
+  instantiation of each tree and variant, and the kernel's dynamic
+  shared memory (its ``Geo``);
+  ``flash_host``: the host ms a call takes at a launch-bound shape (B 1,
+  2 heads, 64 positions), bfloat16 and float32, hd 80 and 128, in each
+  tree, in rounds that alternate.
 
 Variants go to ``_build/variants/`` beside the kernels' own build, one
 ``nvcc`` each, all started together. The card's name and power limit
@@ -231,6 +252,8 @@ def main() -> None:
                         args.src)
     if "rows" in sections:
         rows_section(K, KB, T, ref, with_base, R, N, dev, _lib, args.src)
+    if "flash" in sections:
+        flash_section(K, KB, R, N, dev, smi)
     # last: profiles taken after cuobjdump has run came back empty
     if KB is not None:  # kernels that share a changed header, in the two trees, opcode by opcode
         names = (["positions_onesweep_kernel", "slab_bin_kernel"] if "binning" in sections
@@ -457,9 +480,10 @@ ROW_VARIANTS = {
 def build_variants(_lib, csrc: str, entry: str, variants: dict, root: str) -> dict:
     """Compile each variant of ``csrc/entry`` (with every header of
     ``csrc``) into ``root/<name>/lib.so``, one nvcc each, all started
-    together. ``variants``: name -> [(file, old, new)] text patches; a
-    patch whose ``old`` text is missing stops the script. Returns name ->
-    ctypes library."""
+    together, nvcc's ``-Xptxas -v`` output in ``root/<name>/build.log``.
+    ``variants``: name -> [(file, old, new)] text patches; a patch whose
+    ``old`` text is missing stops the script. Returns name -> ctypes
+    library."""
     procs = {}
     for name, patches in variants.items():
         d = os.path.join(root, name)
@@ -478,13 +502,15 @@ def build_variants(_lib, csrc: str, entry: str, variants: dict, root: str) -> di
         lib = os.path.join(d, "lib.so")
         procs[name] = (lib, subprocess.Popen(
             [_lib.nvcc_path(), *_lib.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
-             "-o", lib, os.path.join(d, entry)],
+             "-Xptxas", "-v", "-o", lib, os.path.join(d, entry)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for name, (lib, p) in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
             raise SystemExit(f"nvcc failed on variant {name}:\n{log}")
+        with open(os.path.join(root, name, "build.log"), "w") as fh:
+            fh.write(log)
         out[name] = ctypes.CDLL(lib)
     return out
 
@@ -744,6 +770,170 @@ def rows_section(K, KB, T, ref, with_base, R, N, dev, _lib, src) -> None:
             say("enqueue", {**rec, **enqueue_ms(fns)})
         del fns, val, kidx, kval, idx
         torch.cuda.empty_cache()
+
+
+# rows 8-8g of PERF.md's kernel table: (B, H, KH, Sq, Skv, hd, causal)
+FLASH_ROWS = {
+    "8": (1, 12, 2, 4096, 4096, 128, True), "8b": (1, 64, 4, 972, 972, 128, True),
+    "8c": (1, 32, 32, 453, 453, 80, True), "8d": (1, 32, 8, 1024, 1601, 128, False),
+    "8e": (1, 8, 8, 1500, 1500, 64, False), "8f": (2, 6, 1, 2048, 2048, 128, True),
+    "8g": (1, 6, 1, 450, 450, 128, True),
+}
+
+
+# csrc/flashattn.cu as the design's alternatives would have built it: 128-key
+# tiles where a consumer could hold them (two warpgroups, or hd <= 64), and the
+# producer as a warpgroup (warps 0-3, consumers after it), without and with
+# setmaxnreg moving its registers to the consumers (24; 240 or 232)
+_PRODUCER_WARPGROUP = [
+    ("flashattn.cu", "  static constexpr int kThreads = 128 * NWG + 32;",
+     "  static constexpr int kThreads = 128 * (NWG + 1);"),
+    ("flashattn.cu", "  if (warp == 4 * NWG) {  // the producer warp: one lane issues every load\n"
+     "    if (lane == 0) {", "  if (warp < 4) {\n    if (threadIdx.x == 0) {"),
+    ("flashattn.cu", "    const int cw = warp / 4;\n", "    const int cw = warp / 4 - 1;\n"),
+]
+def _wgmma_ss(n: int) -> str:
+    """The source of the kernel's ``wgmma_ss`` for m64n{n}k16, which the
+    128-key variant needs beside the kernel's own n64."""
+    d = n // 2
+    regs = ", ".join(f"%{i}" for i in range(d))
+    outs = ", ".join(f'"+f"(d[{i}])' for i in range(d))
+    return (f"template <int ScaleD>\n__device__ __forceinline__ void wgmma_ss(float (&d)[{d}], "
+            f"uint64_t a, uint64_t b) {{\n  asm volatile(\"{{\\n.reg .pred p;\\n"
+            f"setp.ne.b32 p, %{d + 2}, 0;\\nwgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16"
+            f" {{{regs}}}, %{d}, %{d + 1}, p, 1, 1, 0, 0;\\n}}\\n\"\n"
+            f"      : {outs}\n      : \"l\"(a), \"l\"(b), \"r\"(ScaleD));\n}}\n\n")
+
+
+_SS_ANCHOR = "// d (m64n16k16, f32) += a b, A in registers, B MN-major in shared memory."
+FLASH_VARIANTS = {
+    "keys128": [("flashattn.cu", "  static constexpr int kKeys = 64;",
+                 "  static constexpr int kKeys = NWG == 2 || HD <= 64 ? 128 : 64;"),
+                ("flashattn.cu", _SS_ANCHOR, _wgmma_ss(128) + _SS_ANCHOR)],
+    "producer_warpgroup": _PRODUCER_WARPGROUP,
+    "producer_warpgroup_setmaxnreg": [
+        _PRODUCER_WARPGROUP[0],
+        (_PRODUCER_WARPGROUP[1][0], _PRODUCER_WARPGROUP[1][1],
+         '  if (warp < 4) {\n    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\\n");\n'
+         "    if (threadIdx.x == 0) {"),
+        (_PRODUCER_WARPGROUP[2][0], _PRODUCER_WARPGROUP[2][1],
+         "    const int cw = warp / 4 - 1;\n"
+         '    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(NWG == 2 ? 240 : 232));\n'),
+    ],
+}
+
+
+def _ptxas_bf16(log: str) -> dict:
+    """Registers and spills of each bf16 flash instantiation in nvcc's
+    ``-Xptxas -v`` output, keyed hd<d>[_nwg<n>]."""
+    import re
+
+    build = {}
+    for entry in log.split("Compiling entry function")[1:]:
+        m = re.search(r"flash_fwd_bf16_kernelILi(\d+)E(?:Li(\d+)E)?", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        if m and regs:
+            key = f"hd{m.group(1)}" + (f"_nwg{m.group(2)}" if m.group(2) else "")
+            build[key] = {"registers": int(regs.group(1)),
+                          "spill_stores": int(spill.group(1)) if spill else None,
+                          "spill_loads": int(spill.group(2)) if spill else None}
+    return build
+
+
+def flash_smem(hd, nwg) -> int:
+    """Dynamic shared memory of a bf16 flash block (``Geo<HD, NWG>`` in
+    csrc/flashattn.cu): Q, the stages of 64-key K and V tiles (as many, up
+    to four, as fit a block and, at one warpgroup, two blocks an SM), a
+    barrier for Q and three a stage, and the base's alignment."""
+    def smem(stages):
+        return 64 * nwg * hd * 2 + 2 * stages * 64 * hd * 2 + 8 * (1 + 3 * stages) + 1024
+
+    blocks = 2 if nwg == 1 else 1
+    return smem(next(n for n in (4, 3, 2)
+                     if smem(n) <= 232_448 and blocks * (smem(n) + 1024) <= 233_472))
+
+
+def flash_section(K, KB, R, N, dev, smi) -> None:
+    """The ``flash`` lines (module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    trees = {"kernel": K} | ({"base": KB} if KB is not None else {})
+    variants = build_variants(K._lib, str(K._lib.CSRC), "flashattn.cu", FLASH_VARIANTS,
+                              os.path.join(str(K._lib.BUILD_ROOT), "variants", "flash"))
+    argtypes, restype = K._lib.SIGNATURES["pb_flash_attention"]
+    for lib in variants.values():
+        lib.pb_flash_attention.argtypes, lib.pb_flash_attention.restype = argtypes, restype
+
+    def variant(lib, q, k, v, causal):  # the wrapper's call, on a variant's library
+        out = torch.empty_like(q)
+        B, H, Sq, hd = q.shape
+        st = [x for t in (q, k, v, out) for x in t.stride()[:3]]
+        K._lib.check(lib.pb_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, k.shape[1], Sq,
+            k.shape[2], hd, 1, int(causal), hd**-0.5, *st, K._lib.stream(q)), "flash variant")
+        return out
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    for row, (B, H, KH, Sq, Skv, hd, causal) in FLASH_ROWS.items():
+        q, k, v = (torch.randn(B, h, S, hd, device=dev, generator=gen).bfloat16()
+                   for h, S in ((H, Sq), (KH, Skv), (KH, Skv)))
+        want = K.flashattn.flash_attention_ref(q, k, v, causal=causal).float()
+        fns, errs = {}, {}
+        calls = {name: (lambda mod=mod: mod.flash_attention(q, k, v, causal=causal))
+                 for name, mod in trees.items()}
+        calls |= {f"variant:{name}": (lambda lib=lib: variant(lib, q, k, v, causal))
+                  for name, lib in variants.items()}
+        for name, call in calls.items():
+            diff = (call().float() - want).abs()
+            errs[name] = float(diff.max())
+            if not bool((diff <= 2.0**-7 * want.abs() + 1e-4).all()):
+                raise SystemExit(f"flash {name} at row {row} differs from plain: {errs[name]}")
+            fns[name] = call
+        fns["sdpa"] = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                               enable_gqa=True)
+        flop = K.flashattn.flash_flops(B, H, Sq, Skv, hd, causal)
+        times = interleaved(fns, R, N)
+        device = {name: kernel_profile(fn)["device_ms"] for name, fn in fns.items()}
+        say("flash", {"row": row, "shape": [B, H, KH, Sq, Skv, hd], "causal": causal,
+                      "max_abs_err": errs, "interleaved": times, "device_ms": device,
+                      "enqueue_ms": enqueue_ms({n: fns[n] for n in trees}),
+                      "useful_tflops": {n: flop / ms / 1e9 for n, ms in device.items() if ms},
+                      "executed_tflops": {n: 1.5 * flop / device[n] / 1e9
+                                          for n in calls if device[n]},
+                      "bound_ms": flop / 989e12 * 1e3, "card": smi})
+        del q, k, v, want
+    # host ms a call at a launch-bound shape, rounds alternating between the trees
+    # and dtypes (no sync between calls; the device work is a few microseconds)
+    host = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for hd in (80, 128):
+            q = torch.randn(1, 2, 64, hd, device=dev, generator=gen).to(dt)
+            k = torch.randn(1, 1, 64, hd, device=dev, generator=gen).to(dt)
+            for name, mod in trees.items():
+                host[f"{name}:{str(dt)[6:]}:hd{hd}"] = (lambda mod=mod, q=q, k=k:
+                                                        mod.flash_attention(q, k, k))
+    per = {n: [] for n in host}
+    for r in range(R):
+        for n, ms in enqueue_ms(dict(list(host.items())[::-1 if r % 2 else 1]), 500).items():
+            per[n].append(ms)
+    say("flash_host", {"ms": {n: {"mean": sum(v) / len(v), "min": min(v), "max": max(v)}
+                              for n, v in per.items()}, "card": smi})
+    logs = {name: mod._lib.build_log().split("== flashattn.cu")[1].split("\n== ")[0]
+            for name, mod in trees.items()}
+    for name in variants:
+        with open(os.path.join(str(K._lib.BUILD_ROOT), "variants", "flash", name,
+                               "build.log")) as fh:
+            logs[f"variant:{name}"] = fh.read()
+    for name, log in logs.items():
+        build = _ptxas_bf16(log)
+        if name == "kernel":
+            for key, rec in build.items():
+                hd, nwg = (int(x) for x in key[2:].split("_nwg"))
+                rec["dynamic_smem"] = flash_smem(hd, nwg)
+        say("flash_build", {"tree": name, "bf16": build, "card": smi})
+
 
 if __name__ == "__main__":
     main()

@@ -21,60 +21,75 @@
 //
 // Which dtype takes which kernel:
 //
-// - bfloat16 (the model's prefill): flash_fwd_bf16_kernel, on the tensor
-//   cores (mma.sync m16n8k16, bf16 inputs, f32 accumulators), below.
+// - bfloat16 (the model's prefill): flash_fwd_bf16_kernel, Hopper's own
+//   tensor-core path (wgmma fed by TMA), below.
 // - float32: flash_fwd_f32_kernel, CUDA-core FMAs in f32. TF32 tensor
 //   cores would keep 10 bits of each product's inputs, and the float32
 //   model is held to its CPU copy within 1e-4 of max |logit|, which TF32
 //   products would not hold.
 //
-// The bf16 kernel (FlashAttention-2's register layout):
+// The bf16 kernel (FlashAttention-3's block: a producer warp and consumer
+// warpgroups over a ring of shared-memory stages):
 //
-// - One block of four warps per (batch, head, tile of 64 queries); each
-//   warp owns 16 query rows. The grid's x walks the query tiles
-//   longest-first across all heads, so that under the causal mask the
-//   short tiles near position 0 run last and fill the tail of the grid.
-// - The Q tile is copied to shared memory once with cp.async (16 bytes a
-//   thread), loaded into mma A-fragments with ldmatrix and kept in
-//   registers for the whole loop. The scale hd^-0.5 (times log2 e, for
-//   exp2f) is applied to the f32 scores, not to q in bf16.
-// - K and V tiles of 64 keys go through a ring of two shared-memory stages
-//   filled by cp.async.cg: tile i+1 loads while tile i is multiplied. Rows
-//   are stored with their 16-byte chunks XOR-swizzled by the row, so that
-//   ldmatrix (K, Q) and ldmatrix.trans (V) read eight rows from eight
-//   different bank groups. Rows past Skv (and Q rows past Sq) are filled
-//   with zeros by the copy itself (source size 0).
-// - S = Q K^T with mma.sync: bf16 x bf16 products are exact in f32, so
-//   only the summation order differs from the plain version. Each lane
-//   holds two rows' scores; a row's max and sum are finished by two xor
-//   shuffles inside the quad of lanes that share the row, and each
-//   score's exp2f is computed once, by the lane that holds it. Only the
-//   diagonal tile and the ragged tail tile are masked; tiles wholly above
-//   the causal diagonal are never loaded. The accumulator is rescaled by
-//   alpha once per tile.
-// - P V without leaving registers: the C-fragment of S is the A-fragment
-//   of P V. The reference multiplies p @ v with p in f32. Rounding p to
-//   bf16 (as FlashAttention-2 does) moves an output by up to 2^-9 of
-//   sum(p |v|) / l, which exceeds one bf16 step of the output where the
-//   values nearly cancel. So p is split into hi = bf16(p) and
-//   lo = bf16(p - hi), whose sum is within 2^-17 of p, and each V fragment
-//   takes two mma.sync, hi and lo, into the same f32 accumulator: 1.5x
-//   FlashAttention-2's tensor-core work (7.7e10 FLOP at the prefill
-//   shape). The denominator l is summed from the f32 p, as in the
-//   reference.
-// - Epilogue: divide by max(l, 1e-30), round once to bf16, store the rows
-//   below Sq through the output's strides, as bf16 pairs.
-//
-// Shared memory at hd 128: Q 16 KB + 2 stages x (K 16 KB + V 16 KB) =
-// 80 KB, so two blocks (eight warps) share an SM. Registers allow the same:
-// ptxas gives the hd-128 instantiation 255 registers and no spills (the
-// swizzled ldmatrix addresses are one per-lane offset XORed with
-// constants, see swizzle()). hd 80 (zamba2's heads; 80 = 5 x 16, so the
-// k-steps of Q K^T and the dim pairs of P V stay whole) keeps its rows at a
-// pitch of 128 elements (row_pitch): ten data chunks of 16 bytes in a row
-// of sixteen, the same 80 KB a block. An 80-wide row would need 51,200 B,
-// but the XOR of chunks 8 and 9 with the row would then run into the next
-// row, and the row term would carry bits into the chunk field.
+// - A block is NWG consumer warpgroups of 64 query rows each and one
+//   producer warp, for one (batch, head, tile of 64 * NWG queries). NWG is
+//   2 (128 queries) unless that grid has fewer blocks than the card has
+//   SMs; then 1 (64 queries), and two such blocks share an SM. The grid's
+//   x walks the query tiles longest-first across all heads, so that under
+//   the causal mask the short tiles near position 0 fill the grid's tail.
+// - Loads: one lane of the producer issues every copy as a TMA load of a
+//   box of a rank-4 tensor map over (hd, position, head, batch) with the
+//   tensor's own strides (cuTensorMapEncodeTiled, reached through the
+//   runtime's driver entry point, so nothing links libcuda). Q is loaded
+//   once; K and V tiles of 64 keys go through a ring of up to four
+//   stages, each with a "full" mbarrier for K, one for V (TMA counts its
+//   bytes in) and an "empty" one (every consumer warp arrives when it has
+//   read the stage). Rows past Sq and Skv are zeros from TMA's out-of-bounds fill;
+//   tiles wholly above the causal diagonal are never loaded (the producer
+//   and the consumers count the same n_tiles).
+// - Registers: an SM's 65,536 are four files of 16,384, one for each
+//   quarter of its warps, so a block of 9 or 12 warps, or two of 5, gives
+//   a thread at most 168, and two of 8 at most 128. The producer is one
+//   warp, not a warpgroup whose registers setmaxnreg hands to the
+//   consumers: built that way (24 for the producer, 240 or 232 for a
+//   consumer), ptxas still compiled the consumers to 168 or 128 (nvcc -v),
+//   and the 64-query block, two of 8 warps an SM, spilled. The 64-key tile
+//   keeps a consumer's live set (S, the accumulator, the previous tile's
+//   P in hi and lo) at or below 128 registers: 101 to 155 in use, and no
+//   instantiation spills.
+// - A row's head_dim is cut into parts of 64 columns and a rest (hd 80:
+//   64 + 16; hd 128: 64 + 64), each its own TMA box and shared-memory
+//   region whose rows are exactly the box's swizzle span (128, 64 or 32
+//   bytes), so that TMA's swizzle is the layout wgmma's descriptors name.
+// - S = Q K^T: wgmma m64n64k16 with A (this warpgroup's 64 rows of Q) and
+//   B (the K tile) both read from shared memory, K-major, one k-step of 16
+//   columns at a time (a descriptor's start advances 32 bytes inside a
+//   swizzle atom); f32 scores. bf16 x bf16 products are exact in f32.
+// - Online softmax on the accumulator fragments: each lane holds two rows'
+//   scores; a row's max and sum are finished by two xor shuffles inside
+//   the quad of lanes that share it, and each p = exp2(s * scale - max *
+//   scale), scale = hd^-0.5 * log2 e, is one FFMA and one exp2, computed
+//   by the lane that holds its score. Only the diagonal tile and the
+//   ragged tail tile are masked (-1e30): TMA's zero rows past Skv would
+//   otherwise score 0. The accumulator is rescaled once a tile.
+// - P V by wgmma with A from registers: the score fragments are the A
+//   fragments, so P never leaves registers, and B is the V tile read
+//   MN-major (transposed) from shared memory. The reference multiplies
+//   p @ v with p in f32. Rounding p to bf16 (as FlashAttention-2 and -3
+//   do) moves an output by up to 2^-9 of sum(p |v|) / l, which exceeds one
+//   bf16 step of the output where the values nearly cancel. So p is split
+//   into hi = bf16(p) and lo = bf16(p - hi), whose sum is within 2^-17 of
+//   p, and each 16-key step takes two wgmma, hi and lo, into the same f32
+//   accumulator: 1.5x FlashAttention-2's tensor-core work. The denominator
+//   l is summed from the f32 p, as in the reference.
+// - Overlap inside a warpgroup: tile j's Q K^T is issued, then tile j-1's
+//   P V; the softmax of tile j runs while P V is on the tensor cores, and
+//   tile j-1's stage goes back to the producer once P V has retired
+//   (wgmma.wait_group), after which the accumulator is rescaled and tile
+//   j's P split. Two warpgroups (or two blocks) an SM overlap each other's
+//   softmax and products besides.
+// - Epilogue: scale by 1 / max(l, 1e-30), round once to bf16, store the
+//   rows below Sq through the output's strides, as bf16 pairs.
 //
 // Masked scores are -1e30 and the running max starts at -1e30, as in the
 // Pallas kernel; key 0 is visible to every query, so the exp of a masked
@@ -82,6 +97,7 @@
 #include <climits>
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 
 #include "pb_common.cuh"
@@ -253,332 +269,628 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 
 }  // namespace f32
 
-// -- bfloat16: tensor cores (see the notes at the top) -------------------------
+// -- bfloat16: wgmma fed by TMA (see the notes at the top) ----------------------
 namespace bf16 {
 
 using T = __nv_bfloat16;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kQTile = 16 * kWarps;  // queries per block, 16 per warp
-constexpr int kKTile = 64;           // keys per stage of the ring
-constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Elements between the starts of two rows of a tile in shared memory: HD
-// rounded up to a power of two, so 128 at HD 80 (ten 16-byte chunks of data
-// in a row of sixteen). Every row term below is then a multiple of a power
-// of two at least as large as the row's chunk field.
+// A row's head_dim in parts: 64 columns (128 bytes, the widest TMA swizzle),
+// then the rest. Each part is its own TMA box and shared-memory region, and
+// its row is exactly its swizzle span: hd 16, 32, 64 one part of 32, 64, 128
+// bytes; hd 80 64 + 16 columns (128- and 32-byte swizzles); hd 128 64 + 64.
 template <int HD>
-__host__ __device__ constexpr int row_pitch() {
-  int p = 8;
-  while (p < HD) p *= 2;
-  return p;
+struct Cols {
+  static constexpr int kParts = (HD + 63) / 64;
+  static constexpr int kMaps = HD > 64 && HD % 64 ? 2 : 1;  // box shapes, so tensor maps a tensor
+  __host__ __device__ static constexpr int width(int p) {
+    return HD - 64 * p < 64 ? HD - 64 * p : 64;
+  }
+  // bytes of a row of part p
+  __host__ __device__ static constexpr int span(int p) { return 2 * width(p); }
+  __host__ __device__ static constexpr int map(int p) { return kMaps == 2 ? p : 0; }
+  // byte offset of part p in a tile of R rows (the parts before it are 64 wide)
+  __host__ __device__ static constexpr int offset(int R, int p) { return R * 128 * p; }
+};
+
+// One instantiation's block: NWG consumer warpgroups of 64 query rows and
+// the producer warp after them; K/V stages of 64 keys, as many (up to four)
+// as shared memory holds, with two 64-query blocks an SM. Shared memory: Q,
+// then each stage's K and V tile, then the barriers (every region a
+// multiple of 1024 bytes, the 128-byte swizzle's period, from a
+// 1024-aligned base).
+template <int HD, int NWG>
+struct Geo {
+  static constexpr int kRows = 64 * NWG;
+  static constexpr int kKeys = 64;
+  static constexpr int kThreads = 128 * NWG + 32;
+  static constexpr int kBlocksPerSM = NWG == 1 ? 2 : 1;
+  static constexpr int kQBytes = kRows * HD * 2;
+  static constexpr int kKVBytes = kKeys * HD * 2;  // one K or V tile
+  static constexpr int smem(int stages) {  // + 8 a barrier: Q; full K, full V, empty a stage
+    return kQBytes + 2 * stages * kKVBytes + 8 * (1 + 3 * stages) + 1024;
+  }
+  static constexpr bool fits(int stages) {  // 1 KB of an SM's 228 KB is reserved a block
+    return smem(stages) <= 232448 && kBlocksPerSM * (smem(stages) + 1024) <= 233472;
+  }
+  static constexpr int kStages = fits(4) ? 4 : fits(3) ? 3 : 2;
+  static constexpr int kBarOff = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr int kSmem = smem(kStages);
+};
+
+// The tensor maps of q, k and v, one a box shape (Cols::kMaps).
+template <int M>
+struct Maps {
+  CUtensorMap q[M], k[M], v[M];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int HD>
-constexpr int smem_bytes() {
-  return (kQTile + 2 * kStages * kKTile) * row_pitch<HD>() * (int)sizeof(T);
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// Element offset of 16-byte chunk ``chunk`` of row ``row`` in a tile of
-// row_pitch<HD>()-wide rows. The chunk index is XORed with the row's
-// position among the rows that share a 128-byte bank line, so that the
-// eight rows an ldmatrix phase reads at one logical chunk land on eight
-// different bank groups. At a pitch of 64 or more the XOR term is row & 7
-// and the pitch holds 8 or 16 chunks: chunk ^ (row & 7) stays inside the
-// row's own pitch (at HD 80 chunks 8 and 9 go to 8..15, past the data but
-// inside the row), and, a row being a whole number of bank lines, its bank
-// group is (chunk & 7) ^ (row & 7): eight rows, eight groups. The XOR term
-// depends on the row's low three bits only, and the row term has no bits
-// in the chunk field, so for rows 16 i + r and chunks 2 j ^ c (c < 2) the
-// offset is 16 i pitch + (swizzle(r, c) ^ (2 j << 3)): one per-lane offset,
-// XORed with a constant, serves every fragment (2 j < HD / 8 <= pitch / 8).
-template <int HD>
-__device__ __forceinline__ int swizzle(int row, int chunk) {
-  constexpr int kPitch = row_pitch<HD>();
-  constexpr int kChunks = kPitch / 8;                           // per row
-  constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;  // rows per 128 bytes
-  constexpr int kSpread = kChunks >= 8 ? 8 : kChunks;
-  return row * kPitch + ((chunk ^ ((row / kRowsPerLine) & (kSpread - 1))) << 3);
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; zeros when !valid (source size 0).
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
+// Arrive on ``bar`` and add ``bytes`` to the bytes its phase waits for.
+__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+__device__ __forceinline__ bool bar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of ``bar`` with this parity has completed. Every wait
+// is on the block's own producer or consumers, so one that lasts 10 s is a
+// fault of the kernel's bookkeeping: trap, and the launch fails instead of
+// hanging the card.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  if (bar_try(bar, parity)) return;
+  const uint64_t t0 = globaltimer();
+  while (!bar_try(bar, parity))
+    if (globaltimer() - t0 > 10000000000ull) __trap();
+}
+
+// TMA: the box at (c0, c1, c2, c3) of ``map`` into shared memory at ``dst``;
+// its bytes complete on ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // until at most N committed groups are in flight
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The compiler takes a wgmma's registers as read and written when the
+// instruction issues; these keep them live, in place, until after the wait.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a b over one m16n8k16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col),
-// d 16x8 f32.
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                    unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 x) {
-  return *reinterpret_cast<unsigned*>(&x);
-}
-
-// (x, y) as two bf16 pairs, hi = bf16(x, y) and lo = bf16(x - hi, y - hi):
-// hi + lo is within 2^-17 of each value. x - hi is exact in
-// f32.
-__device__ __forceinline__ void split(float x, float y, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// Start copying rows [r0, r0 + 64) of one (batch, head) slice into a
-// swizzled tile; rows at or past ``rows`` are zero. Needs a 16-byte aligned
-// base and stride.
-template <int HD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride_s, long long r0,
-                                          long long rows) {
-  constexpr int kChunks = HD / 8;
-  static_assert(kKTile == kQTile && kKTile * kChunks % kThreads == 0, "tile split");
+__device__ __forceinline__ void keep(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < kKTile * kChunks / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int row = e / kChunks, chunk = e % kChunks;
-    const long long pos = r0 + row;
-    const bool valid = pos < rows;
-    cp_async16(smem_u32(dst + swizzle<HD>(row, chunk)),
-               valid ? src + pos * stride_s + chunk * 8 : src, valid);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (in 16-byte units), and the layout of rows of ``span``
+// bytes swizzled as TMA stored them (128 B: 1, 64 B: 2, 32 B: 3). K-major
+// (Q and K in Q K^T): SBO steps between 8-row groups; LBO is unused. MN-major
+// (V in P V): SBO steps between groups of 8 keys, LBO between 64-column parts.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int span) {
+  const uint64_t mode = span == 128 ? 1 : span == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | mode << 62;
+}
+
+// d (m64n64k16, f32) {=, +=} a b, A and B K-major in shared memory.
+template <int ScaleD>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(ScaleD));
+}
+
+// d (m64n16k16, f32) += a b, A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (m64n32k16, f32) += a b, A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (m64n64k16, f32) += a b, A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (m64n128k16, f32) += a b, A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// S (+)= Q K^T over part P's k-steps of 16 columns, from ``q`` (this
+// warpgroup's 64 rows of the part) and ``k`` (the stage's K tile of the
+// part); the first k-step of part 0 overwrites S.
+template <int HD, int P, int N>
+__device__ __forceinline__ void qk_part(float (&s)[N / 2], uint32_t q, uint32_t k) {
+  constexpr int kSpan = Cols<HD>::span(P);
+#pragma unroll
+  for (int kk = 0; kk < Cols<HD>::width(P) / 16; ++kk) {
+    const uint64_t da = desc(q + 32 * kk, 16, 8 * kSpan, kSpan);
+    const uint64_t db = desc(k + 32 * kk, 16, 8 * kSpan, kSpan);
+    if (P == 0 && kk == 0)
+      wgmma_ss<0>(s, da, db);
+    else
+      wgmma_ss<1>(s, da, db);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      T* __restrict__ o, int H, int G, int num_q_tiles, long long Sq,
-                      long long Skv, bool causal, float scale_log2, bool q_vec16, Strides qs,
-                      Strides ks, Strides vs, Strides os) {
-  constexpr int kK = HD / 16;      // k-steps of Q K^T, and pairs of 8-wide dim tiles of P V
-  constexpr int kD = HD / 8;       // 8-wide dim tiles of the accumulator
-  constexpr int kN = kKTile / 8;   // 8-key tiles of S
-  constexpr int kPitch = row_pitch<HD>();  // elements a shared-memory row
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + kQTile * kPitch;
-  T* Vs = Ks + kStages * kKTile * kPitch;
+// acc += (hi + lo) V over the stage's N keys, 16 a k-step, for the columns
+// of part P (its registers start at acc[32 P]); at hd 128 both parts at
+// once (m64n128, LBO stepping to the second part).
+template <int HD, int P, int N>
+__device__ __forceinline__ void pv_part(float (&acc)[HD / 2], const uint32_t (&ph)[N / 16][4],
+                                        const uint32_t (&pl)[N / 16][4], uint32_t v) {
+  constexpr int kSpan = Cols<HD>::span(P);
+  constexpr int kW = HD == 128 ? 128 : Cols<HD>::width(P);
+  constexpr uint32_t kLbo = HD == 128 ? Cols<HD>::offset(N, 1) : 16;
+  float(&d)[kW / 2] = *reinterpret_cast<float(*)[kW / 2]>(&acc[32 * P]);
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const uint64_t dv = desc(v + 16 * kk * kSpan, kLbo, 8 * kSpan, kSpan);
+    wgmma_rs(d, ph[kk], dv);
+    wgmma_rs(d, pl[kk], dv);
+  }
+}
+
+// acc += (hi + lo) V over all of the head's columns.
+template <int HD, int N>
+__device__ __forceinline__ void pv(float (&acc)[HD / 2], const uint32_t (&ph)[N / 16][4],
+                                   const uint32_t (&pl)[N / 16][4], uint32_t v) {
+  pv_part<HD, 0, N>(acc, ph, pl, v);
+  if constexpr (Cols<HD>::kParts == 2 && HD != 128)
+    pv_part<HD, 1, N>(acc, ph, pl, v + Cols<HD>::offset(N, 1));
+}
+
+// (x, y) as two bf16 pairs, hi = bf16(x, y) and lo = bf16(x - hi, y - hi):
+// hi + lo is within 2^-17 of each value. x - hi is exact in f32.
+__device__ __forceinline__ void split(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// S = Q K^T for this warpgroup's 64 rows (parts at q0 and q1) and the
+// stage's K tile at ``k``.
+template <int HD, int N>
+__device__ __forceinline__ void qk(float (&s)[N / 2], uint32_t q0, uint32_t q1, uint32_t k) {
+  qk_part<HD, 0, N>(s, q0, k);
+  if constexpr (Cols<HD>::kParts == 2) qk_part<HD, 1, N>(s, q1, k + Cols<HD>::offset(N, 1));
+}
+
+// The scores s of the N keys from k0 on, for this lane's rows row0 and
+// row0 + 8 (``t``: its column pair): mask them where the tile is an edge
+// (past Skv, or past the diagonal of the warpgroup's first row q_first),
+// take the new row max m over the quad, and replace each score by
+// p = exp2(s * scale - max * scale); ``alpha`` rescales the rows' earlier
+// sums, ``sum`` is this lane's share of the tile's.
+template <int N>
+__device__ __forceinline__ void softmax(float (&s)[N / 2], float (&m)[2], float (&alpha)[2],
+                                        float (&sum)[2], int k0, int q_first, int row0, int t,
+                                        int Skv, bool causal, float scale_log2) {
+  if (k0 + N > Skv || (causal && k0 + N - 1 > q_first)) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      if (!(key < Skv && (!causal || key <= row))) s[i] = kMasked;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(PB_FULL_MASK, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(PB_FULL_MASK, mx[r], 2));
+    alpha[r] = exp2f((m[r] - mx[r]) * scale_log2);
+    m[r] = mx[r];
+    mx[r] *= scale_log2;
+    sum[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    s[i] = exp2f(fmaf(s[i], scale_log2, -mx[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += s[i];
+  }
+}
+
+// P (in s) as A-fragments of P V, split into hi and lo: the score
+// fragment's 8-key chunks 2 kk and 2 kk + 1 are k-step kk's registers,
+// (row g | g + 8) x (keys 2t | 8 + 2t).
+template <int N>
+__device__ __forceinline__ void to_fragments(const float (&s)[N / 2], uint32_t (&ph)[N / 16][4],
+                                             uint32_t (&pl)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = 2 * kk + (i >> 1), e = 2 * (i & 1);
+      split(s[4 * c + e], s[4 * c + e + 1], ph[kk][i], pl[kk][i]);
+    }
+}
+
+template <int HD, int NWG>
+__global__ void __launch_bounds__(Geo<HD, NWG>::kThreads, Geo<HD, NWG>::kBlocksPerSM)
+flash_fwd_bf16_kernel(const __grid_constant__ Maps<Cols<HD>::kMaps> maps, T* __restrict__ o,
+                      int H, int G, int num_q_tiles, int Sq, int Skv, bool causal,
+                      float scale_log2, Strides os) {
+  using C = Cols<HD>;
+  using Gm = Geo<HD, NWG>;
+  constexpr int kRows = Gm::kRows, kKeys = Gm::kKeys, kStages = Gm::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + Gm::kBarOff;  // Q, then full K, full V and empty of each stage
+  const auto k_tile = [&](int s) { return base + Gm::kQBytes + 2 * s * Gm::kKVBytes; };
+  const auto full_k = [&](int s) { return bars + 8 * (1 + s); };
+  const auto full_v = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  const auto empty = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
 
   const int h = blockIdx.x % H;
   const int tile = num_q_tiles - 1 - (int)(blockIdx.x / H);  // longest first
   const int b = blockIdx.y;
-  const int kvh = h / G;
-  const long long q0 = (long long)tile * kQTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row and column pair
-  const long long row0 = q0 + 16 * warp + g;  // this lane's rows: row0 and row0 + 8
-
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + kvh * ks.h;
-  const T* vp = v + b * vs.b + kvh * vs.h;
-
+  const int q0 = tile * kRows;
   // keys past the last query of this tile are masked for all of it
-  const long long q_end = q0 + kQTile < Sq ? q0 + kQTile : Sq;
-  const long long kv_end = causal ? (q_end < Skv ? q_end : Skv) : Skv;
-  const int n_tiles = (int)((kv_end + kKTile - 1) / kKTile);
+  const int q_end = min(q0 + kRows, Sq);
+  const int kv_end = causal ? min(q_end, Skv) : Skv;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
 
-  if (q_vec16) {
-    load_tile<HD>(Qs, qp, qs.s, q0, Sq);
-  } else {  // q off 16-byte alignment: element loads, once per block
-    for (int e = threadIdx.x; e < kQTile * HD; e += kThreads) {
-      const int row = e / HD, col = e % HD;
-      const long long pos = q0 + row;
-      Qs[swizzle<HD>(row, col >> 3) + (col & 7)] =
-          pos < Sq ? qp[pos * qs.s + col] : __float2bfloat16(0.f);
+  if (threadIdx.x == 0) {
+    bar_init(bars, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full_k(s), 1);
+      bar_init(full_v(s), 1);
+      bar_init(empty(s), 4 * NWG);  // every consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
-  load_tile<HD>(Ks, kp, ks.s, 0, Skv);
-  load_tile<HD>(Vs, vp, vs.s, 0, Skv);
-  cp_async_commit();
-  cp_async_wait<1>();  // Q is in
   __syncthreads();
 
-  // each lane's row and chunk in the three ldmatrix patterns (see swizzle)
-  const int q_lane = swizzle<HD>(lane & 15, lane >> 4);
-  const int k_lane = swizzle<HD>((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
-  const int v_lane = swizzle<HD>((lane & 7) + (((lane >> 3) & 1) << 3), lane >> 4);
-  unsigned qf[kK][4];  // this warp's 16 query rows as A-fragments
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4 * NWG) {  // the producer warp: one lane issues every load
+    if (lane == 0) {
 #pragma unroll
-  for (int kk = 0; kk < kK; ++kk)
-    ldmatrix_x4(qf[kk], smem_u32(Qs + 16 * warp * kPitch + (q_lane ^ (2 * kk << 3))));
-
-  float acc[kD][4];
-#pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  float m[2] = {kMasked, kMasked};  // running max of rows row0, row0 + 8 (log2 units)
-  float l[2] = {0.f, 0.f};          // this lane's share of their denominators
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_tiles) {  // the stage consumed in iteration j - 1
-      load_tile<HD>(Ks + (stage ^ 1) * kKTile * kPitch, kp, ks.s, (long long)(j + 1) * kKTile, Skv);
-      load_tile<HD>(Vs + (stage ^ 1) * kKTile * kPitch, vp, vs.s, (long long)(j + 1) * kKTile, Skv);
-    }
-    cp_async_commit();  // possibly empty: keeps one group per iteration
-    cp_async_wait<1>();  // tile j is in
-    __syncthreads();
-    const unsigned Kt = smem_u32(Ks + stage * kKTile * kPitch);
-    const unsigned Vt = smem_u32(Vs + stage * kKTile * kPitch);
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kN][4];
-#pragma unroll
-    for (int n = 0; n < kN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kK; ++kk)
-#pragma unroll
-      for (int np = 0; np < kN / 2; ++np) {
-        unsigned kb[4];
-        ldmatrix_x4(kb, Kt + 2 * (16 * np * kPitch + (k_lane ^ (2 * kk << 3))));
-        mma(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      for (int m = 0; m < C::kMaps; ++m) {
+        prefetch_map(&maps.q[m]);
+        prefetch_map(&maps.k[m]);
+        prefetch_map(&maps.v[m]);
       }
+      bar_expect(bars, Gm::kQBytes);
+#pragma unroll
+      for (int p = 0; p < C::kParts; ++p)
+        tma_load(base + C::offset(kRows, p), &maps.q[C::map(p)], 64 * p, q0, h, b, bars);
+      const int kvh = h / G;
+      int s = 0;
+      uint32_t phase = 1;  // the first round finds every stage free
+      for (int k0 = 0; k0 < n_tiles * kKeys; k0 += kKeys) {
+        bar_wait(empty(s), phase);
+        bar_expect(full_k(s), Gm::kKVBytes);
+#pragma unroll
+        for (int p = 0; p < C::kParts; ++p)
+          tma_load(k_tile(s) + C::offset(kKeys, p), &maps.k[C::map(p)], 64 * p, k0, kvh, b,
+                   full_k(s));
+        bar_expect(full_v(s), Gm::kKVBytes);
+#pragma unroll
+        for (int p = 0; p < C::kParts; ++p)
+          tma_load(k_tile(s) + Gm::kKVBytes + C::offset(kKeys, p), &maps.v[C::map(p)], 64 * p, k0,
+                   kvh, b, full_v(s));
+        if (++s == kStages) s = 0, phase ^= 1;
+      }
+    }
+  } else {  // a consumer warpgroup: 64 query rows
+    const int cw = warp / 4;
+    const int g = lane / 4, t = lane % 4;         // accumulator fragment row and column pair
+    const int row0 = q0 + 64 * cw + 16 * (warp % 4) + g;  // this lane's rows: row0, row0 + 8
+    // this warpgroup's rows of Q, part by part
+    const uint32_t q_p0 = base + C::offset(kRows, 0) + 64 * cw * C::span(0);
+    const uint32_t q_p1 = base + C::offset(kRows, 1) + 64 * cw * C::span(C::kParts - 1);
 
-    const long long k0 = (long long)j * kKTile;
-    const bool edge = k0 + kKTile > Skv || (causal && k0 + kKTile - 1 > q0 + 16 * warp);
+    float acc[HD / 2];
 #pragma unroll
-    for (int n = 0; n < kN; ++n)
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kMasked, kMasked};  // running max of rows row0, row0 + 8 (raw scores)
+    float l[2] = {0.f, 0.f};          // this lane's share of their denominators
+    uint32_t ph[kKeys / 16][4], pl[kKeys / 16][4];  // the previous tile's P, hi and lo
+    float sc[kKeys / 2];
+    float alpha[2], sum[2];
+    const int q_first = q0 + 64 * cw;  // this warpgroup's first row
+    bar_wait(bars, 0);
+
+    // tile 0: S, then its softmax (the accumulator is still zero)
+    bar_wait(full_k(0), 0);
+    keep(sc);
+    wgmma_fence();
+    qk<HD, kKeys>(sc, q_p0, q_p1, k_tile(0));
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(sc);
+    softmax<kKeys>(sc, m, alpha, sum, 0, q_first, row0, t, Skv, causal, scale_log2);
+    l[0] = sum[0], l[1] = sum[1];
+    to_fragments<kKeys>(sc, ph, pl);
+
+    // Tile j: issue S = Q K_j^T, then the previous tile's acc += P V_{j-1};
+    // the softmax of S runs while P V is on the tensor cores, and acc is
+    // rescaled once P V has retired, which frees the previous stage.
+    int sp = 0, s = 1;  // the previous tile's stage and this tile's, and their phases
+    uint32_t pphase = 0, phase = 0;
+    for (int k0 = kKeys; k0 < n_tiles * kKeys; k0 += kKeys) {
+      bar_wait(full_k(s), phase);
+      keep(sc);
+      keep(acc);
+      keep(ph);
+      keep(pl);
+      wgmma_fence();
+      qk<HD, kKeys>(sc, q_p0, q_p1, k_tile(s));
+      wgmma_commit();
+      bar_wait(full_v(sp), pphase);
+      pv<HD, kKeys>(acc, ph, pl, k_tile(sp) + Gm::kKVBytes);
+      wgmma_commit();
+      wgmma_wait<1>();
+      keep(sc);
+      softmax<kKeys>(sc, m, alpha, sum, k0, q_first, row0, t, Skv, causal, scale_log2);
+      wgmma_wait<0>();
+      keep(acc);
+      keep(ph);
+      keep(pl);
+      if (lane == 0) bar_arrive(empty(sp));
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] *= scale_log2;
-        if (edge) {
-          const long long key = k0 + 8 * n + 2 * t + (e & 1);
-          const long long row = row0 + 8 * (e >> 1);
-          if (!(key < Skv && (!causal || key <= row))) s[n][e] = kMasked;
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+        for (int c = 0; c < HD / 8; ++c) {
+          acc[4 * c + 2 * r] *= alpha[r];
+          acc[4 * c + 2 * r + 1] *= alpha[r];
         }
       }
-
-    // online softmax: new row max over the quad, rescale, p = exp2(s - max)
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      to_fragments<kKeys>(sc, ph, pl);
+      sp = s, pphase = phase;
+      if (++s == kStages) s = 0, phase ^= 1;
     }
+
+    // the last tile's P V
+    bar_wait(full_v(sp), pphase);
+    keep(acc);
+    keep(ph);
+    keep(pl);
+    wgmma_fence();
+    pv<HD, kKeys>(acc, ph, pl, k_tile(sp) + Gm::kKVBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(acc);
+    keep(ph);
+    keep(pl);
+
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(PB_FULL_MASK, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(PB_FULL_MASK, mx[r], 2));
-      const float alpha = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha;
+      l[r] += __shfl_xor_sync(PB_FULL_MASK, l[r], 1);
+      l[r] += __shfl_xor_sync(PB_FULL_MASK, l[r], 2);
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      T* op = o + b * os.b + h * os.h + row * os.s + 2 * t;
 #pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        acc[d][2 * r] *= alpha;
-        acc[d][2 * r + 1] *= alpha;
-      }
+      for (int c = 0; c < HD / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * c) =
+            __floats2bfloat162_rn(acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv);
     }
-#pragma unroll
-    for (int n = 0; n < kN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - mx[e >> 1]);
-        l[e >> 1] += s[n][e];
-      }
-
-    // acc += P V, with P as hi + lo bf16 A-fragments (16 keys per k-step)
-#pragma unroll
-    for (int kk = 0; kk < kKTile / 16; ++kk) {
-      unsigned ph[4], pl[4];
-      split(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int dp = 0; dp < kK; ++dp) {
-        unsigned vb[4];
-        ldmatrix_x4_trans(vb, Vt + 2 * (16 * kk * kPitch + (v_lane ^ (2 * dp << 3))));
-        mma(acc[2 * dp], ph, vb[0], vb[1]);
-        mma(acc[2 * dp + 1], ph, vb[2], vb[3]);
-        mma(acc[2 * dp], pl, vb[0], vb[1]);
-        mma(acc[2 * dp + 1], pl, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // this stage is consumed before iteration j + 1 refills it
   }
-  cp_async_wait<0>();
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(PB_FULL_MASK, l[r], 1);
-    l[r] += __shfl_xor_sync(PB_FULL_MASK, l[r], 2);
-    const long long row = row0 + 8 * r;
-    if (row >= Sq) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-    T* op = o + b * os.b + h * os.h + row * os.s + 2 * t;
-#pragma unroll
-    for (int d = 0; d < kD; ++d)
-      *reinterpret_cast<__nv_bfloat162*>(op + 8 * d) =
-          __floats2bfloat162_rn(acc[d][2 * r] / den, acc[d][2 * r + 1] / den);
-  }
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda on the link).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A rank-4 map over (hd, position, head, batch) of a bf16 tensor, with the
+// tensor's own strides (an axis of extent 1 takes a nominal 16 bytes), for
+// boxes of ``cols`` x ``rows`` swizzled at their row's span (cols * 2 bytes);
+// zeros past the ends.
+bool make_map(CUtensorMap* map, const void* ptr, int hd, long long n, long long heads,
+              long long batch, Strides st, int cols, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const auto stride = [](long long s, long long extent) -> cuuint64_t {
+    return extent > 1 ? (cuuint64_t)s * sizeof(T) : 16;
+  };
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {stride(st.s, n), stride(st.h, heads), stride(st.b, batch)};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int HD, int NWG>
+int launch_block(const void* q, const void* k, const void* v, void* o, int B, int H, int KH,
+                 int Sq, int Skv, bool causal, float scale, Strides qs, Strides ks, Strides vs,
+                 Strides os, cudaStream_t stream) {
+  using C = Cols<HD>;
+  using Gm = Geo<HD, NWG>;
+  Maps<C::kMaps> maps;
+  for (int m = 0; m < C::kMaps; ++m)  // map m serves part m (hd 80), or every part
+    if (!make_map(&maps.q[m], q, HD, Sq, H, B, qs, C::width(m), Gm::kRows) ||
+        !make_map(&maps.k[m], k, HD, Skv, KH, B, ks, C::width(m), Gm::kKeys) ||
+        !make_map(&maps.v[m], v, HD, Skv, KH, B, vs, C::width(m), Gm::kKeys))
+      return (int)cudaErrorInvalidValue;
+  auto kernel = flash_fwd_bf16_kernel<HD, NWG>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Gm::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const long long num_q_tiles = (Sq + Gm::kRows - 1) / Gm::kRows;
+  if (num_q_tiles * H > INT_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(num_q_tiles * H), (unsigned)B);
+  kernel<<<grid, Gm::kThreads, Gm::kSmem, stream>>>(maps, static_cast<T*>(o), H, H / KH,
+                                                     (int)num_q_tiles, Sq, Skv, causal,
+                                                     scale * kLog2e, os);
+  return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
            long long Sq, long long Skv, bool causal, float scale, Strides qs, Strides ks,
            Strides vs, Strides os, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>();
-  auto kernel = flash_fwd_bf16_kernel<HD>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const long long num_q_tiles = (Sq + kQTile - 1) / kQTile;
-  if (num_q_tiles * H > INT_MAX || B > 65535) return (int)cudaErrorInvalidValue;
-  // q and o (B, H, Sq, hd): does every step along an axis longer than 1
-  // keep a multiple of ``elems`` elements?
-  const auto aligned = [&](const void* p, Strides st, long long elems) {
-    return reinterpret_cast<uintptr_t>(p) % (elems * sizeof(T)) == 0 &&
-           (B == 1 || st.b % elems == 0) && (H == 1 || st.h % elems == 0) &&
-           (Sq == 1 || st.s % elems == 0);
-  };
+  if (Sq > INT_MAX || Skv > INT_MAX || B > 65535) return (int)cudaErrorInvalidValue;
   // o is stored as bf16 pairs. The wrapper allocates it with
   // torch.empty_like(q): a fresh pointer, with q's strides only where q is
   // dense, and then every stride of an axis longer than 1 is a multiple of hd.
-  if (!aligned(o, os, 2)) return (int)cudaErrorMisalignedAddress;
-  const dim3 grid((unsigned)(num_q_tiles * H), (unsigned)B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, G, (int)num_q_tiles, Sq, Skv, causal, scale * kLog2e,
-      aligned(q, qs, 8), qs, ks, vs, os);
-  return (int)cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(o) % 4 || (B > 1 && os.b % 2) || (H > 1 && os.h % 2) ||
+      (Sq > 1 && os.s % 2))
+    return (int)cudaErrorMisalignedAddress;
+  // 128 queries a block, unless that leaves SMs without a block
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int KH = H / G;
+  if ((Sq + 127) / 128 * H * B >= sms)
+    return launch_block<HD, 2>(q, k, v, o, B, H, KH, (int)Sq, (int)Skv, causal, scale, qs, ks,
+                               vs, os, stream);
+  return launch_block<HD, 1>(q, k, v, o, B, H, KH, (int)Sq, (int)Skv, causal, scale, qs, ks, vs,
+                             os, stream);
 }
 
 }  // namespace bf16
@@ -597,7 +909,8 @@ int launch_hd(int dtype, const void* q, const void* k, const void* v, void* o, i
 // q (B, H, Sq, hd), k and v (B, KH, Skv, hd), o like q, each given by its
 // (batch, head, position) strides in elements with hd contiguous.
 // dtype: 0 float32, 1 bfloat16 (all four tensors). hd in {16, 32, 64, 80, 128}.
-// k and v: 16-byte aligned base pointers and strides.
+// k and v (and q in bfloat16, read by TMA): 16-byte aligned base pointers
+// and strides (an axis of extent 1 excepted).
 extern "C" int pb_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   int B, int H, int KH, long long Sq, long long Skv,
                                   int hd, int dtype, int causal, float scale,

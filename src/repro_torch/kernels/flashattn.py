@@ -8,19 +8,23 @@ the accumulator are float32; the output has q's shape and dtype.
 
 On CUDA tensors it runs ``csrc/flashattn.cu`` (head dims 16, 32, 64, 80
 and 128; anything else raises, and never reaches the plain version); on
-CPU tensors its plain version ``flash_attention_ref``. bfloat16 takes the tensor-core kernel
-(``mma.sync`` m16n8k16 with f32 accumulators; tiles of 64 queries, four
-warps of 16 rows, and a two-stage ``cp.async`` ring of 64-key K/V tiles);
-float32 takes a CUDA-core kernel in f32 (64 queries, 64-key tiles), since
-TF32 products would not hold the float32 model to its CPU copy. Both take
-any ``Sq`` and ``Skv`` (the ragged tile is masked) and read every tensor
+CPU tensors its plain version ``flash_attention_ref``. bfloat16 takes
+Hopper's tensor-core kernel: a producer warp issues TMA loads of Q and of
+64-key K/V tiles into a ring of up to four ``mbarrier`` stages, and one or
+two consumer warpgroups of 64 query rows each run ``wgmma`` for ``q k^T``
+(both operands in shared memory) and for ``p v`` (p from registers). float32
+takes a CUDA-core kernel in f32 (64 queries, 64-key tiles), since TF32
+products would not hold the float32 model to its CPU copy. Both take any
+``Sq`` and ``Skv`` (the ragged tile is masked) and read every tensor
 through its strides, with only the last axis contiguous: a
 ``(B, S, H, hd)`` activation passed as ``x.transpose(1, 2)`` is read in
 place, and the output is allocated with q's strides, so
-``out.transpose(1, 2)`` is contiguous again. k and v are staged with
-16-byte copies, so their data pointers and strides must be 16-byte
-multiples (a fresh tensor's or a projection's view always is); others
-raise. The Pallas kernel's ``q_block``/``kv_block`` VMEM tiles have no
+``out.transpose(1, 2)`` is contiguous again. k and v are read by TMA (or
+staged with 16-byte copies in float32), so their data pointers and strides
+must be 16-byte multiples (a fresh tensor's or a projection's view always
+is); others raise. A bfloat16 q that TMA cannot read in place (a pointer
+or stride off 16 bytes) is passed as an aligned copy, with the same
+result. The Pallas kernel's ``q_block``/``kv_block`` VMEM tiles have no
 counterpart: the CUDA kernels' tiles are fixed.
 
 Against the plain version on the same inputs the kernel is held to atol
@@ -30,9 +34,10 @@ compute in float32 and round once to bfloat16, so they differ by at most
 the one step that float32 summation order can tip a value across. The
 bfloat16 kernel keeps that: q k^T multiplies bf16 values exactly into f32,
 and P enters P V as two bf16 halves, ``hi = bf16(p)`` and
-``lo = bf16(p - hi)``, whose sum is within 2**-17 of p, where a single bf16
-rounding (2**-9) fails the check on outputs that nearly cancel
-(``tests/test_torch_flashattn.py`` emulates both).
+``lo = bf16(p - hi)`` (two ``wgmma`` a 16-key step), whose sum is within
+2**-17 of p, where a single bf16 rounding (2**-9) fails the check on
+outputs that nearly cancel (``tests/test_torch_flashattn.py`` emulates
+both).
 ``flash_attention.launches`` counts kernel launches.
 
 ``flash_attention`` is differentiable in q, k and v
@@ -106,7 +111,19 @@ def flash_attention(
     _check_shapes(q, k, v)
     if q_block < 1:
         raise ValueError(f"q_block must be positive, got {q_block}")
-    return _FlashAttention.apply(q, k, v, causal, q_block)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, q_block)
+    return _forward(q, k, v, causal)  # nothing to differentiate: no autograd node
+
+
+def _forward(q, k, v, causal: bool) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU ones, the meta
+    route on meta ones."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        return _flash_forward_meta(q, k, v, causal)
+    return _flash_forward_cuda(q, k, v, causal)
 
 
 def attention_grads(q, k, v, g, *, causal: bool, q_block: int):
@@ -150,11 +167,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, q_block):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.q_block = causal, q_block
-        if q.device.type == "cpu":
-            return flash_attention_ref(q, k, v, causal=causal)
-        if q.device.type == "meta":
-            return _flash_forward_meta(q, k, v, causal)
-        return _flash_forward_cuda(q, k, v, causal)
+        return _forward(q, k, v, causal)
 
     @staticmethod
     def backward(ctx, g):
@@ -188,6 +201,15 @@ def _flash_forward_meta(q, k, v, causal: bool) -> torch.Tensor:
     return torch.empty_like(q)
 
 
+def _steps_16(t) -> bool:
+    """A 16-byte aligned pointer, and a 16-byte multiple for the stride of
+    every axis longer than 1."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or st * size % 16 == 0 for n, st in zip(t.shape[:3], t.stride()[:3])
+    )
+
+
 def _flash_forward_cuda(q, k, v, causal: bool) -> torch.Tensor:
     """Launch ``csrc/flashattn.cu`` (inputs checked; see the module
     docstring); counts the launch on ``flash_attention``."""
@@ -202,17 +224,16 @@ def _flash_forward_cuda(q, k, v, causal: bool) -> torch.Tensor:
         if t.stride(3) != 1:
             raise ValueError(f"{name} must have a contiguous last axis, got strides {t.stride()}")
     for name, t in (("k", k), ("v", v)):
-        size = t.element_size()
-        if t.data_ptr() % 16 or any(
-            n > 1 and st * size % 16 for n, st in zip(t.shape[:3], t.stride()[:3])
-        ):
+        if not _steps_16(t):
             raise ValueError(
                 f"{name} must start and step in 16-byte multiples, got address "
-                f"{t.data_ptr()} and strides {t.stride()} of {size}-byte elements"
+                f"{t.data_ptr()} and strides {t.stride()} of {t.element_size()}-byte elements"
             )
     out = torch.empty_like(q)  # keeps a dense q's strides: a transposed view stays one
     if Sq == 0 or B == 0 or H == 0:
         return out
+    if q.dtype == torch.bfloat16 and not _steps_16(q):  # TMA reads an aligned copy
+        q = torch.empty(q.shape, dtype=q.dtype, device=q.device).copy_(q)
     lib = _lib.load()
 
     def strides(t):  # (batch, head, position) strides in elements

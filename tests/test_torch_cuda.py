@@ -767,8 +767,8 @@ def test_cuda_flash_bf16_where_outputs_cancel(cuda, B, H, KH, Sq, Skv, hd, causa
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_at_head_dim_80(cuda, B, H, KH, Sq, Skv, causal, dtype):
     """zamba2's heads (32 of 80, a KV head each) and ragged, grouped and
-    Sq != Skv cases at head_dim 80: rows padded to a pitch of 128 in
-    shared memory (csrc/flashattn.cu, row_pitch)."""
+    Sq != Skv cases at head_dim 80: in bfloat16 two TMA boxes a row, 64
+    and 16 columns (csrc/flashattn.cu, Cols)."""
     _flash_vs_plain(cuda, B, H, KH, Sq, Skv, 80, causal, dtype, seed=Sq + Skv)
 
 
@@ -780,8 +780,8 @@ def test_cuda_flash_bf16_at_head_dim_80_where_outputs_cancel(cuda, causal):
 
 @pytest.mark.cuda
 def test_cuda_flash_bf16_reads_unaligned_q(cuda):
-    """q one element off a 16-byte boundary takes the element loads of the
-    Q tile; the result equals the aligned call's."""
+    """q one element off a 16-byte boundary, which TMA cannot read, goes to
+    the kernel as an aligned copy; the result equals the aligned call's."""
     from repro_torch.kernels.flashattn import flash_attention
 
     B, H, KH, S, hd = 1, 4, 2, 70, 64
@@ -794,16 +794,77 @@ def test_cuda_flash_bf16_reads_unaligned_q(cuda):
 
 @pytest.mark.cuda
 def test_cuda_flash_kernels_route_by_dtype(cuda):
-    """The bf16 kernels run on the tensor cores (HMMA in their SASS), the
-    float32 kernels on CUDA cores."""
+    """The bf16 kernels are Hopper's: wgmma (HGMMA) fed by TMA (UTMALDG)
+    in their SASS and no mma.sync (HMMA), in each of the ten
+    instantiations (head dims 16, 32, 64, 80, 128 x blocks of 64 and 128
+    queries); the float32 kernels run on CUDA cores, with none of them."""
     from repro_torch.kernels import _lib
 
     sass = _lib.kernel_sass("flash_fwd_")
     bf16 = {n: body for n, body in sass.items() if "flash_fwd_bf16_kernel" in n}
     f32 = {n: body for n, body in sass.items() if "flash_fwd_f32_kernel" in n}
-    assert len(bf16) == 5 and len(f32) == 5  # head dims 16, 32, 64, 80, 128
-    assert all("HMMA" in body for body in bf16.values())
-    assert not any("HMMA" in body for body in f32.values())
+    assert len(bf16) == 10 and len(f32) == 5
+    assert all("HGMMA" in b and "UTMALDG" in b and "HMMA" not in b for b in bf16.values())
+    assert not any(op in b for b in f32.values() for op in ("HGMMA", "UTMALDG", "HMMA"))
+
+
+def _flash_blocks_run(fn) -> set:
+    """The (head_dim, consumer warpgroups) of every bf16 flash kernel one
+    call of ``fn`` launched (``torch.profiler``'s kernel names)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    return {tuple(map(int, m.groups())) for n in names
+            for m in [re.search(r"flash_fwd_bf16_kernel<(\d+), (\d+)>", n)] if m}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_bf16_both_blocks(cuda, hd, causal):
+    """The host's choice of block: 128 queries (two consumer warpgroups)
+    where that grid fills the card's SMs, else 64 (two blocks an SM); both
+    held to the plain version."""
+    from repro_torch.kernels.flashattn import flash_attention
+
+    for B, nwg in ((1, 1), (12, 2)):  # 12 x 12 heads x 3 tiles of 128 >= 132 SMs; 1 x 12 x 3 not
+        _flash_vs_plain(cuda, B, 12, 2, 300, 300, hd, causal, torch.bfloat16, seed=hd + B)
+        q, k, v = _qkv(cuda, B, 12, 2, 300, 300, hd, torch.bfloat16, seed=hd)
+        assert _flash_blocks_run(lambda: flash_attention(q, k, v, causal=causal)) == {(hd, nwg)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 127, 128, 129, 255, 257])
+@pytest.mark.parametrize("Skv", [1, 63, 64, 65, 127, 128, 129, 255, 257])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,hd", [(1, 128), (12, 128), (12, 80)])
+def test_cuda_flash_bf16_ragged_edges_of_both_blocks(cuda, Sq, Skv, causal, B, hd):
+    """Lengths around the 64-key tiles and the 64- and 128-query blocks:
+    B 1 takes 64-query blocks, B 12 128-query blocks, at hd 128 (two
+    64-column boxes) and 80 (64 + 16)."""
+    _flash_vs_plain(cuda, B, 12, 2, Sq, Skv, hd, causal, torch.bfloat16,
+                    seed=Sq * 1000 + Skv + B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", [(200, 200), (192, 192), (300, 260), (260, 300), (129, 200)])
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_cuda_flash_bf16_diagonal_tile_across_two_warpgroups(cuda, Sq, Skv, hd):
+    """A 128-query block whose diagonal crosses two 64-key tiles: the
+    first is wholly visible to the second warpgroup and holds the first's
+    diagonal, the second is wholly masked for the first warpgroup's rows
+    (it runs them, and they come out unchanged) and holds the second's
+    diagonal; the last block's second warpgroup holds few or no real
+    queries, and Sq != Skv puts the block's last visible key inside a
+    tile."""
+    _flash_vs_plain(cuda, 12, 12, 2, Sq, Skv, hd, True, torch.bfloat16, seed=Sq + Skv + hd)
 
 
 @pytest.mark.cuda
@@ -840,8 +901,8 @@ def test_cuda_flash_raises_on_what_it_does_not_take(cuda, hd, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["address", "stride"])
 def test_cuda_flash_raises_on_unaligned_kv(cuda, which):
-    """k and v are staged with 16-byte loads: a view that starts or steps
-    off a 16-byte boundary raises before any launch."""
+    """k and v are read by TMA (in bfloat16) or 16-byte loads: a view that
+    starts or steps off a 16-byte boundary raises before any launch."""
     from repro_torch.kernels.flashattn import flash_attention
 
     B, H, KH, S, hd = 2, 4, 2, 8, 16
