@@ -399,7 +399,10 @@ beside it, or on any mismatch. Each phase prints its seconds. Phases:
    ``launches_21`` phase 21's, summed over their ranks),
    its largest error against its plain version, and
    times at a path's shapes (Bin-Read's row also ``compact_index_add_ms``,
-   the rows kernel's an ``embedding_backward`` record at phase 14's
+   the fused kernel's an ``s3`` record, row 4d: the two-pass design at
+   S3's 128M tuples into 32M indices, held to its plain version, with
+   ``index_add_`` and phase 3's S3 launches; the rows kernel's an
+   ``embedding_backward`` record at phase 14's
    shape; the rows kernel's launches also split by walk, ``narrow`` or
    ``tile`` as ``rows_design`` names them, and by shape m,F,n, and each
    rows-kernel line its ``rows_design``), then rows 2b, 5c, 7b and 8b
@@ -6208,6 +6211,23 @@ def main() -> None:
             "library_ms": cuda_ms(lfn, reps=reps) if lfn is not None else None,
             **({"design": designs[name]} if name in designs else {}),
         })
+    # row 4d: the fused kernel at S3 (128M tuples into 32M indices, the
+    # two-pass design over 977 slabs), its launches those of phase 3's S3
+    n3 = s3.num_nodes
+    c3 = (torch.full((n3,), 1.0 / n3, device=dev)
+          / T.degrees_from_coo(s3, by="src").clamp(min=1).float())[s3.src]
+    got = K.cobra_bin_accumulate(s3.dst, c3, n3, r3, nb3)
+    want = ref.scatter_reduce_ref(s3.dst, c3, n3)
+    require(add_close(got, want, want), "fused at S3 differs from plain")  # c3 > 0
+    next(k for k in kernels if k["name"] == "cobra_bin_accumulate")["s3"] = {
+        "m": m3, "n": n3, "design": fused_design(m3, n3), "launches": s3_fused,
+        "max_abs_err": float((got - want).abs().max()), "add_ratio": add_ratio(got, want, want),
+        "ms": cuda_ms(lambda: K.cobra_bin_accumulate(s3.dst, c3, n3, r3, nb3), reps=10),
+        "plain_ms": cuda_ms(lambda: ref.scatter_reduce_ref(s3.dst, c3, n3), reps=10),
+        "library_ms": cuda_ms(lambda: torch.zeros(n3, device=dev).index_add_(0, s3.dst, c3),
+                              reps=10),
+        "bound_ms": bound_ms(8 * m3 + 4 * n3), "bound_bytes": 8 * m3 + 4 * n3}
+    del got, want, c3
     # Bin-Read's yardstick: the same sum by index_add_ on the compact stream
     # (no single PyTorch call takes the padded layout, so library_ms is null)
     next(k for k in kernels if k["name"] == "binread_scatter_add")["compact_index_add_ms"] = \

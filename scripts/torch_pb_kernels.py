@@ -2,7 +2,8 @@
 """Time and trace the port's PB binning kernels on one NVIDIA card.
 
     python3 scripts/torch_pb_kernels.py [--src DIR] [--base DIR] [--rounds 5] [--reps 20]
-                                        [--sections binning,binread,rows,flash]
+                                        [--sections binning,binread,rows,flash,fused]
+                                        [--fused-variants NAME,...]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's
 ``src``). ``--base`` names another tree's ``src`` (a parent commit
@@ -41,12 +42,34 @@ Prints one JSON object per line:
   on raw keys and on the first level's output (what ``cobra_binning``
   gives it); ``cobra_binning``: ``ops.cobra_binning`` (every pass with
   its histogram and bin starts) at S2 and S3, interleaved.
-- ``sass`` (with ``--base``): positions' and the fused binning's kernels
-  of the two trees compared opcode by opcode (they share the look-back
-  core), after every trace.
+- ``fused`` (also with ``--sections fused`` alone): the two-pass fused
+  accumulate (float32 add) at row 4's S2 PageRank stream, row 4c's (rank
+  0's local reduce after phase 16's owner exchange of S2, rebuilt without
+  a process group), S2 with half the tuples on one hub, S2 all on one key,
+  and row 4d's S3 (``gen_uniform(32M, 4, seed=3)``, 128M tuples into 32M
+  indices); interleaved: the kernel, the base tree's, ``index_add_``, the
+  variants of ``FUSED_VARIANTS`` (``--fused-variants`` picks some) built
+  from this tree's ``fused.cu`` into ``_build/variants/fused/`` and called
+  through ctypes, ``plan:slabs_x2`` (slabs twice the plan's, chunks of
+  twice their mean) and ``plan:slabs_x2_chunk1.25`` (chunks of 1.25
+  means); each
+  checked against the plain version first (a variant that refuses a shape
+  is listed in ``fused_refused``). Then ``profile`` (device ms by kernel
+  of one call, both trees), ``fused_phases`` at S2 and S3 (``%globaltimer``
+  stamps at the end of each phase of the binning and reduce loops, summed
+  over blocks, from a stamped copy), ``fused_onchip`` (the on-chip
+  variant's barrier wait and run time a block; not run on the skewed
+  streams, where one block owns the hot slab), ``fused_sass`` (bulk
+  copies, MATCH and every atomic opcode of the binning and reduce kernels
+  of both trees) and ``fused_sass_variants`` (the same for every
+  variant's float32-add reduce).
+- ``sass`` (with ``--base``): positions' onesweep kernel of the two
+  trees compared opcode by opcode (``pb_onesweep.cuh`` is shared), after
+  every trace.
 
 ``--sections`` picks among ``binning`` (every line above), ``binread``,
-``rows`` (default: those three) and ``flash``:
+``rows`` (default: those three), ``fused`` (the ``fused`` lines alone) and
+``flash``:
 
 - ``binread``: Bin-Read at ``benchmarks/embed_grad.py``'s full shapes
   (T 262,144 rows of d 256, ``bin_range`` 4096, 13 bins) on its zipf ids
@@ -217,6 +240,8 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--sections", default="binning,binread,rows")
+    ap.add_argument("--fused-variants", default=None,
+                    help="comma-separated names of FUSED_VARIANTS to build (default: all)")
     args = ap.parse_args()
     import torch
 
@@ -245,6 +270,8 @@ def main() -> None:
     R, N = args.rounds, args.reps
 
     sections = set(args.sections.split(","))
+    if sections & {"binning", "fused"}:
+        fused_section(K, KB, T, ref, R, N, dev, hw, smi, args.fused_variants)
     if "binning" in sections:
         binning_section(K, KB, T, ref, bin_ids, starts_from_counts, with_base, R, N, dev, hw)
     if "binread" in sections:
@@ -256,7 +283,7 @@ def main() -> None:
         flash_section(K, KB, R, N, dev, smi)
     # last: profiles taken after cuobjdump has run came back empty
     if KB is not None:  # kernels that share a changed header, in the two trees, opcode by opcode
-        names = (["positions_onesweep_kernel", "slab_bin_kernel"] if "binning" in sections
+        names = (["positions_onesweep_kernel"] if "binning" in sections
                  else []) + (["rows_seg_kernel"] if "rows" in sections else [])
         for name in names:
             ops = [{n[-48:]: [ln.split(";")[0].split("*/")[-1].split()[:1]
@@ -314,12 +341,15 @@ def binning_section(K, KB, T, ref, bin_ids, starts_from_counts, with_base, R, N,
         g = suite[name]
         n, br, nb, contrib = fused_inputs(g)
         s1[name] = (g, n, br, nb, contrib)
+        fns = {"fused": lambda g=g, n=n, br=br, nb=nb, c=contrib:
+                   K.cobra_bin_accumulate(g.dst, c, n, br, nb),
+               "index_add_": lambda g=g, n=n, c=contrib:
+                   torch.zeros(n, device=dev).index_add_(0, g.dst, c)}
+        if KB is not None:
+            fns["base:fused"] = lambda g=g, n=n, br=br, nb=nb, c=contrib: \
+                KB.cobra_bin_accumulate(g.dst, c, n, br, nb)
         say("interleaved", {"at": f"S1 {name}", "m": g.num_edges, "n": n, "bin_range": br,
-                            "num_bins": nb, **interleaved({
-                                "fused": lambda g=g, n=n, br=br, nb=nb, c=contrib:
-                                    K.cobra_bin_accumulate(g.dst, c, n, br, nb),
-                                "index_add_": lambda g=g, n=n, c=contrib:
-                                    torch.zeros(n, device=dev).index_add_(0, g.dst, c)}, R, N)})
+                            "num_bins": nb, **interleaved(fns, R, N)})
 
     params = inspect.signature(K.cobra_bin_accumulate).parameters
     if "design" in params:
@@ -513,6 +543,471 @@ def build_variants(_lib, csrc: str, entry: str, variants: dict, root: str) -> di
             fh.write(log)
         out[name] = ctypes.CDLL(lib)
     return out
+
+
+
+# variants of csrc/fused.cu's two-pass design, built from this tree's source.
+# The float32 add in shared memory: the shipped design adds by two exchanges
+# (exch_add); ``cas`` by atomicAdd(float*), the compare-and-swap loop;
+# ``cluster_red`` by red.shared::cluster.add.f32 on the block's own address
+# (ptxas keeps a compare-and-swap loop for a local address beside the native
+# remote add); two sorts that need no atomic on the accumulator, at 512
+# threads, where their queues fit beside S2's slabs: per-thread queues
+# (``queues``: thread q owns the entries q + 512 r, all in its own bank; a
+# counting sort of the stage by the offset's low bits, then plain loads and
+# stores; a queue takes 16 tuples a round; ``queues_hot``: a split slab's
+# items by exch_add instead) and owner warps (``owner_warps``: warp w owns a
+# sixteenth of the slab, fed by a split of the stage; __match_any_sync finds
+# the lanes of one offset); ``onchip`` (fused_onchip_variant.cuh); then
+# other block sizes, stages and ring depths.
+_COMBINE_HUB = """\
+// In a hot item (a hub's slab) a float add first sums, in each warp, the
+// lanes of lane 0's offset and then those of the next offset left, each
+// into one lane (butterfly sums): a hub costs its queue a tuple a warp.
+template <typename V>
+__device__ __forceinline__ void combine_hub(int& o, V& x) {
+  const int lane = threadIdx.x & 31;
+  bool done = o < 0;
+#pragma unroll
+  for (int round = 0; round < 2; ++round) {
+    const unsigned live = __ballot_sync(PB_FULL_MASK, !done);
+    if (!live) return;
+    const int lead = __ffs(live) - 1;
+    const int c = __shfl_sync(PB_FULL_MASK, o, lead);
+    const bool mine = !done && o == c;
+    V y = mine ? x : V(0);
+#pragma unroll
+    for (int d = 16; d; d >>= 1) y += __shfl_xor_sync(PB_FULL_MASK, y, d);
+    if (mine) {
+      done = true;
+      if (lane == lead) x = y;
+      else o = -1;
+    }
+  }
+}
+
+"""
+_Q_COMMON = [
+    ("fused.cu", "constexpr int kRedThreads = 1024;", "constexpr int kRedThreads = 512;"),
+    ("fused.cu", "#include <limits>\n", "#include <limits>\n#include <type_traits>\n"),
+    ("fused.cu", "constexpr int kRedStages = 3;\n",
+     "constexpr int kRedStages = 3;\nconstexpr int kQueueCap = 16;\n"),
+    ("fused.cu", "  return (size_t)kRedStages * kRedStageBytes + (sizeof(T) << shift);\n",
+     "  return (size_t)kRedStages * kRedStageBytes + (sizeof(T) << shift) +\n"
+     "         (std::is_same<T, float>::value ? (size_t)kQueueCap * kRedThreads * (2 + sizeof(T))"
+     " : 0);\n"),
+    ("fused.cu", "  T* acc = reinterpret_cast<T*>(sh_raw + kRedStages * kRedStageBytes);\n",
+     "  T* acc = reinterpret_cast<T*>(sh_raw + kRedStages * kRedStageBytes);\n"
+     "  unsigned short* q_off = reinterpret_cast<unsigned short*>(acc + (1 << shift));\n"
+     "  T* q_val = reinterpret_cast<T*>(q_off + kQueueCap * kRedThreads);\n"
+     "  __shared__ int s_qlen[kRedThreads];\n  s_qlen[threadIdx.x] = 0;\n"
+     "  constexpr bool kOwn = OP == kAdd && std::is_same<T, float>::value;\n"),
+    ("fused.cu", "// Persistent blocks take work items by ticket.",
+     _COMBINE_HUB + "// Persistent blocks take work items by ticket."),
+]
+_QUEUE_BLOCK = """\
+        // thread q owns the slab's entries q + r kRedThreads (all in its own
+        // bank): each tuple goes to its owner's queue (a counting sort by the
+        // offset's low bits) and each thread adds its queue's tuples with
+        // plain loads and stores, which no other thread makes to those
+        // entries. A queue takes kQueueCap tuples a round; the rest wait
+        // for the next round.
+        int ko[kRedItems];
+        T kv[kRedItems];
+        unsigned pend = 0;
+#pragma unroll
+        for (int i = 0; i < kRedItems; ++i) {
+          const int j = i * kRedThreads + threadIdx.x;
+          ko[i] = j < cnt ? (int)s_off[j] : -1;
+          kv[i] = j < cnt ? s_val[j] : T(0);
+          if (hot) combine_hub(ko[i], kv[i]);
+          if (ko[i] >= 0) pend |= 1u << i;
+        }
+        for (int round = 0;; ++round) {
+#pragma unroll
+          for (int i = 0; i < kRedItems; ++i)
+            if (pend >> i & 1) {
+              const int q = ko[i] & (kRedThreads - 1);
+              const int r = atomicAdd(&s_qlen[q], 1);
+              if (r < kQueueCap) {
+                q_off[r * kRedThreads + q] = (unsigned short)ko[i];
+                q_val[r * kRedThreads + q] = kv[i];
+                pend &= ~(1u << i);
+              }
+            }
+          __syncthreads();  // the queues are full, and the stage is read: refill it
+          if (round == 0 && threadIdx.x == 0 && k + kRedStages < stages) issue(k + kRedStages);
+          const int ql = min(s_qlen[threadIdx.x], kQueueCap);
+          s_qlen[threadIdx.x] = 0;
+          for (int r = 0; r < ql; ++r) {
+            const int o = q_off[r * kRedThreads + threadIdx.x];
+            acc[o] += q_val[r * kRedThreads + threadIdx.x];
+          }
+          if (!__syncthreads_or(pend != 0)) break;
+        }
+"""
+_OWNER_BLOCK = """\
+        __shared__ int s_cnt[16], s_bstart[17];
+        const int warp = threadIdx.x >> 5, osh = shift - 4;
+        if (u0 + k == 0) {
+          if (threadIdx.x < 16) s_cnt[threadIdx.x] = 0;
+          __syncthreads();
+        }
+        int ko[kRedItems];
+        T kv[kRedItems];
+        int ks[kRedItems];
+#pragma unroll
+        for (int i = 0; i < kRedItems; ++i) {
+          const int j = i * kRedThreads + threadIdx.x;
+          int o = j < cnt ? (int)s_off[j] : -1;
+          T x = j < cnt ? s_val[j] : T(0);
+          if (hot) combine_hub(o, x);
+          const int ow = o >= 0 ? o >> osh : 16;
+          unsigned peers = PB_FULL_MASK;
+#pragma unroll
+          for (int bit = 0; bit < 5; ++bit) {
+            const bool set = (ow >> bit) & 1;
+            const unsigned bal = __ballot_sync(PB_FULL_MASK, set);
+            peers &= set ? bal : ~bal;
+          }
+          const int first = __ffs(peers) - 1;
+          int base = 0;
+          if (lane == first && ow < 16) base = atomicAdd(&s_cnt[ow], __popc(peers));
+          ko[i] = o;
+          kv[i] = x;
+          ks[i] = __shfl_sync(PB_FULL_MASK, base, first) + __popc(peers & pb_lanemask_lt());
+        }
+        __syncthreads();
+        if (threadIdx.x == 0 && k + kRedStages < stages) issue(k + kRedStages);
+        if (warp == 0) {
+          const int cn = lane < 16 ? s_cnt[lane] : 0;
+          int x = cn;
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) {
+            const int y = __shfl_up_sync(PB_FULL_MASK, x, d);
+            if (lane >= d) x += y;
+          }
+          if (lane <= 16) s_bstart[lane] = x - cn;
+          if (lane < 16) s_cnt[lane] = 0;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < kRedItems; ++i)
+          if (ko[i] >= 0) {
+            const int p = s_bstart[ko[i] >> osh] + ks[i];
+            q_off[p] = (unsigned short)ko[i];
+            q_val[p] = kv[i];
+          }
+        __syncthreads();
+        const int g1 = s_bstart[warp + 1];
+        for (int g = s_bstart[warp]; g < g1; g += 32) {
+          const int j = g + lane;
+          const int o = j < g1 ? (int)q_off[j] : -1 - lane;
+          const unsigned peers = __match_any_sync(PB_FULL_MASK, o);
+          if (j < g1 && (peers & pb_lanemask_lt()) == 0) {
+            T y = q_val[j];
+            for (unsigned r = peers & (peers - 1); r; r &= r - 1) y += q_val[g + __ffs(r) - 1];
+            acc[o] += y;
+          }
+          __syncwarp();
+        }
+"""
+
+
+def _float_add_block(block: str, text: str) -> tuple:
+    """The patch that puts ``block`` before the shipped per-stage apply as
+    the float add's branch."""
+    a = text.index("#pragma unroll\n      for (int i = 0; i < kRedItems; ++i) {\n        const int j")
+    end = "      if (threadIdx.x == 0 && k + kRedStages < stages) issue(k + kRedStages);\n"
+    b = text.index(end, a) + len(end)
+    old = text[a:b]
+    shifted = "".join("  " + ln if ln.strip() else ln for ln in old.splitlines(True))
+    return ("fused.cu", old, "      if constexpr (kOwn) {\n" + block + "      } else {\n" + shifted
+            + "      }\n")
+
+
+_ONCHIP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fused_onchip_variant.cuh")
+FUSED_VARIANTS = {
+    # the float add through atomicAdd(float*), the compare-and-swap loop
+    "cas": [("fused.cu", "  if constexpr (OP == kAdd && std::is_same<T, float>::value)\n    exch_add",
+             "  if constexpr (false)\n    exch_add")],
+    # the distributed-shared-memory reduction on the block's own address
+    "cluster_red": [("fused.cu", "    exch_add(p, v);\n", "    asm volatile(\"red.shared::cluster"
+                     ".add.f32 [%0], %1;\\n\" ::\"r\"(smem_u32(p)), \"f\"(v) : \"memory\");\n")],
+    "queues": _Q_COMMON + [("queues", None, None)],
+    # the queues outside a split slab's items only: a hub's goes by exch_add
+    "queues_hot": _Q_COMMON + [("queues", None, None),
+                               ("fused.cu", "      if constexpr (kOwn) {\n",
+                                "      if (kOwn && !hot) {\n")],
+    "owner_warps": _Q_COMMON + [("owner_warps", None, None)],
+    # item 5 of the design: every slab on chip for the whole call, the
+    # stream binned in chunks that stay in the L2 (fused_onchip_variant.cuh)
+    "onchip": [("fused.cu", "}  // namespace\n\n// Bytes of scratch",
+                open(_ONCHIP).read() + "}  // namespace\n\n// Bytes of scratch"),
+               ("fused.cu", "  return (long long)layout_for(m, (int)slabs).total;",
+                "  const size_t a = layout_for(m, (int)slabs).total, b = onchip_scratch(m, (int)slabs);\n"
+                "  return (long long)(a > b ? a : b);"),
+               ("fused.cu", "  if (design == 1)\n    return two_pass(",
+                "  if (design == 1)\n    return onchip(")],
+    # no warp combine outside a split slab's items
+    "nocombine": [("fused.cu", "        if (__popc(__ballot_sync(PB_FULL_MASK, mine)) > 1) {",
+                   "        if (__popc(__ballot_sync(PB_FULL_MASK, mine)) > 1 && hot) {")],
+    "bin_stages3": [("fused.cu", "constexpr int kBinStages = 2;", "constexpr int kBinStages = 3;")],
+    "red_stages2": [("fused.cu", "constexpr int kRedStages = 3;", "constexpr int kRedStages = 2;")],
+    "red_threads512": [("fused.cu", "constexpr int kRedThreads = 1024;",
+                        "constexpr int kRedThreads = 512;")],
+    "red_items2": [("fused.cu", "constexpr int kRedItems = 4;", "constexpr int kRedItems = 2;")],
+}
+
+# %globaltimer stamps at the end of each phase of the binning and reduce
+# kernels' loops (thread 0 of every block; summed over blocks and tiles or
+# stages): (anchor, phase index) after which a stamp goes
+_PHASES_BIN = [
+    ("    if (tile >= tiles) break;  // the ring's later tiles are higher still\n", 0),
+    ("    __syncthreads();  // the tile's slab counts are zero\n", 1),
+    ("      rank[j] = slab_atomic(s_tot, (unsigned)id[j] < (unsigned)n ? id[j] >> shift : B, B);\n"
+     "    __syncthreads();\n", 2),
+    ("    const int staged = os::block_exclusive_scan(s_cur, B, s_warp);\n", 3),
+    ("      if (b < B) s_tot[b] = s_base[b] + claim[r] - first[r];\n    }\n    __syncthreads();\n", 4),
+    ("    __syncthreads();  // the stage is free\n", 5),
+]
+PHASE_NAMES = {0: "bin: wait for the stage", 1: "bin: load, zero", 2: "bin: count",
+               3: "bin: claim, scan", 4: "bin: stage", 5: "bin: write out",
+               8: "reduce: wait for the stage", 9: "reduce: apply"}
+_PHASES_RED = [
+    ("      bar_wait(smem_u32(&s_full[slot]), ((u0 + k) / kRedStages) & 1);\n", 8),
+    ("      __syncthreads();  // the stage is read: refill it\n", 9),
+]
+
+
+def fused_variant_patches(csrc: str) -> dict:
+    """FUSED_VARIANTS with the float add's blocks placed in ``csrc/fused.cu``'s
+    per-stage apply, plus ``phases``: the stamped copy (``fused_phases``)."""
+    with open(os.path.join(csrc, "fused.cu")) as fh:
+        text = fh.read()
+    blocks = {"queues": _QUEUE_BLOCK, "owner_warps": _OWNER_BLOCK}
+    out = {k: [_float_add_block(blocks[f], text) if old is None else (f, old, new)
+               for f, old, new in v] for k, v in FUSED_VARIANTS.items()}
+    stamp = ("if (threadIdx.x == 0) {{ const unsigned long long now_ = globaltimer(); "
+             "atomicAdd(&pb_phase_ns[{k}], now_ - last_); last_ = now_; }}\n")
+    phases = [("fused.cu", "__global__ void __launch_bounds__(kCountThreads)\n",
+               "__device__ unsigned long long pb_phase_ns[16];\n\n"
+               "__global__ void __launch_bounds__(kCountThreads)\n"),
+              ("fused.cu", "  const int mask = (1 << shift) - 1;\n  for (int use = 0;; ++use) {\n",
+               "  const int mask = (1 << shift) - 1;\n  unsigned long long last_ = globaltimer();\n"
+               "  for (int use = 0;; ++use) {\n"),
+              ("fused.cu", "  int used = 0;  // ring stages this block has consumed\n",
+               "  int used = 0;  // ring stages this block has consumed\n"
+               "  unsigned long long last_ = globaltimer();\n"),
+              ("fused.cu", "// Bytes of scratch the two-pass design needs",
+               "extern \"C\" int pb_fused_phases(unsigned long long* host) {\n"
+               "  cudaMemcpyFromSymbol(host, pb_phase_ns, sizeof(pb_phase_ns));\n"
+               "  const unsigned long long zero[16] = {};\n"
+               "  cudaMemcpyToSymbol(pb_phase_ns, zero, sizeof(zero));\n"
+               "  return (int)cudaGetLastError();\n}\n\n// Bytes of scratch the two-pass design needs")]
+    phases += [("fused.cu", anchor, anchor + stamp.format(k=k)) for anchor, k in
+               _PHASES_BIN + _PHASES_RED]
+    phases.append(("fused.cu", "    if (threadIdx.x == 0) fill(use + kBinStages);\n",
+                   "    if (threadIdx.x == 0) fill(use + kBinStages);\n    if (threadIdx.x == 0) "
+                   "atomicAdd(&pb_phase_ns[15], 1ull);\n"))
+    out["phases"] = phases
+    return out
+
+
+def _sass_of(_lib, lib_path: str, name_part: str) -> dict:
+    """``cuobjdump -sass`` of one built library: mangled name -> SASS of
+    every kernel whose name holds ``name_part``."""
+    tool = os.path.join(os.path.dirname(_lib.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    return {name.strip(): body for name, _, body in
+            (b.partition("\n") for b in text.split("Function : ")[1:]) if name_part in name}
+
+
+def _sass_counts(body: str) -> dict:
+    """Bulk copies, MATCH, and every atomic or reduction opcode with its
+    modifiers (ATOMS.CAS is the float add's compare-and-swap loop)."""
+    ops = [ln.split(";")[0].split("*/")[-1].split() for ln in body.splitlines() if "*/" in ln]
+    ops = [o[1] if o and o[0].startswith("@") and len(o) > 1 else (o[0] if o else "") for o in ops]
+    out = {k: sum(o.startswith(k) for o in ops) for k in ("UBLKCP", "MATCH", "ATOMS.CAS")}
+    for o in ops:
+        if o.startswith(("ATOM", "RED")):
+            out[o] = out.get(o, 0) + 1
+    return out
+
+
+def _fused_call(lib, _lib, idx, val, n, op, sms, shift_add=0, chunk_of_mean=2.0):
+    """What ``cobra_bin_accumulate`` does in the two-pass design, with a
+    variant's library, in slabs ``2^shift_add`` times the plan's, a slab
+    cut into chunks of ``chunk_of_mean`` times its mean count (the plan:
+    2)."""
+    import torch
+
+    from repro_torch.kernels.fused import CHUNK_MIN, _DTYPE_CODE, _OP_CODE, fused_plan
+
+    m = idx.shape[0]
+    shift, slabs, chunk = fused_plan(m, n, sms)
+    if shift_add:
+        shift += shift_add
+        chunk = max(int(chunk_of_mean * -(-m // -(-n // (1 << shift)))), CHUNK_MIN)
+    out = torch.empty(n, dtype=val.dtype, device=val.device)
+    scratch = torch.empty(lib.pb_fused_scratch(m, n, shift), dtype=torch.uint8, device=val.device)
+    _lib.check(lib.pb_fused_accumulate(
+        idx.data_ptr(), val.data_ptr(), m, out.data_ptr(), n, 512, -(-n // 512), _OP_CODE[op],
+        _DTYPE_CODE[val.dtype], 1, shift, chunk, scratch.data_ptr(), _lib.stream(idx)),
+        "fused variant")
+    return out
+
+
+def _rank_local_stream(T, s2, vals, dev, world=4):
+    """Row 4c's stream: what rank 0 of ``world`` reduces after the owner
+    exchange of S2's PageRank stream (``chip_smoke.py`` phase 16), rebuilt
+    without a process group: each source rank's block of tuples of [0, r)
+    in source order, padded to the capacity with index r - 1 and value 0."""
+    import torch
+
+    from repro_torch.core import distributed_pb as dpb
+
+    n2, m2 = s2.num_nodes, s2.num_edges
+    r = dpb.shard_range_for(n2, world)
+    cap = dpb.estimate_capacity(s2.dst, out_size=n2, n_dev=world)
+    blk = -(-m2 // world)
+    parts, vparts = [], []
+    for j in range(world):
+        b, v = s2.dst[j * blk:(j + 1) * blk], vals[j * blk:(j + 1) * blk]
+        keep = b < r
+        own, ov = b[keep][:cap], v[keep][:cap]
+        pad = cap - own.shape[0]
+        parts.append(torch.cat([own, torch.full((pad,), r - 1, dtype=own.dtype, device=dev)]))
+        vparts.append(torch.cat([ov, torch.zeros(pad, device=dev)]))
+    return torch.cat(parts), torch.cat(vparts), r
+
+
+def fused_section(K, KB, T, ref, R, N, dev, hw, smi, only=None) -> None:
+    """The ``fused`` lines (module docstring); ``only``: the variants to
+    build, comma-separated (default: every one)."""
+    import torch
+
+    csrc = str(K._lib.CSRC)
+    patches = fused_variant_patches(csrc)
+    if only is not None:
+        keep = set(only.split(",")) | {"phases"}
+        patches = {k: v for k, v in patches.items() if k in keep}
+    libs = build_variants(K._lib, csrc, "fused.cu", patches,
+                          os.path.join(str(K._lib.BUILD_ROOT), "variants", "fused"))
+    for lib in libs.values():
+        for name in ("pb_fused_accumulate", "pb_fused_scratch"):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = K._lib.SIGNATURES[name]
+    phase_lib = libs.pop("phases")
+    phase_lib.pb_fused_phases.argtypes = [ctypes.c_void_p]
+    phase_lib.pb_fused_phases.restype = ctypes.c_int
+    if "onchip" in libs:
+        libs["onchip"].pb_fused_onchip_stats.argtypes = [ctypes.c_void_p]
+        libs["onchip"].pb_fused_onchip_stats.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    def inputs(g):
+        n = g.num_nodes
+        outdeg = T.degrees_from_coo(g, by="src").clamp(min=1).float()
+        return (torch.full((n,), 1.0 / n, device=dev) / outdeg)[g.src]
+
+    s2 = T.gen_uniform(1 << 22, 8, seed=3, device=dev)
+    c2 = inputs(s2)
+    li, lv, r2 = _rank_local_stream(T, s2, c2, dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    hub = s2.dst.clone()
+    hub[torch.rand(hub.shape[0], device=dev, generator=gen) < 0.5] = 12_345
+    streams = [("4 (S2)", s2.dst, c2, s2.num_nodes), ("4c (a rank's local reduce)", li, lv, r2),
+               ("S2 hub", hub, torch.randn(hub.shape[0], device=dev, generator=gen), s2.num_nodes),
+               ("S2 one key", torch.full_like(s2.dst, (1 << 22) // 3 + 5),
+                torch.randn(hub.shape[0], device=dev, generator=gen), s2.num_nodes)]
+    del hub
+    for at, idx, val, n in streams + [("4d (S3)", None, None, None)]:
+        if idx is None:  # S3 last: the others' tensors are freed first
+            del streams, s2, c2, li, lv
+            torch.cuda.empty_cache()
+            s3 = T.gen_uniform(32_000_000, 4, seed=3, device=dev)
+            idx, val, n = s3.dst, inputs(s3), s3.num_nodes
+            del s3
+        m = idx.shape[0]
+        br = min(max(64, T.compromise_bin_range(n, hw)), n)
+        nb = -(-n // br)
+
+        def fused(mod, idx=idx, val=val, n=n, br=br, nb=nb):
+            return mod.cobra_bin_accumulate(idx, val, n, br, nb)
+
+        fns = {"fused": lambda: fused(K)}
+        if KB is not None:
+            fns["base:fused"] = lambda: fused(KB)
+        fns["index_add_"] = lambda idx=idx, val=val, n=n: torch.zeros(
+            n, device=dev).index_add_(0, idx, val)
+        fns.update({f"variant:{k}": (lambda lib=lib, idx=idx, val=val, n=n: _fused_call(
+            lib, K._lib, idx, val, n, "add", sms)) for k, lib in libs.items()
+            if not (k == "onchip" and at.startswith(("S2 hub", "S2 one key")))})
+        if K.fused.fused_plan(m, n, sms)[0] < 15:  # slabs twice the plan's
+            fns["plan:slabs_x2"] = lambda idx=idx, val=val, n=n: _fused_call(
+                K._lib.load(), K._lib, idx, val, n, "add", sms, shift_add=1)
+            # the same with chunks of 1.25 means: a hot slab in as many items as the plan's
+            fns["plan:slabs_x2_chunk1.25"] = lambda idx=idx, val=val, n=n: _fused_call(
+                K._lib.load(), K._lib, idx, val, n, "add", sms, shift_add=1, chunk_of_mean=1.25)
+        want = ref.scatter_reduce_ref(idx, val, n)
+        scale = ref.scatter_reduce_ref(idx, val.abs(), n)
+        refused = {}
+        for k, fn in list(fns.items()):
+            try:
+                got = fn()
+            except RuntimeError as e:  # a variant whose shared memory does not fit this plan
+                refused[k] = str(e)
+                del fns[k]
+                continue
+            if not bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all()):
+                raise SystemExit(f"fused {k} differs from plain at {at}")
+        if refused:
+            say("fused_refused", {"at": at, **refused})
+        del want, scale
+        rec = {"at": at, "m": m, "n": n, "design": K.fused.fused_design(m, n),
+               "bound_ms": (8 * m + 4 * n) / 3.35e12 * 1e3,
+               "design_floor_ms": (24 * m + 4 * n) / 3.35e12 * 1e3, "card": smi}
+        say("fused", {**rec, **interleaved(fns, R, max(2, N // 4) if m > 1 << 26 else N)})
+        for tree, mod in (("kernel", K), ("base", KB)):
+            if mod is not None:
+                say("profile", {"kernel": f"{tree}:cobra_bin_accumulate", **rec,
+                                **kernel_profile(lambda mod=mod: fused(mod))})
+        if "variant:onchip" in fns:  # its barriers' cost
+            oc = (ctypes.c_ulonglong * 4)()
+            libs["onchip"].pb_fused_onchip_stats(oc)  # zero
+            _fused_call(libs["onchip"], K._lib, idx, val, n, "add", sms)
+            torch.cuda.synchronize()
+            libs["onchip"].pb_fused_onchip_stats(oc)
+            say("fused_onchip", {**rec, "blocks": sms, "chunks_per_block": oc[2] / sms,
+                                 "barrier_wait_ms_per_block": oc[0] / 1e6 / sms,
+                                 "kernel_ms_per_block": oc[1] / 1e6 / sms,
+                                 **kernel_profile(lambda: _fused_call(
+                                     libs["onchip"], K._lib, idx, val, n, "add", sms))})
+        if at.startswith(("4 ", "4d")):
+            ns = (ctypes.c_ulonglong * 16)()
+            phase_lib.pb_fused_phases(ns)  # zero
+            _fused_call(phase_lib, K._lib, idx, val, n, "add", sms)
+            torch.cuda.synchronize()
+            phase_lib.pb_fused_phases(ns)
+            tiles = max(1, ns[15])
+            say("fused_phases", {**rec, "tiles": int(ns[15]), "ms_summed_over_blocks": {
+                PHASE_NAMES[k]: ns[k] / 1e6 for k in PHASE_NAMES},
+                "bin_us_per_tile": {PHASE_NAMES[k]: ns[k] / 1e3 / tiles for k in range(6)}})
+        del fns
+        torch.cuda.empty_cache()
+    # last: profiles taken after cuobjdump has run came back empty
+    for name in ("slab_bin_kernel", "slab_reduce_kernel"):  # bulk copies, and the CAS loop
+        say("fused_sass", {"kernel": name, "card": smi, **{
+            tree: {n[-48:]: _sass_counts(body) for n, body in mod._lib.kernel_sass(name).items()}
+            for tree, mod in (("kernel", K), ("base", KB)) if mod is not None}})
+    # the float32 add's reduce in every variant: its atomics, by SASS opcode
+    root = os.path.join(str(K._lib.BUILD_ROOT), "variants", "fused")
+    say("fused_sass_variants", {"card": smi, **{
+        name: {n[-48:]: _sass_counts(body)
+               for n, body in _sass_of(K._lib, os.path.join(root, name, "lib.so"), "IfLi0E").items()
+               if "reduce" in n or "onchip" in n}
+        for name in sorted(libs)}})
 
 
 def binread_section(K, KB, ref, bin_ids, starts_from_counts, with_base, R, N, dev, _lib,

@@ -15,34 +15,50 @@
 // two-pass (propagation blocking on the card), for m >= the wrapper's
 //   TWO_PASS_MIN_M and n <= 2048 slabs of 32768: the index range is cut
 //   into slabs of S = 2^shift entries (the wrapper's choice: about two
-//   slabs per SM, at most 32768 so a slab's accumulator fits in 128 KB).
+//   slabs per SM, 256 <= S <= 32768, so a slab's accumulator fits in
+//   128 KB and an offset in 16 bits).
 //   (1) slab_count_kernel: tuples per slab (shared-memory histogram);
-//   (2) slab_bin_kernel: the binning phase, on the one-pass look-back
-//       core of pb_onesweep.cuh: a block takes a tile of kBinTile tuples
-//       by ticket, counts them by slab and stages the tile grouped by
-//       slab in shared memory (shared-memory atomics claim the slots; the
-//       order inside a slab is free, so no stable rank is needed, and a
-//       warp whose tuples share a slab claims once), looks back for each
-//       slab's cursor (tile 0 seeds the cursors with the slab starts from
-//       (1), and also writes the slab starts and the work list of (3)),
-//       and writes each slab's run out with coalesced stores: a 16-bit
-//       offset inside the slab and the 4-byte value, 6 bytes a tuple;
-//   (3) slab_reduce_kernel: the accumulate phase; persistent blocks take
-//       work items by ticket. An item is a slab, or a chunk of a slab
-//       that holds more than its share (`chunk` tuples, twice the mean):
-//       it is reduced into the slab's accumulator in shared memory with
-//       shared-memory atomics, then written to `out` with coalesced
-//       stores. Hub combining: in each warp the tuples of one index (lane
-//       0's; in a split slab, the most frequent, by __match_any_sync) are
-//       combined by shuffles and applied once, so a hub does not
-//       serialise on one shared address (a float add there is a
-//       compare-and-swap loop: sm_90 has no shared-memory float atomic).
-//       The first chunk of a split slab writes its whole slab and then
-//       releases a flag; the other chunks wait for it and merge each
-//       entry they touched with one global atomic.
+//   (2) slab_bin_kernel: the binning phase. Persistent blocks of 1024
+//       threads, one an SM; block b takes tiles b, b + grid, ... of
+//       kBinTile tuples. Thread 0 keeps a ring of kBinStages tiles in
+//       flight: when a stage frees it starts the block's next tile's idx
+//       and val copies into it (cp.async.bulk, completing on the stage's
+//       mbarrier), so the next tile loads while the block works on this
+//       one. The block counts the tile by slab with shared-memory atomics
+//       that also hand each tuple its rank in its slab (a warp whose tuples
+//       share a slab makes one), claims each slab's run with one global
+//       atomic on the slab's cursor (the order of a slab's runs, like the
+//       order inside one, is free: the reduce is commutative, so no
+//       look-back orders the tiles), stages the tile grouped by slab in
+//       place in its stage (slot = the slab's staged start + rank), and
+//       writes each slab's run to slab_start + cursor with coalesced
+//       stores: a 16-bit offset inside the slab and the 4-byte value, 6
+//       bytes a tuple (a run starts anywhere, so it is not a bulk store,
+//       which wants 16-byte-aligned ends). Every block scans the slab
+//       counts of (1) into the slab starts; block 0 also writes them and
+//       the work list of (3);
+//   (3) slab_reduce_kernel: the accumulate phase; persistent blocks of
+//       1024 threads take work items by ticket. An item is a slab, or a
+//       chunk of a slab that holds more than its share (`chunk` tuples,
+//       twice the mean). Thread 0 copies the item's binned tuples,
+//       kRedStage at a time, into a ring of kRedStages stages; a run starts
+//       anywhere, so each copy is widened to the 16-byte window around it
+//       and the head and tail are masked. The slab's accumulator is in
+//       shared memory. int32 and min/max apply each tuple with a native
+//       shared-memory atomic; a float32 add with exch_add, two native
+//       exchanges (atomicAdd(float*) on shared memory is a compare-and-swap
+//       loop on sm_90). In each warp the tuples of one index, lane 0's or,
+//       in a split slab, the most frequent, are combined by shuffles and
+//       applied once, so a hub does not serialise on one address. Then the
+//       slab goes to `out` with coalesced stores. The first chunk of a
+//       split slab writes its whole slab and then releases a flag; the
+//       other chunks wait for it and merge each entry they touched with one
+//       global atomic.
 //   No global atomic per tuple. Bytes: 4m (1) + 8m read and 6m written
-//   (2) + 6m read (3) + 4n written = 24m + 4n, plus the status words of
-//   (2) (8 bytes per (tile, slab), 3% of the tuple bytes at 256 slabs).
+//   (2) + 6m read (3) + 4n written = 24m + 4n (0.245 ms at S2, m = 2^25,
+//   n = 2^22). Measured on an H100 (PERF.md, kernel table rows 4, 4c, 4d;
+//   scripts/torch_pb_kernels.py): about 0.42 ms at S2, of it 0.24 in (2),
+//   0.10 in (3) and 0.05 in (1).
 //
 // single-sweep, for the other shapes: each block loads a
 //   tile of 2048 tuples, groups it by bin (idx / bin_range) in shared
@@ -54,8 +70,10 @@
 // Float min/max use the order-preserving trick on the raw bits
 // (pb_common.cuh); NaN is out of scope. Indices outside [0, num_indices),
 // negative ones included, are dropped. int32 results and all min/max
-// results are exact; a float32 add depends on the order the atomics land.
+// results are exact; a float32 add depends on the order its tuples are
+// summed (exchanges and atomics), which changes from run to run.
 #include <limits>
+#include <type_traits>
 
 #include <cub/block/block_scan.cuh>
 
@@ -182,11 +200,82 @@ void launch(int op, dim3 grid, cudaStream_t s, const int* idx, const T* val,
 
 constexpr int kCountThreads = 256;
 constexpr int kCountItems = 16;
-constexpr int kBinThreads = 512;
-constexpr int kBinItems = 16;
+constexpr int kBinThreads = 1024;
+constexpr int kBinItems = 8;
 constexpr int kBinTile = kBinThreads * kBinItems;  // 8192 tuples
-constexpr int kReduceThreads = 512;
-constexpr int kReduceUnroll = 8;
+constexpr int kBinStages = 2;
+constexpr int kRedThreads = 1024;
+constexpr int kRedItems = 4;
+constexpr int kRedStage = kRedThreads * kRedItems;  // 4096 tuples
+constexpr int kRedStages = 3;
+// A reduce stage holds its tuples' offsets and values in 16-byte-aligned
+// windows: up to 7 offsets and 3 values more than its own, before and after.
+constexpr int kRedOffBytes = 2 * (kRedStage + 8);
+constexpr int kRedStageBytes = kRedOffBytes + 4 * (kRedStage + 4);
+static_assert(kRedOffBytes % 16 == 0 && kRedStageBytes % 16 == 0, "16-byte stages");
+
+// -- the copy ring: 1-D bulk copies (cp.async.bulk) that complete on mbarriers
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Arrive on ``bar`` and add ``bytes`` to the bytes its phase waits for.
+__device__ __forceinline__ void bar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool bar_try(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of ``bar`` with this parity has completed. Every wait
+// is on a copy the block issued itself, so one that lasts 10 s is a fault of
+// the ring's bookkeeping: trap, and the launch fails instead of hanging.
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  if (bar_try(bar, parity)) return;
+  const unsigned long long t0 = globaltimer();
+  while (!bar_try(bar, parity))
+    if (globaltimer() - t0 > 10000000000ull) __trap();
+}
+
+// ``bytes`` (a multiple of 16) from global ``src`` to shared ``dst`` (both
+// 16-byte aligned); they complete on ``bar``.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<unsigned long long>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Orders this thread's generic writes to shared memory before a later bulk
+// copy into the same bytes (after a barrier with the thread that issues it).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 __global__ void __launch_bounds__(kCountThreads)
 slab_count_kernel(const int* __restrict__ idx, long long m, int n, int shift,
@@ -211,72 +300,88 @@ slab_count_kernel(const int* __restrict__ idx, long long m, int n, int shift,
     if (h[b]) atomicAdd(&counts[b], h[b]);
 }
 
-// Shared memory of slab_bin_kernel, in bytes.
+// Shared memory of slab_bin_kernel, in bytes: the ring's kBinStages tiles
+// of idx and val (each tile is staged by slab in its own stage), then three
+// int arrays of a slab each.
 size_t bin_smem(int num_slabs) {
-  return (4 * (size_t)num_slabs + 2 * (size_t)kBinTile) * sizeof(int);
+  return (size_t)kBinStages * kBinTile * 8 + 3 * (size_t)num_slabs * sizeof(int);
 }
 
-// Adds `add` to s[b] for each lane's slab b (b >= num_slabs: none) and
-// returns the old value; a warp whose 32 lanes share one slab makes one
-// atomic (lane l gets old + l * add), so a hub does not serialise.
-template <bool kReturn>
+// Adds 1 to s[b] for each lane's slab b (b >= num_slabs: none) and returns
+// the old value; a warp whose 32 lanes share one slab makes one atomic
+// (lane l gets old + l), so a hub does not serialise.
 __device__ __forceinline__ int slab_atomic(int* s, int b, int num_slabs) {
   const int lane = threadIdx.x & 31;
   const int b0 = __shfl_sync(PB_FULL_MASK, b, 0);
   if (__all_sync(PB_FULL_MASK, b == b0) && b0 < num_slabs) {
     int old = 0;
     if (lane == 0) old = atomicAdd(&s[b0], 32);
-    return kReturn ? __shfl_sync(PB_FULL_MASK, old, 0) + lane : 0;
+    return __shfl_sync(PB_FULL_MASK, old, 0) + lane;
   }
-  if (b >= num_slabs) return 0;
-  if (kReturn) return atomicAdd(&s[b], 1);
-  atomicAdd(&s[b], 1);
-  return 0;
+  return b < num_slabs ? atomicAdd(&s[b], 1) : 0;
 }
 
-__global__ void __launch_bounds__(kBinThreads, 2)
+// Persistent blocks; block b takes tiles b, b + grid, b + 2 grid, ... (the
+// order is free, so no ticket, whose round trip would stall the block).
+// Thread 0 keeps kBinStages tiles in flight: when a stage frees it starts
+// the block's next tile's idx and val copies into it. A tile's run of slab
+// b goes to slab_start[b] plus the cursor it claims with one global atomic
+// per (tile, slab): the order of a slab's runs is free, so no look-back
+// orders them.
+__global__ void __launch_bounds__(kBinThreads, 1)
 slab_bin_kernel(const int* __restrict__ idx, const unsigned* __restrict__ val, long long m,
-                int n, int shift, int num_slabs, long long chunk,
-                const int* __restrict__ counts, int* __restrict__ slab_start,
-                int* __restrict__ item_start, unsigned long long* __restrict__ status,
-                unsigned* __restrict__ ticket, unsigned short* __restrict__ out_off,
-                unsigned* __restrict__ out_val) {
-  extern __shared__ int sh[];
+                long long tiles, int n, int shift, int num_slabs, long long chunk,
+                const int* __restrict__ counts, int* __restrict__ cursor,
+                int* __restrict__ slab_start, int* __restrict__ item_start,
+                unsigned short* __restrict__ out_off, unsigned* __restrict__ out_val) {
+  constexpr int kPer = os::kMaxBins / kBinThreads;  // the slabs a thread owns: b = tid + r * threads
+  extern __shared__ __align__(16) unsigned char sh_raw[];
   const int B = num_slabs;
-  int* s_tot = sh;                      // [B] the tile's count per slab
-  int* s_first = s_tot + B;             // [B] the slab's first staged slot
-  int* s_cur = s_first + B;             // [B] the slab's next staged slot
-  int* s_pre = s_cur + B;               // [B] destination - staged slot, per slab
-  int* st_idx = s_pre + B;              // [kBinTile] the tile grouped by slab
-  unsigned* st_val = reinterpret_cast<unsigned*>(st_idx + kBinTile);
+  // [B] the tile's count per slab, then its run's destination - staged slot
+  int* s_tot = reinterpret_cast<int*>(sh_raw + (size_t)kBinStages * kBinTile * 8);
+  int* s_cur = s_tot + B;   // [B] the slab's next staged slot
+  int* s_base = s_cur + B;  // [B] the slab starts
   __shared__ int s_warp[kBinThreads / 32 + 1];
-  __shared__ int s_tile;
-  const long long tile = os::take_ticket(ticket, &s_tile);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long base = tile * kBinTile + (long long)warp * (kBinItems * 32) + lane;
+  __shared__ long long s_tile[kBinStages];
+  __shared__ __align__(8) unsigned long long s_full[kBinStages];
 
-  int id[kBinItems];
-  unsigned v[kBinItems];
-#pragma unroll
-  for (int j = 0; j < kBinItems; ++j) {
-    const long long i = base + j * 32;
-    const bool in = i < m;
-    id[j] = in ? __ldcs(idx + i) : -1;
-    v[j] = in ? __ldcs(val + i) : 0u;
-  }
-  for (int b = threadIdx.x; b < B; b += kBinThreads) s_tot[b] = 0;
-  if (tile == 0) {  // the slab starts seed the look-back; tile 0 also writes the work list
-    for (int b = threadIdx.x; b < B; b += kBinThreads) {
-      const int c = counts[b];
-      s_pre[b] = c;
-      s_cur[b] = c > chunk ? (int)((c + chunk - 1) / chunk) : 1;
+  // thread 0: the block's u-th tile into stage u % kBinStages, and its
+  // copies (the whole 16-byte pieces; the stream's last 0-3 tuples are read
+  // directly)
+  auto fill = [&](int u) {
+    const int s = u % kBinStages;
+    const long long t = blockIdx.x + (long long)u * gridDim.x;
+    s_tile[s] = t;
+    const unsigned bar = smem_u32(&s_full[s]);
+    const long long t0 = t * kBinTile;
+    const int bulk = t < tiles ? (int)min((long long)kBinTile, m - t0) & ~3 : 0;
+    if (bulk == 0) {
+      bar_arrive(bar);
+      return;
     }
-    __syncthreads();
-    const int total = os::block_exclusive_scan(s_pre, B, s_warp);
+    unsigned char* st = sh_raw + (size_t)s * kBinTile * 8;
+    bar_expect(bar, 8u * bulk);
+    bulk_load(smem_u32(st), idx + t0, 4u * bulk, bar);
+    bulk_load(smem_u32(st + 4 * kBinTile), val + t0, 4u * bulk, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBinStages; ++s) bar_init(smem_u32(&s_full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int u = 0; u < kBinStages; ++u) fill(u);
+  }
+  // every block: the slab starts; block 0 also writes them and the work
+  // list of the reduce (max(1, ceil(count / chunk)) items a slab)
+  for (int b = threadIdx.x; b < B; b += kBinThreads) {
+    const int c = counts[b];
+    s_base[b] = c;
+    s_cur[b] = c > chunk ? (int)((c + chunk - 1) / chunk) : 1;
+  }
+  __syncthreads();
+  const int total = os::block_exclusive_scan(s_base, B, s_warp);
+  if (blockIdx.x == 0) {
     const int items = os::block_exclusive_scan(s_cur, B, s_warp);
     for (int b = threadIdx.x; b < B; b += kBinThreads) {
-      slab_start[b] = s_pre[b];
+      slab_start[b] = s_base[b];
       item_start[b] = s_cur[b];
     }
     if (threadIdx.x == 0) {
@@ -284,52 +389,140 @@ slab_bin_kernel(const int* __restrict__ idx, const unsigned* __restrict__ val, l
       item_start[B] = items;
     }
   }
-  __syncthreads();
-  // the tile's count per slab (the order of a slab's tuples inside the
-  // tile is free: the reduce is commutative)
-#pragma unroll
-  for (int j = 0; j < kBinItems; ++j)
-    slab_atomic<false>(s_tot, (unsigned)id[j] < (unsigned)n ? id[j] >> shift : B, B);
-  __syncthreads();
-  os::publish_aggregates(status, tile, s_tot, B);
-  for (int b = threadIdx.x; b < B; b += kBinThreads) s_first[b] = s_tot[b];
-  __syncthreads();
-  const int staged = os::block_exclusive_scan(s_first, B, s_warp);
-  for (int b = threadIdx.x; b < B; b += kBinThreads) s_cur[b] = s_first[b];
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kBinItems; ++j) {
-    const int b = (unsigned)id[j] < (unsigned)n ? id[j] >> shift : B;
-    const int slot = slab_atomic<true>(s_cur, b, B);
-    if (b < B) {
-      st_idx[slot] = id[j];
-      st_val[slot] = v[j];
-    }
-  }
-  os::look_back(status, tile, s_tot, s_pre, s_pre, B);
-  for (int b = threadIdx.x; b < B; b += kBinThreads) s_pre[b] -= s_first[b];
-  __syncthreads();
   const int mask = (1 << shift) - 1;
-  for (int s = threadIdx.x; s < staged; s += kBinThreads) {
-    const int i = st_idx[s];
-    const long long d = (long long)s_pre[i >> shift] + s;
-    out_off[d] = (unsigned short)(i & mask);
-    out_val[d] = st_val[s];
+  for (int use = 0;; ++use) {
+    const int s = use % kBinStages;
+    bar_wait(smem_u32(&s_full[s]), (use / kBinStages) & 1);
+    const long long tile = s_tile[s];
+    if (tile >= tiles) break;  // the ring's later tiles are higher still
+    int* st_idx = reinterpret_cast<int*>(sh_raw + (size_t)s * kBinTile * 8);
+    unsigned* st_val = reinterpret_cast<unsigned*>(st_idx + kBinTile);
+    const long long t0 = tile * kBinTile;
+    const int len = (int)min((long long)kBinTile, m - t0);
+    const int bulk = len & ~3;
+    int id[kBinItems], rank[kBinItems];
+#pragma unroll
+    for (int j = 0; j < kBinItems; ++j) {
+      const int i = j * kBinThreads + threadIdx.x;
+      id[j] = i < bulk ? st_idx[i] : i < len ? __ldcs(idx + t0 + i) : -1;
+    }
+    for (int b = threadIdx.x; b < B; b += kBinThreads) s_tot[b] = 0;
+    __syncthreads();  // the tile's slab counts are zero
+    // the tile's count per slab, and each tuple's rank among its slab's
+    // (the order of a slab's tuples inside the tile is free: the reduce is
+    // commutative)
+#pragma unroll
+    for (int j = 0; j < kBinItems; ++j)
+      rank[j] = slab_atomic(s_tot, (unsigned)id[j] < (unsigned)n ? id[j] >> shift : B, B);
+    __syncthreads();
+    int claim[kPer];  // the cursors' old values, in flight over the scan and the staging
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int b = threadIdx.x + r * kBinThreads;
+      const int c = b < B ? s_tot[b] : 0;
+      claim[r] = c ? atomicAdd(&cursor[b], c) : 0;
+      if (b < B) s_cur[b] = c;
+    }
+    __syncthreads();
+    const int staged = os::block_exclusive_scan(s_cur, B, s_warp);
+    int first[kPer];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int b = threadIdx.x + r * kBinThreads;
+      first[r] = b < B ? s_cur[b] : 0;
+    }
+    unsigned v[kBinItems];
+#pragma unroll
+    for (int j = 0; j < kBinItems; ++j) {
+      const int i = j * kBinThreads + threadIdx.x;
+      v[j] = i < bulk ? st_val[i] : i < len ? __ldcs(val + t0 + i) : 0u;
+    }
+    __syncthreads();  // every thread has read its tuples out of the stage
+    // the tile grouped by slab, in place in its stage: slot = the slab's
+    // staged start + the tuple's rank
+#pragma unroll
+    for (int j = 0; j < kBinItems; ++j) {
+      const int b = (unsigned)id[j] < (unsigned)n ? id[j] >> shift : B;
+      if (b < B) {
+        const int slot = s_cur[b] + rank[j];
+        st_idx[slot] = id[j];
+        st_val[slot] = v[j];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int b = threadIdx.x + r * kBinThreads;
+      if (b < B) s_tot[b] = s_base[b] + claim[r] - first[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kBinItems; ++j) {
+      const int i = j * kBinThreads + threadIdx.x;
+      if (i < staged) {
+        const int k = st_idx[i];
+        const long long d = (long long)s_tot[k >> shift] + i;
+        out_off[d] = (unsigned short)(k & mask);
+        out_val[d] = st_val[i];
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();  // the stage is free
+    if (threadIdx.x == 0) fill(use + kBinStages);
   }
 }
 
+// A float32 add into shared memory by two native exchanges: take the
+// entry (leaving 0), add it to v, put the sum back. What the second
+// exchange returns is what another thread put there in between (0 if
+// none); it is carried into the next pass. Every pass moves its value, so
+// nothing is compared and nothing is lost, and the loop ends when nothing
+// arrived in between. (atomicAdd(float*) on shared memory is a
+// compare-and-swap loop on sm_90, ATOMS.CAST.SPIN.)
+__device__ __forceinline__ void exch_add(float* p, float v) {
+  int* q = reinterpret_cast<int*>(p);
+  do {
+    v += __int_as_float(atomicExch(q, 0));
+    v = __int_as_float(atomicExch(q, __float_as_int(v)));
+  } while (v != 0.f);
+}
+
+// Applies v to the slab's accumulator in shared memory: int32 and min/max
+// by their native shared-memory atomics, a float32 add by exch_add.
+template <int OP, typename T>
+__device__ __forceinline__ void acc_apply(T* p, T v) {
+  if constexpr (OP == kAdd && std::is_same<T, float>::value)
+    exch_add(p, v);
+  else
+    apply<OP>(p, v);
+}
+
+// Shared memory of slab_reduce_kernel, in bytes: the ring's stages, then
+// the slab's accumulator.
+template <typename T>
+size_t reduce_smem(int shift) {
+  return (size_t)kRedStages * kRedStageBytes + (sizeof(T) << shift);
+}
+
+// Persistent blocks take work items by ticket. Thread 0 copies an item's
+// binned tuples, kRedStage at a time, into a ring of kRedStages stages
+// (widened to 16-byte windows, the head and tail masked by the consumers).
 template <typename T, int OP>
-__global__ void __launch_bounds__(kReduceThreads)
+__global__ void __launch_bounds__(kRedThreads)
 slab_reduce_kernel(const unsigned short* __restrict__ off, const T* __restrict__ val,
                    const int* __restrict__ slab_start, const int* __restrict__ item_start,
                    int num_slabs, long long chunk, int n, int shift, T ident,
                    T* __restrict__ out, int* __restrict__ ready, unsigned* __restrict__ ticket) {
   extern __shared__ __align__(16) unsigned char sh_raw[];
-  T* acc = reinterpret_cast<T*>(sh_raw);
+  T* acc = reinterpret_cast<T*>(sh_raw + kRedStages * kRedStageBytes);
   __shared__ int s_item;
+  __shared__ __align__(8) unsigned long long s_full[kRedStages];
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRedStages; ++s) bar_init(smem_u32(&s_full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   const int items = item_start[num_slabs];
+  int used = 0;  // ring stages this block has consumed
   for (;;) {
     const int w = (int)os::take_ticket(ticket, &s_item);
     if (w >= items) break;
@@ -348,48 +541,68 @@ slab_reduce_kernel(const unsigned short* __restrict__ off, const T* __restrict__
     const bool hot = nch > 1;  // a slab that holds more than its share
     const long long o0 = (long long)b << shift;
     const int len = (int)((n - o0) < (1LL << shift) ? (n - o0) : (1LL << shift));
-    for (int j = threadIdx.x; j < len; j += kReduceThreads) acc[j] = ident;
+    const int stages = (int)((t_hi - t_lo + kRedStage - 1) / kRedStage);
+    const int u0 = used;
+    // thread 0: stage k of this item into ring slot (u0 + k) % kRedStages
+    auto issue = [&](int k) {
+      const long long a = t_lo + (long long)k * kRedStage;
+      const long long e = a + kRedStage < t_hi ? a + kRedStage : t_hi;
+      const long long oa = a & ~7LL, ob = (e + 7) & ~7LL;  // 8 offsets, 4 values: 16 bytes
+      const long long va = a & ~3LL, vb = (e + 3) & ~3LL;
+      const int slot = (u0 + k) % kRedStages;
+      unsigned char* st = sh_raw + slot * kRedStageBytes;
+      const unsigned bar = smem_u32(&s_full[slot]);
+      bar_expect(bar, (unsigned)(2 * (ob - oa) + 4 * (vb - va)));
+      bulk_load(smem_u32(st), off + oa, (unsigned)(2 * (ob - oa)), bar);
+      bulk_load(smem_u32(st + kRedOffBytes), val + va, (unsigned)(4 * (vb - va)), bar);
+    };
+    if (threadIdx.x == 0)
+      for (int k = 0; k < stages && k < kRedStages; ++k) issue(k);
+    for (int j = threadIdx.x; j < len; j += kRedThreads) acc[j] = ident;
     __syncthreads();
-    for (long long t0 = t_lo + (long long)warp * 32 * kReduceUnroll; t0 < t_hi;
-         t0 += (long long)kReduceThreads * kReduceUnroll) {
-      int k[kReduceUnroll];
-      T x[kReduceUnroll];
+    for (int k = 0; k < stages; ++k) {
+      const int slot = (u0 + k) % kRedStages;
+      bar_wait(smem_u32(&s_full[slot]), ((u0 + k) / kRedStages) & 1);
+      const long long a = t_lo + (long long)k * kRedStage;
+      const int cnt = (int)((a + kRedStage < t_hi ? a + kRedStage : t_hi) - a);
+      const unsigned char* st = sh_raw + slot * kRedStageBytes;
+      const unsigned short* s_off = reinterpret_cast<const unsigned short*>(st) + (a & 7);
+      const T* s_val = reinterpret_cast<const T*>(st + kRedOffBytes) + (a & 3);
 #pragma unroll
-      for (int u = 0; u < kReduceUnroll; ++u) {
-        const long long i = t0 + u * 32 + lane;
-        const bool in = i < t_hi;
-        k[u] = in ? (int)off[i] : -1;
-        x[u] = in ? val[i] : ident;
-      }
-#pragma unroll
-      for (int u = 0; u < kReduceUnroll; ++u) {
-        // lanes past the end hold k = -1 and the identity; lane 0 is in
+      for (int i = 0; i < kRedItems; ++i) {
+        const int j = i * kRedThreads + threadIdx.x;
+        const int kk = j < cnt ? (int)s_off[j] : -1;
+        const T x = j < cnt ? s_val[j] : ident;
+        // lanes past the end hold -1 and the identity; lane 0 is in
         // whenever any lane is
-        if (__shfl_sync(PB_FULL_MASK, k[u], 0) < 0) continue;
-        // the warp's most frequent index (in a split slab, found with
-        // __match_any_sync; elsewhere lane 0's) is combined by shuffles and
-        // applied once; every other lane applies its own tuple
-        int kb = __shfl_sync(PB_FULL_MASK, k[u], 0);
+        if (__shfl_sync(PB_FULL_MASK, kk, 0) < 0) continue;
+        // the warp's most frequent offset (in a hot item, found with
+        // __match_any_sync; elsewhere lane 0's) is combined by shuffles
+        // and applied once; every other lane applies its own tuple
+        int kb = __shfl_sync(PB_FULL_MASK, kk, 0);
         if (hot) {
-          const unsigned peers = __match_any_sync(PB_FULL_MASK, k[u]);
+          const unsigned peers = __match_any_sync(PB_FULL_MASK, kk);
           const int best = __reduce_max_sync(PB_FULL_MASK, (__popc(peers) << 5) | lane);
-          kb = __shfl_sync(PB_FULL_MASK, k[u], best & 31);
+          kb = __shfl_sync(PB_FULL_MASK, kk, best & 31);
         }
-        const bool mine = k[u] == kb;
+        const bool mine = kk == kb;
         if (__popc(__ballot_sync(PB_FULL_MASK, mine)) > 1) {  // the same for every lane
-          T y = mine ? x[u] : ident;
+          T y = mine ? x : ident;
 #pragma unroll
-          for (int o = 16; o; o >>= 1) y = combine<OP>(y, __shfl_xor_sync(PB_FULL_MASK, y, o));
-          if (lane == 0 && kb >= 0) apply<OP>(&acc[kb], y);
-          if (!mine && k[u] >= 0) apply<OP>(&acc[k[u]], x[u]);
-        } else if (k[u] >= 0) {
-          apply<OP>(&acc[k[u]], x[u]);
+          for (int d = 16; d; d >>= 1) y = combine<OP>(y, __shfl_xor_sync(PB_FULL_MASK, y, d));
+          if (lane == 0 && kb >= 0) acc_apply<OP>(&acc[kb], y);
+          if (!mine && kk >= 0) acc_apply<OP>(&acc[kk], x);
+        } else if (kk >= 0) {
+          acc_apply<OP>(&acc[kk], x);
         }
       }
+      __syncthreads();  // the stage is read: refill it
+      if (threadIdx.x == 0 && k + kRedStages < stages) issue(k + kRedStages);
     }
+    used = u0 + stages;
     __syncthreads();
     if (nch == 1 || c == 0) {
-      for (int j = threadIdx.x; j < len; j += kReduceThreads) out[o0 + j] = acc[j];
+      for (int j = threadIdx.x; j < len; j += kRedThreads) out[o0 + j] = acc[j];
       if (nch > 1) {  // the other chunks of this slab merge after these stores
         __threadfence();
         __syncthreads();
@@ -400,34 +613,34 @@ slab_reduce_kernel(const unsigned short* __restrict__ off, const T* __restrict__
         while (os::load_acquire(&ready[b]) == 0) {
         }
       __syncthreads();
-      for (int j = threadIdx.x; j < len; j += kReduceThreads)
+      for (int j = threadIdx.x; j < len; j += kRedThreads)
         if (acc[j] != ident) apply<OP>(&out[o0 + j], acc[j]);
     }
     __syncthreads();
   }
 }
 
-// Scratch layout of the two-pass design, in bytes: a zeroed head (two
-// tickets, the ready flags, the slab counts, the status words), then the
-// slab starts and the work list, then the binned stream (offsets, values).
+// Scratch layout of the two-pass design, in bytes: a zeroed head (the
+// reduce's ticket, the ready flags, the slab counts, the slab cursors), then the
+// slab starts and the work list, then the binned stream (offsets, values),
+// and 256 bytes that the reduce's widened last window may read.
 struct Layout {
-  size_t ready, counts, status, zeroed, slab_start, item_start, off, val, total;
+  size_t ready, counts, cursor, zeroed, slab_start, item_start, off, val, total;
 };
 
 size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
 
 Layout layout_for(long long m, int num_slabs) {
   Layout L;
-  const long long tiles = (m + kBinTile - 1) / kBinTile;
   L.ready = 256;
   L.counts = align256(L.ready + 4 * (size_t)num_slabs);
-  L.status = align256(L.counts + 4 * (size_t)num_slabs);
-  L.zeroed = align256(L.status + 8 * (size_t)tiles * num_slabs);
+  L.cursor = align256(L.counts + 4 * (size_t)num_slabs);
+  L.zeroed = align256(L.cursor + 4 * (size_t)num_slabs);
   L.slab_start = L.zeroed;
   L.item_start = align256(L.slab_start + 4 * ((size_t)num_slabs + 1));
   L.off = align256(L.item_start + 4 * ((size_t)num_slabs + 1));
   L.val = align256(L.off + 2 * (size_t)m);
-  L.total = align256(L.val + 4 * (size_t)m);
+  L.total = align256(L.val + 4 * (size_t)m) + 256;
   return L;
 }
 
@@ -435,18 +648,18 @@ template <typename T, int OP>
 int reduce_launch(const Layout& L, unsigned char* base, int num_slabs, long long chunk, int n,
                   int shift, T ident, T* out, long long m, cudaStream_t s) {
   auto kernel = slab_reduce_kernel<T, OP>;
-  const size_t smem = sizeof(T) << shift;
+  const size_t smem = reduce_smem<T>(shift);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kReduceThreads, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRedThreads, smem);
   long long blocks = (long long)(per_sm > 0 ? per_sm : 1) * pb_num_sms();
   const long long most = num_slabs + m / chunk;  // the longest possible work list
   if (blocks > most) blocks = most;
-  kernel<<<(unsigned)blocks, kReduceThreads, smem, s>>>(
+  kernel<<<(unsigned)blocks, kRedThreads, smem, s>>>(
       reinterpret_cast<const unsigned short*>(base + L.off),
       reinterpret_cast<const T*>(base + L.val), reinterpret_cast<const int*>(base + L.slab_start),
       reinterpret_cast<const int*>(base + L.item_start), num_slabs, chunk, n, shift, ident, out,
-      reinterpret_cast<int*>(base + L.ready), reinterpret_cast<unsigned*>(base) + 1);
+      reinterpret_cast<int*>(base + L.ready), reinterpret_cast<unsigned*>(base));
   return (int)cudaGetLastError();
 }
 
@@ -464,7 +677,11 @@ int reduce_launch_op(int op, const Layout& L, unsigned char* base, int num_slabs
 
 int two_pass(const int* idx, const void* val, long long m, void* out, int n, int op, int dtype,
              int shift, long long chunk, void* scratch, cudaStream_t s) {
-  if (shift < 0 || shift > 15 || chunk <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (shift < 8 || shift > 15 || chunk <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  // the bulk copies read idx and val from 16-byte boundaries (the wrapper
+  // passes an aligned copy of a view that starts elsewhere)
+  if ((reinterpret_cast<unsigned long long>(idx) | reinterpret_cast<unsigned long long>(val)) & 15)
+    return (int)cudaErrorMisalignedAddress;
   const long long slabs = (((long long)n - 1) >> shift) + 1;
   if (slabs > os::kMaxBins) return (int)cudaErrorInvalidValue;
   const int B = (int)slabs;
@@ -477,12 +694,15 @@ int two_pass(const int* idx, const void* val, long long m, void* out, int n, int
       idx, m, n, shift, reinterpret_cast<int*>(base + L.counts), B);
   const size_t smem = bin_smem(B);
   cudaFuncSetAttribute(slab_bin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, slab_bin_kernel, kBinThreads, smem);
   const long long tiles = (m + kBinTile - 1) / kBinTile;
-  slab_bin_kernel<<<(unsigned)tiles, kBinThreads, smem, s>>>(
-      idx, static_cast<const unsigned*>(val), m, n, shift, B, chunk,
-      reinterpret_cast<const int*>(base + L.counts), reinterpret_cast<int*>(base + L.slab_start),
-      reinterpret_cast<int*>(base + L.item_start),
-      reinterpret_cast<unsigned long long*>(base + L.status), reinterpret_cast<unsigned*>(base),
+  long long blocks = (long long)(per_sm > 0 ? per_sm : 1) * pb_num_sms();
+  if (blocks > tiles) blocks = tiles;
+  slab_bin_kernel<<<(unsigned)blocks, kBinThreads, smem, s>>>(
+      idx, static_cast<const unsigned*>(val), m, tiles, n, shift, B, chunk,
+      reinterpret_cast<const int*>(base + L.counts), reinterpret_cast<int*>(base + L.cursor),
+      reinterpret_cast<int*>(base + L.slab_start), reinterpret_cast<int*>(base + L.item_start),
       reinterpret_cast<unsigned short*>(base + L.off), reinterpret_cast<unsigned*>(base + L.val));
   const int err = (int)cudaGetLastError();
   if (err) return err;

@@ -10,24 +10,32 @@ Pallas kernel does.
 - ``"two-pass"``: propagation blocking on the card. The index range is
   cut into slabs of ``2^shift`` entries (``fused_plan``: about two slabs
   per SM, at most ``SLAB_MAX`` = 32768 so a slab's accumulator fits in
-  128 KB of shared memory and an offset in 16 bits). A binning pass
-  groups the tuples by slab (a slab count, then the one-pass look-back
-  core of ``csrc/pb_onesweep.cuh``) into a scratch stream of 6 bytes a
-  tuple; an accumulate pass reduces each slab in shared memory and
-  writes it out with coalesced stores. A slab that holds more than
-  ``chunk`` tuples (twice the mean) is cut into chunks, each reduced by
-  its own block and merged into ``out``. No global atomic per tuple.
+  128 KB of shared memory and an offset in 16 bits). A slab count, then a
+  binning pass groups the tuples by slab into a scratch stream of 6 bytes
+  a tuple (each tile's run of a slab claims its place with one atomic on
+  the slab's cursor); an accumulate pass reduces each slab in shared
+  memory and writes it out with coalesced stores. Both passes are
+  persistent blocks fed by a ring of 1-D bulk copies (``cp.async.bulk`` on
+  ``mbarrier``s): the binning pass's tiles of ``idx`` and ``val`` (so both
+  must start on a 16-byte boundary: a view that does not is passed as an
+  aligned copy), the reduce's 16-byte windows of each slab's run. A
+  float32 add goes into shared memory by two native exchanges (take the
+  entry, add, put the sum back, carry what arrived in between), not by
+  ``atomicAdd(float*)``, a compare-and-swap loop on sm_90. A slab that
+  holds more than ``chunk`` tuples (twice the mean) is cut into chunks,
+  each reduced by its own block and merged into ``out``. No global atomic
+  per tuple. Bytes: 24m + 4n.
 - ``"single-sweep"``: one kernel that groups each 2048-tuple tile by bin
   in shared memory and applies one atomic per distinct index to an
   L2-resident ``out``.
 
 Design rule: two-pass when ``m >= TWO_PASS_MIN_M`` and ``num_indices <=
 TWO_PASS_MAX_INDICES`` (2048 slabs of 32768, the look-back core's bin
-limit); single sweep otherwise. TWO_PASS_MIN_M = 2^22 is the measured
-crossover on the H100 (PERF.md; ``scripts/torch_pb_kernels.py``):
-on uniform streams of m tuples into m / 8 indices the two designs tie at
-2^21 and the two-pass design wins by 16-44% from 2^22 to 2^24; fig5's S1
-graphs (2^21 tuples, KRON and DBP skew) run 2.4-2.7 times faster in the
+limit); single sweep otherwise. TWO_PASS_MIN_M = 2^22 is set by the
+measurements on the H100 (PERF.md; ``scripts/torch_pb_kernels.py``): on
+uniform streams of m tuples into m / 8 indices the two-pass design wins
+from 2^21 (by 12% there, 28-53% from 2^22 to 2^24), but fig5's S1
+graphs (2^21 tuples, KRON and DBP skew) run 1.2-1.6 times faster in the
 single sweep, whose L2-resident output absorbs the hubs.
 
 Fit rule: ``bin_range`` and ``num_bins`` must cover the domain, as the
@@ -39,7 +47,7 @@ VMEM facts and do not apply.)
 
 Tolerance: int32 results and every min/max result are exact in both
 designs. A float32 add sums in an order that changes from run to run
-(shared-memory atomics within a slab, warp shuffles where a warp's
+(the exchanges within a slab, warp shuffles where a warp's
 tuples share an index, global atomics where a split slab's chunks merge,
 L2 atomics in the single sweep); against a sequential sum the difference
 is bounded by about ``(k - 1) * eps * sum(|v|)`` for an index that
@@ -155,6 +163,9 @@ def cobra_bin_accumulate(
     lib = _lib.load()
     shift, chunk, scratch = 0, 0, None  # the single sweep needs no scratch
     if design == "two-pass":
+        # the binning pass reads idx and val with 16-byte bulk copies: a view
+        # that starts off a 16-byte boundary goes as an aligned copy
+        idx, val = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (idx, val))
         shift, _, chunk = fused_plan(m, num_indices, _lib.num_sms(val.device.index or 0))
         out = torch.empty((num_indices,), dtype=val.dtype, device=val.device)
         scratch = torch.empty(lib.pb_fused_scratch(m, num_indices, shift), dtype=torch.uint8,

@@ -24,7 +24,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.binning import (
     COBRA_ONESWEEP_MAX_BINS, cobra_binning_pass, cobra_pass_design, counting_positions)
 from repro_torch.kernels.binread import binread_scatter_add
-from repro_torch.kernels.fused import cobra_bin_accumulate, cobra_bin_accumulate_rows
+from repro_torch.kernels.fused import (
+    cobra_bin_accumulate, cobra_bin_accumulate_rows, fused_plan)
 from repro_torch.kernels.histogram import histogram
 from repro_torch.kernels.scatter_rows import scatter_rows
 
@@ -219,6 +220,94 @@ def test_cuda_fused_two_pass_at_tile_edges(cuda, m, n, dtype, op):
     r = min(n, 4096)
     got = cobra_bin_accumulate(ti, tv, n, r, -(-n // r), op, design="two-pass")
     assert _fused_ok(got, tref.scatter_reduce_ref(ti, tv, n, op), ti, tv, n, op)
+
+
+RED_STAGE = 4096  # csrc/fused.cu kRedStage: tuples a reduce stage holds
+BIN_STAGES, RED_STAGES = 2, 3  # csrc/fused.cu kBinStages, kRedStages: the rings' depths
+
+
+def _two_pass_vs_plain(ti, tv, n, op):
+    got = cobra_bin_accumulate(ti, tv, n, 512, -(-n // 512), op, design="two-pass")
+    return _fused_ok(got, tref.scatter_reduce_ref(ti, tv, n, op), ti, tv, n, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles, extra", [(1, 0), (BIN_STAGES, -1), (BIN_STAGES, 0),
+                                          (BIN_STAGES, 1), (3 * BIN_STAGES, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_cuda_fused_two_pass_at_ring_edges(cuda, tiles, extra, dtype):
+    """The binning ring at its edges: one tile, and every persistent
+    block's ring of stages used once (one tuple short of it, exactly, one
+    tuple more: a block's second phase of a stage) and three times over."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    m = (1 if tiles == 1 else sms * tiles) * BIN_TILE + extra
+    n = 1 << 20
+    ti = torch.randint(0, n, (m,), device=cuda, generator=torch.Generator(device=cuda)
+                       .manual_seed(m), dtype=torch.int32)
+    tv = _fused_values(m, dtype, cuda, m)
+    for op in ("add", "min", "max"):
+        assert _two_pass_vs_plain(ti, tv, n, op), op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_slab", [1, RED_STAGE - 1, RED_STAGE, RED_STAGE + 1,
+                                      RED_STAGES * RED_STAGE, RED_STAGES * RED_STAGE + 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_cuda_fused_two_pass_at_reduce_stage_edges(cuda, per_slab, dtype):
+    """Two slabs of 256 (n = 512) holding per_slab tuples each: a work item
+    of one stage less or more one tuple, and of the whole ring of stages."""
+    n = 512
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fused_plan(2 * per_slab, n, sms)[:2] == (8, 2)
+    gen = torch.Generator(device=cuda).manual_seed(per_slab)
+    ti = torch.cat([torch.randint(b * 256, (b + 1) * 256, (per_slab,), device=cuda, generator=gen,
+                                  dtype=torch.int32) for b in range(2)])
+    ti = ti[torch.randperm(ti.shape[0], device=cuda, generator=gen)]
+    tv = _fused_values(ti.shape[0], dtype, cuda, per_slab)
+    for op in ("add", "min", "max"):
+        assert _two_pass_vs_plain(ti, tv, n, op), op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+def test_cuda_fused_two_pass_splits_a_slab_into_chunks(cuda, extra):
+    """16 slabs of 256; slab 0 holds four chunks (half the stream) less or
+    more one tuple, so its last work item holds a tuple or none past the
+    fourth; the first chunk stores the slab, the others merge."""
+    n, m = 4096, 1 << 20
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    shift, slabs, chunk = fused_plan(m, n, sms)
+    assert (shift, slabs, chunk) == (8, 16, m // 8)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    hot = 4 * chunk + extra
+    ti = torch.cat([torch.randint(0, 256, (hot,), device=cuda, generator=gen, dtype=torch.int32),
+                    torch.randint(256, n, (m - hot,), device=cuda, generator=gen,
+                                  dtype=torch.int32)])
+    ti = ti[torch.randperm(m, device=cuda, generator=gen)]
+    for dtype in (torch.float32, torch.int32):
+        tv = _fused_values(m, dtype, cuda, 8)
+        for op in ("add", "min", "max"):
+            assert _two_pass_vs_plain(ti, tv, n, op), (dtype, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_cuda_fused_two_pass_unaligned_views(cuda, dtype):
+    """idx and val that start off a 16-byte boundary (views one element
+    in) go to the bulk copies as aligned copies: the result is the aligned
+    call's, bit for bit for int32, and the plain version's."""
+    m, n = 3 * BIN_TILE + 5, 1 << 16
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ti = torch.randint(0, n, (m + 1,), device=cuda, generator=gen, dtype=torch.int32)
+    tv = _fused_values(m + 1, dtype, cuda, 4)
+    for a, b in ((1, 0), (0, 1), (1, 1)):
+        vi, vv = ti[a:a + m], tv[b:b + m]
+        assert (vi.data_ptr() % 16 != 0) == bool(a) and (vv.data_ptr() % 16 != 0) == bool(b)
+        got = cobra_bin_accumulate(vi, vv, n, 512, n // 512, design="two-pass")
+        assert _fused_ok(got, tref.scatter_reduce_ref(vi, vv, n), vi, vv, n, "add")
+        if dtype == torch.int32:
+            assert torch.equal(got, cobra_bin_accumulate(vi.clone(), vv.clone(), n, 512, n // 512,
+                                                         design="two-pass"))
 
 
 @pytest.mark.cuda

@@ -13,11 +13,16 @@ and ``tests/test_fused.py`` run them) and the plain versions:
   (tile, bin) status words seeded by ``starts``, walked in windows, with
   predecessors that have published only their aggregate;
 - the fused two-pass design: the slab plan (``fused.fused_plan``), the
-  slab counts and the slab starts that seed the look-back, per-tile
-  staging grouped by slab (the order inside a slab is free), the 16-bit
-  offsets inside a slab, the work list of chunks of a hot slab, and the
+  slab counts and slab starts, persistent binning blocks with rings of
+  bulk-copy stages (each tile's stage and mbarrier phase, its 16-byte
+  pieces and the stream's direct tail), each tuple's rank in its slab from
+  the count's atomics and its staged slot, each (tile, slab) run placed by
+  an atomic on the slab's cursor (the order of runs is free), the 16-bit
+  offsets inside a slab, the reduce's stages copied as 16-byte windows
+  with a masked head and tail, the work list of chunks of a hot slab, the
   merge of a split slab (first chunk stores, the others merge the entries
-  they touched);
+  they touched), and the float32 add by two exchanges under interleavings
+  drawn at random;
 - the COBRA pass, onesweep design: the 13-bit bin field of the rank
   register, the 16-bit per-warp counter rows, each tuple's staged slot
   (tile-local bin start + warp offset + rank), the staged tile laid over
@@ -212,50 +217,103 @@ def test_positions_design_switch():
 # -- the fused two-pass design -------------------------------------------------
 
 
-def fused_two_pass(idx, val, n, op, sms, warps=2, items=4, seed=0):
-    """csrc/fused.cu, two-pass design: returns the dense output and the
-    binned stream (slab starts, 16-bit offsets, values)."""
+def _fused_layout(m, slabs):
+    """csrc/fused.cu's layout_for: byte offsets of the binned offsets and
+    values in the scratch, and its size."""
+    def a256(x):
+        return (x + 255) & ~255
+
+    head = a256(a256(a256(256 + 4 * slabs) + 4 * slabs) + 4 * slabs)
+    off = a256(a256(head + 4 * (slabs + 1)) + 4 * (slabs + 1))
+    val = a256(off + 2 * m)
+    return off, val, a256(val + 4 * m) + 256
+
+
+def fused_two_pass(idx, val, n, op, sms, threads=64, items=4, stages=3, blocks=3, red_stage=40,
+                   seed=0):
+    """csrc/fused.cu, two-pass design, at tiles of threads x items tuples,
+    ``blocks`` persistent binning blocks with rings of ``stages`` and
+    reduce stages of ``red_stage`` tuples (a multiple of 8). Returns the
+    dense output and the binned stream (slab starts, 16-bit offsets,
+    values, chunk)."""
     m = len(idx)
     shift, slabs, chunk = fused_plan(m, n, sms)
     S = 1 << shift
-    assert S <= SLAB_MAX and slabs <= TWO_PASS_MAX_SLABS
+    assert S <= SLAB_MAX and slabs <= TWO_PASS_MAX_SLABS and red_stage % 8 == 0
     ok = (idx >= 0) & (idx < n)
     slab = np.where(ok, idx >> shift, slabs)
-    # (1) slab counts; tile 0 seeds the look-back with the slab starts and
-    # writes the work list: max(1, ceil(count / chunk)) items a slab
+    # (1) slab counts; every binning block scans them into the slab starts,
+    # block 0 also writes the work list: max(1, ceil(count / chunk)) items
     counts = np.bincount(slab[ok], minlength=slabs).astype(np.int64)
     slab_start = np.concatenate([[0], np.cumsum(counts)])
     nch = np.where(counts > chunk, -(-counts // chunk), 1)
     item_start = np.concatenate([[0], np.cumsum(nch)])
-    # (2) binning: per tile, stage grouped by slab (any order inside a
-    # slab), look back for each slab's cursor, write the runs out
+    # (2) binning: block b takes tiles b, b + blocks, ...; its u-th tile goes
+    # to ring stage u % stages, whose mbarrier completes its (u // stages)-th
+    # phase; the copies carry the tile's whole 16-byte pieces and the
+    # stream's last 0-3 tuples are read directly. Blocks run in any order:
+    # each (tile, slab) run claims its place on the slab's cursor.
     rng = np.random.default_rng(seed)
-    T = warps * 32 * items
+    T = threads * items
     tiles = -(-m // T)
-    status = _Status(tiles, slabs)
+    cursor = np.zeros(slabs, np.int64)
     off = np.full(m, -1, np.int64)
     out_val = np.zeros(m, val.dtype)
-    for tile in range(tiles):
-        i = np.arange(tile * T, min((tile + 1) * T, m))
+    uses = [0] * blocks
+    ring = [[(b + u * blocks, u % stages, (u // stages) & 1) for u in range(stages)]
+            for b in range(blocks)]  # each block's stages in flight: (tile, stage, parity)
+    while True:
+        live = [b for b in range(blocks) if ring[b][0][0] < tiles]
+        if not live:
+            break
+        b = int(rng.choice(live))
+        tile, stage, parity = ring[b].pop(0)
+        u = uses[b]
+        assert (tile, stage, parity) == (b + u * blocks, u % stages, (u // stages) & 1)
+        lo, hi = tile * T, min((tile + 1) * T, m)
+        bulk = (hi - lo) & ~3
+        assert 4 * lo % 16 == 0 and 4 * bulk % 16 == 0 and (hi - lo) - bulk < 4
+        assert bulk == hi - lo or hi == m  # only the stream's last tile has a tail
+        i = np.arange(lo, hi)
         mine = i[ok[i]]
         tot = np.bincount(slab[mine], minlength=slabs)
+        claim = cursor.copy()
+        cursor += tot
         first = np.cumsum(tot) - tot
-        staged = mine[np.lexsort((rng.random(len(mine)), slab[mine]))]  # grouped, order free
-        pre = _look_back(status, tile, tot, slab_start[:-1], rng)
-        delta = pre - first
-        d = delta[slab[staged]] + np.arange(len(staged))
-        assert len(np.unique(d)) == len(d)
+        # the count's atomics give each tuple its rank among the tile's
+        # tuples of its slab, in an order the model draws; after the scan
+        # of the counts, the tuple's staged slot is its slab's first + rank
+        order = rng.permutation(len(mine))
+        by_slab = np.argsort(slab[mine][order], kind="stable")
+        grouped = slab[mine][order][by_slab]
+        rank = np.empty(len(mine), np.int64)
+        rank[order[by_slab]] = np.arange(len(mine)) - np.searchsorted(grouped, grouped)
+        slot = first[slab[mine]] + rank
+        assert np.array_equal(np.sort(slot), np.arange(len(mine)))  # in place, no gaps
+        staged = np.empty_like(mine)
+        staged[slot] = mine
+        d = (slab_start[:-1] + claim - first)[slab[staged]] + np.arange(len(staged))
+        assert (off[d] == -1).all()
         off[d] = idx[staged] & (S - 1)
         out_val[d] = val[staged]
+        uses[b] += 1
+        ring[b].append((b + (u + stages) * blocks, u % stages, ((u + stages) // stages) & 1))
+    assert np.array_equal(cursor, counts)
     total = int(slab_start[-1])
     assert (off[:total] >= 0).all() and (off[total:] == -1).all()
     off16 = off[:total].astype(np.uint16)  # offsets inside a slab fit 16 bits
     assert np.array_equal(off16, off[:total])
-    # (3) accumulate: work items in ticket order; a split slab's first
-    # chunk stores its slab, the others merge the entries they touched
+    # (3) accumulate: work items in ticket order; an item's tuples arrive in
+    # stages of red_stage, each copied as the 16-byte windows around it
+    # (8 offsets, 4 values), inside the scratch; a split slab's first chunk
+    # stores its slab, the others merge the entries they touched
+    l_off, l_val, l_total = _fused_layout(m, slabs)
     ident = reduce_identity(op, torch.float32 if val.dtype == np.float32 else torch.int32)
     comb = {"add": np.add, "min": np.minimum, "max": np.maximum}[op]
     out = np.full(n, -12345, val.dtype)  # the two-pass kernel writes every entry
+    pad = np.full(l_total, 0xEE, np.uint8)  # the scratch bytes as the copies see them
+    pad[l_off:l_off + 2 * total] = off16.view(np.uint8)
+    pad[l_val:l_val + val.itemsize * total] = out_val[:total].view(np.uint8)
     for w in range(int(item_start[-1])):
         b = int(np.searchsorted(item_start, w, side="right") - 1)
         c = w - int(item_start[b])
@@ -263,7 +321,16 @@ def fused_two_pass(idx, val, n, op, sms, warps=2, items=4, seed=0):
         hi = min(lo + chunk, int(slab_start[b + 1]))
         length = min(S, n - b * S)
         acc = np.full(length, ident, val.dtype)
-        comb.at(acc, off16[lo:hi].astype(np.int64), out_val[lo:hi])
+        for a in range(lo, hi, red_stage):
+            e = min(a + red_stage, hi)
+            oa, ob, va, vb = a & ~7, (e + 7) & ~7, a & ~3, (e + 3) & ~3
+            assert ob - oa <= red_stage + 8 and vb - va <= red_stage + 4  # the stage holds it
+            assert l_off + 2 * ob <= l_total and l_val + 4 * vb <= l_total
+            w_off = pad[l_off + 2 * oa:l_off + 2 * ob].view(np.uint16)
+            w_val = pad[l_val + 4 * va:l_val + 4 * vb].view(val.dtype)
+            k, x = w_off[(a & 7) + np.arange(e - a)], w_val[(a & 3) + np.arange(e - a)]
+            assert np.array_equal(k, off16[a:e]) and np.array_equal(x, out_val[a:e])
+            comb.at(acc, k.astype(np.int64), x)
         seg = slice(b * S, b * S + length)
         if c == 0:
             out[seg] = acc
@@ -271,6 +338,64 @@ def fused_two_pass(idx, val, n, op, sms, warps=2, items=4, seed=0):
             touched = acc != ident
             out[seg][touched] = comb(out[seg][touched], acc[touched])
     return out, (slab_start, off16, out_val[:total], chunk)
+
+
+def exch_add_interleaved(init, values, rng):
+    """csrc/fused.cu's exch_add run by one thread per value on one
+    shared-memory entry, their exchanges interleaved in an order the model
+    draws. A thread takes the entry (leaving 0) and adds it to its value,
+    then puts the sum back; what that exchange returns arrived in between
+    and is carried into another pass, until it is 0. Returns the entry and
+    each thread's passes."""
+    entry = np.float32(init)
+    carry = [np.float32(v) for v in values]
+    state = [0] * len(values)  # 0: the take is next, 1: the put
+    passes = [0] * len(values)
+    live = list(range(len(values)))
+    while live:
+        t = live[int(rng.integers(len(live)))]
+        if state[t] == 0:
+            carry[t], entry = np.float32(carry[t] + entry), np.float32(0)
+            state[t] = 1
+        else:
+            carry[t], entry = entry, carry[t]
+            passes[t] += 1
+            state[t] = 0
+            if carry[t] == 0:  # nothing arrived in between (-0.0 too)
+                live.remove(t)
+    return entry, passes
+
+
+@pytest.mark.parametrize("threads", [1, 2, 32, 1024])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_exch_add_keeps_every_value(threads, seed):
+    """Interleaved at random, the exchanges lose and double nothing: the
+    entry ends as the sum (integer values, so every order sums exactly),
+    and a thread passes again only for what another put in between."""
+    rng = np.random.default_rng(seed)
+    values = rng.integers(-1000, 1000, threads).astype(np.float32)
+    init = np.float32(rng.integers(-10, 10))
+    got, passes = exch_add_interleaved(init, values, rng)
+    assert got == init + values.sum(dtype=np.float64)
+    assert min(passes) >= 1 and sum(passes) <= threads * threads
+
+
+@pytest.mark.parametrize("special", ["inf", "nan", "zeros"])
+def test_exch_add_special_values_end(special):
+    """The loop ends on what the exchange returns, not on the value
+    carried: an infinity or a NaN is put back once and the loop stops."""
+    rng = np.random.default_rng(4)
+    values = rng.integers(-5, 5, 64).astype(np.float32)
+    if special == "inf":
+        values[7] = np.inf
+    elif special == "nan":
+        values[[3, 40]] = np.nan
+    else:
+        values[:] = np.where(np.arange(64) % 2, 0.0, -0.0)
+    got, passes = exch_add_interleaved(0.0, values, rng)
+    want = np.float32(values.sum(dtype=np.float64))
+    assert (np.isnan(got) and np.isnan(want)) or got == want
+    assert all(p >= 1 for p in passes)
 
 
 def _fused_inputs(kind, dtype, m, n, seed, negative=False):
@@ -316,6 +441,39 @@ def test_fused_two_pass_splits_a_hot_slab(kind):
     got, (slab_start, _, _, chunk) = fused_two_pass(idx, val, n, "add", sms=8, items=16)
     assert int(np.diff(slab_start).max()) > 2 * chunk  # at least three chunks
     want = rref.scatter_reduce_ref(jnp.asarray(idx), jnp.asarray(val), n, op="add")
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("m", [255, 256, 257, 256 * 3 * 3, 256 * 3 * 3 + 1])
+def test_fused_two_pass_ring_edges(m):
+    """The model's tiles of 64 x 4 = 256 tuples on 3 blocks with rings of 3:
+    a ragged only tile, one tile, one tuple past it, every stage of every
+    ring used once, and one tuple more (a block's second phase of a stage)."""
+    n = 700
+    idx, val = _fused_inputs("hub", np.float32, m, n, 23)
+    got, _ = fused_two_pass(idx, val, n, "add", sms=2)
+    want = cobra_bin_accumulate_pallas(
+        jnp.asarray(idx), jnp.asarray(val), num_indices=n, bin_range=128, num_bins=6, op="add",
+        block=256, cap=512, interpret=True)
+    _assert_reduce(got, want, np.float32, "add")
+
+
+@pytest.mark.parametrize("per_slab", [39, 40, 41, 160, 161])
+def test_fused_two_pass_reduce_stage_edges(per_slab):
+    """Every slab holds per_slab tuples, around the model's reduce stage of
+    40 tuples and a multiple of it: its copies' 16-byte windows start and
+    end anywhere inside the binned stream."""
+    n = 1500  # at 2 SMs: 3 slabs of 512
+    rng = np.random.default_rng(per_slab)
+    idx = np.concatenate([rng.integers(b * 512, min(n, (b + 1) * 512), per_slab)
+                          for b in range(3)]).astype(np.int32)
+    rng.shuffle(idx)
+    val = rng.integers(-50, 50, len(idx)).astype(np.int32)
+    got, (slab_start, _, _, _) = fused_two_pass(idx, val, n, "add", sms=2)
+    assert np.array_equal(np.diff(slab_start), [per_slab] * 3)
+    want = cobra_bin_accumulate_pallas(
+        jnp.asarray(idx), jnp.asarray(val), num_indices=n, bin_range=128, num_bins=12, op="add",
+        block=256, cap=512, interpret=True)
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
